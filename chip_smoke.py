@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+It takes no options and runs every phase, in order:
+  build    build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  kernels  hold each kernel against its plain PyTorch version on the card
+           (tree_attention, fused_swiglu, kv_move_rows, f32 and bf16), and
+           time kernel, plain version and the one PyTorch call that computes
+           the same function, where there is one, with CUDA events
+  serve    the lockstep main path at full width: (a) the serve CLI defaults
+           through ``build_engine(smoke=False)`` — llama3-8b target,
+           llama3-1b draft, f32, 3 requests, prompt 16, max_new 48, bs 8,
+           w 4, d from the profile pass, S_max 512; (b) self-draft on the
+           same 8B weights.  Every output must equal the port's own
+           target-only greedy decode; each kernel must have launched in
+           each run.
+
+The last two lines of standard output are the ``kernels`` JSON line and the
+``{"ok": true, "device": ...}`` line; any failure exits non-zero before
+them.  It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import traceback
+import warnings
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # f32 CUDA cores / bf16 dense
+TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
+    "tree_attention": ("src/repro_torch/kernels/csrc/tree_attention.cu",
+                       "src/repro/kernels/tree_attention.py:82"),
+    "fused_swiglu": ("src/repro_torch/kernels/csrc/fused_swiglu.cu",
+                     "src/repro/kernels/fused_swiglu.py:44"),
+    "kv_move_rows": ("src/repro_torch/kernels/csrc/kv_moves.cu",
+                     "src/repro/kernels/kv_moves.py:112"),
+}
+TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
+    (2, 4, 8, 2, 64, 96), (1, 8, 4, 4, 32, 128), (2, 3, 6, 3, 80, 200),
+    (1, 16, 8, 1, 128, 256), (3, 1, 4, 2, 128, 64),
+    # ... and the slice's: llama3-8b decode / expand / verify, llama3-1b expand / fill
+    (1, 1, 32, 8, 128, 512), (1, 4, 32, 8, 128, 512), (1, 8, 32, 8, 128, 512),
+    (1, 4, 32, 8, 64, 512), (1, 8, 32, 8, 64, 512),
+]
+PREFIX = 48  # prefix rows of the timed masks: prompt 16 + 32 tokens emitted
+TREE_TIMED = [  # the main path's calls of tree_attention
+    ("8B-verify", (1, 8, 32, 8, 128, 512)), ("8B-expand", (1, 4, 32, 8, 128, 512)),
+    ("1B-expand", (1, 4, 32, 8, 64, 512)), ("1B-fill", (1, 8, 32, 8, 64, 512)),
+]
+SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
+    ("8B-verify", (8, 4096, 14336)), ("8B-decode", (1, 4096, 14336)),
+    ("8B-expand", (4, 4096, 14336)), ("8B-prefill", (16, 4096, 14336)),
+    ("1B-expand", (4, 2048, 8192)), ("1B-fill", (8, 2048, 8192)), ("1B-prefill", (16, 2048, 8192)),
+]
+SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill")
+KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
+    ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
+]
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+# -----------------------------------------------------------------------------
+# timing and bounds
+# -----------------------------------------------------------------------------
+
+
+class Timer:
+    """Median device time of ``fn`` over ``reps`` calls: CUDA events around
+    each call, the 50 MB L2 flushed before each (the main path finds weights
+    and caches cold), and the card held busy for about a millisecond before
+    the first event, so that the host has queued all of ``fn``'s launches
+    before the card reaches them and the time holds no host overhead."""
+
+    SLEEP_CYCLES = 2_000_000
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, reps: int = 21) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return sorted(times)[reps // 2]
+
+
+def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over HBM rate vs
+    operations over the peak rate of the inputs' type."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_OPS[str(dtype)] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_close(name, got, want, dtype) -> float:
+    torch = sys.modules["torch"]
+    tol = TOL[str(dtype)]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"{name}: kernel disagrees with the plain version: max |err| "
+             f"{max_err(got, want):.3e} > tol {tol}")
+    return max_err(got, want)
+
+
+# -----------------------------------------------------------------------------
+# phases
+# -----------------------------------------------------------------------------
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    secs = build.build_all()
+    for name in build.SOURCES:
+        lines = [ln.strip() for ln in build.BUILD_LOG.get(name, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        for ln in lines:
+            print(f"  ptxas {name}: {ln}")
+        build.lib(name)
+    print(f"build: {len(build.SOURCES)} kernels with nvcc for sm_90a in {secs:.1f}s", flush=True)
+
+
+def phase_kernels(torch, timer, card):
+    """Each kernel against its plain version on the card, then the times of
+    kernel, plain version and library call at the main path's shapes.
+    Returns one JSON row per kernel (its first timed shape, float32)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dtypes = (torch.float32, torch.bfloat16)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    rows = {}
+
+    def timed(name, label, dtype, err, kernel, plain, library, nbytes, n_ops):
+        b_ms, b_by = bound(nbytes, n_ops, dtype)
+        row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
+                   max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None if library is None else timer(library),
+                   shape=f"{label} {str(dtype).removeprefix('torch.')}")
+        lib = "-" if library is None else f"{row['library_ms']:.4f}"
+        print(f"  time {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {lib} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"on {card}", flush=True)
+        rows.setdefault(name, row)
+
+    print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; kv_move exact):")
+
+    # --- tree_attention --------------------------------------------------------
+    for dtype in dtypes:
+        for (B, n, hq, hkv, hd, S) in TREE_SHAPES:
+            q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
+                randn(B, S, hkv, hd, dtype=dtype)
+            mask = torch.rand((B, n, S), generator=gen, device="cuda") < 0.5
+            mask[:, 0, :] = False  # a fully masked row must give exact zeros
+            got = ops.tree_attention(q, k, v, mask)
+            want = ref.tree_attention_ref(q, k, v, mask)
+            torch.cuda.synchronize()
+            err = check_close(f"tree_attention {(B, n, hq, hkv, hd, S)} {dtype}", got, want, dtype)
+            if bool((got[:, 0] != 0).any()):
+                fail(f"tree_attention {(B, n, hq, hkv, hd, S)}: a fully masked row is not 0")
+            print(f"  tree_attention B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S} {dtype}: "
+                  f"max|err| {err:.2e}")
+    # times under a mask as the main path builds it mid-request: a prefix of
+    # PREFIX rows that every query sees, then the tree rows, each query its own
+    # row and a random subset of the earlier ones (its ancestors)
+    for dtype in dtypes:
+        for label, (B, n, hq, hkv, hd, S) in TREE_TIMED:
+            q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
+                randn(B, S, hkv, hd, dtype=dtype)
+            mask = torch.zeros((B, n, S), dtype=torch.bool, device="cuda")
+            mask[:, :, :PREFIX] = True
+            anc = torch.rand((B, n, n), generator=gen, device="cuda") < 0.5
+            mask[:, :, PREFIX:PREFIX + n] = anc.tril(-1) | torch.eye(n, dtype=torch.bool,
+                                                                     device="cuda")
+            err = check_close(f"tree_attention {label} {dtype}", ops.tree_attention(q, k, v, mask),
+                              ref.tree_attention_ref(q, k, v, mask), dtype)
+            es = q.element_size()
+            kv_rows = int(mask.any(1).sum())  # each needed K/V row read once
+            nbytes = 2 * q.numel() * es + mask.numel() + 2 * kv_rows * hkv * hd * es
+            qt, kt, vt, mt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+            timed("tree_attention", f"{label} B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S}", dtype, err,
+                  lambda: ops.tree_attention(q, k, v, mask),
+                  lambda: ref.tree_attention_ref(q, k, v, mask),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=mt, enable_gqa=True),
+                  nbytes, 4 * hd * hq * int(mask.sum()))
+
+    # --- fused_swiglu -----------------------------------------------------------
+    for dtype in dtypes:
+        for label, (M, K, N) in SWIGLU_SHAPES:
+            x = randn(M, K, dtype=dtype)
+            wg, wu = randn(K, N, dtype=dtype, scale=K ** -0.5), randn(K, N, dtype=dtype, scale=K ** -0.5)
+            got, want = ops.fused_swiglu(x, wg, wu), ref.fused_swiglu_ref(x, wg, wu)
+            torch.cuda.synchronize()
+            err = check_close(f"fused_swiglu {(M, K, N)} {dtype}", got, want, dtype)
+            # the K-reduction order must not depend on M: row 0 alone == row 0 in the batch
+            if M > 1 and not torch.equal(ops.fused_swiglu(x[:1], wg, wu), got[:1]):
+                fail(f"fused_swiglu {(M, K, N)} {dtype}: row 0 differs between M={M} and M=1")
+            print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}")
+            if label in SWIGLU_TIMED:
+                es = x.element_size()
+                # no single PyTorch call computes silu(x@wg) * (x@wu): library is None
+                timed("fused_swiglu", f"{label} M{M} K{K} N{N}", dtype, err,
+                      lambda: ops.fused_swiglu(x, wg, wu), lambda: ref.fused_swiglu_ref(x, wg, wu),
+                      None, (M * K + 2 * K * N + M * N) * es, 4 * M * K * N)
+
+    # --- kv_move_rows -----------------------------------------------------------
+    def plan(M, n_off):
+        """Overlapping source and destination windows (reversed beyond 8
+        rows), ``n_off`` entries masked off and one negative source."""
+        base = 96
+        src = torch.arange(base + 7, base + 7 + M, dtype=torch.int32, device="cuda")
+        dst = torch.arange(base, base + M, dtype=torch.int32, device="cuda")
+        src = src.flip(0) if M > 8 else src
+        mask = torch.ones(M, dtype=torch.bool, device="cuda")
+        mask[:n_off] = False
+        if M > 2:
+            src[-1] = -1
+        return src[None], dst[None], mask[None]
+
+    def check_moves(name, arr, src, dst, mask) -> float:
+        """Both variants against the plain version, exactly: donate=False
+        returns a fresh tensor and leaves its input as it was, donate=True
+        moves in place (on a copy, so ``arr`` is kept).  Returns the max error."""
+        want = ref.kv_move_rows_ref(arr, src, dst, mask)
+        before = arr.clone()
+        fresh = ops.kv_move_rows(arr, src, dst, mask, donate=False)
+        torch.cuda.synchronize()
+        if not torch.equal(arr, before) or fresh.data_ptr() == arr.data_ptr():
+            fail(f"{name}: donate=False wrote or returned its input")
+        inplace = ops.kv_move_rows(before, src, dst, mask, donate=True)
+        torch.cuda.synchronize()
+        if inplace.data_ptr() != before.data_ptr():
+            fail(f"{name}: donate=True did not move in place")
+        err = max(max_err(fresh, want), max_err(inplace, want))
+        if not (torch.equal(fresh, want) and torch.equal(inplace, want)):
+            fail(f"{name}: kernel disagrees with the plain version: max |err| {err:.3e} "
+                 "(must be exact)")
+        print(f"  {name}: both variants exact, input kept by donate=False")
+        return err
+
+    U, B, S, Fw = 32, 1, 512, 1024
+    for dtype in dtypes:
+        arr = randn(U, B, S, Fw, dtype=dtype)
+        for M in (0, 8, 73):
+            src, dst, mask = plan(M, n_off=min(M, 3))
+            check_moves(f"kv_move_rows [U{U} B{B} S{S} F{Fw}] M={M} {dtype}", arr, src, dst, mask)
+    for dtype in dtypes:
+        for label, (U, M, Fw) in KV_TIMED:
+            arr = randn(U, 1, S, Fw, dtype=dtype)
+            src, dst, mask = plan(M, n_off=min(M, 3) if M > 8 else 0)
+            act = (mask & (src >= 0) & (dst >= 0))[0]
+            s_act, d_act = src[0][act].long(), dst[0][act].long()
+            shape = f"{label} U{U} B1 S{S} F{Fw} M{M} ({int(act.sum())} active)"
+            err = check_moves(f"kv_move_rows {shape} {dtype}", arr, src, dst, mask)
+
+            def library(arr=arr, s_act=s_act, d_act=d_act):
+                arr[:, 0, d_act] = arr[:, 0, s_act]
+
+            timed("kv_move_rows", f"{shape} in place", dtype, err,
+                  lambda: ops.kv_move_rows(arr, src, dst, mask, donate=True),
+                  lambda: ref.kv_move_rows_ref(arr, src, dst, mask), library,
+                  2 * int(act.sum()) * U * Fw * arr.element_size(), 0)
+    return rows
+
+
+def greedy_decode(torch, model, params, prompt, n, S_max):
+    """The port's target-only greedy decode (prefill + decode_step loop).
+    Returns (tokens [n], top-2 logit margin per position)."""
+    lg, cache = model.prefill(params, prompt, S_max=S_max)
+    cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    toks, margins = [cur], [lg[:, -1].topk(2).values]
+    for _ in range(n - 1):
+        lg, cache = model.decode_step(params, cache, cur, S_max)
+        cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(cur)
+        margins.append(lg[:, -1].topk(2).values)
+    t = torch.cat(toks, 1)[0].tolist()
+    m = torch.stack(margins)[:, 0]
+    return t, (m[:, 0] - m[:, 1]).tolist()
+
+
+def count_syncs(torch, sess, prompt, rounds: int):
+    """Host syncs per lockstep round, counted by torch's sync debug mode,
+    and where each was made (the innermost frames of the port's code)."""
+    eng = sess.engine
+    sess.state = eng._prefill_state(sess.tparams, sess.dparams, prompt)
+    torch.cuda.synchronize()
+    where = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # a sync, not the mode's one-time note ("Synchronization debug mode is
+        # a prototype feature and does not yet detect all synchronizing ...")
+        if "synchroniz" in str(message) and "prototype" not in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if os.path.basename(f.filename) != "warnings.py"]
+            ours = [f for f in frames if f.filename.startswith(HERE) and f.filename != __file__]
+            where.append(f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} via "
+                         + " <- ".join(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
+                                       for f in reversed(ours[-3:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(rounds):
+                sess.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len(where) / rounds, sorted(set(where))
+
+
+KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to
+    ("tree_attention", "tree_attention"), ("fused_swiglu", "fused_swiglu"),
+    ("kv_move_rows", "kv_move_rows"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+    ("sort", "sort (top-k)"), ("reduce", "reductions"),
+)
+
+
+def trace_rounds(torch, sess, prompt, label: str, tag: str, rounds: int = 2) -> None:
+    """Where a lockstep round's time goes on the card: a torch.profiler
+    trace of ``rounds`` rounds, its kernels summed by layer, and the share of
+    the traced wall time in which no kernel ran.  The trace is written to
+    ``build/traces/trace_<tag>.json`` (its kernels; Perfetto reads it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.clock import monotonic
+
+    eng = sess.engine
+    sess.state = eng._prefill_state(sess.tparams, sess.dparams, prompt)
+    sess.step()
+    torch.cuda.synchronize()
+    path = os.path.join(HERE, "build", "traces", f"trace_{tag}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the profiler's notes on its cycles
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = monotonic()
+            for _ in range(rounds):
+                sess.step()
+            torch.cuda.synchronize()
+            wall_ms = (monotonic() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        del prof
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    with open(path, "w") as f:  # keep the kernels only: the full trace is tens of MB
+        json.dump({"traceEvents": kernels}, f)
+    if not kernels:
+        print(f"{label}: device busy share not measured (the profiler recorded no kernel)")
+        return
+    by_layer: dict = {}
+    for e in kernels:
+        layer = next((c for key, c in KERNEL_CLASSES if key in e["name"].lower()), "other")
+        n, ms = by_layer.get(layer, (0, 0.0))
+        by_layer[layer] = (n + 1, ms + e["dur"] / 1e3)
+    busy = sum(ms for _, ms in by_layer.values())
+    print(f"{label}: traced {rounds} rounds in {wall_ms:.2f} ms wall, {len(kernels)} kernels, "
+          f"device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}; by layer: "
+          + ", ".join(f"{k} {ms:.3f} ms/{n}" for k, (n, ms) in
+                      sorted(by_layer.items(), key=lambda kv: -kv[1][1])), flush=True)
+
+
+def run_path(torch, label, eng, tp, dp, prompts, refs, card):
+    """Generate every prompt, check it against the greedy decode, report."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import monotonic
+
+    sess = eng.session(tp, dp)
+    sess.generate(prompts[0][:, :4], max_new=4)  # warm the allocator and kernels
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    toks = rounds = 0
+    t0 = monotonic()
+    outs, stats_all = [], []
+    for prompt in prompts:
+        out, st = sess.generate(prompt)
+        outs.append(out[0])
+        stats_all.append(st)
+        toks += len(out[0])
+        rounds += st.rounds
+    torch.cuda.synchronize()
+    wall = monotonic() - t0
+    counts = ops.launch_counts()
+    syncs, sync_lines = count_syncs(torch, sess, prompts[0], rounds=4)
+    for i, (out, (ref_toks, margins)) in enumerate(zip(outs, refs)):
+        if out != ref_toks[:len(out)] or len(out) != eng.cfg.max_new:
+            j = next((p for p, (a, b) in enumerate(zip(out, ref_toks)) if a != b), len(out))
+            fail(f"{label} request {i}: speculative output diverges from the greedy decode at "
+                 f"position {j} (spec {out[j:j + 3]}, greedy {ref_toks[j:j + 3]}); the target's "
+                 f"top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
+        if any(not (0 <= t < eng.target.cfg.vocab_size) for t in out):
+            fail(f"{label} request {i}: token out of the vocabulary")
+    cr = sum(s.total_emitted for s in stats_all) / max(rounds, 1)
+    print(f"{label}: {len(prompts)} requests, {toks} tokens, {rounds} rounds, compression "
+          f"{cr:.3f}, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, {toks / wall:.2f} tok/s, "
+          f"{syncs:.2f} host syncs per round (d={eng.cfg.d}) on {card}; every output equals "
+          f"the greedy decode", flush=True)
+    print(f"{label}: host syncs made at {sync_lines}", flush=True)
+    print(f"{label}: kernel launches {counts}", flush=True)
+    trace_rounds(torch, sess, prompts[0], label, tag=label.split()[2].strip("()"))
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"{label}: kernels never launched on the main path: {missing}")
+    return counts
+
+
+def phase_serve(torch, card):
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.data import make_request_stream
+    from repro_torch.launch.serve import build_engine, profile_depth
+    from repro_torch.obs.clock import monotonic
+
+    t0 = monotonic()
+    eng, tp, dp, cfgT = build_engine("llama3-8b", "llama3-1b", smoke=False, device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: llama3-8b target ({cfgT.param_count() / 1e9:.2f} B params) + llama3-1b draft, "
+          f"f32, seeded weights drawn on the card in {monotonic() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    print(profile_depth(eng, tp, dp, 16), flush=True)
+    prompts = list(make_request_stream(cfgT.vocab_size, 16, 1, 3))
+    refs = [greedy_decode(torch, eng.target, tp, p, eng.cfg.max_new, eng.S_max_t) for p in prompts]
+    counts_a = run_path(torch, "main path (a) 8B+1B", eng, tp, dp, prompts, refs, card)
+    # (b) self-draft, built the way examples/quickstart.py builds it (draft = target)
+    eng_b = SpecEngine(eng.target, eng.target,
+                       SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=48),
+                       S_max_t=512, S_max_d=512)
+    counts_b = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts, refs, card)
+    return counts_a, counts_b
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false — this script needs one CUDA GPU",
+              file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    # full float32 products: with TF32 the greedy-equality check would compare
+    # two different arithmetics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("TF32 is on for float32 products")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    card = f"[{smi}]"
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    phase_build()
+    rows = phase_kernels(torch, Timer(torch), card)
+    counts = phase_serve(torch, card)
+    kernels = []
+    for name in ("tree_attention", "fused_swiglu", "kv_move_rows"):
+        r = dict(rows[name])
+        r["launches"] = counts[0][name] + counts[1][name]
+        r["launches_by_run"] = {"a": counts[0][name], "b": counts[1][name]}
+        r["card"] = smi
+        kernels.append(r)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""Model configurations: a copy of ``repro.configs.base.ModelConfig`` and a
+registry of the architectures this port runs.
+
+Each architecture lives in ``repro_torch/configs/<id>.py`` exposing
+``CONFIG`` (full published shape) and ``smoke_config()`` (reduced same-family
+shape for CPU tests), as in the reference package.  Only the dense configs
+of the lockstep slice are here so far; the others come with their model
+families.
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int  # query heads; 0 for attention-free archs
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # block pattern: layer kind cycled over layers. kinds:
+    #   dense  = attn + swiglu-mlp
+    #   moe    = attn + mixture-of-experts
+    #   mamba2 = mamba2 ssd block
+    #   rwkv6  = rwkv time-mix + channel-mix
+    #   cross  = cross-attention (to stub encoder states) + swiglu-mlp
+    block_pattern: tuple = ("dense",)
+
+    # attention
+    attn_kind: str = "gqa"  # gqa | mla | none
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0  # 0 = full attention
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_d_ff: int = 0  # per-expert ff (deepseek fine-grained); 0 -> d_ff
+
+    # MLA (minicpm3 / deepseek-v2 style)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    rope_head_dim: int = 0
+    nope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+
+    # hybrid / modality wiring
+    first_k_dense: int = 0  # deepseek-moe: dense prologue layers
+    shared_attn_every: int = 0  # zamba2: shared attn block every k layers
+    cross_attn_every: int = 0  # vlm: cross block every k layers (pattern helper)
+    n_enc_tokens: int = 0  # stub encoder sequence length (vlm/audio cond)
+    embed_inputs: bool = True  # False: train/prefill consume embeddings (stub frontend)
+
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    dtype: str = "float32"  # compute dtype
+    param_dtype: str = "float32"
+
+    # annotations
+    family: str = "dense"  # dense|moe|ssm|hybrid|audio|vlm
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    # ---- derived -------------------------------------------------------
+    @property
+    def layer_kinds(self) -> tuple:
+        kinds = ["dense"] * self.first_k_dense
+        for i in range(self.n_layers - self.first_k_dense):
+            kinds.append(self.block_pattern[i % len(self.block_pattern)])
+        return tuple(kinds)
+
+    @property
+    def attention_free(self) -> bool:
+        return all(k in ("mamba2", "rwkv6") for k in self.layer_kinds) and not self.shared_attn_every
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when decode state does not grow quadratically (SSM / hybrid)."""
+        return any(k in ("mamba2", "rwkv6") for k in self.layer_kinds)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        total = V * d  # embed
+        if not self.tie_embeddings:
+            total += V * d  # lm head
+        for kind in self.layer_kinds:
+            total += self._block_params(kind)
+        total += d  # final norm
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared)."""
+        d, V = self.d_model, self.vocab_size
+        total = V * d + (0 if self.tie_embeddings else V * d) + d
+        for kind in self.layer_kinds:
+            total += self._block_params(kind, active=True)
+        return total
+
+    def _block_params(self, kind: str, active: bool = False) -> int:
+        d, ff = self.d_model, self.d_ff
+        hd = self.head_dim
+        if kind == "dense":
+            return self._attn_params() + 3 * d * ff + 2 * d
+        if kind == "cross":
+            return self._attn_params() + 3 * d * ff + 2 * d
+        if kind == "moe":
+            eff = self.moe_d_ff or ff
+            n_routed = self.moe_top_k if active else self.n_experts
+            gate = d * self.n_experts
+            shared = self.n_shared_experts * 3 * d * eff
+            return self._attn_params() + gate + shared + n_routed * 3 * d * eff + 2 * d
+        if kind == "mamba2":
+            d_in = self.ssm_expand * d
+            nheads = d_in // self.ssm_head_dim
+            conv_dim = d_in + 2 * self.ssm_groups * self.ssm_state
+            return (
+                d * (2 * d_in + 2 * self.ssm_groups * self.ssm_state + nheads)
+                + conv_dim * self.ssm_conv
+                + d_in * d
+                + 2 * nheads
+                + d
+            )
+        if kind == "rwkv6":
+            # time-mix: r,k,v,g,o projections + decay/bonus; channel-mix: 2 mats
+            return 5 * d * d + 2 * d + d * ff + ff * d + 2 * d
+        raise ValueError(kind)
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        if self.attn_kind == "mla":
+            qk = self.nope_head_dim + self.rope_head_dim
+            return (
+                d * self.q_lora_rank
+                + self.q_lora_rank * self.n_heads * qk
+                + d * (self.kv_lora_rank + self.rope_head_dim)
+                + self.kv_lora_rank * self.n_heads * (self.nope_head_dim + self.v_head_dim)
+                + self.n_heads * self.v_head_dim * d
+            )
+        if self.attn_kind == "none" or self.n_heads == 0:
+            return 0
+        return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+
+
+PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b"]
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"{name!r} is not ported yet (ported: {', '.join(PORTED)}); the "
+            "other model families are ROADMAP queue 1, item 9")
+    mod_name = name.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.smoke_config() if smoke else mod.CONFIG

@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs at first use, all sources at once in parallel, into ``build/torch_ext/``
+at the root of the checkout (listed in ``.gitignore``).  A library's file
+name carries a hash of its sources and flags, so an edited source is
+rebuilt and an unchanged one is reused.  A failed build raises; nothing
+falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from repro_torch.obs.clock import monotonic
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+SOURCES = ("tree_attention", "fused_swiglu", "kv_moves")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# argument types of each library's exported launch function (void* for every
+# pointer and the stream, so ctypes never truncates them to 32 bits)
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+SIGNATURES = {
+    "tree_attention": {
+        "tree_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        "tree_attention_rows_per_block": [],
+    },
+    "fused_swiglu": {"fused_swiglu_launch": [_P] * 4 + [_I] * 4 + [_P]},
+    "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # name -> nvcc/ptxas output of this process's builds
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").is_file():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("repro_torch kernels: nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns the seconds spent; raises with nvcc's output on any
+    failure."""
+    t0 = monotonic()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("repro_torch kernel build failed:\n" + "\n".join(failed))
+    return monotonic() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on first use)."""
+    if name not in _LIBS:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        cdll = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = ctypes.c_int
+        cdll.cuda_error_string.argtypes = [ctypes.c_int]
+        cdll.cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = cdll
+    return _LIBS[name]
+
+
+def check(name: str, rc: int) -> None:
+    """Raise when a launch function returned a CUDA error code."""
+    if rc != 0:
+        msg = lib(name).cuda_error_string(rc).decode()
+        raise RuntimeError(f"repro_torch kernel {name}: CUDA error {rc} ({msg})")

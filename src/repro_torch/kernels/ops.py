@@ -1,0 +1,193 @@
+"""Public kernel wrappers, dispatched by device (``repro.kernels.ops``).
+
+A CPU tensor goes to the plain PyTorch version in ``kernels/ref.py``; a CUDA
+tensor goes to the hand-written kernel in ``csrc/`` or the wrapper raises.
+Nothing — no flag, no environment variable, no ``try`` — sends a CUDA tensor
+to a plain version.  Each wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel and nowhere else, so a run can show which kernels its
+path went through.  Kernels launch on PyTorch's current stream and do not
+synchronise; the wrappers allocate every output and scratch buffer.
+tree_attention's split combine takes atomic tickets from a zeroed buffer
+that is kept per (device, stream): launches on one stream run in order, and
+launches on two streams never share a ticket.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"tree_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kernel leaves them zero)
+
+
+def attn_split_keys(S: int) -> int:
+    """Keys per S split of tree_attention: 64, or more for a cache longer
+    than 32 splits of 64 (the kernel combines at most 32).  A function of S
+    alone, so a query row sums in the same order whatever n is."""
+    return max(64, 32 * -(-S // (32 * 32)))
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _on_cuda(name: str, *tensors) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises on a mix or any
+    other device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# -----------------------------------------------------------------------------
+# tree attention
+# -----------------------------------------------------------------------------
+
+
+def tree_attention(q, k, v, mask):
+    """q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S].
+
+    The paper's non-square tree-masked attention; returns [B, n, Hq, hd]
+    in q's dtype, zeros for a fully masked query row.  The kernel takes
+    float32 or bfloat16 with hd a multiple of 4, at most 256."""
+    if not _on_cuda("tree_attention", q, k, v, mask):
+        return ref.tree_attention_ref(q, k, v, mask)
+    B, n, hq, hd = q.shape
+    S, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"tree_attention: q/k/v must share f32 or bf16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if (k.shape != (B, S, hkv, hd) or v.shape != k.shape or mask.shape != (B, n, S)
+            or mask.dtype != torch.bool or hq % hkv or hd > 256 or hd % 4):
+        raise ValueError(f"tree_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} mask{tuple(mask.shape)} {mask.dtype}")
+    q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("tree_attention: q, k and v must be 16-byte aligned")
+    lib = build.lib("tree_attention")
+    rows = lib.tree_attention_rows_per_block()
+    n_rowtiles = -(-(hq // hkv) * n // rows)
+    split_keys = attn_split_keys(S)
+    n_splits = -(-S // split_keys)
+    dev = q.device
+    out = torch.empty_like(q)
+    part_acc = torch.empty(B * hkv * n_rowtiles * rows * n_splits * hd,
+                           dtype=torch.float32, device=dev)
+    part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_splits * 2,
+                          dtype=torch.float32, device=dev)
+    need = B * hkv * n_rowtiles
+    stream = _stream(dev)
+    ctr = _attn_counters.get((dev, stream))
+    if ctr is None or ctr.numel() < need:
+        with torch.cuda.device(dev):  # zeroed on the stream that will use it
+            ctr = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
+        _attn_counters[(dev, stream)] = ctr
+    with torch.cuda.device(dev):
+        LAUNCHES["tree_attention"] += 1
+        rc = lib.tree_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), ctr.data_ptr(),
+            B, n, hq, hkv, hd, S, split_keys, 1.0 / math.sqrt(hd),
+            _DTYPE_CODE[q.dtype], stream)
+    build.check("tree_attention", rc)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# fused SwiGLU
+# -----------------------------------------------------------------------------
+
+
+def fused_swiglu(x, wg, wu):
+    """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype."""
+    if not _on_cuda("fused_swiglu", x, wg, wu):
+        return ref.fused_swiglu_ref(x, wg, wu)
+    M, K = x.shape
+    N = wg.shape[1]
+    if x.dtype not in _DTYPE_CODE or wg.dtype != x.dtype or wu.dtype != x.dtype:
+        raise TypeError(f"fused_swiglu: x/wg/wu must share f32 or bf16, got "
+                        f"{x.dtype}/{wg.dtype}/{wu.dtype}")
+    if wg.shape != (K, N) or wu.shape != (K, N) or N % 4 or M == 0:
+        raise ValueError(f"fused_swiglu: bad shapes x{tuple(x.shape)} wg{tuple(wg.shape)} "
+                         f"wu{tuple(wu.shape)} (N must be a multiple of 4)")
+    x, wg, wu = (t.contiguous() for t in (x, wg, wu))
+    if wg.data_ptr() % 16 or wu.data_ptr() % 16:
+        raise ValueError("fused_swiglu: weights must be 16-byte aligned")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = build.lib("fused_swiglu")
+    with torch.cuda.device(x.device):
+        LAUNCHES["fused_swiglu"] += 1
+        rc = lib.fused_swiglu_launch(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(),
+                                     M, K, N, _DTYPE_CODE[x.dtype], _stream(x.device))
+    build.check("fused_swiglu", rc)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# KV-cache row moves
+# -----------------------------------------------------------------------------
+
+_KV_SMEM_BYTES = 96 * 1024  # shared-memory stage per block: M rows x FC columns
+
+
+def kv_move_rows(arr, src, dst, mask, *, donate: bool = False):
+    """Move rows of one cache leaf: arr [U, B, S, ...]; src/dst int [B, M];
+    mask bool [B, M].  Parallel-assignment semantics (sources read before any
+    write); entries with mask False, src or dst outside [0, S) are dropped.
+
+    ``donate=True`` moves in place on the card and returns ``arr`` itself —
+    the caller must own the buffer.  ``donate=False`` never writes ``arr``:
+    it returns a fresh tensor (the async snapshot contract, core/kv.py),
+    also for an empty plan.  On the CPU both return a fresh tensor when
+    there is a move."""
+    M = src.shape[1]
+    if M == 0:
+        return arr if donate else arr.clone()
+    if not _on_cuda("kv_move_rows", arr, src, dst, mask):
+        return ref.kv_move_rows_ref(arr, src, dst, mask)
+    U, B, S = arr.shape[:3]
+    if src.shape != (B, M) or dst.shape != (B, M) or mask.shape != (B, M):
+        raise ValueError(f"kv_move_rows: src/dst/mask must be [B={B}, M], got "
+                         f"{tuple(src.shape)}/{tuple(dst.shape)}/{tuple(mask.shape)}")
+    if not arr.is_contiguous():
+        raise ValueError("kv_move_rows: the cache leaf must be contiguous")
+    # rows move as raw bytes: as 16-byte elements where width and alignment allow
+    row_bytes = arr[0, 0, 0].numel() * arr.element_size()
+    es = 16 if row_bytes % 16 == 0 and arr.data_ptr() % 16 == 0 else arr.element_size()
+    F = row_bytes // es
+    src = src.to(torch.int32).contiguous()
+    dst = dst.to(torch.int32).contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    fc = 256
+    while fc > 1 and M * fc * es > _KV_SMEM_BYTES:
+        fc //= 2
+    if M * fc * es > _KV_SMEM_BYTES:
+        raise ValueError(f"kv_move_rows: M={M} rows do not fit the shared-memory stage")
+    out = arr if donate else torch.empty_like(arr)
+    lib = build.lib("kv_moves")
+    with torch.cuda.device(arr.device):
+        LAUNCHES["kv_move_rows"] += 1
+        rc = lib.kv_move_rows_launch(arr.data_ptr(), out.data_ptr(), src.data_ptr(),
+                                     dst.data_ptr(), mask.data_ptr(), U, B, S, F, M, es, fc,
+                                     0 if donate else 1, _stream(arr.device))
+    build.check("kv_move_rows", rc)
+    return out

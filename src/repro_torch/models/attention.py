@@ -1,0 +1,120 @@
+"""GQA attention (``repro.models.attention``): full-sequence for prefill,
+cached for decode and the speculative tree.
+
+Cached mode takes an explicit ``[B, n, S_max]`` mask — the paper's
+non-square tree mask — and goes through the ``tree_attention`` kernel.  It
+writes the new K/V rows into the cache first and then attends, so every
+node sees its own row.  Cache writes are in place: the lockstep round owns
+every cache it touches (see ``core/kv.py``).  Prefill attention is plain
+PyTorch, as the reference computes it in XLA outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope
+
+
+def _project_qkv(cfg, p, x, positions, *, rope: bool = True):
+    """x [B, n, d] -> q [B, n, Hq, hd], k/v [B, n, Hkv, hd] (+ QKV bias, RoPE)."""
+    B, n, d = x.shape
+    q = (x @ p["wq"].reshape(d, -1)).reshape(B, n, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(p, out):
+    B, n, hq, hd = out.shape
+    return out.reshape(B, n, hq * hd) @ p["wo"].reshape(hq * hd, -1)
+
+
+def _attend(q, k, v, mask):
+    """Masked softmax attention; mask [B, n, S].  Fully masked rows -> 0."""
+    B, n, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(B, n, hkv, g, hd)
+    scores = (torch.einsum("bnkgh,bskh->bkgns", qg, k) / math.sqrt(hd)).float()
+    m = mask[:, None, None, :, :]
+    scores = torch.where(m, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(m.any(-1, keepdim=True), probs, torch.zeros_like(probs))
+    out = torch.einsum("bkgns,bskh->bnkgh", probs.to(v.dtype), v)
+    return out.reshape(B, n, hq, hd)
+
+
+def attention_full(cfg, p, x, positions):
+    """Causal full-sequence attention (prefill).  Returns (out [B, S, d],
+    (k, v)) — the computed K/V for cache population."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    m = positions[:, None, :] <= positions[:, :, None]  # [B, S_q, S_k]
+    if cfg.sliding_window:
+        m &= positions[:, None, :] > (positions[:, :, None] - cfg.sliding_window)
+    return _out_proj(p, _attend(q, k, v, m)), (k, v)
+
+
+def update_rows_contiguous(cache, rows, start: int):
+    """Write ``rows [B, n, ...]`` into ``cache [B, S, ...]`` at rows
+    [start, start+n), in place; rows past S are dropped."""
+    n = min(rows.shape[1], max(cache.shape[1] - start, 0))
+    cache[:, start:start + n] = rows[:, :n].to(cache.dtype)
+    return cache
+
+
+def scatter_rows(cache, rows, row_idx, row_mask=None):
+    """Write ``rows [B, n, ...]`` into ``cache [B, S, ...]`` at ``row_idx
+    [B, n]``, in place.  Entries with row_idx outside [0, S) (or row_mask
+    False) are dropped without a host sync: each is pointed at the row of
+    the batch's first kept entry with that entry's own value (a duplicate
+    write of identical bytes), or, when a batch keeps nothing, at row 0
+    with row 0's current value."""
+    B, S = cache.shape[:2]
+    n = rows.shape[1]
+    valid = (row_idx >= 0) & (row_idx < S)
+    if row_mask is not None:
+        valid &= row_mask
+    flat_c = cache.view(B, S, -1)
+    flat_r = rows.reshape(B, n, -1).to(cache.dtype)
+    F = flat_c.shape[-1]
+    any_valid = valid.any(1)
+    first = valid.int().argmax(1, keepdim=True)  # [B, 1]
+    fb_idx = torch.where(any_valid, row_idx.gather(1, first).squeeze(1), 0)
+    idx = torch.where(valid, row_idx, fb_idx[:, None]).long()
+    fb_val = torch.where(any_valid[:, None],
+                         flat_r.gather(1, first[:, :, None].expand(B, 1, F)).squeeze(1),
+                         flat_c[:, 0])
+    val = torch.where(valid[:, :, None], flat_r, fb_val[:, None, :])
+    flat_c.scatter_(1, idx[:, :, None].expand(B, n, F), val)
+    return cache
+
+
+def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask, *,
+                     row_start=None):
+    """Cached attention for decode / spec-tree forward.
+
+    x: [B, n, d] new tokens; their K/V are written at ``row_idx`` [B, n]
+    (absolute cache rows, -1 = skip), or at [row_start, row_start+n) for
+    every batch row when ``row_start`` is given (decode/chain).  Then the n
+    queries attend the whole cache under ``attn_mask`` [B, n, S_max].
+    Returns (out, cache_k, cache_v)."""
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    if row_start is not None:
+        update_rows_contiguous(cache_k, k_new, row_start)
+        update_rows_contiguous(cache_v, v_new, row_start)
+    else:
+        scatter_rows(cache_k, k_new, row_idx)
+        scatter_rows(cache_v, v_new, row_idx)
+    out = ops.tree_attention(q, cache_k, cache_v, attn_mask)
+    return _out_proj(p, out), cache_k, cache_v

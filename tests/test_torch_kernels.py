@@ -1,0 +1,177 @@
+"""The port's kernels (``repro_torch.kernels``) against the JAX package's.
+
+On the CPU every wrapper in ``repro_torch.kernels.ops`` takes its plain
+PyTorch version (``repro_torch.kernels.ref``); these tests hold that version
+against ``repro.kernels.ref`` and against the Pallas kernels run in
+interpret mode through ``repro.kernels.ops``.  The CUDA kernels themselves
+are held against the same plain versions on the card by ``chip_smoke.py``.
+
+Tolerances: float32 2e-5 (the two sides sum in different orders), bfloat16
+2e-2 (one bf16 rounding of the output), row moves exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
+
+from repro.flags import override_flags
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S), as tests/test_kernels.py
+    (2, 4, 8, 2, 64, 96),
+    (1, 8, 4, 4, 32, 128),
+    (2, 3, 6, 3, 80, 200),
+    (1, 16, 8, 1, 128, 256),
+    (3, 1, 4, 2, 128, 64),
+]
+SWIGLU_SHAPES = [(8, 64, 128), (100, 96, 200), (1, 256, 64), (130, 128, 384)]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(a, dtype):
+    """The same numpy array as a JAX array and a torch tensor of ``dtype``."""
+    return jnp.asarray(a, jnp.dtype(dtype)), torch.tensor(a).to(getattr(torch, dtype))
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("shape", TREE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_attention_matches_reference(shape, dtype):
+    B, n, hq, hkv, hd, S = shape
+    rng = np.random.default_rng(sum(shape))
+    (jq, q), (jk, k), (jv, v) = (_pair(rng.normal(size=s).astype(np.float32), dtype)
+                                 for s in ((B, n, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+    m = rng.random((B, n, S)) < 0.5
+    m[:, 0, :] = False  # a fully masked row gives exact zeros
+    jm, mask = jnp.asarray(m), torch.tensor(m)
+    launches = ops.launch_counts()
+    got = ops.tree_attention(q, k, v, mask)
+    assert ops.launch_counts() == launches, "a CPU tensor never launches a kernel"
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np32(got), _np32(jref.tree_attention_ref(jq, jk, jv, jm)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np32(got), _np32(jops.tree_attention(jq, jk, jv, jm)),
+                               atol=tol, rtol=tol)
+    assert (_np32(got)[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_swiglu_matches_reference(shape, dtype):
+    T, d, ff = shape
+    rng = np.random.default_rng(T + d + ff)
+    jx, x = _pair(rng.normal(size=(T, d)).astype(np.float32), dtype)
+    jg, wg = _pair((0.1 * rng.normal(size=(d, ff))).astype(np.float32), dtype)
+    ju, wu = _pair((0.1 * rng.normal(size=(d, ff))).astype(np.float32), dtype)
+    got = ops.fused_swiglu(x, wg, wu)
+    assert got.dtype == x.dtype and got.shape == (T, ff)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np32(got), _np32(jref.fused_swiglu_ref(jx, jg, ju)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np32(got), _np32(jops.fused_swiglu(jx, jg, ju)),
+                               atol=tol, rtol=tol)
+
+
+def _random_plan(rng, B, S, M):
+    """tests/test_kv_moves.py's plans: overlapping windows, -1 sources,
+    duplicate destinations only among masked-off entries."""
+    src = rng.integers(0, S, size=(B, M)).astype(np.int32)
+    src[rng.random((B, M)) < 0.2] = -1
+    dst = np.stack([rng.permutation(S)[:M] for _ in range(B)]).astype(np.int32)
+    mask = rng.random((B, M)) < 0.7
+    for b in range(B):
+        off = np.where(~mask[b])[0]
+        if len(off) >= 2:
+            dst[b, off[0]] = dst[b, off[1]]
+    return src, dst, mask
+
+
+def _kv_case(name):
+    rng = np.random.default_rng(7)
+    if name == "random":
+        U, B, S, F, M = 2, 3, 16, 5, 7
+        arr = rng.normal(size=(U, B, S, F)).astype(np.float32)
+        return (arr, *_random_plan(rng, B, S, M))
+    if name == "overlap":  # the compaction shift: dst window overlaps src window
+        arr = rng.normal(size=(2, 1, 12, 2, 3)).astype(np.float32)
+        src = np.array([[3, 4, 5, 6, 7]], np.int32)
+        dst = np.array([[2, 3, 4, 5, 6]], np.int32)
+        return arr, src, dst, np.ones((1, 5), bool)
+    if name == "reversed":  # sources and destinations swap places
+        arr = rng.normal(size=(1, 2, 8, 4)).astype(np.float32)
+        src = np.array([[0, 1, 2, 3], [4, 5, 6, 7]], np.int32)
+        dst = src[:, ::-1].copy()
+        return arr, src, dst, np.ones((2, 4), bool)
+    if name == "negative":  # -1 sources and destinations, and an all-masked row
+        arr = rng.normal(size=(2, 2, 6, 3)).astype(np.float32)
+        src = np.array([[2, -1, 1], [0, 1, 2]], np.int32)
+        dst = np.array([[4, 4, -1], [3, 4, 5]], np.int32)
+        mask = np.array([[True, True, True], [False, False, False]])
+        return arr, src, dst, mask
+    if name == "empty":
+        arr = rng.normal(size=(2, 1, 6, 3)).astype(np.float32)
+        z = np.zeros((1, 0), np.int32)
+        return arr, z, z, np.zeros((1, 0), bool)
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("case", ["random", "overlap", "reversed", "negative", "empty"])
+def test_kv_move_rows_matches_reference_exactly(case):
+    arr, src, dst, mask = _kv_case(case)
+    j = tuple(map(jnp.asarray, (arr, src, dst, mask)))
+    want = np.asarray(jref.kv_move_rows_ref(*j))
+    with override_flags(use_pallas_kv_moves=True, pallas_interpret=True):
+        fused = {dn: np.asarray(jops.kv_move_rows(*j, donate=dn)) for dn in (False, True)}
+    t_arr = torch.tensor(arr)
+    t_plan = tuple(map(torch.tensor, (src, dst, mask)))
+    for donate in (False, True):
+        before = t_arr.clone()
+        got = ops.kv_move_rows(t_arr, *t_plan, donate=donate).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, fused[donate])
+        assert torch.equal(t_arr, before), "the CPU path never writes its input"
+    np.testing.assert_array_equal(ref.kv_move_rows_ref(t_arr, *t_plan).numpy(), want)
+
+
+def test_kv_move_rows_copy_through_keeps_input():
+    """``donate=False`` returns a fresh tensor with the rows moved and leaves
+    the input bit for bit as it was (the async snapshot contract)."""
+    rng = np.random.default_rng(0)
+    arr = torch.tensor(rng.normal(size=(1, 1, 8, 3)).astype(np.float32))
+    before = arr.clone()
+    src, dst = torch.tensor([[0, 1]], dtype=torch.int32), torch.tensor([[4, 5]], dtype=torch.int32)
+    out = ops.kv_move_rows(arr, src, dst, torch.ones(1, 2, dtype=torch.bool), donate=False)
+    assert not torch.equal(out, before)
+    assert torch.equal(out[0, 0, 4:6], before[0, 0, 0:2])
+    assert torch.equal(arr, before)
+
+
+def test_kv_move_rows_zero_moves_is_a_no_op():
+    """An empty plan moves nothing: ``donate=True`` hands the buffer back,
+    ``donate=False`` still returns a fresh tensor, never an alias."""
+    arr = torch.tensor(np.random.default_rng(0).normal(size=(2, 1, 6, 3)).astype(np.float32))
+    empty = torch.zeros(1, 0, dtype=torch.int32)
+    no_mask = torch.zeros(1, 0, dtype=torch.bool)
+    assert ops.kv_move_rows(arr, empty, empty, no_mask, donate=True) is arr
+    fresh = ops.kv_move_rows(arr, empty, empty, no_mask, donate=False)
+    assert fresh.data_ptr() != arr.data_ptr() and torch.equal(fresh, arr)
+
+
+def test_wrappers_refuse_mixed_and_foreign_devices():
+    q = torch.zeros(1, 1, 2, 4)
+    kv = torch.zeros(1, 3, 1, 4, device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        ops.tree_attention(q, kv, kv, torch.ones(1, 1, 3, dtype=torch.bool))
+    x = torch.zeros(2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fused_swiglu(x, torch.zeros(4, 4, device="meta"), torch.zeros(4, 4, device="meta"))
