@@ -4,18 +4,26 @@
   python3 chip_smoke.py
 
 It takes no options and runs every phase, in order:
-  build    build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
-           (tree_attention, fused_swiglu, kv_move_rows, f32 and bf16), and
-           time kernel, plain version and the one PyTorch call that computes
-           the same function, where there is one, with CUDA events
-  serve    the lockstep main path at full width: (a) the serve CLI defaults
-           through ``build_engine(smoke=False)`` — llama3-8b target,
-           llama3-1b draft, f32, 3 requests, prompt 16, max_new 48, bs 8,
-           w 4, d from the profile pass, S_max 512; (b) self-draft on the
-           same 8B weights.  Every output must equal the port's own
-           target-only greedy decode; each kernel must have launched in
-           each run.
+           (tree_attention, fused_swiglu, kv_move_rows, slot_write_rows, f32
+           and bf16), and time kernel, plain version and the one PyTorch
+           call that computes the same function, where there is one, with
+           CUDA events
+  serve    the main paths at full width, llama3-8b target, f32, bs 8, w 4,
+           S_max 512, weights drawn once by ``build_engine(smoke=False)``:
+           lockstep ``generate()`` — (a) the serve CLI defaults with the
+           llama3-1b draft, 3 requests, prompt 16, max_new 48, d from the
+           profile pass; (b) self-draft on the same 8B weights, 2 requests —
+           then continuous batching through ``ContinuousBatchingRuntime``
+           on a wall clock, 2 slots, a seeded Poisson trace of 6 requests
+           (prompts 8-16, max_new 32): (c1) lockstep 8B+1B, (c2) async
+           rounds 8B+1B (nearly every lookahead rolls back), (c3) async 8B
+           self-draft (lookaheads commit), (c4) lockstep 8B self-draft (the
+           control of (c3)).  Every output must equal the
+           port's own target-only greedy decode (and, in (c), its solo
+           ``generate()``); each kernel of a path must have launched in its
+           run; each run must make one host sync per round.
 
 The last two lines of standard output are the ``kernels`` JSON line and the
 ``{"ok": true, "device": ...}`` line; any failure exits non-zero before
@@ -44,6 +52,8 @@ SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
                      "src/repro/kernels/fused_swiglu.py:44"),
     "kv_move_rows": ("src/repro_torch/kernels/csrc/kv_moves.cu",
                      "src/repro/kernels/kv_moves.py:112"),
+    "slot_write_rows": ("src/repro_torch/kernels/csrc/slot_write.cu",
+                        "src/repro/kernels/kv_moves.py:182"),
 }
 TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     (2, 4, 8, 2, 64, 96), (1, 8, 4, 4, 32, 128), (2, 3, 6, 3, 80, 200),
@@ -51,6 +61,11 @@ TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     # ... and the slice's: llama3-8b decode / expand / verify, llama3-1b expand / fill
     (1, 1, 32, 8, 128, 512), (1, 4, 32, 8, 128, 512), (1, 8, 32, 8, 128, 512),
     (1, 4, 32, 8, 64, 512), (1, 8, 32, 8, 64, 512),
+]
+TREE_SERVE_SHAPES = [  # phase (c)'s 2-slot rounds: 8B verify / expand, 1B expand / fill;
+    # batch row 1 is checked once with random rows and once parked (every query masked)
+    (2, 8, 32, 8, 128, 512), (2, 4, 32, 8, 128, 512), (2, 4, 32, 8, 64, 512),
+    (2, 8, 32, 8, 64, 512),
 ]
 PREFIX = 48  # prefix rows of the timed masks: prompt 16 + 32 tokens emitted
 TREE_TIMED = [  # the main path's calls of tree_attention
@@ -66,6 +81,11 @@ SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill")
 KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
     ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
 ]
+SLOT_SHAPES = [  # the serving caches' leaf shapes (k and v: L 2) [U, B, S, Hkv, hd]
+    ("8B", (32, 2, 512, 8, 128)), ("1B", (16, 2, 512, 8, 64)),
+]
+MAIN_KERNELS = ("tree_attention", "fused_swiglu", "kv_move_rows")  # launched by generate()
+ALL_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -143,7 +163,8 @@ def phase_build():
         for ln in lines:
             print(f"  ptxas {name}: {ln}")
         build.lib(name)
-    print(f"build: {len(build.SOURCES)} kernels with nvcc for sm_90a in {secs:.1f}s", flush=True)
+    print(f"build: {len(build.SOURCES)} kernel libraries with nvcc for sm_90a in {secs:.1f}s",
+          flush=True)
 
 
 def phase_kernels(torch, timer, card):
@@ -175,20 +196,25 @@ def phase_kernels(torch, timer, card):
     print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; kv_move exact):")
 
     # --- tree_attention --------------------------------------------------------
+    cases = [(shape, False) for shape in TREE_SHAPES] + \
+        [(shape, parked) for shape in TREE_SERVE_SHAPES for parked in (False, True)]
     for dtype in dtypes:
-        for (B, n, hq, hkv, hd, S) in TREE_SHAPES:
+        for (B, n, hq, hkv, hd, S), parked in cases:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             mask = torch.rand((B, n, S), generator=gen, device="cuda") < 0.5
             mask[:, 0, :] = False  # a fully masked row must give exact zeros
+            if parked:
+                mask[-1] = False  # a parked slot: no query of its row sees a key
             got = ops.tree_attention(q, k, v, mask)
             want = ref.tree_attention_ref(q, k, v, mask)
             torch.cuda.synchronize()
-            err = check_close(f"tree_attention {(B, n, hq, hkv, hd, S)} {dtype}", got, want, dtype)
-            if bool((got[:, 0] != 0).any()):
-                fail(f"tree_attention {(B, n, hq, hkv, hd, S)}: a fully masked row is not 0")
-            print(f"  tree_attention B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S} {dtype}: "
-                  f"max|err| {err:.2e}")
+            name = f"tree_attention {(B, n, hq, hkv, hd, S)}{' parked' if parked else ''} {dtype}"
+            err = check_close(name, got, want, dtype)
+            if bool((got[:, 0] != 0).any()) or (parked and bool((got[-1] != 0).any())):
+                fail(f"{name}: a fully masked row is not 0")
+            print(f"  tree_attention B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S}"
+                  f"{', row B-1 parked' if parked else ''} {dtype}: max|err| {err:.2e}")
     # times under a mask as the main path builds it mid-request: a prefix of
     # PREFIX rows that every query sees, then the tree rows, each query its own
     # row and a random subset of the earlier ones (its ancestors)
@@ -268,12 +294,34 @@ def phase_kernels(torch, timer, card):
         print(f"  {name}: both variants exact, input kept by donate=False")
         return err
 
+    def plan2(M, parked):
+        """Phase (c)'s 2-slot plans: row 0 as ``plan``, row 1 its own
+        windows (destinations reversed beyond 8 rows, its last entry masked
+        off), or every entry of row 1 masked off (a parked slot)."""
+        src0, dst0, mask0 = plan(M, n_off=min(M, 3) if M > 8 else 0)
+        src1 = torch.arange(203, 203 + M, dtype=torch.int32, device="cuda")
+        dst1 = torch.arange(200, 200 + M, dtype=torch.int32, device="cuda")
+        dst1 = dst1.flip(0) if M > 8 else dst1
+        mask1 = torch.ones(M, dtype=torch.bool, device="cuda")
+        mask1[-1:] = False
+        if parked:
+            mask1[:] = False
+        return (torch.cat([src0, src1[None]]), torch.cat([dst0, dst1[None]]),
+                torch.cat([mask0, mask1[None]]))
+
     U, B, S, Fw = 32, 1, 512, 1024
     for dtype in dtypes:
         arr = randn(U, B, S, Fw, dtype=dtype)
         for M in (0, 8, 73):
             src, dst, mask = plan(M, n_off=min(M, 3))
             check_moves(f"kv_move_rows [U{U} B{B} S{S} F{Fw}] M={M} {dtype}", arr, src, dst, mask)
+    for dtype in dtypes:  # the main path's moves at phase (c)'s 2 slots
+        for label, (U, M, Fw) in KV_TIMED:
+            arr = randn(U, 2, S, Fw, dtype=dtype)
+            for parked in (False, True):
+                check_moves(f"kv_move_rows {label} U{U} B2 S{S} F{Fw} M{M}, "
+                            f"{'row 1 parked' if parked else 'a plan per row'} {dtype}",
+                            arr, *plan2(M, parked))
     for dtype in dtypes:
         for label, (U, M, Fw) in KV_TIMED:
             arr = randn(U, 1, S, Fw, dtype=dtype)
@@ -290,6 +338,62 @@ def phase_kernels(torch, timer, card):
                   lambda: ops.kv_move_rows(arr, src, dst, mask, donate=True),
                   lambda: ref.kv_move_rows_ref(arr, src, dst, mask), library,
                   2 * int(act.sum()) * U * Fw * arr.element_size(), 0)
+
+    # --- slot_write_rows ----------------------------------------------------------
+    def check_slot(name, leaves, donors, slot) -> float:
+        """Install (donors) or zero (None) on copies of ``leaves``, in place,
+        exactly against the plain version; every other row bit for bit as
+        it was.  Returns the max error."""
+        want = ref.slot_write_rows_ref(leaves, donors, slot)
+        work = [x.clone() for x in leaves]
+        got = ops.slot_write_rows(work, donors, slot)
+        torch.cuda.synchronize()
+        if any(g.data_ptr() != w.data_ptr() for g, w in zip(got, work)):
+            fail(f"{name}: the kernel did not write the cache in place")
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{name}: kernel disagrees with the plain version: max |err| {err:.3e} "
+                 "(must be exact)")
+        others = [b for b in range(leaves[0].shape[1]) if b != slot]
+        if not all(torch.equal(g[:, others], x[:, others]) for g, x in zip(got, leaves)):
+            fail(f"{name}: a row other than slot {slot} changed")
+        return err
+
+    for dtype in dtypes:
+        for label, shape in SLOT_SHAPES:
+            U = shape[0]
+            leaves = [randn(*shape, dtype=dtype) for _ in range(2)]
+            donors = [randn(U, 1, *shape[2:], dtype=dtype) for _ in range(2)]
+            for slot in range(shape[1]):
+                errs = [check_slot(f"slot_write_rows {label} {what} slot {slot} {dtype}",
+                                   leaves, d, slot)
+                        for what, d in (("install", donors), ("zero", None))]
+                print(f"  slot_write_rows {label} L2 {list(shape)} slot {slot} {dtype}: install "
+                      f"and zero exact (max|err| {max(errs):.1e}), other rows unchanged")
+    for dtype in dtypes:
+        for label, shape in SLOT_SHAPES:
+            U = shape[0]
+            leaves = [randn(*shape, dtype=dtype) for _ in range(2)]
+            donors = [randn(U, 1, *shape[2:], dtype=dtype) for _ in range(2)]
+            slab = U * leaves[0][0, 0].numel() * leaves[0].element_size()  # one leaf's row
+
+            def install_lib(leaves=leaves, donors=donors):
+                for big, one in zip(leaves, donors):
+                    big[:, 1].copy_(one[:, 0])
+
+            def zero_lib(leaves=leaves):
+                for big in leaves:
+                    big[:, 1].zero_()
+
+            err = check_slot(f"slot_write_rows {label} install {dtype}", leaves, donors, 1)
+            timed("slot_write_rows", f"{label}-install L2 {list(shape)} slot 1", dtype, err,
+                  lambda: ops.slot_write_rows(leaves, donors, 1),
+                  lambda: ref.slot_write_rows_ref(leaves, donors, 1), install_lib,
+                  2 * 2 * slab, 0)
+            err = check_slot(f"slot_write_rows {label} zero {dtype}", leaves, None, 1)
+            timed("slot_write_rows", f"{label}-zero L2 {list(shape)} slot 1 (no donor)", dtype,
+                  err, lambda: ops.slot_write_rows(leaves, None, 1),
+                  lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib, 2 * slab, 0)
     return rows
 
 
@@ -309,55 +413,105 @@ def greedy_decode(torch, model, params, prompt, n, S_max):
     return t, (m[:, 0] - m[:, 1]).tolist()
 
 
-def count_syncs(torch, sess, prompt, rounds: int):
-    """Host syncs per lockstep round, counted by torch's sync debug mode,
-    and where each was made (the innermost frames of the port's code)."""
-    eng = sess.engine
-    sess.state = eng._prefill_state(sess.tparams, sess.dparams, prompt)
-    torch.cuda.synchronize()
-    where = []
+class SyncCounter:
+    """Counts the host syncs made inside the ``with`` block, as torch's sync
+    debug mode reports them, and where each was made (the innermost frames
+    of the port's code)."""
 
-    def show(message, category, filename, lineno, file=None, line=None):
+    def __init__(self, torch):
+        self.torch, self.where = torch, []
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
         # a sync, not the mode's one-time note ("Synchronization debug mode is
         # a prototype feature and does not yet detect all synchronizing ...")
         if "synchroniz" in str(message) and "prototype" not in str(message):
             frames = [f for f in traceback.extract_stack()[:-1]
                       if os.path.basename(f.filename) != "warnings.py"]
             ours = [f for f in frames if f.filename.startswith(HERE) and f.filename != __file__]
-            where.append(f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} via "
-                         + " <- ".join(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
-                                       for f in reversed(ours[-3:])))
+            self.where.append(f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} via "
+                              + " <- ".join(f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
+                                            for f in reversed(ours[-3:])))
 
-    with warnings.catch_warnings():
+    def __enter__(self):
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
         warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in range(rounds):
-                sess.step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return len(where) / rounds, sorted(set(where))
+        warnings.showwarning = self._show
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._warn.__exit__(*exc)
+        return False
+
+    @property
+    def n(self) -> int:
+        return len(self.where)
+
+
+def count_syncs(torch, sess, prompt, rounds: int):
+    """Host syncs per lockstep round, and where each was made."""
+    eng = sess.engine
+    sess.state = eng._prefill_state(sess.tparams, sess.dparams, prompt)
+    torch.cuda.synchronize()
+    with SyncCounter(torch) as sc:
+        for _ in range(rounds):
+            sess.step()
+    return sc.n / rounds, sorted(set(sc.where))
 
 
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to
     ("tree_attention", "tree_attention"), ("fused_swiglu", "fused_swiglu"),
-    ("kv_move_rows", "kv_move_rows"), ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+    ("kv_move_rows", "kv_move_rows"), ("slot_write_rows", "slot_write_rows"),
+    ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),
 )
 
 
-def trace_rounds(torch, sess, prompt, label: str, tag: str, rounds: int = 2) -> None:
-    """Where a lockstep round's time goes on the card: a torch.profiler
-    trace of ``rounds`` rounds, its kernels summed by layer, and the share of
-    the traced wall time in which no kernel ran.  The trace is written to
+def busy_union(intervals):
+    """Merged [start, end) intervals of one stream's kernels."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def both_streams_busy_us(kernels) -> tuple[float, int]:
+    """Microseconds in which kernels of at least two streams ran at once,
+    and the number of streams seen."""
+    per_stream: dict = {}
+    for e in kernels:
+        per_stream.setdefault(e.get("args", {}).get("stream"), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    edges = []
+    for iv in per_stream.values():
+        for a, b in busy_union(iv):
+            edges += [(a, 1), (b, -1)]
+    both, depth, last = 0.0, 0, None
+    for t, step in sorted(edges):
+        if depth >= 2:
+            both += t - last
+        depth += step
+        last = t
+    return both, len(per_stream)
+
+
+def trace_rounds(torch, sess, setup, label: str, tag: str, rounds: int = 2) -> None:
+    """Where a round's time goes on the card: a torch.profiler trace of
+    ``rounds`` rounds (after ``setup(sess)`` and one warm round), its kernels
+    summed by layer, the share of the traced wall time in which no kernel
+    ran, and — with the async round's two streams — the share in which
+    kernels of both streams ran at once.  The trace is written to
     ``build/traces/trace_<tag>.json`` (its kernels; Perfetto reads it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.obs.clock import monotonic
 
-    eng = sess.engine
-    sess.state = eng._prefill_state(sess.tparams, sess.dparams, prompt)
+    setup(sess)
     sess.step()
     torch.cuda.synchronize()
     path = os.path.join(HERE, "build", "traces", f"trace_{tag}.json")
@@ -385,10 +539,12 @@ def trace_rounds(torch, sess, prompt, label: str, tag: str, rounds: int = 2) -> 
         n, ms = by_layer.get(layer, (0, 0.0))
         by_layer[layer] = (n + 1, ms + e["dur"] / 1e3)
     busy = sum(ms for _, ms in by_layer.values())
-    print(f"{label}: traced {rounds} rounds in {wall_ms:.2f} ms wall, {len(kernels)} kernels, "
-          f"device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}; by layer: "
-          + ", ".join(f"{k} {ms:.3f} ms/{n}" for k, (n, ms) in
-                      sorted(by_layer.items(), key=lambda kv: -kv[1][1])), flush=True)
+    both_us, n_streams = both_streams_busy_us(kernels)
+    print(f"{label}: traced {rounds} rounds in {wall_ms:.2f} ms wall, {len(kernels)} kernels on "
+          f"{n_streams} stream(s), device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
+          f"both streams busy {both_us / 1e3:.3f} ms (share {both_us / 1e3 / wall_ms:.4f}); "
+          "by layer: " + ", ".join(f"{k} {ms:.3f} ms/{n}" for k, (n, ms) in
+                                   sorted(by_layer.items(), key=lambda kv: -kv[1][1])), flush=True)
 
 
 def run_path(torch, label, eng, tp, dp, prompts, refs, card):
@@ -428,16 +584,101 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card):
           f"the greedy decode", flush=True)
     print(f"{label}: host syncs made at {sync_lines}", flush=True)
     print(f"{label}: kernel launches {counts}", flush=True)
-    trace_rounds(torch, sess, prompts[0], label, tag=label.split()[2].strip("()"))
-    missing = [k for k, v in counts.items() if v == 0]
+    trace_rounds(torch, sess, lambda se: setattr(se, "state", eng._prefill_state(
+        tp, dp, prompts[0])), label, tag=label.split()[2].strip("()"))
+    missing = [k for k in MAIN_KERNELS if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the main path: {missing}")
     return counts
 
 
+def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
+    """Serve ``trace`` through ContinuousBatchingRuntime on a wall clock, 2
+    slots, traced; check every output against the greedy decode and the
+    engine's solo ``generate()``, the slot_write_rows launches (4 per
+    request), one host sync per round and the traced draft/verify overlap
+    (0 lockstep, > 0 async).  Returns the launch counts of the run, its
+    SpecStats, and its mean round (ms), tok/s over the wall and TTFT p50 (ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, phase_breakdown
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.serving import ContinuousBatchingRuntime, Request, WallClock
+
+    asyn = eng.cfg.async_rounds
+    tracer = Tracer()
+    rt = ContinuousBatchingRuntime(eng, tp, dp, n_slots=2, clock=WallClock(), tracer=tracer)
+    rt.submit_trace(Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s,
+                            max_new=r.max_new) for r in trace)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    with SyncCounter(torch) as sc:
+        results = rt.run()
+    torch.cuda.synchronize()
+    wall = monotonic() - t0
+    counts = ops.launch_counts()
+    st = rt.stepper.spec_stats
+    summ = rt.stats.summary()
+    bd = phase_breakdown(tracer)
+    toks = sum(len(v) for v in results.values())
+    # a round is its span (dispatch through absorption); the wall also holds
+    # the admissions and the idle waits for arrivals
+    round_ms = sum(sp.dur for sp in tracer.spans("round")) / max(st.rounds, 1) * 1e3
+    admit_ms = sum(sp.dur for sp in tracer.spans("admit_prefill")) * 1e3
+    print(f"{label}: {len(results)} requests served, {toks} tokens, {st.rounds} rounds, mean round "
+          f"{round_ms:.2f} ms, admissions {admit_ms:.1f} ms in all, wall {wall:.2f} s, "
+          f"{toks / wall:.2f} tok/s over the wall, TTFT p50 "
+          f"{summ['ttft_p50_s'] * 1e3:.1f} ms, mean occupancy {summ['mean_occupancy']:.2f}, "
+          f"async rounds {st.spec_rounds}: {st.spec_commits} commits, "
+          f"{st.spec_rounds - st.spec_commits} rollbacks; {sc.n / max(st.rounds, 1):.2f} host "
+          f"syncs per round; overlap_draft_verify {bd['overlap_draft_verify_s'] * 1e3:.2f} ms, "
+          f"draft serialized {bd['draft_serialized_frac']:.3f} of the round (d={eng.cfg.d}) "
+          f"on {card}", flush=True)
+    print(f"{label}: host syncs made at {sorted(set(sc.where))}", flush=True)
+    print(f"{label}: kernel launches {counts}", flush=True)
+    if sorted(results) != [r.rid for r in trace]:
+        fail(f"{label}: served {sorted(results)}, not every request of the trace")
+    sess = eng.session(tp, dp)
+    for r in trace:
+        out = results[r.rid]
+        ref_toks, margins = refs[r.rid]
+        if out != ref_toks[:r.max_new] or len(out) != r.max_new:
+            j = next((p for p, (a, b) in enumerate(zip(out, ref_toks)) if a != b), len(out))
+            fail(f"{label} request {r.rid}: served output diverges from the greedy decode at "
+                 f"position {j} (served {out[j:j + 3]}, greedy {ref_toks[j:j + 3]}); the "
+                 f"target's top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
+        solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
+        if solo[0] != out:
+            fail(f"{label} request {r.rid}: served output differs from the solo generate()")
+    print(f"{label}: every output equals the solo generate() and the greedy decode", flush=True)
+    missing = [k for k in ALL_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"{label}: kernels never launched on the serving path: {missing}")
+    if counts["slot_write_rows"] != 4 * len(trace):
+        fail(f"{label}: slot_write_rows launched {counts['slot_write_rows']} times for "
+             f"{len(trace)} requests, not 4 per request")
+    if sc.n != st.rounds:
+        fail(f"{label}: {sc.n} host syncs in {st.rounds} rounds, not one per round")
+    if asyn != (bd["overlap_draft_verify_s"] > 0.0):
+        fail(f"{label}: overlap_draft_verify_s {bd['overlap_draft_verify_s']} with "
+             f"async_rounds={asyn}")
+    if asyn and st.spec_rounds != st.rounds:
+        fail(f"{label}: {st.spec_rounds} of {st.rounds} rounds took the async path")
+
+    def two_live_rows(se):
+        se.state = eng.init_state(2)
+        for slot in range(2):
+            se.admit_slot(slot, trace[slot].prompt)
+
+    trace_rounds(torch, eng.session(tp, dp), two_live_rows, label, tag=tag)
+    return counts, st, (round_ms, toks / wall, summ["ttft_p50_s"] * 1e3)
+
+
 def phase_serve(torch, card):
+    import dataclasses
+
     from repro_torch.core.engine import SpecConfig, SpecEngine
-    from repro_torch.data import make_request_stream
+    from repro_torch.data import make_request_stream, make_request_trace
     from repro_torch.launch.serve import build_engine, profile_depth
     from repro_torch.obs.clock import monotonic
 
@@ -450,13 +691,48 @@ def phase_serve(torch, card):
     print(profile_depth(eng, tp, dp, 16), flush=True)
     prompts = list(make_request_stream(cfgT.vocab_size, 16, 1, 3))
     refs = [greedy_decode(torch, eng.target, tp, p, eng.cfg.max_new, eng.S_max_t) for p in prompts]
-    counts_a = run_path(torch, "main path (a) 8B+1B", eng, tp, dp, prompts, refs, card)
+    counts = {"a": run_path(torch, "main path (a) 8B+1B", eng, tp, dp, prompts, refs, card)}
     # (b) self-draft, built the way examples/quickstart.py builds it (draft = target)
-    eng_b = SpecEngine(eng.target, eng.target,
-                       SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=48),
-                       S_max_t=512, S_max_d=512)
-    counts_b = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts, refs, card)
-    return counts_a, counts_b
+    cfg_b = SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=48)
+    eng_b = SpecEngine(eng.target, eng.target, cfg_b, S_max_t=512, S_max_d=512)
+    counts["b"] = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts[:2],
+                           refs[:2], card)
+
+    # (c) continuous batching: a Poisson trace at about one request per second,
+    # so that arrivals land mid-round and queue while both slots are busy.  The
+    # engines share build_engine's weights: (c2) is what
+    # build_engine(..., async_rounds=True) builds, without drawing them again.
+    trace = make_request_trace(cfgT.vocab_size, 6, rate_rps=1.0, prompt_len=(8, 16),
+                               max_new=32, seed=0)
+    print(f"serve (c): trace of {len(trace)} requests, arrivals "
+          f"{[round(r.arrival_s, 3) for r in trace]} s, prompts "
+          f"{[int(r.prompt.size) for r in trace]}, max_new 32, 2 slots", flush=True)
+    refs_c = {r.rid: greedy_decode(torch, eng.target, tp, r.prompt.reshape(1, -1), r.max_new,
+                                   eng.S_max_t) for r in trace}
+    runs = [
+        ("c1", "continuous (c1) lockstep 8B+1B", eng, dp),
+        ("c2", "continuous (c2) async 8B+1B",
+         SpecEngine(eng.target, eng.draft, dataclasses.replace(eng.cfg, async_rounds=True),
+                    S_max_t=512, S_max_d=512), dp),
+        ("c3", "continuous (c3) async 8B self-draft",
+         SpecEngine(eng.target, eng.target, dataclasses.replace(cfg_b, async_rounds=True),
+                    S_max_t=512, S_max_d=512), tp),
+        ("c4", "continuous (c4) lockstep 8B self-draft", eng_b, tp),
+    ]
+    perf = {}
+    for tag, label, e, draft_params in runs:
+        counts[tag], st, perf[tag] = serve_continuous(torch, label, tag, e, tp, draft_params,
+                                                      trace, refs_c, card)
+        if tag == "c2" and st.spec_rounds == st.spec_commits:
+            fail(f"{label}: no lookahead rolled back")
+        if tag == "c3" and st.spec_commits == 0:
+            fail(f"{label}: no lookahead committed")
+    for asyn, lock in (("c2", "c1"), ("c3", "c4")):  # async against its lockstep twin
+        (ra, ta, fa), (rl, tl, fl) = perf[asyn], perf[lock]
+        print(f"serve ({asyn}) async against ({lock}) lockstep: mean round {ra:.2f} / {rl:.2f} ms "
+              f"({ra / rl - 1:+.1%}), tok/s {ta:.2f} / {tl:.2f} ({ta / tl - 1:+.1%}), TTFT p50 "
+              f"{fa:.1f} / {fl:.1f} ms on {card}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -484,10 +760,10 @@ def main() -> int:
     rows = phase_kernels(torch, Timer(torch), card)
     counts = phase_serve(torch, card)
     kernels = []
-    for name in ("tree_attention", "fused_swiglu", "kv_move_rows"):
+    for name in ALL_KERNELS:
         r = dict(rows[name])
-        r["launches"] = counts[0][name] + counts[1][name]
-        r["launches_by_run"] = {"a": counts[0][name], "b": counts[1][name]}
+        r["launches"] = sum(c[name] for c in counts.values())
+        r["launches_by_run"] = {run: c[name] for run, c in counts.items()}
         r["card"] = smi
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,29 @@
-"""SpecEngine — tree-based speculative decoding, lockstep round
-(``repro.core.engine``; paper §3.1, Algorithm 1).
+"""SpecEngine — tree-based speculative decoding (``repro.core.engine``;
+paper §3.1, Algorithm 1, Figure 3).
 
-One round (``EngineSession.step``): verify the draft tree on the target and
-walk it greedily, compact the target cache, run ``d`` draft expansions,
+Lockstep round (``EngineSession.step``): verify the draft tree on the target
+and walk it greedily, compact the target cache, run ``d`` draft expansions,
 make the round's one host sync, re-root the tree and move the draft-cache
 rows, fill the prefix KV, grow the tree, select the next verify batch.
 ``mode="serial"`` is the SwiftSpec-base baseline (the d expansions run after
 verification instead of beside it).
 
-Target and draft share one device in this slice; PyTorch's asynchronous
-CUDA launches play the role of JAX's async dispatch — nothing waits for the
-card until the fused ``(emitted, n_emitted, n_acc)`` transfer.  Every cache
-the round touches is written in place (``core/kv.py``).
+Async round (``async_rounds``): ``dispatch_verify`` enqueues the verify,
+``draft_next_tree`` finishes the round's expansions, predicts the accept
+path and drafts round N+1's tree on it, and ``reconcile`` makes the round's
+one host sync, then adopts the lookahead or rolls back to the retained
+snapshot.  On the card the target runs on one CUDA stream and the draft on
+another, both on one device, so the draft's kernels run beside the
+verify's; on the CPU the same code runs with no streams.  A lockstep engine
+runs everything on the caller's current stream.
+
+Continuous batching: ``admit_slot`` prefills one request solo and installs
+its caches into one batch row (``core/kv.py``'s ``install_slot``, one
+``slot_write_rows`` launch per cache), ``release_slot`` zeroes the row.
+
+Every cache a round owns is written in place (``core/kv.py``), except the
+async lookahead's, which re-roots into a fresh cache so that the snapshot
+survives until ``reconcile``.
 
 Greedy-verification invariant: the emitted stream equals target-only greedy
 decoding token for token.
@@ -19,6 +31,7 @@ decoding token for token.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -29,7 +42,7 @@ from repro_torch.core import kv as kvm
 from repro_torch.core import tree as T
 from repro_torch.core.scheduler import ProfileResult
 from repro_torch.obs.clock import monotonic
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.trace import NOOP_SPAN, NULL_TRACER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +56,7 @@ class SpecConfig:
     max_new: int = 64
     eos_id: int = -1  # -1: never stop early
     draft_bypass: bool = False  # straggler mitigation: verify root-only chain
+    async_rounds: bool = False  # pipeline rounds: draft N+1's tree while N verifies
 
 
 @dataclasses.dataclass
@@ -55,6 +69,8 @@ class SpecStats:
     wall_s: float = 0.0
     emitted_rows: np.ndarray | None = None  # i64[B] per-row emitted totals
     accepted_rows: np.ndarray | None = None  # i64[B] per-row accepted totals
+    spec_rounds: int = 0  # rounds run through the async lookahead path
+    spec_commits: int = 0  # of those, rounds whose lookahead tree was adopted
 
     def add_round(self, n_emitted, n_accepted):
         n_emitted = np.asarray(n_emitted, np.int64)
@@ -90,7 +106,8 @@ class SpecStats:
 @dataclasses.dataclass
 class EngineState:
     """Device-side state of one decode batch.  Treat it linearly: a round
-    writes the caches in place and replaces the tree and plan."""
+    writes the caches in place and replaces the tree and plan, and an
+    in-flight async round owns it until ``reconcile``."""
 
     tcache: Any  # target KV cache [U, B, S_max_t, ...]
     dcache: Any  # draft KV cache [U, B, S_max_d, ...]
@@ -105,6 +122,24 @@ class StepResult:
     emitted: np.ndarray  # i32[B, bs+1] verified tokens (accepted + bonus)
     n_emitted: np.ndarray  # i32[B]
     n_accepted: np.ndarray  # i32[B]
+
+
+@dataclasses.dataclass
+class RoundInFlight:
+    """One dispatched, not yet reconciled async round: made by
+    ``dispatch_verify`` + ``draft_next_tree``, consumed once by
+    ``reconcile``.  Every tensor here is device work still in flight;
+    nothing has reached the host."""
+
+    plan: Any  # BatchPlan submitted to verify (post-bypass)
+    tcache: Any  # verify-compacted target cache (right whatever the outcome)
+    verify: tuple  # (acc_pos, n_acc, bonus, emitted, n_emitted)
+    snapshot: tuple | None = None  # (tr, dcache) post-expansion, pre-reroot
+    lookahead: tuple | None = None  # (tr, dcache, plan) drafted for round N+1
+    pred: tuple | None = None  # (acc_pos, n_acc, bonus) predicted outcome
+    pred_ready: Any = None  # CUDA event on the draft stream after ``pred``
+    draft_steps: int = 0
+    verify_span: Any = NOOP_SPAN  # open until the reconcile sync (verify window)
 
 
 def _effective_depth(depth: int | None, default: int) -> int:
@@ -134,6 +169,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _to_device(a, device):
+    """A host int32 array on ``device`` with no host sync: on the card it is
+    copied from pinned memory without blocking."""
+    t = torch.tensor(np.asarray(a, np.int32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class SpecEngine:
     """Tree-based speculative decoding for dense attention models."""
 
@@ -141,9 +185,45 @@ class SpecEngine:
         if target.device != draft.device:
             raise ValueError(f"target ({target.device}) and draft ({draft.device}) share "
                              "one device in this slice")
+        if cfg.async_rounds and cfg.mode != "parallel":
+            raise ValueError(
+                f"async_rounds requires mode='parallel' (got mode={cfg.mode!r}): "
+                "the lookahead pipeline IS the parallel overlap")
         self.target, self.draft, self.cfg = target, draft, cfg
         self.S_max_t, self.S_max_d = S_max_t, S_max_d
         self.device = target.device
+        # async rounds on the card: the target's stream and the draft's
+        self.streams = None
+        if cfg.async_rounds and self.device.type == "cuda":
+            self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
+
+    # ----- streams --------------------------------------------------------------
+    # With streams, all of the engine's device work runs on them: target work
+    # on the first, draft work on the second.  Tensors cross between them at
+    # three points only, each ordered by a wait: the plan (draft -> target, at
+    # dispatch), the prediction (draft -> target, at the reconcile transfer)
+    # and the verify outcome (target -> draft, on rollback, which also marks
+    # those tensors as used by the draft stream for the caching allocator).
+    def _target(self):
+        return torch.cuda.stream(self.streams[0]) if self.streams else contextlib.nullcontext()
+
+    def _draft(self):
+        return torch.cuda.stream(self.streams[1]) if self.streams else contextlib.nullcontext()
+
+    def _fork(self) -> None:
+        """Order both streams after the caller's work so far (weights drawn,
+        anything the caller enqueued)."""
+        if self.streams:
+            cur = torch.cuda.current_stream(self.device)
+            for st in self.streams:
+                st.wait_stream(cur)
+
+    def _join(self) -> None:
+        """Order the caller's stream after both engine streams."""
+        if self.streams:
+            cur = torch.cuda.current_stream(self.device)
+            for st in self.streams:
+                cur.wait_stream(st)
 
     # ----- draft-side steps ---------------------------------------------------
     def _expand(self, dparams, tr, dcache):
@@ -162,6 +242,15 @@ class SpecEngine:
     def _kv_move(self, dcache, src, dst, mask):
         dcache = kvm.apply_moves(dcache, src, dst, mask, donate=True)
         return kvm.set_length(dcache, 0)  # length bookkeeping via tree.plen
+
+    def _spec_kv_move(self, dcache, src, dst, mask):
+        """The lookahead's move: a fresh cache, ``dcache`` (the rollback
+        snapshot) left as it was."""
+        dcache = kvm.apply_moves(dcache, src, dst, mask, donate=False)
+        return kvm.set_length(dcache, 0)
+
+    def _predict(self, tr, node_ids, parent_pos, valid):
+        return T.predict_accept(tr, node_ids, parent_pos, valid)
 
     def _fill(self, dparams, dcache, fill):
         """Forward the accepted-but-unexpanded tokens into their prefix rows
@@ -209,18 +298,41 @@ class SpecEngine:
         """Whole-batch prefill + tree seed + initial growth."""
         c = self.cfg
         B, P = prompt.shape
-        dlogits, dcache = self.draft.prefill(dparams, prompt, S_max=self.S_max_d)
-        _, tcache = self.target.prefill(tparams, prompt, S_max=self.S_max_t)
-        tr = T.init_tree(c.n_cap, B, self.device)
-        root_tok = torch.as_tensor(prompt[:, -1], dtype=torch.int32, device=self.device)
-        tr = T.seed_root(tr, root_tok, P, dlogits[:, -1, :], c.c)
-        for _ in range(self.grow_per_round):
-            tr, dcache = self._expand(dparams, tr, dcache)
-        return EngineState(tcache, dcache, tr, self._select_plan(tr))
+        self._fork()
+        with self._draft():
+            tokens = _to_device(prompt, self.device)
+            dlogits, dcache = self.draft.prefill(dparams, tokens, S_max=self.S_max_d)
+            tr = T.init_tree(c.n_cap, B, self.device)
+            tr = T.seed_root(tr, tokens[:, -1], P, dlogits[:, -1, :], c.c)
+            for _ in range(self.grow_per_round):
+                tr, dcache = self._expand(dparams, tr, dcache)
+            plan = self._select_plan(tr)
+        with self._target():
+            _, tcache = self.target.prefill(tparams, _to_device(prompt, self.device),
+                                            S_max=self.S_max_t)
+        return EngineState(tcache, dcache, tr, plan)
+
+    def init_state(self, B: int) -> EngineState:
+        """Empty B-slot serving state: zero caches, parked (invalid) trees.
+        Parked rows are inert: their plans hold no valid node, so verify
+        writes nothing for them and expansion skips them; the runtime
+        discards whatever they "emit"."""
+        self._fork()
+        with self._target():
+            tcache = self.target.init_cache(B, self.S_max_t)
+        with self._draft():
+            dcache = self.draft.init_cache(B, self.S_max_d)
+            tr = T.init_tree(self.cfg.n_cap, B, self.device)
+            plan = self._select_plan(tr)
+        return EngineState(tcache, dcache, tr, plan)
 
     def session(self, tparams, dparams, *, state: EngineState | None = None,
-                tracer=None, track: str = "engine") -> "EngineSession":
-        """Bind params (+ optional state and tracer) into an ``EngineSession``."""
+                n_slots: int | None = None, tracer=None,
+                track: str = "engine") -> "EngineSession":
+        """Bind params (+ optional state and tracer) into an ``EngineSession``;
+        ``n_slots`` starts it from an empty parked serving state."""
+        if state is None and n_slots is not None:
+            state = self.init_state(n_slots)
         return EngineSession(engine=self, tparams=tparams, dparams=dparams, state=state,
                              tracer=tracer if tracer is not None else NULL_TRACER, track=track)
 
@@ -228,6 +340,7 @@ class SpecEngine:
         """Paper §5.5 profile pass: wall-time one draft expansion and one
         target verification (+ compaction), each warmed first."""
         state = self._prefill_state(tparams, dparams, prompt)
+        self._join()  # the passes below run on the caller's stream
         tr, dcache, tcache, plan = state.tr, state.dcache, state.tcache, state.plan
 
         def draft_once():
@@ -269,7 +382,20 @@ class SpecEngine:
 @dataclasses.dataclass
 class EngineSession:
     """Params + state + tracer bound into one decode session — the round
-    API (``res = session.step()``; ``session.generate(prompt)``)."""
+    API.
+
+    Lockstep (``async_rounds=False``)::
+
+        res = session.step()          # verify, expand, sync, reroot/grow
+
+    Pipelined (``async_rounds=True``)::
+
+        rif = session.begin_round()   # dispatch_verify + draft_next_tree
+        res = session.reconcile(rif)  # sync, adopt lookahead or roll back
+
+    Between ``begin_round`` and ``reconcile`` the round owns the state:
+    ``admit_slot``/``release_slot``/``step``/``dispatch_verify`` raise until
+    it is reconciled."""
 
     engine: SpecEngine
     tparams: Any
@@ -277,15 +403,70 @@ class EngineSession:
     state: EngineState | None = None
     tracer: Any = NULL_TRACER
     track: str = "engine"
+    _inflight: RoundInFlight | None = dataclasses.field(default=None, repr=False)
 
+    # ------------------------------------------------------------------
+    # slot lifecycle
+    # ------------------------------------------------------------------
+    def admit_slot(self, slot: int, prompt) -> None:
+        """Admit one request into batch row ``slot``: prefill it solo
+        ([1, P], the numerics of a solo generate() start), install its cache
+        rows into row ``slot`` of both serving caches, re-seed its tree row
+        and grow and re-plan the batch.  Other rows keep their caches and
+        trees (they may gain draft expansions, which never changes emitted
+        tokens).  ``slot`` and ``P`` are host ints: nothing waits for the
+        card."""
+        self._check_quiescent("admit_slot")
+        eng, state, c = self.engine, self.state, self.engine.cfg
+        prompt = np.asarray(prompt, np.int32).reshape(1, -1)
+        P = prompt.shape[1]
+        eng._fork()
+        with eng._draft():
+            dlogits, dcache1 = eng.draft.prefill(self.dparams, _to_device(prompt, eng.device),
+                                                 S_max=eng.S_max_d)
+        with eng._target():
+            _, tcache1 = eng.target.prefill(self.tparams, _to_device(prompt, eng.device),
+                                            S_max=eng.S_max_t)
+            tcache = kvm.install_slot(state.tcache, tcache1, slot)
+        with eng._draft():
+            dcache = kvm.install_slot(state.dcache, dcache1, slot)
+            tr = T.seed_slot(state.tr, slot, int(prompt[0, -1]), P, dlogits[0, -1, :], c.c)
+            for _ in range(eng.grow_per_round):
+                tr, dcache = eng._expand(self.dparams, tr, dcache)
+            plan = eng._select_plan(tr)
+        self.state = EngineState(tcache, dcache, tr, plan)
+
+    def release_slot(self, slot: int) -> None:
+        """Retire batch row ``slot``: park its tree row and zero its KV rows
+        in both caches, so nothing leaks into the next occupant."""
+        self._check_quiescent("release_slot")
+        eng, state = self.engine, self.state
+        eng._fork()
+        with eng._target():
+            tcache = kvm.zero_slot(state.tcache, slot)
+        with eng._draft():
+            dcache = kvm.zero_slot(state.dcache, slot)
+            tr = T.reset_slot(state.tr, slot)
+            plan = eng._select_plan(tr)
+        self.state = EngineState(tcache, dcache, tr, plan)
+
+    # ------------------------------------------------------------------
+    # the round, lockstep
+    # ------------------------------------------------------------------
     def step(self, stats: SpecStats | None = None, depth: int | None = None) -> StepResult:
-        """One lockstep round for every batch row.  ``depth``: this round's
-        draft depth as a host loop count (None: the config's ``d``).
+        """One round for every batch row.  ``depth``: this round's draft
+        depth as a host loop count (None: the config's ``d``).  With
+        ``async_rounds`` this is the degenerate pipeline (``begin_round``
+        then ``reconcile`` at once: the same tokens); the serving runtime
+        splits the two calls.
 
         Records the reference's phase spans (verify_dispatch / kv_move /
         draft_expand / sync_emitted / reroot_grow) on ``track``.  The span
         times are host enqueue times except ``sync_emitted``, which waits
         for the card."""
+        if self.engine.cfg.async_rounds:
+            return self.reconcile(self.begin_round(depth=depth), stats=stats)
+        self._check_quiescent("step")
         eng, obs, track = self.engine, self.tracer, self.track
         c, state = eng.cfg, self.state
         d_eff = _effective_depth(depth, c.d)
@@ -327,6 +508,128 @@ class EngineSession:
             stats.draft_steps += draft_steps
         return StepResult(emitted_h, n_emitted_h, n_acc_h)
 
+    # ------------------------------------------------------------------
+    # the round, disaggregated (async_rounds)
+    # ------------------------------------------------------------------
+    def begin_round(self, depth: int | None = None) -> RoundInFlight:
+        """Dispatch one full round without a host sync: verify on the
+        target's stream, then the speculative next-round draft on the
+        draft's.  ``depth``: this round's draft depth (see ``step``)."""
+        return self.draft_next_tree(self.dispatch_verify(), depth=depth)
+
+    def dispatch_verify(self) -> RoundInFlight:
+        """Enqueue this round's verification and compaction.  The
+        ``verify_dispatch`` span stays open until the reconcile sync, so on
+        the trace it is the verify window and its overlap with
+        ``draft_lookahead`` can be read off."""
+        self._check_quiescent("dispatch_verify")
+        eng, state = self.engine, self.state
+        eng._fork()
+        with eng._draft():  # plan preparation is draft-side work
+            plan = eng._bypass(state.plan) if eng.cfg.draft_bypass else state.plan
+        if eng.streams:  # the plan was built on the draft stream
+            eng.streams[0].wait_stream(eng.streams[1])
+        span = self.tracer.begin("verify_dispatch", self.track)
+        with eng._target():
+            acc_pos, n_acc, bonus, emitted, n_emitted, tcache, mv = eng._verify(
+                self.tparams, state.tcache, plan)
+            with self.tracer.span("kv_move", self.track):
+                tcache = eng._compact(tcache, *mv)
+        rif = RoundInFlight(plan=plan, tcache=tcache,
+                            verify=(acc_pos, n_acc, bonus, emitted, n_emitted),
+                            verify_span=span)
+        self._inflight = rif
+        return rif
+
+    def draft_next_tree(self, rif: RoundInFlight, depth: int | None = None) -> RoundInFlight:
+        """While verify runs: finish this round's ``depth`` expansions,
+        predict the accept path (``tree.predict_accept``) and draft round
+        N+1's tree on the predicted seed.  The post-expansion (tr, dcache)
+        is kept as the rollback snapshot: the speculative re-root moves rows
+        into a fresh cache, and the fill and regrowth write only that one."""
+        eng, c = self.engine, self.engine.cfg
+        d_eff = _effective_depth(depth, c.d)
+        tr, dcache = self.state.tr, self.state.dcache
+        with self.tracer.span("draft_lookahead", self.track), eng._draft():
+            for _ in range(d_eff):
+                tr, dcache = eng._expand(self.dparams, tr, dcache)
+            rif.draft_steps += d_eff
+            rif.snapshot = (tr, dcache)  # post-expansion, pre-reroot: the rollback point
+            rif.pred = eng._predict(tr, rif.plan.node_ids, rif.plan.parent_pos, rif.plan.valid)
+            if eng.streams:
+                rif.pred_ready = torch.cuda.Event()
+                rif.pred_ready.record(eng.streams[1])
+            la_tr, move, fillp = T.reroot(tr, rif.plan.node_ids, *rif.pred)
+            with self.tracer.span("kv_move", self.track):
+                la_dcache = eng._spec_kv_move(dcache, move.src, move.dst, move.mask)
+            la_dcache = eng._fill(self.dparams, la_dcache, fillp)
+            for _ in range(eng.grow_per_round):
+                la_tr, la_dcache = eng._expand(self.dparams, la_tr, la_dcache)
+            rif.draft_steps += eng.grow_per_round
+            rif.lookahead = (la_tr, la_dcache, eng._select_plan(la_tr))
+        return rif
+
+    def reconcile(self, rif: RoundInFlight, stats: SpecStats | None = None,
+                  live=None) -> StepResult:
+        """Make the round's one host sync and resolve the speculation: adopt
+        the lookahead when the predicted accept path held for every live
+        row, else roll back to the snapshot and re-root on the actual path
+        (the lockstep tail, one round late).  ``live``: optional bool[B]
+        occupancy — mismatches on parked rows are ignored.  Emitted tokens
+        always come from the actual verify, so both branches emit the
+        lockstep bytes."""
+        eng, obs, track = self.engine, self.tracer, self.track
+        acc_pos, n_acc, bonus, emitted, n_emitted = rif.verify
+        pred_acc, pred_n, pred_bonus = rif.pred
+        B, bs1 = emitted.shape
+        bs = bs1 - 1
+        with obs.span("sync_emitted", track), eng._target():
+            if rif.pred_ready is not None:
+                eng.streams[0].wait_event(rif.pred_ready)
+            # the round's ONE designated host sync: verified tokens and the
+            # prediction cross in a single fused transfer
+            host = torch.cat([emitted, n_emitted[:, None], n_acc[:, None], acc_pos,
+                              bonus[:, None], pred_acc, pred_n[:, None], pred_bonus[:, None]],
+                             dim=1).cpu().numpy()
+        rif.verify_span.end()
+        cols = np.cumsum([0, bs1, 1, 1, bs, 1, bs, 1, 1])
+        (emitted_h, n_emitted_h, n_acc_h, acc_h, bonus_h, pred_acc_h, pred_n_h,
+         pred_bonus_h) = (host[:, a:b] for a, b in zip(cols[:-1], cols[1:]))
+        n_emitted_h, n_acc_h = n_emitted_h[:, 0], n_acc_h[:, 0]
+        ok = ((pred_n_h[:, 0] == n_acc_h) & (pred_bonus_h[:, 0] == bonus_h[:, 0])
+              & (pred_acc_h == acc_h).all(axis=1))
+        if live is not None:
+            ok = ok | ~np.asarray(live, bool)
+        draft_steps = rif.draft_steps
+        if ok.all():
+            # the seed held for every live row: round N+1's tree is drafted
+            tr, dcache, new_plan = rif.lookahead
+            if stats is not None:
+                stats.spec_commits += 1
+        else:
+            if eng.streams:  # the draft stream reads the verify outcome
+                eng.streams[1].wait_stream(eng.streams[0])
+                for t in (acc_pos, n_acc, bonus):
+                    t.record_stream(eng.streams[1])
+            with obs.span("reconcile", track), eng._draft():
+                tr, dcache = rif.snapshot
+                tr, move, fillp = T.reroot(tr, rif.plan.node_ids, acc_pos, n_acc, bonus)
+                with obs.span("kv_move", track):
+                    # the actual-path move consumes the snapshot, in place
+                    dcache = eng._kv_move(dcache, move.src, move.dst, move.mask)
+                dcache = eng._fill(self.dparams, dcache, fillp)
+                for _ in range(eng.grow_per_round):
+                    tr, dcache = eng._expand(self.dparams, tr, dcache)
+                draft_steps += eng.grow_per_round
+                new_plan = eng._select_plan(tr)
+        self.state = EngineState(rif.tcache, dcache, tr, new_plan)
+        self._inflight = None
+        if stats is not None:
+            stats.spec_rounds += 1
+            stats.add_round(n_emitted_h, n_acc_h)
+            stats.draft_steps += draft_steps
+        return StepResult(emitted_h, n_emitted_h, n_acc_h)
+
     def generate(self, prompt, max_new=None):
         """prompt: np.ndarray [B, P] int32.  Returns (tokens [B, <=max_new]
         list, stats).  Rebuilds the session state from a whole-batch prefill
@@ -355,3 +658,10 @@ class EngineSession:
 
         stats.wall_s = monotonic() - t0
         return out, stats
+
+    def _check_quiescent(self, what: str) -> None:
+        if self._inflight is not None:
+            raise RuntimeError(
+                f"EngineSession.{what} called with a round in flight; "
+                "reconcile() the outstanding RoundInFlight first — the round "
+                "owns the session state until then")

@@ -14,9 +14,19 @@ cache it touches — the reference donates all of them — so the port writes
 them in place: model forwards write new K/V rows into the cache, and
 ``apply_moves(..., donate=True)`` moves rows in place on the card.  The
 reference's snapshot rule (``repro/core/kv.py:17-27``: never mutate a cache
-that a caller may still hold) binds the async round, a later slice: its
-speculative re-root must use ``donate=False``, which writes a fresh cache
-and leaves the retained pre-reroot snapshot untouched.
+that a caller may still hold) binds the async round: its speculative
+re-root uses ``donate=False``, which writes a fresh cache, and the fill and
+regrowth that follow write only that fresh cache, so the retained
+pre-reroot snapshot stays as it was until ``reconcile`` decides.
+
+Slot lifecycle (continuous batching).  ``install_slot`` copies a solo
+prefill cache into one batch row of a serving cache and ``zero_slot``
+clears a retired row.  Both touch every leaf of ``groups`` and leave
+``len`` alone (per-row lengths live in the tree), and both are one
+``slot_write_rows`` call for the whole cache: on the card one kernel
+launch, in place; on the CPU the plain version, which returns fresh
+tensors.  A leaf that breaks the kernel's contract raises; nothing falls
+back leaf by leaf.
 """
 
 from __future__ import annotations
@@ -48,3 +58,42 @@ def apply_moves(cache, src, dst, mask, *, donate: bool = False):
 
 def set_length(cache, new_len):
     return {**cache, "len": int(new_len)}
+
+
+def _flatten(groups) -> list:
+    """The tensor leaves of a cache's ``groups`` in a fixed order."""
+    if isinstance(groups, dict):
+        return [x for k in sorted(groups) for x in _flatten(groups[k])]
+    if isinstance(groups, (list, tuple)):
+        return [x for g in groups for x in _flatten(g)]
+    return [groups]
+
+
+def _unflatten(groups, leaves):
+    """``groups`` rebuilt with its leaves taken in order from ``leaves``."""
+    if isinstance(groups, dict):
+        return {k: _unflatten(groups[k], leaves) for k in sorted(groups)}
+    if isinstance(groups, (list, tuple)):
+        return type(groups)(_unflatten(g, leaves) for g in groups)
+    return next(leaves)
+
+
+def _write_slot_rows(cache, donor, slot: int):
+    """Shared install/zero body: donor row 0 (zeros when ``donor`` is None)
+    into batch row ``slot`` of every ``groups`` leaf, in one call."""
+    leaves = _flatten(cache["groups"])
+    donor_leaves = None if donor is None else _flatten(donor["groups"])
+    out = ops.slot_write_rows(leaves, donor_leaves, slot)
+    return {"len": cache["len"], "groups": _unflatten(cache["groups"], iter(out))}
+
+
+def install_slot(cache, src, slot: int):
+    """Copy batch row 0 of single-request cache ``src`` into batch row
+    ``slot`` of ``cache`` (in place on the card)."""
+    return _write_slot_rows(cache, src, slot)
+
+
+def zero_slot(cache, slot: int):
+    """Zero batch row ``slot`` of every cache leaf, so a recycled slot
+    starts from clean state (in place on the card)."""
+    return _write_slot_rows(cache, None, slot)

@@ -166,6 +166,48 @@ def seed_root(tree: Tree, token, plen, root_logits, c: int) -> Tree:
 
 
 # -----------------------------------------------------------------------------
+# per-slot lifecycle (continuous batching)
+# -----------------------------------------------------------------------------
+# Admission and retirement rewrite exactly one batch row of the tree and
+# leave the other rows as they were.  ``slot`` is a host int; ``token`` and
+# ``plen`` may be host ints or device scalars — a host int becomes a filled
+# tensor, never a copy from the host, so no host sync is made.
+
+
+def _row_scalar(x, device):
+    if isinstance(x, torch.Tensor):
+        return _i32(x.reshape(1))
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)
+
+
+def _set_row(tree: Tree, slot: int, one: Tree) -> Tree:
+    """``tree`` with batch row ``slot`` replaced by ``one``'s only row."""
+
+    def put(full, row):
+        out = full.clone()
+        out[slot] = row[0]
+        return out
+
+    return Tree(*(put(f, r) for f, r in zip(tree, one)))
+
+
+def seed_slot(tree: Tree, slot: int, token, plen, root_logits, c: int) -> Tree:
+    """Re-seed batch row ``slot`` for a newly admitted request (root = last
+    prompt token at prefix row ``plen - 1``); root_logits [V]."""
+    N = tree.tokens.shape[1]
+    dev = tree.tokens.device
+    fresh = seed_root(init_tree(N, 1, dev), _row_scalar(token, dev), _row_scalar(plen, dev),
+                      root_logits[None], c)
+    return _set_row(tree, slot, fresh)
+
+
+def reset_slot(tree: Tree, slot: int) -> Tree:
+    """Park batch row ``slot``: the empty init_tree row (no valid node), so
+    expansion and verification skip it until its next admission."""
+    return _set_row(tree, slot, init_tree(tree.tokens.shape[1], 1, tree.tokens.device))
+
+
+# -----------------------------------------------------------------------------
 # ancestors / masks
 # -----------------------------------------------------------------------------
 
@@ -351,6 +393,40 @@ def verify_walk(plan_tokens, plan_parent_pos, plan_valid, argmax_tokens):
     emitted = _i32(torch.where(_ar(bs + 1, dev)[None, :] < n_acc[:, None], base, -1))
     emitted.scatter_(1, n_acc[:, None], bonus[:, None])
     return acc, _i32(n_acc), bonus, emitted, _i32(n_acc + 1)
+
+
+def predict_accept(tree: Tree, plan_node_ids, plan_parent_pos, plan_valid):
+    """The draft's guess at ``verify_walk``'s outcome, from the tree alone
+    (the async lookahead bets on it before the target's tokens exist).
+
+    The walk takes the first plan slot whose parent is the current node
+    (``select_batch`` orders slots by a stable weight sort, so that is the
+    most probable child) and ends when the current node has no child in
+    the plan; there is no token check.  The predicted bonus is the
+    lowest-indexed (most probable) child of the last node in the full
+    tree, or -1 when it has none — a value no real bonus takes.  The walk
+    is a loop of ``bs`` steps on tensors, with no host sync.
+
+    Returns (acc i32[B, bs] predicted slots (-1 pad), n_acc i32[B],
+    bonus i32[B])."""
+    B, bs = plan_node_ids.shape
+    dev = plan_node_ids.device
+    cur = torch.zeros(B, dtype=torch.int64, device=dev)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    acc = torch.full((B, bs + 1), -1, dtype=torch.int32, device=dev)  # column bs: drop bucket
+    n_acc = torch.zeros(B, dtype=torch.int64, device=dev)
+    for _ in range(bs):
+        is_child = (plan_parent_pos == cur[:, None]) & plan_valid
+        found = is_child.any(1) & alive
+        child = _first_true(is_child)
+        acc.scatter_(1, torch.where(found, n_acc, bs)[:, None], child[:, None])
+        n_acc = n_acc + found
+        cur = torch.where(found, child.long(), cur)
+        alive = alive & found
+    last_node = _take(plan_node_ids, cur[:, None])  # plan slot -> tree node (root if none)
+    is_c = (tree.parent == last_node) & tree.valid
+    bonus = torch.where(is_c.any(1), _take(tree.tokens, _first_true(is_c)[:, None]).squeeze(1), -1)
+    return acc[:, :bs], _i32(n_acc), _i32(bonus)
 
 
 # -----------------------------------------------------------------------------

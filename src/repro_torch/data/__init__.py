@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import make_request_stream
+from repro_torch.data.pipeline import TraceRequest, make_request_stream, make_request_trace
 
-__all__ = ["make_request_stream"]
+__all__ = ["TraceRequest", "make_request_stream", "make_request_trace"]

@@ -22,7 +22,7 @@ from repro_torch.obs.clock import monotonic
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("tree_attention", "fused_swiglu", "kv_moves")
+SOURCES = ("tree_attention", "fused_swiglu", "kv_moves", "slot_write")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,11 @@ SIGNATURES = {
     },
     "fused_swiglu": {"fused_swiglu_launch": [_P] * 4 + [_I] * 4 + [_P]},
     "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},
+    # pointer-table arrays (dst, src, row, U, B), then L, slot, elem_bytes, stream
+    "slot_write": {
+        "slot_write_rows_launch": [_P] * 5 + [_I] * 3 + [_P],
+        "slot_write_rows_max_leaves": [],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,7 +110,8 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def check(name: str, rc: int) -> None:
-    """Raise when a launch function returned a CUDA error code."""
+    """Raise when a launch function of library ``name`` returned a CUDA
+    error code."""
     if rc != 0:
         msg = lib(name).cuda_error_string(rc).decode()
-        raise RuntimeError(f"repro_torch kernel {name}: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"repro_torch kernel library {name}: CUDA error {rc} ({msg})")

@@ -14,13 +14,14 @@ launches on two streams never share a ticket.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"tree_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0}
+LAUNCHES = {"tree_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0, "slot_write_rows": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kernel leaves them zero)
@@ -189,5 +190,70 @@ def kv_move_rows(arr, src, dst, mask, *, donate: bool = False):
         rc = lib.kv_move_rows_launch(arr.data_ptr(), out.data_ptr(), src.data_ptr(),
                                      dst.data_ptr(), mask.data_ptr(), U, B, S, F, M, es, fc,
                                      0 if donate else 1, _stream(arr.device))
-    build.check("kv_move_rows", rc)
+    build.check("kv_moves", rc)
     return out
+
+
+# -----------------------------------------------------------------------------
+# slot lifecycle writes
+# -----------------------------------------------------------------------------
+
+def slot_write_rows(cache_leaves, donor_leaves, slot: int):
+    """Write batch row 0 of every donor leaf into batch row ``slot`` of the
+    matching cache leaf — or zeros, when ``donor_leaves`` is None — for all
+    leaves in one launch.
+
+    cache_leaves[i]: [U_i, B, ...]; donor_leaves[i]: [U_i, 1, ...] of the
+    same dtype and trailing dims; ``slot`` a host int in [0, B).  On the
+    card the leaves are written in place and returned; on the CPU fresh
+    tensors are returned.  A leaf that breaks the contract raises on either
+    device: nothing is copied leaf by leaf on the card."""
+    L = len(cache_leaves)
+    if L == 0 or (donor_leaves is not None and len(donor_leaves) != L):
+        raise ValueError(f"slot_write_rows: leaf lists must be equal and non-empty: {L} vs "
+                         f"{None if donor_leaves is None else len(donor_leaves)}")
+    for i, big in enumerate(cache_leaves):
+        if big.ndim < 2:
+            raise ValueError(f"slot_write_rows: cache leaf {i} {tuple(big.shape)} has no "
+                             "batch axis")
+        if donor_leaves is not None:
+            one = donor_leaves[i]
+            if tuple(one.shape) != (big.shape[0], 1) + tuple(big.shape[2:]):
+                raise ValueError(f"slot_write_rows: donor leaf {i} {tuple(one.shape)} does not "
+                                 f"match cache leaf {tuple(big.shape)}")
+            if one.dtype != big.dtype:
+                raise TypeError(f"slot_write_rows: dtype mismatch in leaf {i}: cache "
+                                f"{big.dtype} vs donor {one.dtype}")
+        if not 0 <= slot < big.shape[1]:
+            raise ValueError(f"slot_write_rows: slot {slot} outside [0, {big.shape[1]})")
+    tensors = list(cache_leaves) + ([] if donor_leaves is None else list(donor_leaves))
+    if not _on_cuda("slot_write_rows", *tensors):
+        return ref.slot_write_rows_ref(cache_leaves, donor_leaves, slot)
+    lib = build.lib("slot_write")
+    max_leaves = lib.slot_write_rows_max_leaves()  # the kernel's pointer table
+    if L > max_leaves:
+        raise ValueError(f"slot_write_rows: {L} leaves, the kernel takes at most {max_leaves}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("slot_write_rows: cache and donor leaves must be contiguous")
+    row_bytes = [math.prod(big.shape[2:]) * big.element_size() for big in cache_leaves]
+    if all(big.numel() == 0 for big in cache_leaves):
+        return list(cache_leaves)  # no leaf holds an element: nothing to launch
+    # rows move as raw bytes: the widest element that every row length and
+    # base pointer allows, 16 bytes at the serving widths
+    es = 16
+    for v in row_bytes + [t.data_ptr() for t in tensors]:
+        es = math.gcd(es, v)  # a divisor of 16: 1, 2, 4, 8 or 16
+    P = ctypes.c_void_p * L
+    dst = P(*(t.data_ptr() for t in cache_leaves))
+    src = P(*((None,) * L if donor_leaves is None else (t.data_ptr() for t in donor_leaves)))
+    rows = (ctypes.c_longlong * L)(*(b // es for b in row_bytes))
+    U = (ctypes.c_int * L)(*(t.shape[0] for t in cache_leaves))
+    B = (ctypes.c_int * L)(*(t.shape[1] for t in cache_leaves))
+    dev = cache_leaves[0].device
+    with torch.cuda.device(dev):
+        LAUNCHES["slot_write_rows"] += 1
+        rc = lib.slot_write_rows_launch(ctypes.addressof(dst), ctypes.addressof(src),
+                                        ctypes.addressof(rows), ctypes.addressof(U),
+                                        ctypes.addressof(B), L, int(slot), es, _stream(dev))
+    build.check("slot_write", rc)
+    return list(cache_leaves)

@@ -59,3 +59,19 @@ def kv_move_rows_ref(arr, src, dst, mask):
     out = torch.cat([flat, flat.new_zeros(U, B, 1, Fw)], dim=2)
     out.scatter_(2, didx[None, :, :, None].expand(U, B, M, Fw), rows)
     return out[:, :, :S].reshape(arr.shape)
+
+
+def slot_write_rows_ref(cache_leaves, donor_leaves, slot):
+    """The slot lifecycle write, leaf by leaf: ``out[:, slot] = donor[:, 0]``
+    for every cache leaf [U, B, ...] and its donor [U, 1, ...], or
+    ``out[:, slot] = 0`` when ``donor_leaves`` is None (zeroing).  Returns
+    new tensors; the inputs are left as they were."""
+    outs = []
+    for i, big in enumerate(cache_leaves):
+        out = big.clone()
+        if donor_leaves is None:
+            out[:, slot] = 0
+        else:
+            out[:, slot] = donor_leaves[i][:, 0]
+        outs.append(out)
+    return outs

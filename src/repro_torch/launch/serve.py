@@ -1,15 +1,25 @@
-"""The port's serving entry point: lockstep speculative decoding end to end.
+"""The port's serving entry point: speculative decoding end to end.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 3 --max-new 48
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --d 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous --async-rounds
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --continuous --d 1
 
 Runs the profile pass (paper §5.5: expansion depth d) unless ``--d`` is
 given, then decodes a deterministic request stream through SpecEngine and
-reports decoding speed and compression ratio per request.  As in the
-reference CLI the models are the smoke configs; ``build_engine(...,
-smoke=False)`` builds the published widths.  Target and draft share one
-device (``--device``, default ``cuda``).  Continuous batching, async rounds
-and replicas come with their own slices and are not accepted yet.
+reports decoding speed and compression ratio per request.  ``--continuous``
+serves a seeded Poisson trace through the continuous-batching runtime
+(``repro_torch.serving``) instead: admissions backfill retiring slots
+mid-flight, per-request telemetry is printed, and every output is checked
+against a solo ``generate()`` run (``--no-verify`` skips it).
+``--async-rounds`` drafts round N+1's tree while round N verifies (target
+and draft on two CUDA streams of one card), ``--adaptive-depth`` and
+``--deadline-s`` turn on the SLO-aware scheduler, ``--trace-out`` /
+``--metrics-out`` record phase spans and metrics.  As in the reference CLI
+the models are the smoke configs; ``build_engine(..., smoke=False)`` builds
+the published widths.  Target and draft share one device (``--device``,
+default ``cuda``); replicas over several cards (``--replicas``,
+``--n-target``, ``--n-draft``) come with the router's slice and are not
+accepted yet.
 """
 
 from __future__ import annotations
@@ -24,13 +34,14 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.engine import SpecConfig, SpecEngine
 from repro_torch.core.scheduler import candidate_depths
-from repro_torch.data import make_request_stream
+from repro_torch.data import make_request_stream, make_request_trace
 from repro_torch.models.api import make_model
 from repro_torch.obs.clock import monotonic
 
 
 def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="parallel",
-                 bs=8, w=4, c=2, d=2, max_new=48, S_max=512, peaked=True, device=None):
+                 bs=8, w=4, c=2, d=2, max_new=48, S_max=512, peaked=True, device=None,
+                 async_rounds=False):
     """Build the serving engine.  Returns (engine, tparams, dparams, cfgT).
 
     Weights are the port's own seeded random init, drawn on ``device``
@@ -48,7 +59,8 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
         # chains are peaked enough for realistic acceptance behaviour
         tp.lm_head.mul_(4.0)
         dp.lm_head.mul_(4.0)
-    cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new)
+    cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new,
+                     async_rounds=async_rounds)
     return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max), tp, dp, cfgT
 
 
@@ -60,6 +72,74 @@ def profile_depth(eng: SpecEngine, tp, dp, prompt_len: int) -> str:
     eng.cfg = dataclasses.replace(eng.cfg, d=d_lo)
     return (f"profile: t_draft={prof.t_draft_s*1e3:.1f}ms t_target={prof.t_target_s*1e3:.1f}ms "
             f"-> d in {{{d_lo},{d_hi}}}, using d={d_lo}")
+
+
+def run_continuous(args, eng: SpecEngine, tp, dp, cfgT) -> dict:
+    """Serve a Poisson trace through the continuous-batching runtime on a
+    wall clock, print the per-request report, and check every output
+    against a solo ``generate()`` (``--no-verify`` skips it; a mismatch
+    raises SystemExit).  With ``--trace-out``/``--metrics-out`` the run is
+    traced and the round breakdown printed.  Returns the results."""
+    from repro_torch.obs import MetricsRegistry, Tracer, breakdown_report, phase_breakdown
+    from repro_torch.serving import (ContinuousBatchingRuntime, Request, RequestQueue,
+                                     SchedulerConfig, WallClock)
+
+    observed = bool(args.trace_out or args.metrics_out)
+    tracer = Tracer() if observed else None
+    metrics = MetricsRegistry() if observed else None
+    scheduler = SchedulerConfig() if args.adaptive_depth else None
+    trace = make_request_trace(
+        cfgT.vocab_size, args.requests, rate_rps=args.rate,
+        prompt_len=(max(4, args.prompt_len // 2), args.prompt_len),
+        max_new=args.max_new, seed=0)
+    rt = ContinuousBatchingRuntime(
+        eng, tp, dp, n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap),
+        clock=WallClock(), tracer=tracer, metrics=metrics, scheduler=scheduler)
+    accepted = rt.submit_trace(
+        Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s, max_new=r.max_new,
+                deadline_s=(r.arrival_s + args.deadline_s) if args.deadline_s else None)
+        for r in trace)
+    print(f"continuous: {accepted}/{len(trace)} requests accepted ({args.slots} slots, "
+          f"Poisson rate {args.rate}/s, queue cap {args.queue_cap}"
+          + (f", deadline {args.deadline_s}s" if args.deadline_s else "")
+          + (", adaptive depth" if scheduler else "")
+          + (", async rounds" if eng.cfg.async_rounds else "") + ")")
+    t0 = monotonic()
+    results = rt.run()
+    wall = monotonic() - t0
+    print(rt.stats.report())
+    total = sum(len(v) for v in results.values())
+    print(f"wall: {total} tokens in {wall:.1f}s ({total / wall:.1f} tok/s); "
+          f"{rt.queue.rejected} shed by admission control")
+    summary = rt.stats.summary()
+    if summary["n_deadlined"]:
+        print(f"SLO: {summary['slo_attainment']:.0%} of {summary['n_deadlined']} "
+              f"deadlined requests met (slack p50 {summary['slack_p50_s']:+.3f}s "
+              f"p10 {summary['slack_p10_s']:+.3f}s)")
+    if observed:
+        bd = phase_breakdown(tracer)
+        print(breakdown_report(bd))
+        if args.trace_out:
+            print(f"trace -> {tracer.write(args.trace_out)}")
+        if args.metrics_out:
+            slo = {k: summary[k] for k in ("n_deadlined", "slo_attainment",
+                                           "slack_p50_s", "slack_p10_s")}
+            path = metrics.write(args.metrics_out, extra={"phase_breakdown": bd, "slo": slo})
+            print(f"metrics -> {path}")
+    if args.verify:
+        sess = eng.session(tp, dp)
+        mismatches = 0
+        for r in trace:
+            if r.rid not in results:
+                continue
+            solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
+            ok = results[r.rid] == solo[0]
+            mismatches += 0 if ok else 1
+            print(f"verify req {r.rid}: "
+                  f"{'byte-identical to solo generate()' if ok else 'MISMATCH'}")
+        if mismatches:
+            raise SystemExit(f"{mismatches} request(s) diverged from solo generate()")
+    return results
 
 
 def main(argv=None):
@@ -74,14 +154,42 @@ def main(argv=None):
     ap.add_argument("--w", type=int, default=4)
     ap.add_argument("--d", type=int, default=0, help="0 = profile-derived")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a Poisson trace through the continuous-batching runtime")
+    ap.add_argument("--async-rounds", action="store_true",
+                    help="draft round N+1's tree on the draft's CUDA stream while round N "
+                         "verifies on the target's (parallel mode only; outputs stay "
+                         "byte-identical to lockstep)")
+    ap.add_argument("--slots", type=int, default=2, help="continuous: engine batch slots")
+    ap.add_argument("--rate", type=float, default=2.0,
+                    help="continuous: Poisson arrival rate (req/s)")
+    ap.add_argument("--queue-cap", type=int, default=64,
+                    help="continuous: admission-control queue cap")
+    ap.add_argument("--adaptive-depth", action="store_true",
+                    help="continuous: per-slot adaptive draft depth (outputs stay "
+                         "byte-identical)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="continuous: per-request finish deadline, seconds after arrival "
+                         "(0 = best-effort); EDF queueing and SLO reporting")
+    ap.add_argument("--no-verify", dest="verify", action="store_false",
+                    help="continuous: skip the byte-identical check against solo generate()")
+    ap.add_argument("--trace-out", default=None,
+                    help="continuous: write phase spans here (.json = Chrome/Perfetto "
+                         "traceEvents, .jsonl = span per line)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="continuous: write the metrics snapshot + phase breakdown here")
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     eng, tp, dp, cfgT = build_engine(
         args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
-        d=args.d or 2, max_new=args.max_new, device=args.device)
+        d=args.d or 2, max_new=args.max_new, device=args.device,
+        async_rounds=args.async_rounds)
     if args.d == 0:
         print(profile_depth(eng, tp, dp, args.prompt_len))
+    if args.continuous:
+        run_continuous(args, eng, tp, dp, cfgT)
+        return
 
     total_toks, total_s = 0, 0.0
     sess = eng.session(tp, dp)

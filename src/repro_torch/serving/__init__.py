@@ -1,0 +1,46 @@
+"""Continuous-batching serving for the port (``repro.serving``).
+
+``ContinuousBatchingRuntime`` serves a request queue through per-slot
+admit / decode / retire lifecycles over one ``SpecEngine`` state, lockstep
+or with async rounds; every output is byte-identical to a solo
+``generate()``.  The queue, scheduler and stats modules are copies of the
+reference's framework-neutral ones; the sharded router is not ported yet.
+
+    rt = ContinuousBatchingRuntime(engine, tparams, dparams, n_slots=4)
+    for i, prompt in enumerate(prompts):
+        rt.submit(Request(rid=i, prompt=prompt, max_new=64))
+    outputs = rt.run()          # {rid: [tokens]}
+    print(rt.stats.report())    # TTFT / tok-s / occupancy / acceptance
+"""
+
+from repro_torch.serving.queue import Request, RequestQueue
+from repro_torch.serving.runtime import (
+    ContinuousBatchingRuntime,
+    EngineStepper,
+    VirtualClock,
+    WallClock,
+)
+from repro_torch.serving.scheduler import AdaptiveDepthController, SchedulerConfig
+from repro_torch.serving.stats import (
+    RequestRecord,
+    ServerStats,
+    fleet_report,
+    merge_summary,
+    percentile,
+)
+
+__all__ = [
+    "AdaptiveDepthController",
+    "ContinuousBatchingRuntime",
+    "EngineStepper",
+    "Request",
+    "RequestQueue",
+    "RequestRecord",
+    "SchedulerConfig",
+    "ServerStats",
+    "VirtualClock",
+    "WallClock",
+    "fleet_report",
+    "merge_summary",
+    "percentile",
+]

@@ -14,7 +14,8 @@ import jax
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")  # the tier-1 CI job installs no torch
+torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
+torch.set_num_threads(2)  # beside the other test workers and the reference's wall-clock gates
 
 from repro.core.engine import SpecConfig as JSpecConfig
 from repro.core.engine import SpecEngine as JSpecEngine
@@ -114,6 +115,6 @@ def test_serve_cli_profiles_depth_and_refuses_later_slices(capsys):
     serve.main(["--device", "cpu", "--requests", "1", "--max-new", "8", "--mode", "serial"])
     out = capsys.readouterr().out
     assert out.startswith("profile: t_draft=") and "(serial mode)" in out
-    for flag in ("--continuous", "--async-rounds", "--replicas"):
+    for flag in ("--replicas", "--n-target", "--n-draft"):  # the router's slice
         with pytest.raises(SystemExit):
-            serve.main(["--device", "cpu", flag])
+            serve.main(["--device", "cpu", flag, "2"])

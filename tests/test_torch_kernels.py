@@ -7,7 +7,7 @@ interpret mode through ``repro.kernels.ops``.  The CUDA kernels themselves
 are held against the same plain versions on the card by ``chip_smoke.py``.
 
 Tolerances: float32 2e-5 (the two sides sum in different orders), bfloat16
-2e-2 (one bf16 rounding of the output), row moves exact.
+2e-2 (one bf16 rounding of the output), row moves and slot writes exact.
 """
 
 import jax.numpy as jnp
@@ -15,10 +15,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
+torch.set_num_threads(2)  # beside the other test workers and the reference's wall-clock gates
 
+import jax
+
+from repro.core import kv as jkv
 from repro.flags import override_flags
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.kv_moves import slot_write_rows_pallas
+from repro_torch.core import kv
 from repro_torch.kernels import ops, ref
 
 TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S), as tests/test_kernels.py
@@ -175,3 +181,86 @@ def test_wrappers_refuse_mixed_and_foreign_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_swiglu(x, torch.zeros(4, 4, device="meta"), torch.zeros(4, 4, device="meta"))
+
+
+# -----------------------------------------------------------------------------
+# slot_write_rows (the continuous-batching slot lifecycle)
+# -----------------------------------------------------------------------------
+
+
+def _slot_case(rng, dtype, B=3):
+    """Two [U, B, S, Hkv, hd] leaves (k and v) and their one-row donors."""
+    big = [rng.normal(size=(2, B, 6, 2, 4)).astype(np.float32) for _ in range(2)]
+    one = [rng.normal(size=(2, 1, 6, 2, 4)).astype(np.float32) for _ in range(2)]
+    return [_pair(a, dtype) for a in big], [_pair(a, dtype) for a in one]
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np32(g), _np32(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slot", [0, 1, 2])
+def test_slot_write_rows_matches_pallas_exactly(dtype, slot):
+    """Install and zero against ``slot_write_rows_pallas`` in interpret mode
+    (zeroing = an all-zeros donor there, no donor here)."""
+    big, one = _slot_case(np.random.default_rng(slot), dtype)
+    jbig, tbig = [j for j, _ in big], [t for _, t in big]
+    jone, tone = [j for j, _ in one], [t for _, t in one]
+    before = [t.clone() for t in tbig]
+    launches = ops.launch_counts()
+    got = ops.slot_write_rows(tbig, tone, slot)
+    assert ops.launch_counts() == launches, "a CPU tensor never launches a kernel"
+    _same(got, slot_write_rows_pallas(jbig, jone, slot, interpret=True))
+    _same(ref.slot_write_rows_ref(tbig, tone, slot), got)
+    jzero = [jnp.zeros_like(j) for j in jone]
+    zeroed = ops.slot_write_rows(tbig, None, slot)
+    _same(zeroed, slot_write_rows_pallas(jbig, jzero, slot, interpret=True))
+    assert all(not z[:, slot].any() for z in zeroed)
+    _same(tbig, before)  # the CPU path returns fresh tensors
+    for g, b in zip(got, before):
+        others = [r for r in range(b.shape[1]) if r != slot]
+        assert torch.equal(g[:, others], b[:, others])
+
+
+@pytest.mark.parametrize("slot", [0, 2])
+def test_install_and_zero_slot_match_the_reference(slot):
+    """The port's ``install_slot``/``zero_slot`` against the reference's with
+    its fused kernel on (interpret mode), on a cache of two layer groups."""
+    rng = np.random.default_rng(10 + slot)
+
+    def caches(B):
+        arrs = [rng.normal(size=(2, B, 5, 2, 3)).astype(np.float32) for _ in range(4)]
+        j = {"len": jnp.zeros((), jnp.int32),
+             "groups": [({"k": jnp.asarray(arrs[0]), "v": jnp.asarray(arrs[1])},),
+                        ({"k": jnp.asarray(arrs[2]), "v": jnp.asarray(arrs[3])},)]}
+        t = {"len": 0, "groups": [({"k": torch.tensor(arrs[0]), "v": torch.tensor(arrs[1])},),
+                                  ({"k": torch.tensor(arrs[2]), "v": torch.tensor(arrs[3])},)]}
+        return j, t
+
+    (jbig, tbig), (jone, tone) = caches(3), caches(1)
+    with override_flags(use_pallas_kv_moves=True, pallas_interpret=True):
+        want_inst = jkv.install_slot(jbig, jone, slot)
+        want_zero = jkv.zero_slot(jbig, slot)
+    for want, got in ((want_inst, kv.install_slot(tbig, tone, slot)),
+                      (want_zero, kv.zero_slot(tbig, slot))):
+        for w, g in zip(jax.tree.leaves(want["groups"]), kv._flatten(got["groups"])):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got["len"] == tbig["len"]
+
+
+def test_slot_write_rows_refuses_leaves_that_break_the_contract():
+    big = [torch.zeros(2, 3, 4)]
+    with pytest.raises(ValueError, match="does not match"):
+        ops.slot_write_rows(big, [torch.zeros(2, 2, 4)], 0)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.slot_write_rows(big, [torch.zeros(2, 1, 4, dtype=torch.bfloat16)], 0)
+    with pytest.raises(ValueError, match="non-empty"):
+        ops.slot_write_rows([], [], 0)
+    with pytest.raises(ValueError, match="equal"):
+        ops.slot_write_rows(big, [], 0)
+    with pytest.raises(ValueError, match="slot 3"):
+        ops.slot_write_rows(big, None, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.slot_write_rows(big, [torch.zeros(2, 1, 4, device="meta")], 0)

@@ -3,9 +3,11 @@ JAX package's single-request functions vmapped over the batch.
 
 Seeded trajectories drive both sides with the same inputs (numpy draws,
 with deliberate equal-weight ties) through seed, expansion, batch
-selection, the greedy walk and the re-root; after every step each field of
-``Tree``, ``BatchPlan``, ``MovePlan`` and ``FillPlan`` must be exactly equal,
-dtype included.
+selection, the async round's accept prediction, the greedy walk and the
+re-root, and through the serving slot lifecycle (re-seed and park one
+row); after every step each field of ``Tree``, ``BatchPlan``, ``MovePlan``
+and ``FillPlan`` and of the prediction must be exactly equal, dtype
+included.
 """
 
 import jax
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
+torch.set_num_threads(2)  # beside the other test workers and the reference's wall-clock gates
 
 from repro.core import tree as JT
 from repro_torch.core import tree as T
@@ -63,6 +66,7 @@ class Pair:
         self.j_insert_children = vm(JT.insert_children)
         self.j_ancestor_matrix = vm(JT.ancestor_matrix)
         self.j_verify_walk = vm(JT.verify_walk)
+        self.j_predict = vm(JT.predict_accept)
         self.j_reroot = vm(JT.reroot)
 
     def expand(self):
@@ -88,6 +92,9 @@ class Pair:
             self.jt)
         plan = T.select_batch(self.t, bs, self.S_max, self.window)
         _assert_same(jplan, plan, "select_batch")
+        _assert_same(self.j_predict(self.jt, jplan.node_ids, jplan.parent_pos, jplan.valid),
+                     T.predict_accept(self.t, plan.node_ids, plan.parent_pos, plan.valid),
+                     "predict_accept")
         # target argmax: mostly a child's token so that paths are accepted
         tok, par, val = (np.asarray(x) for x in (jplan.tokens, jplan.parent_pos, jplan.valid))
         argmax = rng.integers(0, V, size=(B, bs)).astype(np.int32)
@@ -122,6 +129,46 @@ def test_trajectory_matches_reference(seed, n_cap, S_max, window):
         pair.expand()
         accepted += pair.verify_and_reroot(bs=6)
     assert accepted > 0, "the trajectory must exercise accepted paths"
+
+
+def test_slot_lifecycle_matches_reference():
+    """Park and re-seed single rows of a batch in the middle of a
+    trajectory: ``reset_slot`` and ``seed_slot`` equal the reference's on
+    every field, the other rows stay as they were, and the batch runs on."""
+    rng = np.random.default_rng(5)
+    pair = Pair(rng, 24, 96, 0, plen=7)
+    pair.expand()
+    pair.verify_and_reroot(bs=5)
+    j_reset = jax.jit(JT.reset_slot)
+    j_seed = jax.jit(lambda tr, s, tok, pl, lg: JT.seed_slot(tr, s, tok, pl, lg, C))
+    for slot, plen in ((1, 12), (0, 5), (2, 9)):
+        before = pair.t
+        pair.jt, pair.t = j_reset(pair.jt, slot), T.reset_slot(pair.t, slot)
+        _assert_same(pair.jt, pair.t, f"reset_slot {slot}")
+        assert not pair.t.valid[slot].any()
+        others = [b for b in range(B) if b != slot]
+        for f, g in zip(before, pair.t):
+            assert torch.equal(f[others], g[others]), "reset_slot touched another row"
+        logits = -100.0 * rng.integers(2, 4, size=(V,)).astype(np.float32)
+        logits[rng.integers(0, V)] = 0.0
+        tok = int(rng.integers(0, V))
+        pair.jt = j_seed(pair.jt, slot, jnp.asarray(tok, jnp.int32), jnp.asarray(plen, jnp.int32),
+                         jnp.asarray(logits))
+        pair.t = T.seed_slot(pair.t, slot, tok, plen, _t(logits), C)
+        _assert_same(pair.jt, pair.t, f"seed_slot {slot}")
+        pair.expand()
+        pair.verify_and_reroot(bs=5)
+
+
+def test_predict_accept_walks_the_top_chain():
+    """On a chain plan the prediction follows the first child of each node
+    and the bonus is the last node's top child; with no child it is -1."""
+    t = T.seed_root(T.init_tree(8, 1, "cpu"), torch.tensor([3], dtype=torch.int32), 4,
+                    _t(np.array([[0.0] + [-200.0] * (V - 1)], np.float32)), C)
+    plan = T.select_batch(t, 4, 32)
+    acc, n_acc, bonus = T.predict_accept(t, plan.node_ids, plan.parent_pos, plan.valid)
+    assert n_acc.tolist() == [1] and acc[0, 0] == 1  # the root's top child, plan slot 1
+    assert bonus.tolist() == [-1]  # node 1 has no child in the tree
 
 
 def test_top_k_breaks_ties_like_jax():
