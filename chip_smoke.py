@@ -4,19 +4,20 @@
   python3 chip_smoke.py
 
 It takes no options and runs every phase, in order:
-  build    build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
-           (tree_attention, fused_swiglu, kv_move_rows, slot_write_rows, f32
-           and bf16), and time kernel, plain version and the one PyTorch
-           call that computes the same function, where there is one, with
-           CUDA events
-  serve    the main paths at full width, llama3-8b target, f32, bs 8, w 4,
+           (tree_attention, decode_attention — also bit for bit against
+           tree_attention at one query — fused_swiglu, kv_move_rows,
+           slot_write_rows, f32 and bf16), and time kernel, plain version
+           and the one PyTorch call that computes the same function, where
+           there is one, with CUDA events
+  serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
            llama3-1b draft, 3 requests, prompt 16, max_new 48, d from the
            profile pass; (b) self-draft on the same 8B weights, 2 requests —
            then continuous batching through ``ContinuousBatchingRuntime``
-           on a wall clock, 2 slots, a seeded Poisson trace of 6 requests
+           on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
            (prompts 8-16, max_new 32): (c1) lockstep 8B+1B, (c2) async
            rounds 8B+1B (nearly every lookahead rolls back), (c3) async 8B
            self-draft (lookaheads commit), (c4) lockstep 8B self-draft (the
@@ -24,10 +25,26 @@ It takes no options and runs every phase, in order:
            port's own target-only greedy decode (and, in (c), its solo
            ``generate()``); each kernel of a path must have launched in its
            run; each run must make one host sync per round.
+  chain    chain-mode speculation, ``ChainSpecEngine.session().generate()``,
+           k 4, f32, prompt 16, max_new 32, S_max 512: (d3) llama3-8b +
+           llama3-1b on the weights above, parallel, 1 request; then
+           zamba2-2.7b at full width (54 mamba2 layers, the shared attention
+           block every 6), weights seed 0 with the lm_head x4: (d1)
+           self-draft, parallel, 2 requests (every chain commits and the
+           next one is reused); (d2) an independent seed-7 draft of the same
+           config, parallel and serial, 1 request (rollback: the draft
+           recomputes from its pre-round state).  Every output must equal
+           the greedy decode, each chain kernel must have launched, and each
+           request must make one host sync per round and one for its first
+           token.
+  shapes   every shape at which a path called a kernel, held against its
+           plain version again
 
-The last two lines of standard output are the ``kernels`` JSON line and the
-``{"ok": true, "device": ...}`` line; any failure exits non-zero before
-them.  It imports nothing of JAX or of the JAX package.
+Each path prints its launches and a kernel trace of two rounds
+(``build/traces/trace_<path>.json``).  The last two lines of standard output
+are the ``kernels`` JSON line and the ``{"ok": true, "device": ...}`` line;
+any failure exits non-zero before them.  It imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +65,8 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "tree_attention": ("src/repro_torch/kernels/csrc/tree_attention.cu",
                        "src/repro/kernels/tree_attention.py:82"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:76"),
     "fused_swiglu": ("src/repro_torch/kernels/csrc/fused_swiglu.cu",
                      "src/repro/kernels/fused_swiglu.py:44"),
     "kv_move_rows": ("src/repro_torch/kernels/csrc/kv_moves.cu",
@@ -61,6 +80,8 @@ TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     # ... and the slice's: llama3-8b decode / expand / verify, llama3-1b expand / fill
     (1, 1, 32, 8, 128, 512), (1, 4, 32, 8, 128, 512), (1, 8, 32, 8, 128, 512),
     (1, 4, 32, 8, 64, 512), (1, 8, 32, 8, 64, 512),
+    # ... and the chain paths': zamba2 verify (hd 80, G 1)
+    (1, 4, 32, 32, 80, 512),
 ]
 TREE_SERVE_SHAPES = [  # phase (c)'s 2-slot rounds: 8B verify / expand, 1B expand / fill;
     # batch row 1 is checked once with random rows and once parked (every query masked)
@@ -68,6 +89,13 @@ TREE_SERVE_SHAPES = [  # phase (c)'s 2-slot rounds: 8B verify / expand, 1B expan
     (2, 8, 32, 8, 64, 512),
 ]
 PREFIX = 48  # prefix rows of the timed masks: prompt 16 + 32 tokens emitted
+DECODE_SHAPES = [  # (B, Hq, Hkv, hd, S): tests/test_torch_kernels.py's, hd 64/80/128, G 1/4 ...
+    (2, 8, 2, 64, 160), (2, 4, 4, 80, 200), (1, 16, 4, 128, 96), (3, 4, 4, 64, 100),
+]
+DECODE_TIMED = [  # ... and the paths': decode_step of llama3-8b, llama3-1b, zamba2-2.7b
+    ("8B-decode", (1, 32, 8, 128, 512)), ("1B-decode", (1, 32, 8, 64, 512)),
+    ("zamba2-decode", (1, 32, 32, 80, 512)),
+]
 TREE_TIMED = [  # the main path's calls of tree_attention
     ("8B-verify", (1, 8, 32, 8, 128, 512)), ("8B-expand", (1, 4, 32, 8, 128, 512)),
     ("1B-expand", (1, 4, 32, 8, 64, 512)), ("1B-fill", (1, 8, 32, 8, 64, 512)),
@@ -76,6 +104,8 @@ SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
     ("8B-verify", (8, 4096, 14336)), ("8B-decode", (1, 4096, 14336)),
     ("8B-expand", (4, 4096, 14336)), ("8B-prefill", (16, 4096, 14336)),
     ("1B-expand", (4, 2048, 8192)), ("1B-fill", (8, 2048, 8192)), ("1B-prefill", (16, 2048, 8192)),
+    ("1B-decode", (1, 2048, 8192)), ("zamba2-decode", (1, 2560, 10240)),
+    ("zamba2-verify", (4, 2560, 10240)), ("zamba2-prefill", (16, 2560, 10240)),
 ]
 SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill")
 KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
@@ -85,11 +115,28 @@ SLOT_SHAPES = [  # the serving caches' leaf shapes (k and v: L 2) [U, B, S, Hkv,
     ("8B", (32, 2, 512, 8, 128)), ("1B", (16, 2, 512, 8, 64)),
 ]
 MAIN_KERNELS = ("tree_attention", "fused_swiglu", "kv_move_rows")  # launched by generate()
-ALL_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
+SERVE_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
+CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu")  # by the chain engine
+ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
+               "slot_write_rows")
+CHAIN_K, CHAIN_NEW = 4, 32  # chain length and new tokens per request of phase (d)
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+_CLOCK: list = []  # monotonic times: the script's start, then the end of each phase
+
+
+def timing(phase: str) -> None:
+    """Print the seconds since the last phase ended and since the start."""
+    from repro_torch.obs.clock import monotonic
+
+    now = monotonic()
+    print(f"phase {phase}: {now - _CLOCK[-1]:.1f} s (script so far {now - _CLOCK[0]:.1f} s)",
+          flush=True)
+    _CLOCK.append(now)
 
 
 # -----------------------------------------------------------------------------
@@ -193,7 +240,8 @@ def phase_kernels(torch, timer, card):
               f"on {card}", flush=True)
         rows.setdefault(name, row)
 
-    print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; kv_move exact):")
+    print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; kv_move exact; decode_attention "
+          "bit for bit against tree_attention at n=1):")
 
     # --- tree_attention --------------------------------------------------------
     cases = [(shape, False) for shape in TREE_SHAPES] + \
@@ -239,6 +287,57 @@ def phase_kernels(torch, timer, card):
                   lambda: torch.nn.functional.scaled_dot_product_attention(
                       qt, kt, vt, attn_mask=mt, enable_gqa=True),
                   nbytes, 4 * hd * hq * int(mask.sum()))
+
+    # --- decode_attention ---------------------------------------------------------
+    # every case: per-row lengths from {0, 1, S/2 + 3, S} (each in every row
+    # position), and the host-int length the main path passes; the result
+    # must agree with the plain version and equal tree_attention at n = 1
+    # under the mask cols < length bit for bit
+    for dtype in dtypes:
+        for B, hq, hkv, hd, S in DECODE_SHAPES + [shape for _, shape in DECODE_TIMED]:
+            q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
+                randn(B, S, hkv, hd, dtype=dtype)
+            errs = []
+            for i in range(4):
+                lens = torch.tensor([[0, 1, S // 2 + 3, S][(i + b) % 4] for b in range(B)],
+                                    dtype=torch.int32, device="cuda")
+                got = ops.decode_attention(q, k, v, lens)
+                mask = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                tree = ops.tree_attention(q[:, None], k, v, mask[:, None])[:, 0]
+                want = ref.decode_attention_ref(q, k, v, lens)
+                torch.cuda.synchronize()
+                name = f"decode_attention {(B, hq, hkv, hd, S)} lengths {lens.tolist()} {dtype}"
+                errs.append(check_close(name, got, want, dtype))
+                if not torch.equal(got, tree):
+                    fail(f"{name}: differs from tree_attention at n=1 by "
+                         f"{max_err(got, tree):.3e} (must be bit for bit)")
+                if bool((got[lens == 0] != 0).any()):
+                    fail(f"{name}: a row of length 0 is not 0")
+                L = int(lens[0])
+                if not torch.equal(ops.decode_attention(q, k, v, L),
+                                   ops.decode_attention(q, k, v, lens.new_full((B,), L))):
+                    fail(f"{name}: the host-int length {L} differs from the same length per row")
+            print(f"  decode_attention B{B} Hq{hq} Hkv{hkv} hd{hd} S{S} {dtype}: lengths 0, 1, "
+                  f"{S // 2 + 3}, {S} in every row, max|err| {max(errs):.2e}, bit for bit equal "
+                  "to tree_attention at n=1")
+    print(f"  decode_attention: every case above bit for bit equal to tree_attention at n=1, "
+          f"f32 and bf16, on {card}")
+    for dtype in dtypes:  # times at a decode step mid-request (length PREFIX)
+        for label, (B, hq, hkv, hd, S) in DECODE_TIMED:
+            q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
+                randn(B, S, hkv, hd, dtype=dtype)
+            L = PREFIX
+            lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+            err = check_close(f"decode_attention {label} {dtype}", ops.decode_attention(q, k, v, L),
+                              ref.decode_attention_ref(q, k, v, lens), dtype)
+            es = q.element_size()
+            kt, vt = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+            timed("decode_attention", f"{label} L{L} B{B} Hq{hq} Hkv{hkv} hd{hd} S{S}", dtype, err,
+                  lambda: ops.decode_attention(q, k, v, L),
+                  lambda: ref.decode_attention_ref(q, k, v, lens),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q[:, :, None], kt, vt, enable_gqa=True),
+                  2 * q.numel() * es + 2 * B * L * hkv * hd * es, 4 * B * hq * hd * L)
 
     # --- fused_swiglu -----------------------------------------------------------
     for dtype in dtypes:
@@ -462,11 +561,21 @@ def count_syncs(torch, sess, prompt, rounds: int):
 
 
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to
-    ("tree_attention", "tree_attention"), ("fused_swiglu", "fused_swiglu"),
+    ("fused_swiglu", "fused_swiglu"),
     ("kv_move_rows", "kv_move_rows"), ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),
 )
+
+
+def layer_of(kernel_name: str) -> str:
+    """The layer a traced CUDA kernel belongs to: both attention kernels are
+    ``attention_kernel<T, DPL, kByLength>`` (attention.cuh), decode_attention
+    the one with the length mask."""
+    name = kernel_name.lower()
+    if "attention_kernel" in name:
+        return "decode_attention" if "true>" in name else "tree_attention"
+    return next((c for key, c in KERNEL_CLASSES if key in name), "other")
 
 
 def busy_union(intervals):
@@ -514,8 +623,6 @@ def trace_rounds(torch, sess, setup, label: str, tag: str, rounds: int = 2) -> N
     setup(sess)
     sess.step()
     torch.cuda.synchronize()
-    path = os.path.join(HERE, "build", "traces", f"trace_{tag}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # the profiler's notes on its cycles
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -524,8 +631,16 @@ def trace_rounds(torch, sess, setup, label: str, tag: str, rounds: int = 2) -> N
                 sess.step()
             torch.cuda.synchronize()
             wall_ms = (monotonic() - t0) * 1e3
-        prof.export_chrome_trace(path)
-        del prof
+        report_trace(prof, label, tag, rounds, wall_ms)
+
+
+def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float) -> None:
+    """Write a finished profile's kernels to ``build/traces/trace_<tag>.json``
+    and print them summed by layer, with the idle and both-streams shares of
+    ``wall_ms``."""
+    path = os.path.join(HERE, "build", "traces", f"trace_{tag}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
     with open(path) as f:
         kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     with open(path, "w") as f:  # keep the kernels only: the full trace is tens of MB
@@ -535,7 +650,7 @@ def trace_rounds(torch, sess, setup, label: str, tag: str, rounds: int = 2) -> N
         return
     by_layer: dict = {}
     for e in kernels:
-        layer = next((c for key, c in KERNEL_CLASSES if key in e["name"].lower()), "other")
+        layer = layer_of(e["name"])
         n, ms = by_layer.get(layer, (0, 0.0))
         by_layer[layer] = (n + 1, ms + e["dur"] / 1e3)
     busy = sum(ms for _, ms in by_layer.values())
@@ -651,7 +766,7 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
         if solo[0] != out:
             fail(f"{label} request {r.rid}: served output differs from the solo generate()")
     print(f"{label}: every output equals the solo generate() and the greedy decode", flush=True)
-    missing = [k for k in ALL_KERNELS if counts[k] == 0]
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the serving path: {missing}")
     if counts["slot_write_rows"] != 4 * len(trace):
@@ -672,6 +787,137 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
 
     trace_rounds(torch, eng.session(tp, dp), two_live_rows, label, tag=tag)
     return counts, st, (round_ms, toks / wall, summ["ttft_p50_s"] * 1e3)
+
+
+class ShapeLog:
+    """The shapes at which the paths call each kernel wrapper: ``install``
+    wraps the wrappers in ``repro_torch.kernels.ops`` (the launch counts
+    stay the wrappers' own), ``uninstall`` puts them back."""
+
+    KEYS = {  # wrapper -> the shape of one call, from its arguments
+        "tree_attention": lambda q, k, v, mask: tuple(q.shape) + tuple(k.shape[1:3]),
+        "decode_attention": lambda q, k, v, length: tuple(q.shape) + tuple(k.shape[1:3]),
+        "fused_swiglu": lambda x, wg, wu: tuple(x.shape) + (wg.shape[1],),
+        "kv_move_rows": lambda arr, src, dst, mask, donate=False: (
+            tuple(arr.shape), src.shape[1], bool(donate)),
+        "slot_write_rows": lambda leaves, donors, slot: (
+            tuple(tuple(t.shape) for t in leaves), donors is None),
+    }
+
+    def __init__(self, ops):
+        self.ops, self.seen, self.saved = ops, {name: set() for name in self.KEYS}, {}
+
+    def install(self):
+        for name, key in self.KEYS.items():
+            fn = self.saved[name] = getattr(self.ops, name)
+
+            def logged(*a, _fn=fn, _name=name, _key=key, **kw):
+                first = a[0][0] if _name == "slot_write_rows" else a[0]
+                self.seen[_name].add(_key(*a, **kw) + (str(first.dtype),))
+                return _fn(*a, **kw)
+
+            setattr(self.ops, name, logged)
+
+    def uninstall(self):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+class RoundTracer:
+    """A ``Tracer`` for ``ChainSession.generate`` that profiles rounds
+    [1, 1 + rounds): it starts torch.profiler when round 1 begins and stops
+    it, after a device sync, when round ``rounds`` ends."""
+
+    def __init__(self, torch, rounds: int = 2):
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.obs import Tracer
+        from repro_torch.obs.clock import monotonic
+
+        outer = self
+
+        class _Tracer(Tracer):
+            def begin(self, name, track="main", args=None):
+                if name == "round" and outer.begun == 1:
+                    torch.cuda.synchronize()
+                    outer.prof.start()
+                    outer.t0 = monotonic()
+                outer.begun += name == "round"
+                return super().begin(name, track, args)
+
+            def _finish(self, span):
+                super()._finish(span)
+                if span.name == "round" and outer.begun == 1 + rounds and outer.wall_ms is None:
+                    torch.cuda.synchronize()
+                    outer.wall_ms = (monotonic() - outer.t0) * 1e3
+                    outer.prof.stop()
+
+        self.rounds, self.begun, self.t0, self.wall_ms = rounds, 0, None, None
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.tracer = _Tracer()
+
+
+def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card):
+    """Generate every prompt through ``ChainSpecEngine.session().generate``,
+    check it against the greedy decode, count launches and host syncs, and
+    trace two rounds of one more request.  Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import monotonic
+
+    c = eng.cfg
+    sess = eng.session(tp, dp)
+    sess.generate(prompts[0][:, :4], max_new=4)  # warm the allocator and kernels
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs, stats = [], []
+    t0 = monotonic()
+    with SyncCounter(torch) as sc:
+        for prompt in prompts:
+            out, st = sess.generate(prompt)
+            outs.append(out[0])
+            stats.append(st)
+    torch.cuda.synchronize()
+    wall = monotonic() - t0
+    counts = ops.launch_counts()
+    rounds = sum(st.rounds for st in stats)
+    toks = sum(len(o) for o in outs)
+    for i, (out, (ref_toks, margins)) in enumerate(zip(outs, refs)):
+        if out != ref_toks[:len(out)] or len(out) != c.max_new:
+            j = next((p for p, (a, b) in enumerate(zip(out, ref_toks)) if a != b), len(out))
+            fail(f"{label} request {i}: chain output diverges from the greedy decode at "
+                 f"position {j} (chain {out[j:j + 3]}, greedy {ref_toks[j:j + 3]}); the target's "
+                 f"top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
+    tot = {f: sum(getattr(st, f) for st in stats)
+           for f in ("rounds", "emitted", "accepted", "reused_chains", "draft_chains")}
+    syncs = (sc.n - len(prompts)) / max(rounds, 1)  # a request's first token aside
+    per_round = {k: round(n / max(rounds, 1), 2) for k, n in counts.items()}
+    print(f"{label}: {len(prompts)} request(s), {toks} tokens, ChainStats {tot}, compression "
+          f"{tot['emitted'] / max(rounds, 1):.3f}, accepted {tot['accepted']} of "
+          f"{rounds * (c.k - 1)} drafts, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, "
+          f"{toks / wall:.2f} tok/s, {syncs:.2f} host syncs per round (+1 per request: its first "
+          f"token) (k={c.k}, {c.mode}) on {card}; every output equals the greedy decode", flush=True)
+    print(f"{label}: host syncs made at {sorted(set(sc.where))}", flush=True)
+    print(f"{label}: kernel launches {counts}, per round {per_round}", flush=True)
+    if sc.n != rounds + len(prompts):
+        fail(f"{label}: {sc.n} host syncs for {rounds} rounds of {len(prompts)} request(s), not "
+             "one per round and one per request")
+    missing = [k for k in CHAIN_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"{label}: kernels never launched on the chain path: {missing}")
+    rt = RoundTracer(torch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the profiler's notes on its cycles
+        _, st = eng.session(tp, dp, tracer=rt.tracer).generate(prompts[0])
+    if rt.wall_ms is None:
+        fail(f"{label}: the traced request ran {st.rounds} rounds, fewer than 3")
+    report_trace(rt.prof, label, tag, rt.rounds, rt.wall_ms)
+    return counts
+
+
+def chain_prompts(vocab: int, n: int):
+    from repro_torch.data import make_request_stream
+
+    return list(make_request_stream(vocab, 16, 1, n))
 
 
 def phase_serve(torch, card):
@@ -702,7 +948,8 @@ def phase_serve(torch, card):
     # so that arrivals land mid-round and queue while both slots are busy.  The
     # engines share build_engine's weights: (c2) is what
     # build_engine(..., async_rounds=True) builds, without drawing them again.
-    trace = make_request_trace(cfgT.vocab_size, 6, rate_rps=1.0, prompt_len=(8, 16),
+    # 4 requests keep the whole script inside its time limit
+    trace = make_request_trace(cfgT.vocab_size, 4, rate_rps=1.0, prompt_len=(8, 16),
                                max_new=32, seed=0)
     print(f"serve (c): trace of {len(trace)} requests, arrivals "
           f"{[round(r.arrival_s, 3) for r in trace]} s, prompts "
@@ -732,7 +979,117 @@ def phase_serve(torch, card):
         print(f"serve ({asyn}) async against ({lock}) lockstep: mean round {ra:.2f} / {rl:.2f} ms "
               f"({ra / rl - 1:+.1%}), tok/s {ta:.2f} / {tl:.2f} ({ta / tl - 1:+.1%}), TTFT p50 "
               f"{fa:.1f} / {fl:.1f} ms on {card}", flush=True)
+    timing("serve (a)-(c)")
+
+    # (d3) chain mode on the same weights: an attention-only target commits by moving len
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+
+    prompts_d = chain_prompts(cfgT.vocab_size, 1)
+    refs_d = [greedy_decode(torch, eng.target, tp, p, CHAIN_NEW, 512) for p in prompts_d]
+    chain = ChainSpecEngine(eng.target, eng.draft,
+                            ChainConfig(k=CHAIN_K, mode="parallel", max_new=CHAIN_NEW), 512, 512)
+    counts["d3"] = run_chain(torch, "chain (d3) llama3-8b + llama3-1b", "d3", chain, tp, dp,
+                             prompts_d, refs_d, card)
+    timing("chain (d3)")
     return counts
+
+
+def phase_chain(torch, card):
+    """(d1)-(d2): zamba2-2.7b at full width, chain mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+    from repro_torch.models.api import make_model
+
+    cfg = get_config("zamba2-2.7b")
+    model = make_model(cfg, "cuda")
+    tp, dp = model.init(0), model.init(7)
+    for p in (tp, dp):
+        p.lm_head.mul_(4.0)  # peaked logits, as build_engine draws them
+    n_params = sum(t.numel() for t in tp.parameters())
+    print(f"chain: zamba2-2.7b ({n_params / 1e9:.3f} B parameters: {cfg.n_layers} mamba2 layers, "
+          f"the shared attention block every {cfg.shared_attn_every}), f32, target seed 0 and "
+          f"draft seed 7; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    prompts = chain_prompts(cfg.vocab_size, 2)
+    refs = [greedy_decode(torch, model, tp, p, CHAIN_NEW, 512) for p in prompts]
+
+    def engine(mode):
+        return ChainSpecEngine(model, model, ChainConfig(k=CHAIN_K, mode=mode, max_new=CHAIN_NEW),
+                               512, 512)
+
+    counts = {"d1": run_chain(torch, "chain (d1) zamba2-2.7b self-draft", "d1", engine("parallel"),
+                              tp, tp, prompts, refs, card)}
+    for mode, tag in (("parallel", "d2"), ("serial", "d2s")):
+        counts[tag] = run_chain(torch, f"chain (d2) zamba2-2.7b + seed-7 draft, {mode}", tag,
+                                engine(mode), tp, dp, prompts[:1], refs[:1], card)
+    return counts
+
+
+def phase_shapes(torch, log: ShapeLog, card):
+    """Hold each kernel against its plain version at every shape a path
+    called it with: random inputs (plans, lengths) at that shape, f32 and
+    bf16 to the stated tolerance, moves and slot writes exactly."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    n = 0
+    for name, keys in log.seen.items():
+        for key in sorted(keys, key=str):
+            dtype = getattr(torch, key[-1].removeprefix("torch."))
+            what = f"{name} at the path shape {key[:-1]} {dtype}"
+            if name == "tree_attention":
+                B, nq, hq, hd, S, hkv = key[:6]
+                q, k, v = randn((B, nq, hq, hd), dtype), randn((B, S, hkv, hd), dtype), \
+                    randn((B, S, hkv, hd), dtype)
+                mask = torch.rand((B, nq, S), generator=gen, device="cuda") < 0.5
+                check_close(what, ops.tree_attention(q, k, v, mask),
+                            ref.tree_attention_ref(q, k, v, mask), dtype)
+            elif name == "decode_attention":
+                B, hq, hd, S, hkv = key[:5]
+                q, k, v = randn((B, hq, hd), dtype), randn((B, S, hkv, hd), dtype), \
+                    randn((B, S, hkv, hd), dtype)
+                lens = torch.randint(0, S + 1, (B,), generator=gen, device="cuda",
+                                     dtype=torch.int32)
+                got = ops.decode_attention(q, k, v, lens)
+                check_close(what, got, ref.decode_attention_ref(q, k, v, lens), dtype)
+                mask = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                if not torch.equal(got, ops.tree_attention(q[:, None], k, v, mask[:, None])[:, 0]):
+                    fail(f"{what}: differs from tree_attention at n=1")
+            elif name == "fused_swiglu":
+                M, K, N = key[:3]
+                x, wg, wu = randn((M, K), dtype), randn((K, N), dtype) * K ** -0.5, \
+                    randn((K, N), dtype) * K ** -0.5
+                check_close(what, ops.fused_swiglu(x, wg, wu), ref.fused_swiglu_ref(x, wg, wu),
+                            dtype)
+            elif name == "kv_move_rows":
+                shape, M, donate = key[:3]
+                arr = randn(shape, dtype)
+                B, S = shape[1], shape[2]
+                src = torch.randint(-1, S, (B, M), generator=gen, device="cuda", dtype=torch.int32)
+                dst = torch.stack([torch.randperm(S, generator=gen, device="cuda")[:M]
+                                   for _ in range(B)]).to(torch.int32)
+                mask = torch.rand((B, M), generator=gen, device="cuda") < 0.8
+                want = ref.kv_move_rows_ref(arr, src, dst, mask)
+                got = ops.kv_move_rows(arr.clone(), src, dst, mask, donate=donate)
+                if not torch.equal(got, want):
+                    fail(f"{what}: kernel disagrees with the plain version (must be exact)")
+            else:  # slot_write_rows
+                shapes, zero = key[:2]
+                leaves = [randn(sh, dtype) for sh in shapes]
+                donors = None if zero else [randn((sh[0], 1) + sh[2:], dtype) for sh in shapes]
+                slot = shapes[0][1] - 1
+                want = ref.slot_write_rows_ref(leaves, donors, slot)
+                got = ops.slot_write_rows([t.clone() for t in leaves], donors, slot)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"{what}: kernel disagrees with the plain version (must be exact)")
+            n += 1
+        torch.cuda.synchronize()
+    print(f"shapes: {n} shapes that the paths launched, each held against its plain version "
+          f"again ({', '.join(f'{k} {len(v)}' for k, v in log.seen.items())}) on {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -743,6 +1100,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import monotonic
+
+    _CLOCK.append(monotonic())
 
     # full float32 products: with TF32 the greedy-equality check would compare
     # two different arithmetics
@@ -757,8 +1118,17 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, python {sys.version.split()[0]}")
 
     phase_build()
+    timing("build")
     rows = phase_kernels(torch, Timer(torch), card)
+    timing("kernels")
+    log = ShapeLog(ops)
+    log.install()
     counts = phase_serve(torch, card)
+    counts.update(phase_chain(torch, card))
+    timing("chain (d1)-(d2)")
+    log.uninstall()
+    phase_shapes(torch, log, card)
+    timing("shapes")
     kernels = []
     for name in ALL_KERNELS:
         r = dict(rows[name])

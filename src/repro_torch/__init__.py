@@ -2,9 +2,10 @@
 NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package re-implements its
-lockstep speculative-decoding round on torch tensors, with hand-written
+speculative decoding on torch tensors — the tree engine (lockstep and async
+rounds, continuous batching) and the chain engine — with hand-written
 Hopper kernels (``repro_torch.kernels``) in place of the Pallas kernels on
-that path.  It imports neither jax nor anything of ``repro``.
+those paths.  It imports neither jax nor anything of ``repro``.
 
 Every entry point takes an explicit ``device``.  Left unset it means
 ``cuda``; without a CUDA device that raises rather than falling back to the

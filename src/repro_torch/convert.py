@@ -3,8 +3,10 @@
 The parity tests build a model with ``repro`` (``Model.init(PRNGKey)``),
 unbox every ``Param`` to a numpy array, and hand the tree to
 ``params_from_numpy``.  The tree keeps the reference's layout: ``groups[0]``
-is a one-block unit tuple whose leaves carry the stacked layer axis U first
-(``repro/models/transformer.py:307-316``).
+is the unit tuple, one dict per block of the unit, whose leaves carry the
+stacked repeat axis U first (``repro/models/transformer.py:307-316``); a
+zamba2 tree also holds the model-level ``shared_attn`` block (no U axis),
+and each ``shared`` entry of the unit its per-invocation ``in_w``.
 """
 
 from __future__ import annotations
@@ -12,20 +14,40 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.transformer import DenseBlock, DenseLM, check_dense
+from repro_torch.models import mamba2 as m2
+from repro_torch.models.transformer import (
+    DecoderLM,
+    DenseBlock,
+    Mamba2Block,
+    SharedBlock,
+    check_plan,
+)
 
 
-def params_from_numpy(cfg, tree, device) -> DenseLM:
+def params_from_numpy(cfg, tree, device) -> DecoderLM:
     device = resolve_device(device)
-    U = check_dense(cfg)
+    unit_def, U = check_plan(cfg)
 
     def t(a):
         return torch.tensor(a, dtype=getattr(torch, cfg.param_dtype), device=device)
 
-    (unit,) = tree["groups"][0]
-    layers = [
-        DenseBlock(t(unit["ln1"][u]), {k: t(v[u]) for k, v in unit["attn"].items()},
-                   t(unit["ln2"][u]), {k: t(v[u]) for k, v in unit["mlp"].items()})
-        for u in range(U)
-    ]
-    return DenseLM(t(tree["embed"]), t(tree["final_norm"]), t(tree["lm_head"]), layers)
+    def dense(p, u=None):
+        def pick(a):
+            return t(a if u is None else a[u])
+
+        return DenseBlock(pick(p["ln1"]), {k: pick(v) for k, v in p["attn"].items()},
+                          pick(p["ln2"]), {k: pick(v) for k, v in p["mlp"].items()})
+
+    unit = tree["groups"][0]
+    layers = []
+    for u in range(U):
+        for kind, p in zip(unit_def, unit):
+            if kind == "dense":
+                layers.append(dense(p, u))
+            elif kind == "mamba2":
+                layers.append(Mamba2Block(t(p["ln"][u]), m2.params_from_reference(
+                    {k: t(v[u]) for k, v in p["mamba"].items()})))
+            else:
+                layers.append(SharedBlock(t(p["in_w"][u])))
+    shared = dense(tree["shared_attn"]) if "shared" in unit_def else None
+    return DecoderLM(t(tree["embed"]), t(tree["final_norm"]), t(tree["lm_head"]), layers, shared)

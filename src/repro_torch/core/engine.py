@@ -178,32 +178,18 @@ def _to_device(a, device):
     return t
 
 
-class SpecEngine:
-    """Tree-based speculative decoding for dense attention models."""
+class StreamPair:
+    """The target's and the draft's CUDA streams of an engine on the card
+    (``self.streams``, None when the engine runs on the caller's stream).
 
-    def __init__(self, target, draft, cfg: SpecConfig, S_max_t: int, S_max_d: int):
-        if target.device != draft.device:
-            raise ValueError(f"target ({target.device}) and draft ({draft.device}) share "
-                             "one device in this slice")
-        if cfg.async_rounds and cfg.mode != "parallel":
-            raise ValueError(
-                f"async_rounds requires mode='parallel' (got mode={cfg.mode!r}): "
-                "the lookahead pipeline IS the parallel overlap")
-        self.target, self.draft, self.cfg = target, draft, cfg
-        self.S_max_t, self.S_max_d = S_max_t, S_max_d
-        self.device = target.device
-        # async rounds on the card: the target's stream and the draft's
-        self.streams = None
-        if cfg.async_rounds and self.device.type == "cuda":
-            self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
+    With streams, all of the engine's device work runs on them: target work
+    on the first, draft work on the second.  Tensors cross between them only
+    at points the engine orders by a wait or an event (and marks with
+    ``record_stream`` for the caching allocator)."""
 
-    # ----- streams --------------------------------------------------------------
-    # With streams, all of the engine's device work runs on them: target work
-    # on the first, draft work on the second.  Tensors cross between them at
-    # three points only, each ordered by a wait: the plan (draft -> target, at
-    # dispatch), the prediction (draft -> target, at the reconcile transfer)
-    # and the verify outcome (target -> draft, on rollback, which also marks
-    # those tensors as used by the draft stream for the caching allocator).
+    streams: tuple | None = None
+    device: torch.device
+
     def _target(self):
         return torch.cuda.stream(self.streams[0]) if self.streams else contextlib.nullcontext()
 
@@ -224,6 +210,29 @@ class SpecEngine:
             cur = torch.cuda.current_stream(self.device)
             for st in self.streams:
                 cur.wait_stream(st)
+
+
+class SpecEngine(StreamPair):
+    """Tree-based speculative decoding for dense attention models.  In the
+    async round the three crossings are the plan (draft -> target, at
+    dispatch), the prediction (draft -> target, at the reconcile transfer)
+    and the verify outcome (target -> draft, on rollback)."""
+
+    def __init__(self, target, draft, cfg: SpecConfig, S_max_t: int, S_max_d: int):
+        if target.device != draft.device:
+            raise ValueError(f"target ({target.device}) and draft ({draft.device}) share "
+                             "one device in this slice")
+        if cfg.async_rounds and cfg.mode != "parallel":
+            raise ValueError(
+                f"async_rounds requires mode='parallel' (got mode={cfg.mode!r}): "
+                "the lookahead pipeline IS the parallel overlap")
+        self.target, self.draft, self.cfg = target, draft, cfg
+        self.S_max_t, self.S_max_d = S_max_t, S_max_d
+        self.device = target.device
+        # async rounds on the card: the target's stream and the draft's
+        self.streams = None
+        if cfg.async_rounds and self.device.type == "cuda":
+            self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
 
     # ----- draft-side steps ---------------------------------------------------
     def _expand(self, dparams, tr, dcache):

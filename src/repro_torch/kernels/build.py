@@ -22,7 +22,7 @@ from repro_torch.obs.clock import monotonic
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("tree_attention", "fused_swiglu", "kv_moves", "slot_write")
+SOURCES = ("tree_attention", "decode_attention", "fused_swiglu", "kv_moves", "slot_write")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,7 +32,12 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "tree_attention": {
         "tree_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-        "tree_attention_rows_per_block": [],
+        "attention_rows_per_block": [],
+    },
+    # q, k, v, length, then length_all, out, part_acc, part_ml, counters, ...
+    "decode_attention": {
+        "decode_attention_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+        "attention_rows_per_block": [],
     },
     "fused_swiglu": {"fused_swiglu_launch": [_P] * 4 + [_I] * 4 + [_P]},
     "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},

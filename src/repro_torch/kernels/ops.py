@@ -7,9 +7,10 @@ to a plain version.  Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel and nowhere else, so a run can show which kernels its
 path went through.  Kernels launch on PyTorch's current stream and do not
 synchronise; the wrappers allocate every output and scratch buffer.
-tree_attention's split combine takes atomic tickets from a zeroed buffer
-that is kept per (device, stream): launches on one stream run in order, and
-launches on two streams never share a ticket.
+The attention kernels' split combine takes atomic tickets from a zeroed
+buffer that is kept per (device, stream) and shared by tree_attention and
+decode_attention: launches on one stream run in order, and launches on two
+streams never share a ticket.
 """
 
 from __future__ import annotations
@@ -21,16 +22,18 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"tree_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0, "slot_write_rows": 0}
+LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0,
+            "slot_write_rows": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kernel leaves them zero)
 
 
 def attn_split_keys(S: int) -> int:
-    """Keys per S split of tree_attention: 64, or more for a cache longer
-    than 32 splits of 64 (the kernel combines at most 32).  A function of S
-    alone, so a query row sums in the same order whatever n is."""
+    """Keys per S split of the attention kernels: 64, or more for a cache
+    longer than 32 splits of 64 (the kernel combines at most 32).  A
+    function of S alone, so a query row sums in the same order whatever n
+    is, and decode_attention in the same order as tree_attention."""
     return max(64, 32 * -(-S // (32 * 32)))
 
 
@@ -64,33 +67,29 @@ def _stream(dev) -> int:
 # -----------------------------------------------------------------------------
 
 
-def tree_attention(q, k, v, mask):
-    """q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S].
-
-    The paper's non-square tree-masked attention; returns [B, n, Hq, hd]
-    in q's dtype, zeros for a fully masked query row.  The kernel takes
-    float32 or bfloat16 with hd a multiple of 4, at most 256."""
-    if not _on_cuda("tree_attention", q, k, v, mask):
-        return ref.tree_attention_ref(q, k, v, mask)
-    B, n, hq, hd = q.shape
+def _check_attention(name, q, k, v, B):
+    """The kernels' contract on q [B, n, Hq, hd] (or [B, Hq, hd]) and k/v
+    [B, S, Hkv, hd]; returns the contiguous tensors."""
+    hq, hd = q.shape[-2:]
     S, hkv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"tree_attention: q/k/v must share f32 or bf16, got "
+        raise TypeError(f"{name}: q/k/v must share f32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if (k.shape != (B, S, hkv, hd) or v.shape != k.shape or mask.shape != (B, n, S)
-            or mask.dtype != torch.bool or hq % hkv or hd > 256 or hd % 4):
-        raise ValueError(f"tree_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)} mask{tuple(mask.shape)} {mask.dtype}")
-    q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
+    if k.shape != (B, S, hkv, hd) or v.shape != k.shape or hq % hkv or hd > 256 or hd % 4:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("tree_attention: q, k and v must be 16-byte aligned")
-    lib = build.lib("tree_attention")
-    rows = lib.tree_attention_rows_per_block()
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
+    return q, k, v
+
+
+def _attention_scratch(lib, B, n, hq, hkv, hd, S, dev):
+    """Split length, the partial buffers and the zeroed tickets of one launch."""
+    rows = lib.attention_rows_per_block()
     n_rowtiles = -(-(hq // hkv) * n // rows)
     split_keys = attn_split_keys(S)
     n_splits = -(-S // split_keys)
-    dev = q.device
-    out = torch.empty_like(q)
     part_acc = torch.empty(B * hkv * n_rowtiles * rows * n_splits * hd,
                            dtype=torch.float32, device=dev)
     part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_splits * 2,
@@ -102,7 +101,29 @@ def tree_attention(q, k, v, mask):
         with torch.cuda.device(dev):  # zeroed on the stream that will use it
             ctr = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
         _attn_counters[(dev, stream)] = ctr
-    with torch.cuda.device(dev):
+    return split_keys, part_acc, part_ml, ctr, stream
+
+
+def tree_attention(q, k, v, mask):
+    """q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S].
+
+    The paper's non-square tree-masked attention; returns [B, n, Hq, hd]
+    in q's dtype, zeros for a fully masked query row.  The kernel takes
+    float32 or bfloat16 with hd a multiple of 4, at most 256."""
+    if not _on_cuda("tree_attention", q, k, v, mask):
+        return ref.tree_attention_ref(q, k, v, mask)
+    B, n, hq, hd = q.shape
+    S, hkv = k.shape[1], k.shape[2]
+    if mask.shape != (B, n, S) or mask.dtype != torch.bool:
+        raise ValueError(f"tree_attention: bad mask {tuple(mask.shape)} {mask.dtype} for "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    q, k, v = _check_attention("tree_attention", q, k, v, B)
+    mask = mask.contiguous()
+    lib = build.lib("tree_attention")
+    split_keys, part_acc, part_ml, ctr, stream = _attention_scratch(lib, B, n, hq, hkv, hd, S,
+                                                                    q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
         LAUNCHES["tree_attention"] += 1
         rc = lib.tree_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
@@ -110,6 +131,45 @@ def tree_attention(q, k, v, mask):
             B, n, hq, hkv, hd, S, split_keys, 1.0 / math.sqrt(hd),
             _DTYPE_CODE[q.dtype], stream)
     build.check("tree_attention", rc)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# decode attention
+# -----------------------------------------------------------------------------
+
+
+def decode_attention(q, k, v, length):
+    """q: [B, Hq, hd]; k, v: [B, S, Hkv, hd]; length: int [B] tensor, or a
+    host int for every batch row.
+
+    One query position per batch row against the cache rows < length
+    (decode_step); returns [B, Hq, hd] in q's dtype, zeros where the length
+    is 0.  On the card a row equals tree_attention's at n = 1 under the
+    mask cols < length, bit for bit.  Same dtypes and head sizes as
+    tree_attention."""
+    B, hq, hd = q.shape
+    per_row = isinstance(length, torch.Tensor)
+    if per_row and tuple(length.shape) != (B,):
+        raise ValueError(f"decode_attention: length must be [B={B}], got {tuple(length.shape)}")
+    if not _on_cuda("decode_attention", q, k, v, *((length,) if per_row else ())):
+        lt = length if per_row else torch.full((B,), int(length), dtype=torch.int32)
+        return ref.decode_attention_ref(q, k, v, lt)
+    q, k, v = _check_attention("decode_attention", q, k, v, B)
+    S, hkv = k.shape[1], k.shape[2]
+    lt = length.to(torch.int32).contiguous() if per_row else None
+    lib = build.lib("decode_attention")
+    split_keys, part_acc, part_ml, ctr, stream = _attention_scratch(lib, B, 1, hq, hkv, hd, S,
+                                                                    q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        LAUNCHES["decode_attention"] += 1
+        rc = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if lt is None else lt.data_ptr(),
+            0 if per_row else int(length), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), ctr.data_ptr(), B, hq, hkv, hd, S, split_keys,
+            1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
+    build.check("decode_attention", rc)
     return out
 
 

@@ -31,6 +31,18 @@ def tree_attention_ref(q, k, v, mask):
     return out.reshape(B, n, hq, hd).to(q.dtype)
 
 
+def decode_attention_ref(q, k, v, length):
+    """One query position per batch row against the cache rows < length.
+
+    q: [B, Hq, hd]; k, v: [B, S, Hkv, hd]; length: int [B].  Returns
+    [B, Hq, hd] in q's dtype; a row with length 0 returns zeros.  It is
+    ``tree_attention_ref`` at n = 1 under the mask cols < length, as the
+    reference's oracle is."""
+    S = k.shape[1]
+    mask = torch.arange(S, device=k.device)[None, :] < length.to(k.device)[:, None]
+    return tree_attention_ref(q[:, None], k, v, mask[:, None, :])[:, 0]
+
+
 def fused_swiglu_ref(x, wg, wu):
     """silu(x @ wg) * (x @ wu) in f32, returned in x's dtype.
     x: [M, K]; wg, wu: [K, N] -> [M, N]."""

@@ -2,8 +2,9 @@
 ``spec_forward`` and the chain/decode forwards, on one device.
 
 Token, position and row arguments may be tensors or numpy arrays; they are
-moved to the model's device.  Caches are updated in place by the cached
-forwards (the returned cache holds the same tensors).
+moved to the model's device.  The cached forwards write K/V rows into the
+cache in place and return new mamba2 state tensors (the input cache keeps
+its state; ``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (
     Ctx,
-    DenseLM,
+    DecoderLM,
     apply_model,
     embed_tokens,
     init_cache,
@@ -31,7 +32,7 @@ class Model:
     device: torch.device
 
     # ---- construction ----------------------------------------------------
-    def init(self, seed: int) -> DenseLM:
+    def init(self, seed: int) -> DecoderLM:
         return init_model(self.cfg, seed, self.device)
 
     def init_cache(self, B, S_max, dtype=None):
@@ -65,9 +66,11 @@ class Model:
 
     def chain_forward(self, params, cache, tokens, n_commit, S_max):
         """Chain-mode forward of n tokens starting at row cache['len'];
-        returns (logits, cache') with cache'.len = len + n_commit.  Attention
-        blocks write rows [len, len+n); rows past the committed point are
-        dead and overwritten next time."""
+        returns (logits, cache') with cache'.len = len + n_commit.  State
+        blocks commit exactly the first ``n_commit`` steps (a host int: the
+        reference's mask arange(n) < n_commit, the same for every batch row);
+        attention blocks write rows [len, len+n), and rows past the committed
+        point are dead and overwritten next time."""
         tokens = self._dev(tokens)
         B, n = tokens.shape
         start = int(cache["len"])
@@ -78,7 +81,7 @@ class Model:
             attn_mask &= cols[None, None, :] > positions[:, :, None] - self.cfg.sliding_window
         h = embed_tokens(self.cfg, params, tokens)
         ctx = Ctx(mode="cached", positions=positions, row_idx=positions, attn_mask=attn_mask,
-                  row_start=start)
+                  row_start=start, n_commit=int(n_commit))
         h, nc = apply_model(self.cfg, params, h, ctx, cache=cache)
         nc["len"] = start + int(n_commit)
         return logits_from_hidden(self.cfg, params, h), nc
@@ -86,6 +89,10 @@ class Model:
     def decode_step(self, params, cache, tokens, S_max):
         """tokens [B, 1] -> (logits [B, 1, V], cache')."""
         return self.chain_forward(params, cache, tokens, 1, S_max)
+
+    @property
+    def uses_chain_spec(self) -> bool:
+        return self.cfg.sub_quadratic  # SSM/hybrid: tree spec inapplicable
 
 
 def make_model(cfg: ModelConfig, device=None) -> Model:

@@ -2,9 +2,11 @@
 cached for decode and the speculative tree.
 
 Cached mode takes an explicit ``[B, n, S_max]`` mask — the paper's
-non-square tree mask — and goes through the ``tree_attention`` kernel.  It
-writes the new K/V rows into the cache first and then attends, so every
-node sees its own row.  Cache writes are in place: the lockstep round owns
+non-square tree mask — and goes through the ``tree_attention`` kernel; a
+decode step (one token at contiguous rows, no sliding window) goes through
+``decode_attention`` instead, whose mask is the length.  It writes the new
+K/V rows into the cache first and then attends, so every node sees its own
+row.  Cache writes are in place: the lockstep round owns
 every cache it touches (see ``core/kv.py``).  Prefill attention is plain
 PyTorch, as the reference computes it in XLA outside any Pallas kernel.
 """
@@ -107,7 +109,10 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
     x: [B, n, d] new tokens; their K/V are written at ``row_idx`` [B, n]
     (absolute cache rows, -1 = skip), or at [row_start, row_start+n) for
     every batch row when ``row_start`` is given (decode/chain).  Then the n
-    queries attend the whole cache under ``attn_mask`` [B, n, S_max].
+    queries attend the whole cache under ``attn_mask`` [B, n, S_max].  At
+    n = 1 with ``row_start`` and no sliding window that mask is cols <=
+    row_start, so ``decode_attention`` computes it from the length
+    row_start + 1; its K/V write is enqueued on the same stream first.
     Returns (out, cache_k, cache_v)."""
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     if row_start is not None:
@@ -116,5 +121,8 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
     else:
         scatter_rows(cache_k, k_new, row_idx)
         scatter_rows(cache_v, v_new, row_idx)
-    out = ops.tree_attention(q, cache_k, cache_v, attn_mask)
+    if row_start is not None and x.shape[1] == 1 and not cfg.sliding_window:
+        out = ops.decode_attention(q[:, 0], cache_k, cache_v, int(row_start) + 1)[:, None]
+    else:
+        out = ops.tree_attention(q, cache_k, cache_v, attn_mask)
     return _out_proj(p, out), cache_k, cache_v

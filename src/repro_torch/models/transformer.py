@@ -1,13 +1,24 @@
-"""Decoder assembly (``repro.models.transformer``), dense plan only.
+"""Decoder assembly (``repro.models.transformer``): the dense plan and the
+zamba2 hybrid plan.
 
-The plan, the cache layout and the block math follow the reference.  The
-cache is ``{"len", "groups": [({"k", "v"},)]}`` with stacked leaves
-``[U, B, S, Hkv, hd]`` (U = layers of the group), so one ``kv_move_rows``
-launch moves the rows of every layer, as the Pallas grid (U, B) does.
-``"len"`` is a host int here: the engine keeps per-row lengths in the tree,
-and decode reads it as its start row.  Other block kinds (moe, mla,
-mamba2, rwkv6, cross, shared) raise NotImplementedError: they are ROADMAP
-queue 1, item 9.
+The plan, the cache layout and the block math follow the reference.  A plan
+is one group: a unit of block kinds repeated U times — ``("dense",)`` for a
+dense decoder, ``("mamba2",) * k + ("shared",)`` for zamba2 (a
+weight-shared attention block after every k mamba2 layers).  The cache is
+``{"len", "groups": [unit]}``, ``unit`` one dict per block of the unit whose
+leaves stack the U repeats first: ``{"k", "v"}`` [U, B, S, Hkv, hd] for an
+attention block (dense or a shared invocation, each invocation its own
+rows), ``{"conv", "ssm"}`` [U, B, K-1, conv_dim] / [U, B, H, hd, N] for a
+mamba2 block.  One ``kv_move_rows`` launch moves the rows of every layer of
+a leaf, as the Pallas grid (U, B) does.  ``"len"`` is a host int: decode
+reads it as its start row.
+
+Cached forwards write K/V rows into the cache in place (rows past the
+committed length are dead and may be shared), but return new mamba2 state
+tensors and leave the input's as they were, so a caller may keep a cache as
+a snapshot of its recurrent state (the chain engine does).  Other block
+kinds (moe, mla, rwkv6, cross) raise NotImplementedError: ROADMAP queue 1,
+items 9-10.
 """
 
 from __future__ import annotations
@@ -19,12 +30,15 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import attention_cached, attention_full
 from repro_torch.models.common import dense_init, rms_norm
 
 # -----------------------------------------------------------------------------
 # Plans
 # -----------------------------------------------------------------------------
+
+PORTED_KINDS = ("dense", "mamba2", "shared")
 
 
 def build_plan(cfg):
@@ -45,15 +59,17 @@ def build_plan(cfg):
     return plan
 
 
-def check_dense(cfg) -> int:
-    """The number of layers of a dense-only plan; raises for any other."""
+def check_plan(cfg) -> tuple:
+    """(unit_def, U) of a ported plan — one group of dense, mamba2 and
+    shared blocks with GQA attention; raises for any other."""
     plan = build_plan(cfg)
-    if (cfg.attn_kind != "gqa" or len(plan) != 1 or plan[0][0] != ("dense",)):
+    if (cfg.attn_kind != "gqa" or len(plan) != 1
+            or any(kind not in PORTED_KINDS for kind in plan[0][0])):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA plan is ported (got {plan}, attn "
-            f"{cfg.attn_kind!r}); moe/mla/mamba2/rwkv6/cross/shared blocks are "
-            "ROADMAP queue 1, item 9")
-    return plan[0][1]
+            f"{cfg.name}: only the dense and the zamba2 hybrid plans with GQA attention "
+            f"are ported (got {plan}, attn {cfg.attn_kind!r}); moe/mla/rwkv6/cross "
+            "blocks are ROADMAP queue 1, items 9-10")
+    return plan[0]
 
 
 @dataclasses.dataclass
@@ -66,6 +82,7 @@ class Ctx:
     row_idx: Any = None  # [B, n] cache rows for new K/V (-1 = skip)
     attn_mask: Any = None  # [B, n, S_max] non-square mask (cached mode)
     row_start: Any = None  # int: rows are [start, start+n) for every batch row
+    n_commit: Any = None  # int: chain mode, state blocks commit the first n_commit steps
 
 
 # -----------------------------------------------------------------------------
@@ -78,7 +95,8 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
 
 
 class DenseBlock(nn.Module):
-    """Weights of one dense block: attention + SwiGLU MLP."""
+    """Weights of one dense block: attention + SwiGLU MLP (also the zamba2
+    model's shared attention block)."""
 
     def __init__(self, ln1, attn: dict, ln2, mlp: dict):
         super().__init__()
@@ -88,22 +106,45 @@ class DenseBlock(nn.Module):
         self.mlp = _frozen(mlp)  # wg/wu [d,ff], wd [ff,d]
 
 
-class DenseLM(nn.Module):
-    """Weights of a dense decoder: embedding, blocks, final norm, lm_head."""
+class Mamba2Block(nn.Module):
+    """Weights of one mamba2 block: its pre-norm and the SSD layer
+    (``models/mamba2.py`` layout)."""
 
-    def __init__(self, embed, final_norm, lm_head, layers):
+    def __init__(self, ln, mamba: dict):
+        super().__init__()
+        self.ln = nn.Parameter(ln, requires_grad=False)
+        self.mamba = _frozen(mamba)
+
+
+class SharedBlock(nn.Module):
+    """One invocation of zamba2's shared block: its own input projection
+    [2d, d] over concat(h, x0); the attention + MLP weights are the model's
+    ``shared_attn``."""
+
+    def __init__(self, in_w):
+        super().__init__()
+        self.in_w = nn.Parameter(in_w, requires_grad=False)
+
+
+class DecoderLM(nn.Module):
+    """Weights of a decoder: embedding, the blocks of the plan in order (U
+    repeats of the unit, flattened), final norm, lm_head, and zamba2's
+    shared attention block (None otherwise)."""
+
+    def __init__(self, embed, final_norm, lm_head, layers, shared_attn=None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)  # [V, d]
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = nn.Parameter(lm_head, requires_grad=False)  # [d, V]
         self.layers = nn.ModuleList(layers)
+        self.shared_attn = shared_attn
 
 
-def init_model(cfg, seed: int, device) -> DenseLM:
+def init_model(cfg, seed: int, device) -> DecoderLM:
     """Seeded truncated-normal weights drawn directly on ``device`` (the
     reference's init scales; torch's generator gives other numbers than
     ``jax.random``, so parity tests convert JAX weights instead)."""
-    n_layers = check_dense(cfg)
+    unit_def, U = check_plan(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -114,25 +155,44 @@ def init_model(cfg, seed: int, device) -> DenseLM:
     def const(shape, val):
         return torch.full(shape, val, dtype=dt, device=device)
 
-    layers = []
-    for _ in range(n_layers):
+    def dense_block():
         attn = {"wq": init((d, hq, hd)), "wk": init((d, hkv, hd)), "wv": init((d, hkv, hd)),
                 "wo": init((hq, hd, d), scale=(hq * hd) ** -0.5)}
         if cfg.qkv_bias:
             attn.update(bq=const((hq, hd), 0.0), bk=const((hkv, hd), 0.0),
                         bv=const((hkv, hd), 0.0))
         mlp = {"wg": init((d, ff)), "wu": init((d, ff)), "wd": init((ff, d))}
-        layers.append(DenseBlock(const((d,), 1.0), attn, const((d,), 1.0), mlp))
-    return DenseLM(init((cfg.vocab_size, d), scale=1.0), const((d,), 1.0),
-                   init((d, cfg.vocab_size)), layers)
+        return DenseBlock(const((d,), 1.0), attn, const((d,), 1.0), mlp)
+
+    layers = []
+    for _ in range(U):
+        for kind in unit_def:
+            if kind == "dense":
+                layers.append(dense_block())
+            elif kind == "mamba2":
+                layers.append(Mamba2Block(const((d,), 1.0), m2.init_mamba2(cfg, gen, device)))
+            else:
+                layers.append(SharedBlock(init((2 * d, d))))
+    shared = dense_block() if "shared" in unit_def else None
+    return DecoderLM(init((cfg.vocab_size, d), scale=1.0), const((d,), 1.0),
+                     init((d, cfg.vocab_size)), layers, shared)
 
 
 def init_cache(cfg, B, S_max, dtype, device):
-    U = check_dense(cfg)
-    shape = (U, B, S_max, cfg.n_kv_heads, cfg.head_dim)
-    leaves = {"k": torch.zeros(shape, dtype=dtype, device=device),
-              "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return {"len": 0, "groups": [(leaves,)]}
+    unit_def, U = check_plan(cfg)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros((U,) + tuple(shape), dtype=dt, device=device)
+
+    unit = []
+    for kind in unit_def:
+        if kind == "mamba2":
+            one = m2.init_mamba_cache(cfg, B, dtype, device)
+            unit.append({k: zeros(v.shape, v.dtype) for k, v in one.items()})
+        else:  # dense or a shared invocation: K/V rows
+            shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
+            unit.append({"k": zeros(shape), "v": zeros(shape)})
+    return {"len": 0, "groups": [tuple(unit)]}
 
 
 # -----------------------------------------------------------------------------
@@ -146,38 +206,67 @@ def _mlp_apply(cfg, p, x):
     return (h @ p["wd"]).reshape(B, S, d)
 
 
-def apply_model(cfg, params: DenseLM, h, ctx: Ctx, cache=None):
-    """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
-    in "cached" mode ``cache`` is updated in place; a prefill with
-    ``make_cache`` returns a new one."""
-    check_dense(cfg)
-    B, n, _ = h.shape
+def _attn_mlp(cfg, p: DenseBlock, h, ctx: Ctx, leaves, r: int):
+    """Attention + SwiGLU sub-blocks with pre-norms, on the K/V rows of
+    repeat ``r`` of ``leaves``; a prefill with ``make_cache`` fills them."""
+    hn = rms_norm(h, p.ln1, cfg.norm_eps)
     if ctx.mode == "cached":
-        leaves = cache["groups"][0][0]
+        a, _, _ = attention_cached(cfg, p.attn, hn, leaves["k"][r], leaves["v"][r],
+                                   ctx.row_idx, ctx.positions, ctx.attn_mask,
+                                   row_start=ctx.row_start)
+    else:
+        a, (k, v) = attention_full(cfg, p.attn, hn, ctx.positions)
+        if ctx.make_cache:
+            n = h.shape[1]
+            leaves["k"][r, :, :n] = k
+            leaves["v"][r, :, :n] = v
+    h = h + a
+    return h + _mlp_apply(cfg, p.mlp, rms_norm(h, p.ln2, cfg.norm_eps))
+
+
+def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
+    """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
+    in "cached" mode the K/V leaves of ``cache`` are written in place and
+    the returned cache holds them and new mamba2 state leaves; a prefill
+    with ``make_cache`` returns a new cache."""
+    unit_def, U = check_plan(cfg)
+    B = h.shape[0]
+    x0 = h  # the embeddings: input of every shared invocation
+    unit = None
+    if ctx.mode == "cached":
+        unit = cache["groups"][0]
     elif ctx.make_cache:
-        leaves = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"][0][0]
-    for u, p in enumerate(params.layers):
-        hn = rms_norm(h, p.ln1, cfg.norm_eps)
-        if ctx.mode == "cached":
-            a, _, _ = attention_cached(cfg, p.attn, hn, leaves["k"][u], leaves["v"][u],
-                                       ctx.row_idx, ctx.positions, ctx.attn_mask,
-                                       row_start=ctx.row_start)
-        else:
-            a, (k, v) = attention_full(cfg, p.attn, hn, ctx.positions)
-            if ctx.make_cache:
-                leaves["k"][u, :, :n] = k
-                leaves["v"][u, :, :n] = v
-        h = h + a
-        h = h + _mlp_apply(cfg, p.mlp, rms_norm(h, p.ln2, cfg.norm_eps))
+        unit = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"][0]
+    states = {bi: ([], []) for bi, kind in enumerate(unit_def) if kind == "mamba2"}
+    for r in range(U):
+        for bi, kind in enumerate(unit_def):
+            p = params.layers[r * len(unit_def) + bi]
+            if kind == "mamba2":
+                c = None
+                if ctx.mode == "cached":
+                    c = {"conv": unit[bi]["conv"][r], "ssm": unit[bi]["ssm"][r]}
+                out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
+                                          ctx.n_commit)
+                h = h + out
+                states[bi][0].append(nc["conv"])
+                states[bi][1].append(nc["ssm"])
+            elif kind == "dense":
+                h = _attn_mlp(cfg, p, h, ctx, None if unit is None else unit[bi], r)
+            else:  # shared: the model's attention + MLP on concat(h, x0) @ in_w
+                inp = torch.cat([h, x0], dim=-1) @ p.in_w
+                h = h + _attn_mlp(cfg, params.shared_attn, inp, ctx,
+                                 None if unit is None else unit[bi], r)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    if ctx.mode == "cached" or ctx.make_cache:
-        return h, {"len": None, "groups": [(leaves,)]}  # len managed by the caller
-    return h, None
+    if unit is None:
+        return h, None
+    unit = tuple({"conv": torch.stack(states[bi][0]), "ssm": torch.stack(states[bi][1])}
+                 if bi in states else leaves for bi, leaves in enumerate(unit))
+    return h, {"len": None, "groups": [unit]}  # len managed by the caller
 
 
-def logits_from_hidden(cfg, params: DenseLM, h):
+def logits_from_hidden(cfg, params: DecoderLM, h):
     return h @ params.lm_head
 
 
-def embed_tokens(cfg, params: DenseLM, tokens):
+def embed_tokens(cfg, params: DecoderLM, tokens):
     return params.embed[tokens.long()]

@@ -34,6 +34,14 @@ TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S), as tests/test_kernels.py
     (1, 16, 8, 1, 128, 256),
     (3, 1, 4, 2, 128, 64),
 ]
+DECODE_SHAPES = [  # (B, Hq, Hkv, hd, S): hd 64/80/128, G 1 and 4, S no multiple of 128
+    (2, 8, 2, 64, 160),
+    (2, 4, 4, 80, 200),
+    (1, 16, 4, 128, 96),
+    (3, 4, 4, 64, 100),
+    (2, 8, 2, 80, 72),
+    (2, 4, 4, 128, 136),
+]
 SWIGLU_SHAPES = [(8, 64, 128), (100, 96, 200), (1, 256, 64), (130, 128, 384)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -69,6 +77,95 @@ def test_tree_attention_matches_reference(shape, dtype):
     np.testing.assert_allclose(_np32(got), _np32(jops.tree_attention(jq, jk, jv, jm)),
                                atol=tol, rtol=tol)
     assert (_np32(got)[:, 0] == 0).all()
+
+
+def _decode_lengths(B, S, i):
+    """Per-row lengths over 0..S: case i of four, each row its own."""
+    return np.array([[0, 1, S // 2 + 3, S][(i + b) % 4] for b in range(B)], np.int32)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_reference(shape, dtype):
+    """The plain version against the reference's oracle, its Pallas kernel
+    in interpret mode and its model path (``_attend`` under the length
+    mask), lengths 0, 1, S/2 + 3 and S in every row position."""
+    from repro.models.attention import _attend
+
+    B, hq, hkv, hd, S = shape
+    rng = np.random.default_rng(sum(shape))
+    (jq, q), (jk, k), (jv, v) = (_pair(rng.normal(size=s).astype(np.float32), dtype)
+                                 for s in ((B, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+    tol = TOL[dtype]
+    for i in range(4):
+        lens = _decode_lengths(B, S, i)
+        launches = ops.launch_counts()
+        got = ops.decode_attention(q, k, v, torch.tensor(lens))
+        assert ops.launch_counts() == launches, "a CPU tensor never launches a kernel"
+        assert got.dtype == q.dtype and got.shape == q.shape
+        jl = jnp.asarray(lens)
+        mask = jnp.arange(S)[None, :] < jl[:, None]
+        for want in (jref.decode_attention_ref(jq, jk, jv, jl),
+                     jops.decode_attention(jq, jk, jv, jl),
+                     _attend(jq[:, None], jk, jv, mask[:, None, None, None, :])[:, 0]):
+            np.testing.assert_allclose(_np32(got), _np32(want), atol=tol, rtol=tol)
+        assert (_np32(got)[lens == 0] == 0).all()
+
+
+def test_decode_attention_is_tree_attention_at_one_query():
+    """A host-int length equals the same length per row, and the result is
+    tree_attention's at n = 1 under the mask cols < length."""
+    B, hq, hkv, hd, S = 2, 8, 2, 64, 160
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.normal(size=s).astype(np.float32))
+               for s in ((B, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+    for L in (0, 1, 65, S):
+        got = ops.decode_attention(q, k, v, L)
+        assert torch.equal(got, ops.decode_attention(q, k, v, torch.full((B,), L)))
+        mask = (torch.arange(S) < L).expand(B, 1, S)
+        assert torch.equal(got, ops.tree_attention(q[:, None], k, v, mask)[:, 0])
+    with pytest.raises(ValueError, match="length must be"):
+        ops.decode_attention(q, k, v, torch.zeros(B + 1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("sliding_window", [0, 16])
+@pytest.mark.parametrize("n", [1, 3])
+def test_cached_attention_takes_decode_attention_for_a_decode_step(monkeypatch, n,
+                                                                   sliding_window):
+    """attention_cached sends a decode step (n = 1, contiguous rows, no
+    window) to decode_attention with the length row_start + 1, and every
+    other call to tree_attention; the outputs agree with the masked path."""
+    from repro_torch.configs import ModelConfig
+    from repro_torch.models import attention
+
+    cfg = ModelConfig(name="a", n_layers=1, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
+                      vocab_size=64, sliding_window=sliding_window)
+    rng = np.random.default_rng(n)
+    p = {name: torch.tensor(rng.normal(size=s).astype(np.float32) * 0.2)
+         for name, s in (("wq", (32, 4, 8)), ("wk", (32, 2, 8)), ("wv", (32, 2, 8)),
+                         ("wo", (4, 8, 32)))}
+    B, S, start = 2, 40, 17
+    x = torch.tensor(rng.normal(size=(B, n, 32)).astype(np.float32))
+    ck, cv = (torch.tensor(rng.normal(size=(B, S, 2, 8)).astype(np.float32)) for _ in range(2))
+    pos = start + torch.arange(n, dtype=torch.int32).expand(B, n)
+    cols = torch.arange(S, dtype=torch.int32)
+    mask = cols[None, None, :] <= pos[:, :, None]
+    if sliding_window:
+        mask &= cols[None, None, :] > pos[:, :, None] - sliding_window
+    calls = []
+    for name in ("decode_attention", "tree_attention"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, _n=name: calls.append(
+            (_n, a[-1])) or _fn(*a))
+    out, _, _ = attention.attention_cached(cfg, p, x, ck.clone(), cv.clone(), pos, pos, mask,
+                                           row_start=start)
+    monkeypatch.undo()
+    if n == 1 and not sliding_window:
+        assert calls == [("decode_attention", start + 1)]
+    else:
+        assert [c[0] for c in calls] == ["tree_attention"]
+    want, _, _ = attention.attention_cached(cfg, p, x, ck.clone(), cv.clone(), pos, pos, mask)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("shape", SWIGLU_SHAPES)
