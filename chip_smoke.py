@@ -4,11 +4,12 @@
   python3 chip_smoke.py
 
 It takes no options and runs every phase, in order:
-  build    build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
            (tree_attention, decode_attention — also bit for bit against
            tree_attention at one query — fused_swiglu, kv_move_rows,
-           slot_write_rows, f32 and bf16), and time kernel, plain version
+           slot_write_rows, int4_matmul — row 0 alone and a repeated call
+           bit for bit too — f32 and bf16), and time kernel, plain version
            and the one PyTorch call that computes the same function, where
            there is one, with CUDA events
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
@@ -37,6 +38,16 @@ It takes no options and runs every phase, in order:
            the greedy decode, each chain kernel must have launched, and each
            request must make one host sync per round and one for its first
            token.
+  awq      (e), between (d3) and (d1): the AWQ int4 path on the llama3-8b
+           and llama3-1b weights drawn for (a): every weight of layer 0
+           (wq, wk, wv, wo, wg, wu, wd, each as the [K, N] the forward
+           multiplies by) quantized on the card by
+           ``repro_torch.quant.quantize_groupwise`` (group 128), then
+           ``ops.int4_matmul`` at M 1 (a decode step), 8 (the 8B verify) and
+           16 (a prompt), f32 and bf16, each result held against
+           ``x @ dequantize(q)`` and the plain version, row 0 alone and a
+           repeated call bit for bit; the 8B wq, wk, wg and wd timed at
+           M 1 and 8, beside torch's ``_weight_int4pack_mm`` in bf16.
   shapes   every shape at which a path called a kernel, held against its
            plain version again
 
@@ -62,6 +73,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # f32 CUDA cores / bf16 dense
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+INT4_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}  # f32: tests/test_kernels.py's
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     "tree_attention": ("src/repro_torch/kernels/csrc/tree_attention.cu",
                        "src/repro/kernels/tree_attention.py:82"),
@@ -73,6 +85,8 @@ SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
                      "src/repro/kernels/kv_moves.py:112"),
     "slot_write_rows": ("src/repro_torch/kernels/csrc/slot_write.cu",
                         "src/repro/kernels/kv_moves.py:182"),
+    "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
+                    "src/repro/kernels/int4_matmul.py:52"),
 }
 TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     (2, 4, 8, 2, 64, 96), (1, 8, 4, 4, 32, 128), (2, 3, 6, 3, 80, 200),
@@ -114,11 +128,19 @@ KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
 SLOT_SHAPES = [  # the serving caches' leaf shapes (k and v: L 2) [U, B, S, Hkv, hd]
     ("8B", (32, 2, 512, 8, 128)), ("1B", (16, 2, 512, 8, 64)),
 ]
+INT4_SHAPES = [  # (M, K, N): tests/test_kernels.py's, and a ragged N (no multiple of 4)
+    (8, 256, 96), (32, 128, 300), (5, 384, 128), (3, 256, 301),
+]
+INT4_TIMED = [  # (label, K, N) of phase (e)'s llama3-8b layer weights, timed at M 1 and 8
+    ("8B-wg", 4096, 14336), ("8B-wq", 4096, 4096), ("8B-wk", 4096, 1024), ("8B-wd", 14336, 4096),
+]
+AWQ_GROUP = 128  # the paper's AWQ group size (repro/quant/awq.py)
+AWQ_ROWS = (1, 8, 16)  # phase (e)'s M: a decode step, the 8B verify, a prompt
 MAIN_KERNELS = ("tree_attention", "fused_swiglu", "kv_move_rows")  # launched by generate()
 SERVE_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
 CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu")  # by the chain engine
 ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
-               "slot_write_rows")
+               "slot_write_rows", "int4_matmul")
 CHAIN_K, CHAIN_NEW = 4, 32  # chain length and new tokens per request of phase (d)
 
 def fail(msg: str) -> None:
@@ -186,9 +208,9 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(name, got, want, dtype) -> float:
+def check_close(name, got, want, dtype, tols=TOL) -> float:
     torch = sys.modules["torch"]
-    tol = TOL[str(dtype)]
+    tol = tols[str(dtype)]
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
         fail(f"{name}: kernel disagrees with the plain version: max |err| "
              f"{max_err(got, want):.3e} > tol {tol}")
@@ -198,6 +220,23 @@ def check_close(name, got, want, dtype) -> float:
 # -----------------------------------------------------------------------------
 # phases
 # -----------------------------------------------------------------------------
+
+
+def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library, nbytes, n_ops,
+             library_note=""):
+    """Time kernel, plain version and library call (None: there is none;
+    ``library_note`` says why), print the row, and keep the first row of
+    each kernel in ``rows``."""
+    b_ms, b_by = bound(nbytes, n_ops, dtype)
+    row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
+               max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
+               bound_by=b_by, library_ms=None if library is None else timer(library),
+               shape=f"{label} {str(dtype).removeprefix('torch.')}")
+    lib = f"- {library_note}".rstrip() if library is None else f"{row['library_ms']:.4f} ms"
+    print(f"  time {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}) "
+          f"on {card}", flush=True)
+    rows.setdefault(name, row)
 
 
 def phase_build():
@@ -228,20 +267,11 @@ def phase_kernels(torch, timer, card):
 
     rows = {}
 
-    def timed(name, label, dtype, err, kernel, plain, library, nbytes, n_ops):
-        b_ms, b_by = bound(nbytes, n_ops, dtype)
-        row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-                   max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None if library is None else timer(library),
-                   shape=f"{label} {str(dtype).removeprefix('torch.')}")
-        lib = "-" if library is None else f"{row['library_ms']:.4f}"
-        print(f"  time {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {lib} ms, bound {b_ms:.4f} ms ({b_by}) "
-              f"on {card}", flush=True)
-        rows.setdefault(name, row)
+    def timed(*args):
+        time_row(rows, timer, card, *args)
 
-    print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; kv_move exact; decode_attention "
-          "bit for bit against tree_attention at n=1):")
+    print(f"kernels on {card} (tolerance f32 2e-5, bf16 2e-2; int4_matmul f32 1e-4; kv_move "
+          "exact; decode_attention bit for bit against tree_attention at n=1):")
 
     # --- tree_attention --------------------------------------------------------
     cases = [(shape, False) for shape in TREE_SHAPES] + \
@@ -493,7 +523,135 @@ def phase_kernels(torch, timer, card):
             timed("slot_write_rows", f"{label}-zero L2 {list(shape)} slot 1 (no donor)", dtype,
                   err, lambda: ops.slot_write_rows(leaves, None, 1),
                   lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib, 2 * slab, 0)
+
+    # --- int4_matmul ----------------------------------------------------------------
+    # the reference's shapes, a ragged N, and phase (e)'s timed 8B shapes; times
+    # are taken in phase (e) on the path's own weights
+    from repro_torch import quant
+
+    cases = INT4_SHAPES + [(M, K, N) for _, K, N in INT4_TIMED for M in (1, 8)]
+    for dtype in dtypes:
+        for M, K, N in cases:
+            x = randn(M, K, dtype=dtype)
+            q = quant.quantize_groupwise(randn(K, N, scale=K ** -0.5), AWQ_GROUP)
+            err = check_int4(torch, f"int4_matmul {(M, K, N)} {dtype}", x, q, dtype)
+            print(f"  int4_matmul M{M} K{K} N{N} g{AWQ_GROUP} {dtype}: max|err| {err:.2e}, row 0 "
+                  "alone and a repeated call bit for bit equal")
     return rows
+
+
+def check_int4(torch, name, x, q, dtype, got=None) -> float:
+    """int4_matmul's result ``got`` (computed here when None) against its
+    plain version and ``x @ dequantize(q)``; row 0 alone must equal row 0
+    of the batch (the K order does not depend on M) and a second call the
+    first, bit for bit.  Returns the max error."""
+    from repro_torch import quant
+    from repro_torch.kernels import ops, ref
+
+    if got is None:
+        got = ops.int4_matmul(x, *q[:3], group_size=q.group_size)
+    want = ref.int4_matmul_ref(x, *q[:3], q.group_size)
+    oracle = (x.float() @ quant.dequantize(q)).to(dtype)
+    torch.cuda.synchronize()
+    err = check_close(name, got, want, dtype, INT4_TOL)
+    check_close(f"{name} against x @ dequantize(q)", got, oracle, dtype, INT4_TOL)
+    if x.shape[0] > 1 and not torch.equal(ops.int4_matmul(x[:1], *q[:3], group_size=q.group_size),
+                                          got[:1]):
+        fail(f"{name}: row 0 differs between M={x.shape[0]} and M=1")
+    if not torch.equal(ops.int4_matmul(x, *q[:3], group_size=q.group_size), got):
+        fail(f"{name}: two calls on the same input differ")
+    return err
+
+
+def int4pack_library(torch, x, q):
+    """torch's groupwise-int4 product (``_weight_int4pack_mm``) on the same
+    weight, as the yardstick of int4_matmul: the nibbles repacked by
+    ``_convert_weight_to_int4pack`` (even k in the high nibble of [N, K/2]),
+    and zero' = (8 - z) * s, since it dequantizes (q - 8) * s + zero'.
+    Returns (a function of no arguments, "") or (None, the reason there is
+    none)."""
+    from repro_torch import quant
+    from repro_torch.kernels import ref
+
+    if x.dtype != torch.bfloat16:
+        return None, "(no such call in f32)"
+    aten = torch.ops.aten
+    try:
+        qv = quant.unpack_int4(q.qweight).to(torch.int32).t().contiguous()  # [N, K]
+        packed = aten._convert_weight_to_int4pack((qv[:, ::2] << 4 | qv[:, 1::2]).to(torch.uint8),
+                                                  8)
+        sz = torch.stack([q.scales, (8 - q.zeros) * q.scales], -1).to(torch.bfloat16).contiguous()
+        got = aten._weight_int4pack_mm(x, packed, q.group_size, sz)
+    except (AttributeError, RuntimeError) as e:  # the yardstick only; the port never calls it
+        return None, f"(_weight_int4pack_mm: {type(e).__name__}: {str(e).splitlines()[0][:120]})"
+    want = ref.int4_matmul_ref(x, *q[:3], q.group_size)
+    tol = INT4_TOL[str(x.dtype)]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        return None, f"(_weight_int4pack_mm disagrees by {max_err(got, want):.3e})"
+    return (lambda: aten._weight_int4pack_mm(x, packed, q.group_size, sz)), ""
+
+
+def phase_awq(torch, timer, rows, weights, card):
+    """(e) the AWQ int4 path on the weights ``build_engine`` drew for (a):
+    every layer-0 weight of the 8B target and the 1B draft quantized on the
+    card, then multiplied at AWQ_ROWS in f32 and bf16; after the launch
+    counts are read, each result is held against ``x @ dequantize(q)`` and
+    the plain version, with row 0 alone and a repeated call bit for bit,
+    and the INT4_TIMED weights are timed at M 1 and 8.  Returns the run's
+    launch counts."""
+    from repro_torch import quant
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    timed_at = {(label.split("-")[1], K, N): label for label, K, N in INT4_TIMED}
+    print(f"awq (e): layer 0 of llama3-8b and llama3-1b, group {AWQ_GROUP}, M {AWQ_ROWS}, f32 "
+          f"and bf16 (tolerance f32 1e-4, bf16 2e-2) on {card}", flush=True)
+    ops.reset_launch_counts()
+    path = []  # (model, weight name, q, [(dtype, M, x, result)])
+    for model, params in weights:
+        layer = params.layers[0]
+        d = layer.attn["wq"].shape[0]
+        mats = {k: layer.attn[k].reshape(d, -1) for k in ("wq", "wk", "wv")}
+        mats["wo"] = layer.attn["wo"].reshape(-1, d)
+        mats.update({k: layer.mlp[k] for k in ("wg", "wu", "wd")})
+        for wname, w in mats.items():
+            q = quant.quantize_groupwise(w, AWQ_GROUP)
+            products = []
+            for dtype in (torch.float32, torch.bfloat16):
+                for M in AWQ_ROWS:
+                    x = torch.randn((M, w.shape[0]), generator=gen, device="cuda").to(dtype)
+                    products.append((dtype, M, x, ops.int4_matmul(x, *q[:3], group_size=AWQ_GROUP)))
+            path.append((model, wname, q, products))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"awq (e): {sum(len(p[3]) for p in path)} products; kernel launches {counts}", flush=True)
+    if counts["int4_matmul"] == 0:
+        fail("awq (e): int4_matmul never launched on the AWQ path")
+    to_time = []
+    for model, wname, q, products in path:
+        K, N = 2 * q.qweight.shape[0], q.qweight.shape[1]
+        for dtype, M, x, got in products:
+            err = check_int4(torch, f"awq (e) {model} {wname} [{K}, {N}] M{M} {dtype}", x, q,
+                             dtype, got)
+            if model == "8B" and M in (1, 8) and (wname, K, N) in timed_at:
+                to_time.append((timed_at[wname, K, N], M, dtype, x, q, err))
+        packed_mb = (q.qweight.numel() + 8 * q.scales.numel()) / 1e6
+        print(f"  {model} {wname} [{K}, {N}]: {packed_mb:.1f} MB packed with its scales and "
+              f"zeros ({K * N * 4 / 1e6:.1f} MB in f32); M {AWQ_ROWS} f32 and bf16 agree, row 0 "
+              "alone and a repeated call bit for bit", flush=True)
+    # bf16 first: its first row, where torch has a groupwise-int4 call, goes into the kernels line
+    order = {label: i for i, (label, _, _) in enumerate(INT4_TIMED)}
+    for label, M, dtype, x, q, err in sorted(to_time, key=lambda t: (str(t[2]) != "torch.bfloat16",
+                                                                       order[t[0]], t[1])):
+        K, N = x.shape[1], q.qweight.shape[1]
+        library, note = int4pack_library(torch, x, q)
+        es = x.element_size()
+        nbytes = q.qweight.numel() + 4 * (q.scales.numel() + q.zeros.numel()) + (M * K + M * N) * es
+        time_row(rows, timer, card, "int4_matmul", f"{label} M{M} K{K} N{N} g{AWQ_GROUP}", dtype,
+                 err, lambda: ops.int4_matmul(x, *q[:3], group_size=AWQ_GROUP),
+                 lambda: ref.int4_matmul_ref(x, *q[:3], AWQ_GROUP), library, nbytes,
+                 2 * M * K * N, note)
+    return counts
 
 
 def greedy_decode(torch, model, params, prompt, n, S_max):
@@ -802,6 +960,8 @@ class ShapeLog:
             tuple(arr.shape), src.shape[1], bool(donate)),
         "slot_write_rows": lambda leaves, donors, slot: (
             tuple(tuple(t.shape) for t in leaves), donors is None),
+        "int4_matmul": lambda x, qweight, scales, zeros, group_size=128: (
+            tuple(x.shape) + (qweight.shape[1], group_size)),
     }
 
     def __init__(self, ops):
@@ -991,7 +1151,7 @@ def phase_serve(torch, card):
     counts["d3"] = run_chain(torch, "chain (d3) llama3-8b + llama3-1b", "d3", chain, tp, dp,
                              prompts_d, refs_d, card)
     timing("chain (d3)")
-    return counts
+    return counts, (("8B", tp), ("1B", dp))
 
 
 def phase_chain(torch, card):
@@ -1076,6 +1236,14 @@ def phase_shapes(torch, log: ShapeLog, card):
                 got = ops.kv_move_rows(arr.clone(), src, dst, mask, donate=donate)
                 if not torch.equal(got, want):
                     fail(f"{what}: kernel disagrees with the plain version (must be exact)")
+            elif name == "int4_matmul":
+                from repro_torch import quant
+
+                M, K, N, g = key[:4]
+                q = quant.quantize_groupwise(randn((K, N), torch.float32) * K ** -0.5, g)
+                x = randn((M, K), dtype)
+                check_close(what, ops.int4_matmul(x, *q[:3], group_size=g),
+                            ref.int4_matmul_ref(x, *q[:3], g), dtype, INT4_TOL)
             else:  # slot_write_rows
                 shapes, zero = key[:2]
                 leaves = [randn(sh, dtype) for sh in shapes]
@@ -1119,11 +1287,15 @@ def main() -> int:
 
     phase_build()
     timing("build")
-    rows = phase_kernels(torch, Timer(torch), card)
+    timer = Timer(torch)
+    rows = phase_kernels(torch, timer, card)
     timing("kernels")
     log = ShapeLog(ops)
     log.install()
-    counts = phase_serve(torch, card)
+    counts, weights = phase_serve(torch, card)
+    counts["e"] = phase_awq(torch, timer, rows, weights, card)
+    del weights  # the 8B and 1B weights go before zamba2's are drawn
+    timing("awq (e)")
     counts.update(phase_chain(torch, card))
     timing("chain (d1)-(d2)")
     log.uninstall()

@@ -7,6 +7,10 @@ is the unit tuple, one dict per block of the unit, whose leaves carry the
 stacked repeat axis U first (``repro/models/transformer.py:307-316``); a
 zamba2 tree also holds the model-level ``shared_attn`` block (no U axis),
 and each ``shared`` entry of the unit its per-invocation ``in_w``.
+
+``quantized_from_numpy`` does the same for the reference's
+``QuantizedLinear`` (``repro.quant``), so both packages multiply by the
+same packed bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from repro_torch.models.transformer import (
     SharedBlock,
     check_plan,
 )
+from repro_torch.quant import QuantizedLinear
 
 
 def params_from_numpy(cfg, tree, device) -> DecoderLM:
@@ -51,3 +56,13 @@ def params_from_numpy(cfg, tree, device) -> DecoderLM:
                 layers.append(SharedBlock(t(p["in_w"][u])))
     shared = dense(tree["shared_attn"]) if "shared" in unit_def else None
     return DecoderLM(t(tree["embed"]), t(tree["final_norm"]), t(tree["lm_head"]), layers, shared)
+
+
+def quantized_from_numpy(qweight, scales, zeros, group_size: int, device) -> QuantizedLinear:
+    """The reference's ``QuantizedLinear``, unboxed to numpy (int8 [K//2, N]
+    packed, f32 [K//g, N] scales and zeros), as the port's on ``device``."""
+    device = resolve_device(device)
+    return QuantizedLinear(torch.tensor(qweight, dtype=torch.int8, device=device),
+                           torch.tensor(scales, dtype=torch.float32, device=device),
+                           torch.tensor(zeros, dtype=torch.float32, device=device),
+                           int(group_size))

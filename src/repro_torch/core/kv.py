@@ -25,8 +25,9 @@ clears a retired row.  Both touch every leaf of ``groups`` and leave
 ``len`` alone (per-row lengths live in the tree), and both are one
 ``slot_write_rows`` call for the whole cache: on the card one kernel
 launch, in place; on the CPU the plain version, which returns fresh
-tensors.  A leaf that breaks the kernel's contract raises; nothing falls
-back leaf by leaf.
+tensors.  A donor of another dtype is cast to the cache's before the
+call; a leaf that breaks the kernel's contract otherwise raises; nothing
+falls back leaf by leaf.
 """
 
 from __future__ import annotations
@@ -80,9 +81,14 @@ def _unflatten(groups, leaves):
 
 def _write_slot_rows(cache, donor, slot: int):
     """Shared install/zero body: donor row 0 (zeros when ``donor`` is None)
-    into batch row ``slot`` of every ``groups`` leaf, in one call."""
+    into batch row ``slot`` of every ``groups`` leaf, in one call.  A donor
+    leaf of another dtype is cast to its cache leaf's first, as the
+    reference casts it (``one[:, 0].astype(big.dtype)``)."""
     leaves = _flatten(cache["groups"])
     donor_leaves = None if donor is None else _flatten(donor["groups"])
+    if donor_leaves is not None and len(donor_leaves) == len(leaves):
+        donor_leaves = [one if one.dtype == big.dtype else one.to(big.dtype)
+                        for big, one in zip(leaves, donor_leaves)]
     out = ops.slot_write_rows(leaves, donor_leaves, slot)
     return {"len": cache["len"], "groups": _unflatten(cache["groups"], iter(out))}
 

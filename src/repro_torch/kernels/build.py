@@ -22,7 +22,8 @@ from repro_torch.obs.clock import monotonic
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("tree_attention", "decode_attention", "fused_swiglu", "kv_moves", "slot_write")
+SOURCES = ("tree_attention", "decode_attention", "fused_swiglu", "kv_moves", "slot_write",
+           "int4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,9 @@ SIGNATURES = {
         "slot_write_rows_launch": [_P] * 5 + [_I] * 3 + [_P],
         "slot_write_rows_max_leaves": [],
     },
+    # x, qweight, scales, zeros, out, part, then M, K, N, group, k_per_split,
+    # splits, rows_per_pass, dtype, stream
+    "int4_matmul": {"int4_matmul_launch": [_P] * 6 + [_I] * 8 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0,
-            "slot_write_rows": 0}
+            "slot_write_rows": 0, "int4_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kernel leaves them zero)
@@ -317,3 +317,78 @@ def slot_write_rows(cache_leaves, donor_leaves, slot: int):
                                         ctypes.addressof(B), L, int(slot), es, _stream(dev))
     build.check("slot_write", rc)
     return list(cache_leaves)
+
+
+# -----------------------------------------------------------------------------
+# int4 AWQ dequant-GEMM
+# -----------------------------------------------------------------------------
+
+_INT4_TILE_N = 128  # output columns per block of the kernel
+_INT4_BLOCKS = 4 * 132  # blocks the K split aims at: four on each SM of an H100
+_INT4_ROWS_PER_PASS = 256  # rows of x per pass through the split partials
+
+
+def int4_splits(K: int, N: int, group_size: int) -> tuple[int, int]:
+    """(K per split, number of splits) of the int4 kernel: whole groups,
+    enough splits that the column tiles times the splits fill the card.  A
+    function of K, N and the group size alone, never of the rows of x, so a
+    row sums over K in the same order whatever the batch."""
+    groups = K // group_size
+    tiles = -(-N // _INT4_TILE_N)
+    want = min(groups, max(1, -(-_INT4_BLOCKS // tiles)))
+    per = -(-groups // want)
+    return per * group_size, -(-groups // per)
+
+
+def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
+    """x: [T, K]; qweight: int8 [K//2, N] packed (low nibble even k, high
+    nibble odd k, ``repro_torch.quant``); scales/zeros: [K//group_size, N].
+
+    Returns x @ ((q - z) * s), [T, N] in x's dtype.  Scales and zeros of
+    any float dtype are taken as f32.  The kernel takes x in float32 or
+    bfloat16, any T >= 0 and any N; the group size must be even and divide
+    K."""
+    if x.ndim != 2 or qweight.ndim != 2:
+        raise ValueError(f"int4_matmul: x{tuple(x.shape)} and qweight{tuple(qweight.shape)} "
+                         "must be 2-D")
+    T, K = x.shape
+    N = qweight.shape[1]
+    if group_size <= 0 or group_size % 2 or K % group_size:
+        raise ValueError(f"int4_matmul: K={K} must be a multiple of group_size={group_size}, "
+                         "which must be even")
+    if qweight.shape[0] * 2 != K:
+        raise ValueError(f"int4_matmul: qweight{tuple(qweight.shape)} packs "
+                         f"{qweight.shape[0] * 2} values of K, x has K={K}")
+    G = K // group_size
+    if tuple(scales.shape) != (G, N) or tuple(zeros.shape) != (G, N):
+        raise ValueError(f"int4_matmul: scales{tuple(scales.shape)} and zeros"
+                         f"{tuple(zeros.shape)} must be [K//group_size={G}, N={N}]")
+    if qweight.dtype != torch.int8:
+        raise TypeError(f"int4_matmul: qweight must be int8 packed nibbles, got {qweight.dtype}")
+    if not (scales.is_floating_point() and zeros.is_floating_point()):
+        raise TypeError(f"int4_matmul: scales/zeros must be float, got "
+                        f"{scales.dtype}/{zeros.dtype}")
+    if not _on_cuda("int4_matmul", x, qweight, scales, zeros):
+        return ref.int4_matmul_ref(x, qweight, scales, zeros, group_size)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"int4_matmul: x must be float32 or bfloat16, got {x.dtype}")
+    if T == 0 or N == 0 or K == 0:  # nothing to launch
+        return x.new_zeros((T, N))
+    x, qweight = x.contiguous(), qweight.contiguous()
+    scales = scales.to(torch.float32).contiguous()
+    zeros = zeros.to(torch.float32).contiguous()
+    k_split, splits = int4_splits(K, N, group_size)
+    rows = min(T, _INT4_ROWS_PER_PASS)
+    part = torch.empty(splits * rows * N, dtype=torch.float32, device=x.device) \
+        if splits > 1 else None
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    lib = build.lib("int4_matmul")
+    with torch.cuda.device(x.device):
+        LAUNCHES["int4_matmul"] += 1
+        rc = lib.int4_matmul_launch(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                                    zeros.data_ptr(), out.data_ptr(),
+                                    None if part is None else part.data_ptr(), T, K, N,
+                                    group_size, k_split, splits, _INT4_ROWS_PER_PASS,
+                                    _DTYPE_CODE[x.dtype], _stream(x.device))
+    build.check("int4_matmul", rc)
+    return out

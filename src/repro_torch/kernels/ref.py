@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant import QuantizedLinear, dequantize
+
 
 def tree_attention_ref(q, k, v, mask):
     """Non-square tree-masked GQA attention.
@@ -87,3 +89,14 @@ def slot_write_rows_ref(cache_leaves, donor_leaves, slot):
             out[:, slot] = donor_leaves[i][:, 0]
         outs.append(out)
     return outs
+
+
+def int4_matmul_ref(x, qweight, scales, zeros, group_size: int):
+    """AWQ groupwise int4 dequant-GEMM, in f32.
+
+    x: [T, K]; qweight: int8 [K//2, N] packed (the kernel's contract: low
+    nibble even k, high nibble odd k); scales, zeros: [K//group_size, N].
+    w = (q - z) * s; returns (x @ w) [T, N] in x's dtype.  The reference's
+    ``int4_matmul_ref`` takes the unpacked [K, N] instead."""
+    w = dequantize(QuantizedLinear(qweight, scales, zeros, group_size))
+    return (x.to(torch.float32) @ w).to(x.dtype)
