@@ -6,12 +6,14 @@
 It takes no options and runs every phase, in order:
   build    build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
-           (tree_attention, decode_attention — also bit for bit against
-           tree_attention at one query — fused_swiglu, kv_move_rows,
-           slot_write_rows, int4_matmul — row 0 alone and a repeated call
-           bit for bit too — f32 and bf16), and time kernel, plain version
-           and the one PyTorch call that computes the same function, where
-           there is one, with CUDA events
+           (tree_attention — also each row bit for bit against itself alone
+           at n=1, and a call with kv_bound against one without —
+           decode_attention — also bit for bit against tree_attention at
+           one query — fused_swiglu, kv_move_rows, slot_write_rows,
+           int4_matmul — row 0 alone and a repeated call bit for bit too —
+           f32 and bf16), and time kernel, plain version and the PyTorch
+           call that computes the same function (for fused_swiglu a
+           composite of cuBLAS and elementwise calls), with CUDA events
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
@@ -103,6 +105,9 @@ TREE_SERVE_SHAPES = [  # phase (c)'s 2-slot rounds: 8B verify / expand, 1B expan
     (2, 8, 32, 8, 64, 512),
 ]
 PREFIX = 48  # prefix rows of the timed masks: prompt 16 + 32 tokens emitted
+# a head size that is no multiple of 8 (the contract is hd % 4 == 0): the bf16
+# kernel's 8-byte copies and zero-padded columns, which no model shape reaches
+TREE_ODD_HD, DECODE_ODD_HD = (2, 3, 8, 2, 36, 100), (2, 8, 2, 36, 72)
 DECODE_SHAPES = [  # (B, Hq, Hkv, hd, S): tests/test_torch_kernels.py's, hd 64/80/128, G 1/4 ...
     (2, 8, 2, 64, 160), (2, 4, 4, 80, 200), (1, 16, 4, 128, 96), (3, 4, 4, 64, 100),
 ]
@@ -113,6 +118,11 @@ DECODE_TIMED = [  # ... and the paths': decode_step of llama3-8b, llama3-1b, zam
 TREE_TIMED = [  # the main path's calls of tree_attention
     ("8B-verify", (1, 8, 32, 8, 128, 512)), ("8B-expand", (1, 4, 32, 8, 128, 512)),
     ("1B-expand", (1, 4, 32, 8, 64, 512)), ("1B-fill", (1, 8, 32, 8, 64, 512)),
+]
+TREE_ROW_ALONE = [  # row i at n must equal row i alone at n = 1: the paths' verify and
+    # fill, zamba2's verify (G 1, hd 80) and a TREE_SHAPES case with G 8
+    ("8B-verify", (1, 8, 32, 8, 128, 512)), ("1B-fill", (1, 8, 32, 8, 64, 512)),
+    ("zamba2-verify", (1, 4, 32, 32, 80, 512)), ("G8", (1, 16, 8, 1, 128, 256)),
 ]
 SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
     ("8B-verify", (8, 4096, 14336)), ("8B-decode", (1, 4096, 14336)),
@@ -225,14 +235,15 @@ def check_close(name, got, want, dtype, tols=TOL) -> float:
 def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library, nbytes, n_ops,
              library_note=""):
     """Time kernel, plain version and library call (None: there is none;
-    ``library_note`` says why), print the row, and keep the first row of
-    each kernel in ``rows``."""
+    ``library_note`` says why, or what the call is), print the row, and
+    keep the first row of each kernel in ``rows``."""
     b_ms, b_by = bound(nbytes, n_ops, dtype)
     row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
                max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
                bound_by=b_by, library_ms=None if library is None else timer(library),
                shape=f"{label} {str(dtype).removeprefix('torch.')}")
-    lib = f"- {library_note}".rstrip() if library is None else f"{row['library_ms']:.4f} ms"
+    lib = f"- {library_note}".rstrip() if library is None else \
+        f"{row['library_ms']:.4f} ms {library_note}".rstrip()
     print(f"  time {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}) "
           f"on {card}", flush=True)
@@ -274,7 +285,7 @@ def phase_kernels(torch, timer, card):
           "exact; decode_attention bit for bit against tree_attention at n=1):")
 
     # --- tree_attention --------------------------------------------------------
-    cases = [(shape, False) for shape in TREE_SHAPES] + \
+    cases = [(shape, False) for shape in TREE_SHAPES + [TREE_ODD_HD]] + \
         [(shape, parked) for shape in TREE_SERVE_SHAPES for parked in (False, True)]
     for dtype in dtypes:
         for (B, n, hq, hkv, hd, S), parked in cases:
@@ -293,18 +304,49 @@ def phase_kernels(torch, timer, card):
                 fail(f"{name}: a fully masked row is not 0")
             print(f"  tree_attention B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S}"
                   f"{', row B-1 parked' if parked else ''} {dtype}: max|err| {err:.2e}")
-    # times under a mask as the main path builds it mid-request: a prefix of
-    # PREFIX rows that every query sees, then the tree rows, each query its own
-    # row and a random subset of the earlier ones (its ancestors)
+    def path_mask(B, n, S):
+        """A mask as the main path builds it mid-request: a prefix of PREFIX
+        rows that every query sees, then the tree rows, each query its own
+        row and a random subset of the earlier ones (its ancestors).  No
+        query attends a key at or past PREFIX + n."""
+        mask = torch.zeros((B, n, S), dtype=torch.bool, device="cuda")
+        mask[:, :, :PREFIX] = True
+        anc = torch.rand((B, n, n), generator=gen, device="cuda") < 0.5
+        mask[:, :, PREFIX:PREFIX + n] = anc.tril(-1) | torch.eye(n, dtype=torch.bool,
+                                                                 device="cuda")
+        return mask
+
+    # row i of a call equals row i alone at n = 1, bit for bit, under a random
+    # mask (every split live) and under the path's mask, there also with the
+    # bound PREFIX + n (one live split), which must equal the call without it
+    for dtype in dtypes:
+        for label, (B, n, hq, hkv, hd, S) in TREE_ROW_ALONE:
+            q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
+                randn(B, S, hkv, hd, dtype=dtype)
+            rand = torch.rand((B, n, S), generator=gen, device="cuda") < 0.5
+            for kind, mask, bound in (("random mask", rand, None),
+                                      ("path mask", path_mask(B, n, S), PREFIX + n)):
+                full = ops.tree_attention(q, k, v, mask)
+                name = f"tree_attention {label} {(B, n, hq, hkv, hd, S)} {kind} {dtype}"
+                if bound is not None and not torch.equal(
+                        ops.tree_attention(q, k, v, mask, kv_bound=bound), full):
+                    fail(f"{name}: kv_bound={bound} differs from the call without it")
+                for i in range(n):
+                    alone = ops.tree_attention(q[:, i:i + 1], k, v, mask[:, i:i + 1],
+                                               kv_bound=bound)
+                    if not torch.equal(alone[:, 0], full[:, i]):
+                        fail(f"{name}: row {i} differs from the same row alone at n=1 by "
+                             f"{max_err(alone[:, 0], full[:, i]):.3e} (must be bit for bit)")
+            print(f"  tree_attention {label} B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S} {dtype}: each "
+                  f"row bit for bit equal to itself alone at n=1 (random and path masks), "
+                  f"kv_bound {PREFIX + n} bit for bit equal to none")
+    # times under the path's mask, without a bound (the tree engine's calls)
+    # and with the bound PREFIX + n (the chain verify's)
     for dtype in dtypes:
         for label, (B, n, hq, hkv, hd, S) in TREE_TIMED:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
-            mask = torch.zeros((B, n, S), dtype=torch.bool, device="cuda")
-            mask[:, :, :PREFIX] = True
-            anc = torch.rand((B, n, n), generator=gen, device="cuda") < 0.5
-            mask[:, :, PREFIX:PREFIX + n] = anc.tril(-1) | torch.eye(n, dtype=torch.bool,
-                                                                     device="cuda")
+            mask = path_mask(B, n, S)
             err = check_close(f"tree_attention {label} {dtype}", ops.tree_attention(q, k, v, mask),
                               ref.tree_attention_ref(q, k, v, mask), dtype)
             es = q.element_size()
@@ -317,6 +359,10 @@ def phase_kernels(torch, timer, card):
                   lambda: torch.nn.functional.scaled_dot_product_attention(
                       qt, kt, vt, attn_mask=mt, enable_gqa=True),
                   nbytes, 4 * hd * hq * int(mask.sum()))
+            bound = PREFIX + n
+            ms = timer(lambda: ops.tree_attention(q, k, v, mask, kv_bound=bound))
+            print(f"  time tree_attention {label} {str(dtype).removeprefix('torch.')} with "
+                  f"kv_bound {bound} (one live split): kernel {ms:.4f} ms on {card}", flush=True)
 
     # --- decode_attention ---------------------------------------------------------
     # every case: per-row lengths from {0, 1, S/2 + 3, S} (each in every row
@@ -324,7 +370,7 @@ def phase_kernels(torch, timer, card):
     # must agree with the plain version and equal tree_attention at n = 1
     # under the mask cols < length bit for bit
     for dtype in dtypes:
-        for B, hq, hkv, hd, S in DECODE_SHAPES + [shape for _, shape in DECODE_TIMED]:
+        for B, hq, hkv, hd, S in DECODE_SHAPES + [DECODE_ODD_HD] + [s for _, s in DECODE_TIMED]:
             q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             errs = []
@@ -383,10 +429,13 @@ def phase_kernels(torch, timer, card):
             print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}")
             if label in SWIGLU_TIMED:
                 es = x.element_size()
-                # no single PyTorch call computes silu(x@wg) * (x@wu): library is None
+                # no single PyTorch call computes silu(x@wg) * (x@wu): the library
+                # time is a composite of two cuBLAS products and two elementwise passes
                 timed("fused_swiglu", f"{label} M{M} K{K} N{N}", dtype, err,
                       lambda: ops.fused_swiglu(x, wg, wu), lambda: ref.fused_swiglu_ref(x, wg, wu),
-                      None, (M * K + 2 * K * N + M * N) * es, 4 * M * K * N)
+                      lambda: torch.nn.functional.silu(x @ wg) * (x @ wu),
+                      (M * K + 2 * K * N + M * N) * es, 4 * M * K * N,
+                      "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
 
     # --- kv_move_rows -----------------------------------------------------------
     def plan(M, n_off):
@@ -953,7 +1002,8 @@ class ShapeLog:
     stay the wrappers' own), ``uninstall`` puts them back."""
 
     KEYS = {  # wrapper -> the shape of one call, from its arguments
-        "tree_attention": lambda q, k, v, mask: tuple(q.shape) + tuple(k.shape[1:3]),
+        "tree_attention": lambda q, k, v, mask, kv_bound=None: (
+            tuple(q.shape) + tuple(k.shape[1:3])),
         "decode_attention": lambda q, k, v, length: tuple(q.shape) + tuple(k.shape[1:3]),
         "fused_swiglu": lambda x, wg, wu: tuple(x.shape) + (wg.shape[1],),
         "kv_move_rows": lambda arr, src, dst, mask, donate=False: (

@@ -31,14 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # pointer and the stream, so ctypes never truncates them to 32 bits)
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
+    # q, k, v, mask, out, part_acc, part_ml, counters, then B, n, Hq, Hkv, hd, S,
+    # split_keys, n_launch, kv_end, scale, dtype, stream
     "tree_attention": {
-        "tree_attention_launch": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-        "attention_rows_per_block": [],
+        "tree_attention_launch": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+        "attention_rows_per_block": [_I],
     },
-    # q, k, v, length, then length_all, out, part_acc, part_ml, counters, ...
+    # q, k, v, length, out, part_acc, part_ml, counters, then B, Hq, Hkv, hd, S, ...
     "decode_attention": {
-        "decode_attention_launch": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _I, _P],
-        "attention_rows_per_block": [],
+        "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+        "attention_rows_per_block": [_I],
     },
     "fused_swiglu": {"fused_swiglu_launch": [_P] * 4 + [_I] * 4 + [_P]},
     "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},

@@ -4,285 +4,674 @@
 //
 // Both launch the one kernel below.  decode_attention is its n = 1 case
 // with the mask computed from the length: a row's scores, its online
-// softmax and its fixed-order split combine are then the same operations
-// in the same order as tree_attention's at n = 1, so the greedy decode
+// softmax and its fixed-order merges are then the same operations in the
+// same order as tree_attention's at n = 1, so the greedy decode
 // (decode_step, n = 1) and the chain verify (n = k) round alike bit for
-// bit.  The length variant also stops each split's key loop at the length,
-// so it reads only the K/V rows that attend: a tile or split past the
-// length would add exactly nothing in tree_attention (every key masked:
-// score -1e30, weight 0, rescale by exp(0) = 1).
+// bit.  A key that does not attend adds exactly nothing (score -1e30,
+// weight 0, rescale by exp(0) = 1), so the length variant may stop at the
+// length and load nothing past it, and a split that holds no attended key
+// need not be launched at all (below).
 //
-// What bounds it: bytes.  At the port's shapes (G = Hq/Hkv <= 4 query heads
-// per KV head, n <= 8 tree nodes, S = 512) every K/V element is used by at
-// most G*n = 32 query rows, far below the ~20 f32 operations per byte at
-// which the card's CUDA cores, not its memory, would be the limit.
+// What bounds it on this card.  By bytes it would take well under a
+// microsecond: at the port's shapes (G = Hq/Hkv <= 4 query heads per KV
+// head, n <= 8 tree nodes, S = 512) every K/V element is used by at most
+// G*n = 32 query rows, far below the ~20 f32 (~295 bf16) operations per
+// byte at which the card's arithmetic, not its memory, would be the limit.
+// In practice it is bound by latency: the launch, one round trip to device
+// memory for Q/K/V/mask, a chain of dependent arithmetic per row, and — when
+// a row's keys span several splits — a second round trip for the combine.
+// Measured on an H100 (tools/attention_variants.py, PERF.md): at a decode
+// step the launch and the loads alone take about as long as
+// scaled_dot_product_attention's whole call, the arithmetic adds a tenth
+// more; smaller splits (more SMs per KV head) lose more to the combine
+// than they gain in load time.  The design spends its effort on the
+// length of those chains:
 //
-// Design: the TPU kernels walk S as a sequential grid axis with the running
-// max/sum/accumulator in VMEM.  Here S is split across thread blocks, as
-// the paper's GPU kernel does: grid (B*Hkv, row tiles, S splits); each
-// block holds up to 16 query rows of one KV head (row rl on warp rl % 4, so
-// the G <= 4 rows of a decode step run on separate warps), streams its S split
-// through shared memory in tiles of 32 keys (one key per lane for the
-// scores, one head-dim slice per lane for the accumulator) and keeps an
-// online softmax per row in registers.  The work is small and latency
-// bound, so every global read is a 16-byte vector issued in an unrolled
-// batch before it is used.  The last block of a (b, h, row tile) to
-// finish — an atomic ticket — combines the splits' partial (max, sum, acc)
-// in a fixed order (at most 32 splits, one per lane), so a row's result is
-// the same whatever n is.  The split length is a function of S alone.
+// * One round trip for the operands.  Q, the K and V tiles and the tile's
+//   mask rows are all requested before any is waited on: K/V/Q by 16-byte
+//   cp.async (8-byte for a bf16 head size that is no multiple of 8) into a
+//   ring of shared-memory stages, in their own dtype (a bf16 tile takes
+//   half the bytes of an f32 one), keys past the end zero-filled; the mask
+//   by coalesced byte loads into registers, stored to shared memory with
+//   the tile (never read from device memory inside the score loop).  While
+//   a tile is computed the next is in flight.  At S <= 2048 a split is 64
+//   keys: one bf16 tile (one stage), two f32 tiles (two stages).
+// * A split grid over live keys.  The split length is a function of S
+//   alone (ops.attn_split_keys); the caller's host-int bound kv_end (the
+//   decode length, or tree_attention's optional kv_bound) launches only
+//   the splits below it.  A split that is not launched would have
+//   published (max -1e30, sum 0, acc 0), whose combine weight
+//   exp(-1e30 - m) is exactly 0, so the result is the same bit for bit
+//   (up to the sign of a zero).  At the paths' lengths one split is
+//   live: no partials, no ticket, no second pass.  The single-split
+//   epilogue divides O / L exactly as the combine does, so it is the
+//   combine with one split.
+// * Keys across warps.  A block holds kRows query rows of one KV head (the
+//   G*n rows r = i*G + g, r / kRows the grid's row tile) and a tile of
+//   kKeys keys; warp w takes keys [w*kKeys/4, (w+1)*kKeys/4) of every tile
+//   with its own online softmax, and the four warps merge (max, sum, acc)
+//   in shared memory in the fixed order w = 0..3 at the end of the split.
+//   No warp walks rows one after another: each row's arithmetic is a fixed
+//   function of its q, its keys and the split length, whatever n, B or Hq
+//   are and whichever rows share its block.
+// * bf16 on tensor cores: mma.sync.m16n8k16 (f32 accumulate) fed by
+//   ldmatrix (ldmatrix.trans for V), not wgmma — wgmma needs 64 rows and a
+//   block here has at most 16 live rows (4 at a decode step); the work is
+//   bound by latency, not by the tensor cores' rate.  The 16 rows of a
+//   block are the MMA's M (rows past G*n are zeros), a warp's 16 keys its
+//   N, the head dim its K, zero-padded in shared memory to 16*KS.  The
+//   scores stay in the accumulator fragments; a row's max and sum reduce
+//   over the four lanes of a quad.  The fragments of P are the A operand
+//   of P*V directly (two n8 score tiles = one k16 A tile).
+//   P*V keeps the reference's f32 P (src/repro/kernels/tree_attention.py
+//   multiplies f32 p by f32 v): p is split into hi = bf16(p) and
+//   lo = bf16(p - hi) and both go through the MMA into one f32
+//   accumulator.  Tolerance argument: |p - hi - lo| <= 2^-9 |p - hi| <=
+//   2^-18 |p| (each bf16 rounding keeps 8 bits), the products with the
+//   bf16 v are exact in the f32 accumulator, so P*V carries a relative
+//   error of about 2^-18 ~ 4e-6 against the f32 reference — far inside
+//   bf16's 2e-2, whose budget goes to the one rounding of the output
+//   (2^-9 ~ 2e-3).  tests/test_torch_kernels.py writes this arithmetic out
+//   in torch and holds it against the JAX package at 2e-2 and against the
+//   f32 plain version at 1e-5 before the output rounding.
+// * f32 on CUDA cores (TF32 would break the 2e-5 tolerance), kRows = 8 and
+//   kKeys = 32: in the score loop lane (j, quarter) of warp w takes key j of
+//   the warp's 8 and every fourth 16-byte column group, so each lane keeps
+//   one independent partial dot per row (8 rows: 8 chains of hd/4 fmaf),
+//   summed over the quarters by two shuffles; in P*V a lane owns two
+//   columns of every row and walks the warp's 8 keys in order, its p from a
+//   per-warp tile in shared memory.  Every row runs, padding rows included
+//   (their q and mask are zero): branches around a row's shuffle and exp
+//   chain would serialise the rows.
+// * Shared memory strides are padded so that ldmatrix, the f32 K reads, the
+//   mask reads and the merge's float2 stores of the quad layout each hit
+//   distinct banks.
+//
+// The cross-split combine (several live splits): every block publishes its
+// merged (max, sum, acc) per row, and the last block of a (b, h, row tile)
+// to finish — an atomic ticket — combines them in a fixed order (at most
+// 32 splits, one per lane).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kTile = 32;                     // keys per shared-memory tile
+constexpr int kMaxSplits = 32;
+constexpr int kMaxStages = 2;
 constexpr float kNeg = -1e30f;
+constexpr int kMaskPad = 4;  // bytes after each mask row in shared memory (bank spread)
+
+// query rows per block and keys per shared-memory tile, by dtype
+template <typename T> struct Tile;
+template <> struct Tile<float> {
+  static constexpr int kRows = 8, kKeys = 32;
+};
+template <> struct Tile<__nv_bfloat16> {
+  static constexpr int kRows = 16, kKeys = 64;
+};
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   const uint8_t* mask;  // [B, n, S]; unused by the length variant
-  const int* length;    // [B] rows that attend (length variant); null: length_all for every row
-  int length_all;
+  const int* length;    // [B] rows that attend (length variant); null: kv_end bounds every row
+  int kv_end;           // keys >= kv_end attend for no row: never loaded, their splits not launched
   void* out;
-  float* part_acc;  // [B*Hkv, n_rowtiles*kRows, n_splits, hd]
-  float* part_ml;   // [B*Hkv, n_rowtiles*kRows, n_splits, 2]
+  float* part_acc;  // [B*Hkv, n_rowtiles*kRows, n_launch, hd]; unused when n_launch == 1
+  float* part_ml;   // [B*Hkv, n_rowtiles*kRows, n_launch, 2]
   int* counters;    // [B*Hkv, n_rowtiles], zero between launches
-  int B, n, Hq, Hkv, hd, S, split_keys, n_splits, n_rowtiles;
+  int B, n, Hq, Hkv, hd, S, split_keys, n_launch, n_rowtiles, stages;
   float scale;
 };
 
-// kByLength: key s of batch row b attends iff s < length[b] (n = 1); else the mask
-template <typename T, int DPL, bool kByLength>
-__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_last;
-  const int hd = a.hd, hd4 = hd / 4, ldk = hd + 1;  // +1: lanes read K rows bank-conflict free
-  float* Ks = smem;                                 // [kTile][hd+1]
-  float* Vs = Ks + kTile * ldk;                     // [kTile][hd], 16-byte aligned (hd % 4 == 0)
-  float* Qs = Vs + kTile * hd;                      // [kRows][hd], 16-byte aligned
+// Byte offsets of the dynamic shared memory.  W: the bf16 kernel's k16 steps
+// over the padded head dim, or the f32 kernel's column pairs per lane.
+struct Smem {
+  int ldq, ldk, ldv, ldo;                  // row strides, in elements
+  int stage, stage_bytes, k, v, m, p;      // stage s at stage + s * stage_bytes; k/v/m within it
+  int mw, lw, aw, total;                   // the warps' merge area (aliases the stages)
+};
 
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+template <typename T, int W>
+__host__ __device__ inline Smem smem_layout(int hd, int stages) {
+  constexpr int R = Tile<T>::kRows, NK = Tile<T>::kKeys, es = sizeof(T);
+  Smem L{};
+  if (std::is_same<T, float>::value) {
+    // K rows 16-byte aligned and padded so that 8 lanes reading 8 keys hit 8 bank groups
+    L.ldq = hd;
+    L.ldk = hd + ((hd / 4) % 2 == 0 ? 4 : 0);
+    L.ldv = hd;
+    L.ldo = hd;
+  } else {
+    // padded head dim + 8: ldmatrix's 8 row addresses fall in 8 bank groups
+    L.ldq = L.ldk = L.ldv = 16 * W + 8;
+    L.ldo = 16 * W + 8;  // the quad layout's float2 stores: 16 lanes hit 32 banks
+  }
+  L.stage = align16(R * L.ldq * es);  // Q first
+  L.k = 0;
+  L.v = L.k + NK * L.ldk * es;
+  L.m = L.v + NK * L.ldv * es;
+  L.stage_bytes = align16(L.m + R * (NK + kMaskPad));
+  L.p = L.stage + stages * L.stage_bytes;  // f32: each warp's p tile [R][8]
+  const int end = L.p + (std::is_same<T, float>::value ? kWarps * R * 8 * 4 : 0);
+  L.mw = L.stage;
+  L.lw = L.mw + kWarps * R * 4;
+  L.aw = L.lw + kWarps * R * 4;
+  const int merge_end = L.aw + kWarps * R * L.ldo * 4;
+  L.total = end > merge_end ? end : merge_end;
+  return L;
+}
+
+// ---- PTX ---------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// BYTES from global to shared, asynchronously; !valid fills them with zeros
+// and reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 in one register, the lower k index in the low half
+__device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo_k, __nv_bfloat16 hi_k) {
+  __nv_bfloat162 v = __halves2bfloat162(lo_k, hi_k);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// ---- the kernel ----------------------------------------------------------------
+
+// W: bf16 — k16 steps over the head dim padded to 16*W; f32 — column pairs per lane
+// (2 * 32 * W >= hd).  kByLength: key s of batch row b attends iff s < length[b]
+// (or kv_end), n = 1; else the mask.
+template <typename T, int W, bool kByLength>
+__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int R = Tile<T>::kRows, NK = Tile<T>::kKeys, KW = NK / kWarps;
+  constexpr int MPT = R * NK / kThreads;  // mask bytes per thread and tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_last;
+  __shared__ float s_w[kWarps][kMaxSplits];  // the combine's split weights, per warp
+  __shared__ float s_wt[kWarps][16], s_m[16], s_l[16];  // the warp merge's, per row (R <= 16)
+
+  const int hd = a.hd;
+  const Smem L = smem_layout<T, W>(hd, a.stages);
   const int bh = blockIdx.x, rt = blockIdx.y, split = blockIdx.z;
   const int b = bh / a.Hkv, h = bh % a.Hkv;
   const int G = a.Hq / a.Hkv, GN = G * a.n;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = min(R, GN - rt * R);  // live query rows of this block
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   T* out = static_cast<T*>(a.out);
-
-  // row r of a (b, h) is query i = r / G of query head h*G + r % G;
-  // kRows * hd / 4 <= kThreads * DPL vectors
-#pragma unroll
-  for (int it = 0; it < DPL; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    if (idx < kRows * hd4) {
-      const int rl = idx / hd4, d = (idx % hd4) * 4, r = rt * kRows + rl;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < GN) val = load4(q + (((long long)b * a.n + r / G) * a.Hq + h * G + r % G) * hd + d);
-      *reinterpret_cast<float4*>(Qs + rl * hd + d) = val;
-    }
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kNeg;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[rr][t] = 0.f;
-  }
+  T* Qs = reinterpret_cast<T*>(smem);
 
   const int s_begin = split * a.split_keys;
-  int s_end = min(a.S, s_begin + a.split_keys);
-  if (kByLength) s_end = min(s_end, a.length ? a.length[b] : a.length_all);
-  for (int t0 = s_begin; t0 < s_end; t0 += kTile) {
-    // the tile's K and V into registers (kTile * hd / 4 <= 2 * kThreads * DPL vectors) ...
-    float4 kr4[2 * DPL], vr4[2 * DPL];
-#pragma unroll
-    for (int it = 0; it < 2 * DPL; ++it) {
-      const int idx = threadIdx.x + it * kThreads, j = idx / hd4, s = t0 + j;
-      kr4[it] = vr4[it] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (idx < kTile * hd4 && s < s_end) {
-        const long long off = (((long long)b * a.S + s) * a.Hkv + h) * hd + (idx % hd4) * 4;
-        kr4[it] = load4(k + off);
-        vr4[it] = load4(v + off);
+  int s_end = min(min(a.S, a.kv_end), s_begin + a.split_keys);
+  if (kByLength && a.length) s_end = min(s_end, a.length[b]);
+  const int n_tiles = s_end > s_begin ? (s_end - s_begin + NK - 1) / NK : 0;
+  // columns held in shared memory (bf16: padded with zeros to whole k16 steps)
+  const int cols = kF32 ? hd : 16 * W;
+
+  // row r of a (b, h) is query i = r / G of query head h*G + r % G
+  auto q_row = [&](int r) -> long long {
+    return (((long long)b * a.n + r / G) * a.Hq + h * G + r % G) * hd;
+  };
+
+  // Q (with the first tile) and one tile of K and V, by cp.async in granules of
+  // GR bytes, one commit group; columns >= hd and keys >= s_end are zero-filled
+  auto issue = [&](auto gr, int stage, int t0, bool with_q) {
+    constexpr int GR = decltype(gr)::value, GE = GR / sizeof(T);
+    const int rg = cols / GE;  // granules per row
+    const int dj = kThreads / rg, dg = kThreads % rg;  // a thread's step in (row, granule)
+    unsigned char* st = smem + L.stage + stage * L.stage_bytes;
+    T* Ks = reinterpret_cast<T*>(st + L.k);
+    T* Vs = reinterpret_cast<T*>(st + L.v);
+    if (with_q) {
+      for (int rl = tid / rg, gi = tid % rg; rl < R;) {
+        const int e = gi * GE;
+        const bool ok = rl < rows && e < hd;
+        cp_async<GR>(Qs + rl * L.ldq + e, q + (ok ? q_row(rt * R + rl) + e : 0), ok);
+        rl += dj;
+        gi += dg;
+        if (gi >= rg) gi -= rg, ++rl;
       }
     }
-    __syncthreads();  // ... then into shared memory once the previous tile is consumed
+    const long long rs = (long long)a.Hkv * hd;  // between consecutive keys
+    const long long base = (((long long)b * a.S + t0) * a.Hkv + h) * hd;
+    const int live = s_end - t0;  // keys of this tile that are loaded
 #pragma unroll
-    for (int it = 0; it < 2 * DPL; ++it) {
-      const int idx = threadIdx.x + it * kThreads, j = idx / hd4, d = (idx % hd4) * 4;
-      if (idx < kTile * hd4) {
-        float* kp = Ks + j * ldk + d;
-        kp[0] = kr4[it].x;
-        kp[1] = kr4[it].y;
-        kp[2] = kr4[it].z;
-        kp[3] = kr4[it].w;
-        *reinterpret_cast<float4*>(Vs + j * hd + d) = vr4[it];
+    for (int part = 0; part < 2; ++part) {
+      const T* src = part == 0 ? k : v;
+      T* dst = part == 0 ? Ks : Vs;
+      const int ld = part == 0 ? L.ldk : L.ldv;
+      for (int j = tid / rg, gi = tid % rg; j < NK;) {
+        const int e = gi * GE;
+        const bool ok = j < live && e < hd;
+        cp_async<GR>(dst + j * ld + e, src + (ok ? base + j * rs + e : 0), ok);
+        j += dj;
+        gi += dg;
+        if (gi >= rg) gi -= rg, ++j;
       }
+    }
+    cp_async_commit();
+  };
+  auto issue_tile = [&](int stage, int t0, bool with_q) {
+    if (kF32 || hd % 8 == 0)
+      issue(std::integral_constant<int, 16>{}, stage, t0, with_q);
+    else
+      issue(std::integral_constant<int, 8>{}, stage, t0, with_q);
+  };
+  // the tile's mask rows, coalesced, into registers (stored to shared memory
+  // once the tile is waited for)
+  uint8_t mreg[MPT];
+  auto load_mask = [&](int t0) {
+    if (kByLength) return;
+#pragma unroll
+    for (int it = 0; it < MPT; ++it) {
+      const int idx = tid + it * kThreads, rl = idx / NK, s = t0 + idx % NK;
+      mreg[it] = rl < rows && s < s_end
+                     ? a.mask[((long long)b * a.n + (rt * R + rl) / G) * a.S + s]
+                     : uint8_t(0);
+    }
+  };
+
+  // per-warp online softmax state: bf16 — rows g and g+8 of the quad layout
+  // (l a per-lane partial until the end); f32 — every row, replicated
+  constexpr int NR = kF32 ? R : 2;
+  constexpr int NACC = kF32 ? R * W * 2 : 2 * W * 4;
+  float m_run[NR], l_run[NR], acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    m_run[i] = kNeg;
+    l_run[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  if (n_tiles > 0) {
+    issue_tile(0, s_begin, true);
+    load_mask(s_begin);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % a.stages, t0 = s_begin + it * NK;
+    unsigned char* st = smem + L.stage + stage * L.stage_bytes;
+    uint8_t* Ms = st + L.m;
+    if (!kByLength) {
+#pragma unroll
+      for (int i = 0; i < MPT; ++i) {
+        const int idx = tid + i * kThreads;
+        Ms[(idx / NK) * (NK + kMaskPad) + idx % NK] = mreg[i];
+      }
+    }
+    // the next tile goes in flight before this one is computed (a split of
+    // several tiles always has two stages)
+    if (it + 1 < n_tiles) {
+      issue_tile((it + 1) % a.stages, t0 + NK, false);
+      load_mask(t0 + NK);
+      cp_async_wait<1>();  // this tile landed; the next may not have
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const int s = t0 + lane;
+    const T* Ks = reinterpret_cast<const T*>(st + L.k);
+    const T* Vs = reinterpret_cast<const T*>(st + L.v);
+
+    if constexpr (!kF32) {
+      // ---- bf16: S = Q K^T for the warp's 16 keys on tensor cores ----
+      const int g = lane / 4, t = lane % 4, mi = lane / 8, mr = lane % 8;
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int rl = rr * kWarps + warp, r = rt * kRows + rl;
-      if (r >= GN) continue;  // uniform across the warp
-      const int i = r / G;
-      const bool on = s < s_end && (kByLength || a.mask[((long long)b * a.n + i) * a.S + s] != 0);
-      const float* qr = Qs + rl * hd;
-      const float* kr = Ks + lane * ldk;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const float sc = on ? dot * a.scale : kNeg;
-      const float m_new = fmaxf(m[rr], warp_max(sc));
-      // a masked key contributes exactly 0, also while every key so far is masked
-      const float p = on ? expf(sc - m_new) : 0.f;
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + warp_sum(p);
+      for (int ks = 0; ks < W; ++ks) {
+        unsigned qa[4], kb[4];
+        ldsm_x4(qa, Qs + (mr + (mi & 1) * 8) * L.ldq + ks * 16 + (mi >> 1) * 8);
+        ldsm_x4(kb, Ks + (warp * KW + (mi >> 1) * 8 + mr) * L.ldk + ks * 16 + (mi & 1) * 8);
+        mma_bf16(sc[0], qa, kb[0], kb[1]);
+        mma_bf16(sc[1], qa, kb[2], kb[3]);
+      }
+      // online softmax on the fragments: sc[nt][e] is row g + 8*(e/2), key
+      // warp*16 + 8*nt + 2*t + e%2 of the tile
+      unsigned ph[4], pl[4];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) acc[rr][t] *= alpha;
-      for (int j = 0; j < kTile; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
+      for (int hr = 0; hr < 2; ++hr) {
+        bool on[2][2];
+        float mx = kNeg;
 #pragma unroll
-        for (int t = 0; t < DPL; ++t) {
-          const int d = lane + 32 * t;
-          if (d < hd) acc[rr][t] = fmaf(pj, Vs[j * hd + d], acc[rr][t]);
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = warp * KW + nt * 8 + 2 * t + e;
+            on[nt][e] = t0 + j < s_end && (kByLength || Ms[(g + 8 * hr) * (NK + kMaskPad) + j] != 0);
+            sc[nt][2 * hr + e] = on[nt][e] ? sc[nt][2 * hr + e] * a.scale : kNeg;
+            mx = fmaxf(mx, sc[nt][2 * hr + e]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hr], mx);
+        const float alpha = expf(m_run[hr] - m_new);
+        float p[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            p[nt][e] = on[nt][e] ? expf(sc[nt][2 * hr + e] - m_new) : 0.f;
+        l_run[hr] = l_run[hr] * alpha + ((p[0][0] + p[0][1]) + (p[1][0] + p[1][1]));
+        m_run[hr] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < 2 * W; ++dt) {
+          acc[dt * 4 + 2 * hr] *= alpha;
+          acc[dt * 4 + 2 * hr + 1] *= alpha;
+        }
+        // A fragments of P: reg hr = row g + 8*hr, keys 2t..; reg 2 + hr = keys 8 + 2t..
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(p[nt][0]);
+          const __nv_bfloat16 h1 = __float2bfloat16_rn(p[nt][1]);
+          ph[2 * nt + hr] = pack2(h0, h1);
+          pl[2 * nt + hr] = pack2(__float2bfloat16_rn(p[nt][0] - __bfloat162float(h0)),
+                                  __float2bfloat16_rn(p[nt][1] - __bfloat162float(h1)));
         }
       }
-      m[rr] = m_new;
-    }
-  }
-
-  if (a.n_splits == 1) {
+      // ---- O += P V: hi then lo, two n8 column tiles per ldmatrix.trans ----
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = rt * kRows + rr * kWarps + warp;
-      if (r >= GN) continue;
-      const int i = r / G, g = r % G;
-      const float inv = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
-      T* o = out + (((long long)b * a.n + i) * a.Hq + h * G + g) * hd;
+      for (int pp = 0; pp < W; ++pp) {
+        unsigned vb[4];
+        ldsm_x4_trans(vb, Vs + (warp * KW + (mi & 1) * 8 + mr) * L.ldv + pp * 16 + (mi >> 1) * 8);
+        float(&o0)[4] = *reinterpret_cast<float(*)[4]>(acc + (2 * pp) * 4);
+        float(&o1)[4] = *reinterpret_cast<float(*)[4]>(acc + (2 * pp + 1) * 4);
+        mma_bf16(o0, ph, vb[0], vb[1]);
+        mma_bf16(o0, pl, vb[0], vb[1]);
+        mma_bf16(o1, ph, vb[2], vb[3]);
+        mma_bf16(o1, pl, vb[2], vb[3]);
+      }
+    } else {
+      // ---- f32: lane (j, quarter) — key warp*8 + j, column groups quarter + 4i ----
+      const float* Qf = reinterpret_cast<const float*>(Qs);
+      const float* Kf = reinterpret_cast<const float*>(Ks);
+      const float* Vf = reinterpret_cast<const float*>(Vs);
+      float* Pw = reinterpret_cast<float*>(smem + L.p) + warp * R * 8;
+      const int j = lane % 8, quarter = lane / 8, key = warp * KW + j;
+      float dot[R];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        const int d = lane + 32 * t;
-        if (d < hd) o[d] = from_f32<T>(l[rr] > 0.f ? acc[rr][t] * inv : 0.f);
+      for (int r = 0; r < R; ++r) dot[r] = 0.f;
+      const float* kr = Kf + key * L.ldk;
+      for (int d = 4 * quarter; d < hd; d += 16) {
+        const float4 kk = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qf + r * L.ldq + d);
+          dot[r] = fmaf(qv.x, kk.x, dot[r]);
+          dot[r] = fmaf(qv.y, kk.y, dot[r]);
+          dot[r] = fmaf(qv.z, kk.z, dot[r]);
+          dot[r] = fmaf(qv.w, kk.w, dot[r]);
+        }
+      }
+      float alpha[R];
+      const bool key_on = t0 + key < s_end;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {  // every row, so the rows' chains interleave
+        float s = dot[r] + __shfl_xor_sync(0xffffffffu, dot[r], 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        const bool on = key_on && (kByLength || Ms[r * (NK + kMaskPad) + key] != 0);
+        const float sc = on ? s * a.scale : kNeg;
+        float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m_run[r], mx);
+        alpha[r] = expf(m_run[r] - m_new);
+        const float p = on ? expf(sc - m_new) : 0.f;
+        float ps = p + __shfl_xor_sync(0xffffffffu, p, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 4);
+        l_run[r] = l_run[r] * alpha[r] + ps;
+        m_run[r] = m_new;
+        if (quarter == 0) Pw[r * 8 + j] = p;
+      }
+      __syncwarp();
+      // O += P V: lane owns columns 2c, 2c+1 for c = lane + 32u
+#pragma unroll
+      for (int u = 0; u < W; ++u) {
+        const int c = 2 * (lane + 32 * u);
+        if (c < hd) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[(r * W + u) * 2] *= alpha[r];
+            acc[(r * W + u) * 2 + 1] *= alpha[r];
+          }
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float2 vv = *reinterpret_cast<const float2*>(Vf + (warp * KW + jj) * L.ldv + c);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float p = Pw[r * 8 + jj];
+              acc[(r * W + u) * 2] = fmaf(p, vv.x, acc[(r * W + u) * 2]);
+              acc[(r * W + u) * 2 + 1] = fmaf(p, vv.y, acc[(r * W + u) * 2 + 1]);
+            }
+          }
+        }
       }
     }
-    return;
+    __syncthreads();  // the stage, its mask and the p tiles are free for the next tile
   }
 
-  // --- split-S: publish this split's partials, the last block combines ---
-  const long long row0 = ((long long)bh * a.n_rowtiles + rt) * kRows;
+  // ---- merge the four warps' (max, sum, acc) in the order w = 0..3 ----
+  float* Mw = reinterpret_cast<float*>(smem + L.mw);  // [kWarps][R]
+  float* Lw = reinterpret_cast<float*>(smem + L.lw);  // [kWarps][R]
+  float* Aw = reinterpret_cast<float*>(smem + L.aw);  // [kWarps][R][ldo]
+  if constexpr (!kF32) {
+    const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int rl = rr * kWarps + warp;
-    if (rt * kRows + rl >= GN) continue;
-    const long long p = (row0 + rl) * a.n_splits + split;
-    if (lane == 0) {
-      a.part_ml[2 * p] = m[rr];
-      a.part_ml[2 * p + 1] = l[rr];
+    for (int hr = 0; hr < 2; ++hr) {
+      float l = l_run[hr] + __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (t == 0) {
+        Mw[warp * R + g + 8 * hr] = m_run[hr];
+        Lw[warp * R + g + 8 * hr] = l;
+      }
     }
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) a.part_acc[p * hd + d] = acc[rr][t];
+    for (int dt = 0; dt < 2 * W; ++dt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (g + 8 * hr < rows)  // a padding row's acc is never read
+          *reinterpret_cast<float2*>(Aw + (warp * R + g + 8 * hr) * L.ldo + dt * 8 + 2 * t) =
+              make_float2(acc[dt * 4 + 2 * hr], acc[dt * 4 + 2 * hr + 1]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (lane == 0) {
+        Mw[warp * R + r] = m_run[r];
+        Lw[warp * R + r] = l_run[r];
+      }
+#pragma unroll
+      for (int u = 0; u < W; ++u) {
+        const int c = 2 * (lane + 32 * u);
+        if (c < hd)
+          *reinterpret_cast<float2*>(Aw + (warp * R + r) * L.ldo + c) =
+              make_float2(acc[(r * W + u) * 2], acc[(r * W + u) * 2 + 1]);
+      }
     }
   }
+  __syncthreads();
+
+  if (tid < rows) {  // per row: the warps' weights exp(m_w - m), and the merged sum
+    float m_all = kNeg, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, Mw[w * R + tid]);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(Mw[w * R + tid] - m_all);
+      s_wt[w][tid] = wt;
+      l = fmaf(Lw[w * R + tid], wt, l);
+    }
+    s_m[tid] = m_all;
+    s_l[tid] = l;
+  }
+  __syncthreads();
+
+  const long long row0 = ((long long)bh * a.n_rowtiles + rt) * R;  // partials of this row tile
+  for (int idx = tid; idx < rows * hd; idx += kThreads) {
+    const int rl = idx / hd, c = idx % hd;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o = fmaf(Aw[(w * R + rl) * L.ldo + c], s_wt[w][rl], o);
+    if (a.n_launch == 1) {  // the combine of one split: O / L
+      out[q_row(rt * R + rl) + c] = from_f32<T>(s_l[rl] > 0.f ? o / s_l[rl] : 0.f);
+    } else {
+      const long long p = (row0 + rl) * a.n_launch + split;
+      a.part_acc[p * hd + c] = o;
+      if (c == 0) {
+        a.part_ml[2 * p] = s_m[rl];
+        a.part_ml[2 * p + 1] = s_l[rl];
+      }
+    }
+  }
+  if (a.n_launch == 1) return;
+
+  // --- several live splits: the last block of the row tile combines them ---
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     int* ctr = a.counters + (long long)bh * a.n_rowtiles + rt;
     const int ticket = atomicAdd(ctr, 1);
-    s_last = ticket == a.n_splits - 1;
+    s_last = ticket == a.n_launch - 1;
     if (s_last) *ctr = 0;  // every split has counted: ready for the next launch
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
 
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int rl = rr * kWarps + warp, r = rt * kRows + rl;
-    if (r >= GN) continue;
+  for (int rl = warp; rl < rows; rl += kWarps) {
     // lane sp holds split sp's (max, sum); the sums meet in a fixed order
-    const long long p0 = (row0 + rl) * a.n_splits;
-    const bool mine = lane < a.n_splits;
+    const long long p0 = (row0 + rl) * a.n_launch;
+    const bool mine = lane < a.n_launch;
     const float m_sp = mine ? __ldcg(a.part_ml + 2 * (p0 + lane)) : kNeg;
     const float l_sp = mine ? __ldcg(a.part_ml + 2 * (p0 + lane) + 1) : 0.f;
     const float m_all = warp_max(m_sp);
     const float w_sp = mine ? expf(m_sp - m_all) : 0.f;
-    const float L = warp_sum(l_sp * w_sp);
-    float o[DPL];
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) o[t] = 0.f;
-#pragma unroll 4
-    for (int sp = 0; sp < a.n_splits; ++sp) {
-      const float w = __shfl_sync(0xffffffffu, w_sp, sp);
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        const int d = lane + 32 * t;
-        if (d < hd) o[t] = fmaf(__ldcg(a.part_acc + (p0 + sp) * hd + d), w, o[t]);
-      }
+    const float l = warp_sum(l_sp * w_sp);
+    s_w[warp][lane] = w_sp;
+    __syncwarp();
+    const long long o_row = q_row(rt * R + rl);
+    for (int c = lane; c < hd; c += 32) {
+      float o = 0.f;
+      for (int sp = 0; sp < a.n_launch; ++sp)
+        o = fmaf(__ldcg(a.part_acc + (p0 + sp) * hd + c), s_w[warp][sp], o);
+      out[o_row + c] = from_f32<T>(l > 0.f ? o / l : 0.f);
     }
-    const int i = r / G, g = r % G;
-    T* op = out + (((long long)b * a.n + i) * a.Hq + h * G + g) * hd;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) op[d] = from_f32<T>(L > 0.f ? o[t] / L : 0.f);
-    }
+    __syncwarp();
   }
 }
 
-template <typename T, int DPL, bool kByLength>
+template <typename T, int W, bool kByLength>
 cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)(kTile * (a.hd + 1) + kTile * a.hd + kRows * a.hd) * sizeof(float);
-  auto kern = attention_kernel<T, DPL, kByLength>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int smem_set = 48 * 1024;  // the most dynamic shared memory this kernel was allowed
+  const int smem = smem_layout<T, W>(a.hd, a.stages).total;
+  auto kern = attention_kernel<T, W, kByLength>;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
+    smem_set = smem;
   }
-  dim3 grid(a.B * a.Hkv, a.n_rowtiles, a.n_splits);
+  dim3 grid(a.B * a.Hkv, a.n_rowtiles, a.n_launch);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool kByLength>
-cudaError_t launch_dpl(const Args& a, cudaStream_t stream) {
-  switch ((a.hd + 31) / 32) {
-    case 1: return launch_typed<T, 1, kByLength>(a, stream);
-    case 2: return launch_typed<T, 2, kByLength>(a, stream);
-    case 3: return launch_typed<T, 3, kByLength>(a, stream);
-    case 4: return launch_typed<T, 4, kByLength>(a, stream);
-    case 5: return launch_typed<T, 5, kByLength>(a, stream);
-    case 6: return launch_typed<T, 6, kByLength>(a, stream);
-    case 7: return launch_typed<T, 7, kByLength>(a, stream);
-    case 8: return launch_typed<T, 8, kByLength>(a, stream);
-    default: return cudaErrorInvalidValue;  // hd > 256
+// The variant is chosen by dtype and head size only, never by n.  f32: column
+// pairs per lane; bf16: k16 steps of the zero-padded head dim (hd 64 -> 4,
+// 80 -> 5, 128 -> 8; a head dim between the listed ones is padded up).
+template <bool kByLength>
+cudaError_t launch_dtype(const Args& a, int dtype, cudaStream_t stream) {
+  if (dtype == DT_F32) {
+    switch ((a.hd + 63) / 64) {
+      case 1: return launch_typed<float, 1, kByLength>(a, stream);
+      case 2: return launch_typed<float, 2, kByLength>(a, stream);
+      case 3: return launch_typed<float, 3, kByLength>(a, stream);
+      case 4: return launch_typed<float, 4, kByLength>(a, stream);
+      default: return cudaErrorInvalidValue;  // hd > 256
+    }
   }
+  if (dtype == DT_BF16) {
+    if (a.hd <= 32) return launch_typed<__nv_bfloat16, 2, kByLength>(a, stream);
+    if (a.hd <= 64) return launch_typed<__nv_bfloat16, 4, kByLength>(a, stream);
+    if (a.hd <= 80) return launch_typed<__nv_bfloat16, 5, kByLength>(a, stream);
+    if (a.hd <= 128) return launch_typed<__nv_bfloat16, 8, kByLength>(a, stream);
+    if (a.hd <= 256) return launch_typed<__nv_bfloat16, 16, kByLength>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// Checks the shapes, fills the split and tile counts and launches on
-// ``stream``: float32 (DT_F32) or bfloat16 (DT_BF16), hd % 4 == 0, at most
-// 32 splits of split_keys (a multiple of 32) keys.
+// Checks the shapes and the launch plan and launches on ``stream``: float32
+// (DT_F32) or bfloat16 (DT_BF16), hd % 4 == 0, splits of split_keys (a
+// multiple of 64) keys, n_launch of them (1..32) covering every key below
+// min(kv_end, S).
 template <bool kByLength>
 cudaError_t attention_launch(Args a, int dtype, cudaStream_t stream) {
-  a.n_splits = (a.S + a.split_keys - 1) / a.split_keys;
-  a.n_rowtiles = ((a.Hq / a.Hkv) * a.n + kRows - 1) / kRows;
-  if (a.split_keys % kTile != 0 || a.Hq % a.Hkv != 0 || a.hd % 4 != 0 || a.n_splits > 32)
+  const int rows = dtype == DT_F32 ? Tile<float>::kRows : Tile<__nv_bfloat16>::kRows;
+  const int keys = dtype == DT_F32 ? Tile<float>::kKeys : Tile<__nv_bfloat16>::kKeys;
+  a.n_rowtiles = ((a.Hq / a.Hkv) * a.n + rows - 1) / rows;
+  a.stages = a.split_keys > keys ? kMaxStages : 1;  // a ring only where a split has two tiles
+  const int live = min(a.kv_end, a.S);
+  if (a.split_keys % 64 != 0 || a.Hq % a.Hkv != 0 || a.hd % 4 != 0 || a.n_launch < 1 ||
+      a.n_launch > kMaxSplits || (long long)a.n_launch * a.split_keys < live ||
+      (a.n_launch > 1 && (long long)(a.n_launch - 1) * a.split_keys >= live))
     return cudaErrorInvalidValue;
-  return dtype == DT_F32    ? launch_dpl<float, kByLength>(a, stream)
-         : dtype == DT_BF16 ? launch_dpl<__nv_bfloat16, kByLength>(a, stream)
-                            : cudaErrorInvalidValue;
+  return launch_dtype<kByLength>(a, dtype, stream);
 }
 
 }  // namespace
 
-REPRO_EXPORT int attention_rows_per_block() { return kRows; }
+// query rows per block of the kernel for dtype (DT_F32 / DT_BF16)
+REPRO_EXPORT int attention_rows_per_block(int dtype) {
+  return dtype == DT_F32 ? Tile<float>::kRows : Tile<__nv_bfloat16>::kRows;
+}

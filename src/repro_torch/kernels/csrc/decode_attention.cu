@@ -12,25 +12,26 @@
 //
 // It is the length variant of the kernel in attention.cuh: no mask tensor
 // is read, the key loop of each split ends at the length (the K/V rows past
-// it are never loaded), and a row rounds exactly as tree_attention's at
-// n = 1 under the mask cols < length.
+// it are never loaded, and a host-int length launches only the splits
+// below it), and a row rounds exactly as tree_attention's at n = 1 under
+// the mask cols < length.
 #include "attention.cuh"
 
 // q [B, Hq, hd], k/v [B, S, Hkv, hd], out like q; all contiguous and
-// 16-byte aligned (8 for bf16).  length: int32 [B] on the device, or null
-// for length_all in every row.  part_acc/part_ml/counters as for
-// tree_attention_launch with n = 1.
+// 16-byte aligned.  length: int32 [B] on the device (kv_end = S), or null
+// with the host length in kv_end for every row.  split_keys, n_launch,
+// part_acc/part_ml/counters as for tree_attention_launch with n = 1.
 REPRO_EXPORT int decode_attention_launch(const void* q, const void* k, const void* v,
-                                         const void* length, int length_all, void* out,
-                                         void* part_acc, void* part_ml, void* counters, int B,
-                                         int Hq, int Hkv, int hd, int S, int split_keys,
+                                         const void* length, void* out, void* part_acc,
+                                         void* part_ml, void* counters, int B, int Hq, int Hkv,
+                                         int hd, int S, int split_keys, int n_launch, int kv_end,
                                          float scale, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.length = static_cast<const int*>(length);
-  a.length_all = length_all;
+  a.kv_end = kv_end;
   a.out = out;
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
@@ -42,6 +43,7 @@ REPRO_EXPORT int decode_attention_launch(const void* q, const void* k, const voi
   a.hd = hd;
   a.S = S;
   a.split_keys = split_keys;
+  a.n_launch = n_launch;
   a.scale = scale;
   return (int)attention_launch<true>(a, dtype, static_cast<cudaStream_t>(stream));
 }

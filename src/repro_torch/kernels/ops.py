@@ -30,11 +30,22 @@ _attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kerne
 
 
 def attn_split_keys(S: int) -> int:
-    """Keys per S split of the attention kernels: 64, or more for a cache
-    longer than 32 splits of 64 (the kernel combines at most 32).  A
-    function of S alone, so a query row sums in the same order whatever n
-    is, and decode_attention in the same order as tree_attention."""
-    return max(64, 32 * -(-S // (32 * 32)))
+    """Keys per S split of the attention kernels: 64, or a larger multiple
+    of 64 for a cache longer than 32 splits of 64 (the kernel combines at
+    most 32).  A function of S alone, so a query row sums in the same order
+    whatever n is, and decode_attention in the same order as tree_attention."""
+    return 64 * max(1, -(-S // (64 * 32)))
+
+
+def attn_plan(S: int, kv_end: int | None = None) -> tuple[int, int]:
+    """(keys per split, splits launched) of one attention launch: the splits
+    of ``attn_split_keys(S)`` keys that hold a key below the host-int bound
+    ``kv_end`` (every split when None), at least one.  A split past the bound
+    would add exactly nothing to the combine, so leaving it out changes no
+    bit of a row.  The plan depends on S and the bound, never on n."""
+    split = attn_split_keys(S)
+    live = S if kv_end is None else max(0, min(int(kv_end), S))
+    return split, max(1, -(-live // split))
 
 
 def reset_launch_counts() -> None:
@@ -84,16 +95,20 @@ def _check_attention(name, q, k, v, B):
     return q, k, v
 
 
-def _attention_scratch(lib, B, n, hq, hkv, hd, S, dev):
-    """Split length, the partial buffers and the zeroed tickets of one launch."""
-    rows = lib.attention_rows_per_block()
+def _attention_scratch(lib, q, B, n, hq, hkv, hd, S, kv_end):
+    """The launch plan, the partial buffers (None for one split; the caller
+    holds them until the launch is enqueued) and the zeroed tickets of one
+    launch."""
+    dev = q.device
+    rows = lib.attention_rows_per_block(_DTYPE_CODE[q.dtype])
     n_rowtiles = -(-(hq // hkv) * n // rows)
-    split_keys = attn_split_keys(S)
-    n_splits = -(-S // split_keys)
-    part_acc = torch.empty(B * hkv * n_rowtiles * rows * n_splits * hd,
-                           dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_splits * 2,
-                          dtype=torch.float32, device=dev)
+    split_keys, n_launch = attn_plan(S, kv_end)
+    part_acc = part_ml = None
+    if n_launch > 1:
+        part_acc = torch.empty(B * hkv * n_rowtiles * rows * n_launch * hd,
+                               dtype=torch.float32, device=dev)
+        part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_launch * 2,
+                              dtype=torch.float32, device=dev)
     need = B * hkv * n_rowtiles
     stream = _stream(dev)
     ctr = _attn_counters.get((dev, stream))
@@ -101,16 +116,28 @@ def _attention_scratch(lib, B, n, hq, hkv, hd, S, dev):
         with torch.cuda.device(dev):  # zeroed on the stream that will use it
             ctr = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
         _attn_counters[(dev, stream)] = ctr
-    return split_keys, part_acc, part_ml, ctr, stream
+    return split_keys, n_launch, part_acc, part_ml, ctr, stream
 
 
-def tree_attention(q, k, v, mask):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
     """q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S].
 
     The paper's non-square tree-masked attention; returns [B, n, Hq, hd]
     in q's dtype, zeros for a fully masked query row.  The kernel takes
-    float32 or bfloat16 with hd a multiple of 4, at most 256."""
+    float32 or bfloat16 with hd a multiple of 4, at most 256.
+
+    ``kv_bound``, a host int, promises that no query attends a key at or
+    past it (the mask is False there): the kernel then neither loads those
+    keys nor launches their splits, and the result is the same bit for bit
+    as without it.  The CPU path checks the promise."""
     if not _on_cuda("tree_attention", q, k, v, mask):
+        if kv_bound is not None and bool(mask[..., max(0, int(kv_bound)):].any()):
+            raise ValueError(f"tree_attention: the mask attends a key at or past "
+                             f"kv_bound={kv_bound}")
         return ref.tree_attention_ref(q, k, v, mask)
     B, n, hq, hd = q.shape
     S, hkv = k.shape[1], k.shape[2]
@@ -120,16 +147,17 @@ def tree_attention(q, k, v, mask):
     q, k, v = _check_attention("tree_attention", q, k, v, B)
     mask = mask.contiguous()
     lib = build.lib("tree_attention")
-    split_keys, part_acc, part_ml, ctr, stream = _attention_scratch(lib, B, n, hq, hkv, hd, S,
-                                                                    q.device)
+    kv_end = S if kv_bound is None else max(0, min(int(kv_bound), S))
+    split_keys, n_launch, part_acc, part_ml, ctr, stream = _attention_scratch(
+        lib, q, B, n, hq, hkv, hd, S, kv_end)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         LAUNCHES["tree_attention"] += 1
         rc = lib.tree_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), ctr.data_ptr(),
-            B, n, hq, hkv, hd, S, split_keys, 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], stream)
+            _ptr(part_acc), _ptr(part_ml), ctr.data_ptr(), B, n, hq, hkv, hd, S, split_keys,
+            n_launch,
+            kv_end, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
     build.check("tree_attention", rc)
     return out
 
@@ -158,17 +186,18 @@ def decode_attention(q, k, v, length):
     q, k, v = _check_attention("decode_attention", q, k, v, B)
     S, hkv = k.shape[1], k.shape[2]
     lt = length.to(torch.int32).contiguous() if per_row else None
+    kv_end = S if per_row else max(0, min(int(length), S))
     lib = build.lib("decode_attention")
-    split_keys, part_acc, part_ml, ctr, stream = _attention_scratch(lib, B, 1, hq, hkv, hd, S,
-                                                                    q.device)
+    split_keys, n_launch, part_acc, part_ml, ctr, stream = _attention_scratch(
+        lib, q, B, 1, hq, hkv, hd, S, kv_end)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         LAUNCHES["decode_attention"] += 1
         rc = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if lt is None else lt.data_ptr(),
-            0 if per_row else int(length), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), ctr.data_ptr(), B, hq, hkv, hd, S, split_keys,
-            1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
+            out.data_ptr(), _ptr(part_acc), _ptr(part_ml), ctr.data_ptr(), B, hq, hkv, hd, S,
+            split_keys,
+            n_launch, kv_end, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
     build.check("decode_attention", rc)
     return out
 

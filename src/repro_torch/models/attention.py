@@ -113,7 +113,9 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
     n = 1 with ``row_start`` and no sliding window that mask is cols <=
     row_start, so ``decode_attention`` computes it from the length
     row_start + 1; its K/V write is enqueued on the same stream first.
-    Returns (out, cache_k, cache_v)."""
+    With ``row_start`` no query attends a row at or past row_start + n,
+    so tree_attention gets that host-int bound (it launches only the
+    splits below it).  Returns (out, cache_k, cache_v)."""
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     if row_start is not None:
         update_rows_contiguous(cache_k, k_new, row_start)
@@ -124,5 +126,6 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
     if row_start is not None and x.shape[1] == 1 and not cfg.sliding_window:
         out = ops.decode_attention(q[:, 0], cache_k, cache_v, int(row_start) + 1)[:, None]
     else:
-        out = ops.tree_attention(q, cache_k, cache_v, attn_mask)
+        bound = None if row_start is None else int(row_start) + x.shape[1]
+        out = ops.tree_attention(q, cache_k, cache_v, attn_mask, kv_bound=bound)
     return _out_proj(p, out), cache_k, cache_v

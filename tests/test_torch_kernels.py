@@ -10,6 +10,9 @@ Tolerances: float32 2e-5 (the two sides sum in different orders), bfloat16
 2e-2 (one bf16 rounding of the output), row moves and slot writes exact.
 """
 
+import inspect
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,13 +131,117 @@ def test_decode_attention_is_tree_attention_at_one_query():
         ops.decode_attention(q, k, v, torch.zeros(B + 1, dtype=torch.int32))
 
 
+def _bf16_kernel_arithmetic(q, k, v, mask):
+    """The bf16 kernel's arithmetic (csrc/attention.cuh) written out in torch:
+    q·kᵀ of bf16 values summed in f32, the f32 softmax, P split into
+    hi = bf16(p) and lo = bf16(p - hi), P·V of bf16 values summed in f32.
+    q [B, n, Hq, hd], k/v [B, S, Hkv, hd] bf16, mask bool [B, n, S].
+    Returns the f32 result before the output's bf16 rounding."""
+    B, n, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(B, n, hkv, hq // hkv, hd)
+    s = torch.einsum("bnkgh,bskh->bkgns", qg, k.float()) * (1.0 / math.sqrt(hd))
+    m = mask[:, None, None]
+    s = torch.where(m, s, torch.full_like(s, -1e30))
+    p = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    o = torch.einsum("bkgns,bskh->bkgnh", hi, v.float()) + \
+        torch.einsum("bkgns,bskh->bkgnh", lo, v.float())
+    o = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)), torch.zeros_like(o))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, n, hq, hd)
+
+
+def _bf16_cases():
+    """Every TREE_SHAPES case (row 0 fully masked) and every DECODE_SHAPES
+    case at its four length patterns (lengths 0 included), as (id, q, k, v,
+    mask) with bf16 tensors from a seeded numpy generator."""
+    for shape in TREE_SHAPES:
+        B, n, hq, hkv, hd, S = shape
+        rng = np.random.default_rng(sum(shape))
+        q, k, v = (rng.normal(size=sh).astype(np.float32)
+                   for sh in ((B, n, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+        m = rng.random((B, n, S)) < 0.5
+        m[:, 0, :] = False
+        yield f"tree{shape}", q, k, v, m
+    for shape in DECODE_SHAPES:
+        B, hq, hkv, hd, S = shape
+        rng = np.random.default_rng(sum(shape))
+        q, k, v = (rng.normal(size=sh).astype(np.float32)
+                   for sh in ((B, 1, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+        for i in range(4):
+            lens = _decode_lengths(B, S, i)
+            yield f"decode{shape}-{i}", q, k, v, (np.arange(S)[None, :] < lens[:, None])[:, None]
+
+
+@pytest.mark.parametrize("case", list(_bf16_cases()), ids=lambda c: c[0])
+def test_bf16_kernel_arithmetic_matches_reference(case):
+    """The bf16 kernel's split of P into hi + lo keeps the reference's f32 P:
+    before the output's rounding it is within 1e-5 of the f32 plain version
+    on the same bf16 values (one rounding of P would be ~1e-3 off), and
+    after it within bf16's 2e-2 of the JAX package's reference; a fully
+    masked row or a length 0 gives exact zeros."""
+    _, q, k, v, m = case
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
+    mask = torch.tensor(m)
+    got = _bf16_kernel_arithmetic(tq, tk, tv, mask)
+    want = ref.tree_attention_ref(tq.float(), tk.float(), tv.float(), mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+    jwant = jref.tree_attention_ref(jq, jk, jv, jnp.asarray(m))
+    np.testing.assert_allclose(_np32(got.to(torch.bfloat16)), _np32(jwant), atol=2e-2, rtol=2e-2)
+    assert (got.numpy()[~m.any(-1)] == 0).all()
+
+
+def test_attention_launch_plan_depends_on_S_and_the_bound_only():
+    """The split length is a multiple of 64 (both dtypes' key tiles), a
+    function of S alone, with at most 32 splits; the splits launched cover
+    exactly the keys below the bound.  No argument of the plan is n, so a
+    row is summed alike at every n, and decode_attention at length L gets
+    tree_attention's plan under kv_bound L."""
+    assert list(inspect.signature(ops.attn_plan).parameters) == ["S", "kv_end"]
+    assert list(inspect.signature(ops.attn_split_keys).parameters) == ["S"]
+    for S in list(range(1, 5000, 37)) + [512, 2048, 2049, 4096, 65536]:
+        sk = ops.attn_split_keys(S)
+        assert sk % 64 == 0 and -(-S // sk) <= 32
+        assert sk == 64 or S > 2048
+        assert ops.attn_plan(S) == ops.attn_plan(S, S) == (sk, -(-S // sk))
+        for L in sorted({0, 1, sk - 1, sk, sk + 1, S // 2 + 3, S, S + 7}):
+            split, n_launch = ops.attn_plan(S, L)
+            live = min(L, S)
+            assert split == sk and 1 <= n_launch <= 32
+            assert n_launch * sk >= live and (n_launch == 1 or (n_launch - 1) * sk < live)
+    assert ops.attn_plan(512, 48) == (64, 1)  # the paths' lengths: one live split
+    assert ops.attn_plan(512, 56) == (64, 1) and ops.attn_plan(512, 65) == (64, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tree_attention_key_bound(dtype):
+    """A bound the mask keeps gives the call without it, bit for bit; the
+    CPU path refuses a bound the mask breaks."""
+    B, n, hq, hkv, hd, S = 2, 4, 8, 2, 64, 160
+    rng = np.random.default_rng(11)
+    q, k, v = (_pair(rng.normal(size=sh).astype(np.float32), dtype)[1]
+               for sh in ((B, n, hq, hd), (B, S, hkv, hd), (B, S, hkv, hd)))
+    m = rng.random((B, n, S)) < 0.5
+    m[:, :, 70:] = False
+    mask = torch.tensor(m)
+    want = ops.tree_attention(q, k, v, mask)
+    for bound in (70, 71, S, S + 5):
+        assert torch.equal(ops.tree_attention(q, k, v, mask, kv_bound=bound), want)
+    mask[1, 2, 69] = True
+    with pytest.raises(ValueError, match="kv_bound=69"):
+        ops.tree_attention(q, k, v, mask, kv_bound=69)
+
+
 @pytest.mark.parametrize("sliding_window", [0, 16])
 @pytest.mark.parametrize("n", [1, 3])
 def test_cached_attention_takes_decode_attention_for_a_decode_step(monkeypatch, n,
                                                                    sliding_window):
     """attention_cached sends a decode step (n = 1, contiguous rows, no
     window) to decode_attention with the length row_start + 1, and every
-    other call to tree_attention; the outputs agree with the masked path."""
+    other call to tree_attention with the key bound row_start + n; the
+    outputs agree with the masked path."""
     from repro_torch.configs import ModelConfig
     from repro_torch.models import attention
 
@@ -155,15 +262,15 @@ def test_cached_attention_takes_decode_attention_for_a_decode_step(monkeypatch, 
     calls = []
     for name in ("decode_attention", "tree_attention"):
         fn = getattr(ops, name)
-        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, _n=name: calls.append(
-            (_n, a[-1])) or _fn(*a))
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, _n=name, **kw: calls.append(
+            (_n, a[-1] if _n == "decode_attention" else kw.get("kv_bound"))) or _fn(*a, **kw))
     out, _, _ = attention.attention_cached(cfg, p, x, ck.clone(), cv.clone(), pos, pos, mask,
                                            row_start=start)
     monkeypatch.undo()
     if n == 1 and not sliding_window:
         assert calls == [("decode_attention", start + 1)]
     else:
-        assert [c[0] for c in calls] == ["tree_attention"]
+        assert calls == [("tree_attention", start + n)]
     want, _, _ = attention.attention_cached(cfg, p, x, ck.clone(), cv.clone(), pos, pos, mask)
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
