@@ -9,8 +9,8 @@ It takes no options and runs every phase, in order:
            (tree_attention — also each row bit for bit against itself alone
            at n=1, and a call with kv_bound against one without —
            decode_attention — also bit for bit against tree_attention at
-           one query — fused_swiglu, kv_move_rows, slot_write_rows,
-           int4_matmul — row 0 alone and a repeated call bit for bit too —
+           one query — fused_swiglu and int4_matmul — row 0 alone and a
+           repeated call bit for bit too — kv_move_rows, slot_write_rows,
            f32 and bf16), and time kernel, plain version and the PyTorch
            call that computes the same function (for fused_swiglu a
            composite of cuBLAS and elementwise calls), with CUDA events
@@ -131,7 +131,8 @@ SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
     ("1B-decode", (1, 2048, 8192)), ("zamba2-decode", (1, 2560, 10240)),
     ("zamba2-verify", (4, 2560, 10240)), ("zamba2-prefill", (16, 2560, 10240)),
 ]
-SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill")
+SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill", "8B-decode",
+                "1B-decode", "zamba2-decode")  # the last three: the chain paths' decode_step
 KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
     ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
 ]
@@ -426,7 +427,10 @@ def phase_kernels(torch, timer, card):
             # the K-reduction order must not depend on M: row 0 alone == row 0 in the batch
             if M > 1 and not torch.equal(ops.fused_swiglu(x[:1], wg, wu), got[:1]):
                 fail(f"fused_swiglu {(M, K, N)} {dtype}: row 0 differs between M={M} and M=1")
-            print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}")
+            if not torch.equal(ops.fused_swiglu(x, wg, wu), got):
+                fail(f"fused_swiglu {(M, K, N)} {dtype}: two calls on the same input differ")
+            print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}, row 0 "
+                  "alone and a repeated call bit for bit equal")
             if label in SWIGLU_TIMED:
                 es = x.element_size()
                 # no single PyTorch call computes silu(x@wg) * (x@wu): the library
@@ -768,7 +772,8 @@ def count_syncs(torch, sess, prompt, rounds: int):
 
 
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to
-    ("fused_swiglu", "fused_swiglu"),
+    # the weight streams are stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>
+    ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
     ("kv_move_rows", "kv_move_rows"), ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),

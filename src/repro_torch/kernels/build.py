@@ -42,16 +42,18 @@ SIGNATURES = {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
         "attention_rows_per_block": [_I],
     },
-    "fused_swiglu": {"fused_swiglu_launch": [_P] * 4 + [_I] * 4 + [_P]},
+    # x, wg, wu, out, part, counters, then M, K, N, k_per_split, splits,
+    # rows_per_pass, dtype, stream
+    "fused_swiglu": {"fused_swiglu_launch": [_P] * 6 + [_I] * 7 + [_P]},
     "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},
     # pointer-table arrays (dst, src, row, U, B), then L, slot, elem_bytes, stream
     "slot_write": {
         "slot_write_rows_launch": [_P] * 5 + [_I] * 3 + [_P],
         "slot_write_rows_max_leaves": [],
     },
-    # x, qweight, scales, zeros, out, part, then M, K, N, group, k_per_split,
-    # splits, rows_per_pass, dtype, stream
-    "int4_matmul": {"int4_matmul_launch": [_P] * 6 + [_I] * 8 + [_P]},
+    # x, qweight, scales, zeros, out, part, counters, then M, K, N, group,
+    # k_per_split, splits, rows_per_pass, dtype, stream
+    "int4_matmul": {"int4_matmul_launch": [_P] * 7 + [_I] * 8 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

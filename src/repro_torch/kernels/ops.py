@@ -7,10 +7,10 @@ to a plain version.  Each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel and nowhere else, so a run can show which kernels its
 path went through.  Kernels launch on PyTorch's current stream and do not
 synchronise; the wrappers allocate every output and scratch buffer.
-The attention kernels' split combine takes atomic tickets from a zeroed
-buffer that is kept per (device, stream) and shared by tree_attention and
-decode_attention: launches on one stream run in order, and launches on two
-streams never share a ticket.
+Every kernel with a split combine (tree_attention, decode_attention,
+fused_swiglu, int4_matmul) takes atomic tickets from one zeroed buffer kept
+per (device, stream), which each launch leaves zero: launches on one stream
+run in order, and launches on two streams never share a ticket.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_m
             "slot_write_rows": 0, "int4_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_attn_counters: dict = {}  # (device, stream) -> zeroed int32 tickets (the kernel leaves them zero)
+_tickets_by_stream: dict = {}  # (device, stream) -> zeroed int32 tickets (kernels leave them zero)
 
 
 def attn_split_keys(S: int) -> int:
@@ -109,14 +109,21 @@ def _attention_scratch(lib, q, B, n, hq, hkv, hd, S, kv_end):
                                dtype=torch.float32, device=dev)
         part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_launch * 2,
                               dtype=torch.float32, device=dev)
-    need = B * hkv * n_rowtiles
     stream = _stream(dev)
-    ctr = _attn_counters.get((dev, stream))
+    ctr = _tickets(dev, stream, B * hkv * n_rowtiles)
+    return split_keys, n_launch, part_acc, part_ml, ctr, stream
+
+
+def _tickets(dev, stream: int, need: int):
+    """The zeroed int32 ticket buffer of (device, stream), at least ``need``
+    long: a split kernel takes one ticket per split and the last block to
+    arrive sets the counter back to zero."""
+    ctr = _tickets_by_stream.get((dev, stream))
     if ctr is None or ctr.numel() < need:
         with torch.cuda.device(dev):  # zeroed on the stream that will use it
             ctr = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
-        _attn_counters[(dev, stream)] = ctr
-    return split_keys, n_launch, part_acc, part_ml, ctr, stream
+        _tickets_by_stream[(dev, stream)] = ctr
+    return ctr
 
 
 def _ptr(t):
@@ -203,12 +210,54 @@ def decode_attention(q, k, v, length):
 
 
 # -----------------------------------------------------------------------------
+# weight streams: fused_swiglu and int4_matmul (csrc/weight_stream.cuh)
+# -----------------------------------------------------------------------------
+
+_STREAM_TILE_N = 256  # output columns per block of both kernels
+_STREAM_BLOCKS = 2 * 132  # blocks a plan aims at: two resident on each SM of an H100
+_STREAM_MAX_K = 1024  # K per split at most, so that x fits in shared memory
+_STREAM_ROWS_PER_PASS = 64  # rows of x per launch through the split partials
+_SWIGLU_K_QUANTUM = 32  # fused_swiglu's K per split is a multiple of this
+
+
+def stream_plan(K: int, N: int, tile_n: int, k_quantum: int) -> tuple[int, int]:
+    """(K per split, splits) of a weight-stream kernel: whole quanta of K
+    (the group size for int4_matmul, ``_SWIGLU_K_QUANTUM`` for
+    fused_swiglu), as many splits as let the column tiles times the splits
+    stay within ``_STREAM_BLOCKS`` (all resident at once), and no more than
+    ``_STREAM_MAX_K`` values of K per split (whole quanta permitting).  A
+    function of K, N and the quantum alone, never of the rows of x, so a row
+    sums over K in the same order whatever the batch."""
+    quanta = -(-K // k_quantum)
+    tiles = -(-N // tile_n)
+    want = max(1, min(quanta, _STREAM_BLOCKS // tiles))
+    per = min(-(-quanta // want), max(1, _STREAM_MAX_K // k_quantum))
+    return per * k_quantum, -(-quanta // per)
+
+
+def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
+    """The f32 partials [splits, parts, rows, N rounded up to 4] of one
+    launch of a weight-stream kernel and its zeroed tickets (None and None
+    for one split; the caller holds them until the launch is enqueued),
+    and the stream."""
+    stream = _stream(dev)
+    if splits == 1:
+        return None, None, stream
+    rows = min(M, _STREAM_ROWS_PER_PASS)
+    part = torch.empty(splits * parts * rows * (-(-N // 4) * 4), dtype=torch.float32, device=dev)
+    # a ticket per (row tile, column tile) of a pass: at most one row tile per row
+    return part, _tickets(dev, stream, rows * -(-N // _STREAM_TILE_N)), stream
+
+
+# -----------------------------------------------------------------------------
 # fused SwiGLU
 # -----------------------------------------------------------------------------
 
 
 def fused_swiglu(x, wg, wu):
-    """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype."""
+    """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype.
+    The kernel takes float32 or bfloat16, N a multiple of 4 and weights
+    16-byte aligned; K is split by ``stream_plan``."""
     if not _on_cuda("fused_swiglu", x, wg, wu):
         return ref.fused_swiglu_ref(x, wg, wu)
     M, K = x.shape
@@ -216,18 +265,21 @@ def fused_swiglu(x, wg, wu):
     if x.dtype not in _DTYPE_CODE or wg.dtype != x.dtype or wu.dtype != x.dtype:
         raise TypeError(f"fused_swiglu: x/wg/wu must share f32 or bf16, got "
                         f"{x.dtype}/{wg.dtype}/{wu.dtype}")
-    if wg.shape != (K, N) or wu.shape != (K, N) or N % 4 or M == 0:
+    if wg.shape != (K, N) or wu.shape != (K, N) or N % 4 or M == 0 or K == 0:
         raise ValueError(f"fused_swiglu: bad shapes x{tuple(x.shape)} wg{tuple(wg.shape)} "
                          f"wu{tuple(wu.shape)} (N must be a multiple of 4)")
     x, wg, wu = (t.contiguous() for t in (x, wg, wu))
     if wg.data_ptr() % 16 or wu.data_ptr() % 16:
         raise ValueError("fused_swiglu: weights must be 16-byte aligned")
+    k_split, splits = stream_plan(K, N, _STREAM_TILE_N, _SWIGLU_K_QUANTUM)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part, ctr, stream = _stream_scratch(x.device, splits, 2, M, N)
     lib = build.lib("fused_swiglu")
     with torch.cuda.device(x.device):
         LAUNCHES["fused_swiglu"] += 1
         rc = lib.fused_swiglu_launch(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(),
-                                     M, K, N, _DTYPE_CODE[x.dtype], _stream(x.device))
+                                     _ptr(part), _ptr(ctr), M, K, N, k_split, splits,
+                                     _STREAM_ROWS_PER_PASS, _DTYPE_CODE[x.dtype], stream)
     build.check("fused_swiglu", rc)
     return out
 
@@ -352,23 +404,6 @@ def slot_write_rows(cache_leaves, donor_leaves, slot: int):
 # int4 AWQ dequant-GEMM
 # -----------------------------------------------------------------------------
 
-_INT4_TILE_N = 128  # output columns per block of the kernel
-_INT4_BLOCKS = 4 * 132  # blocks the K split aims at: four on each SM of an H100
-_INT4_ROWS_PER_PASS = 256  # rows of x per pass through the split partials
-
-
-def int4_splits(K: int, N: int, group_size: int) -> tuple[int, int]:
-    """(K per split, number of splits) of the int4 kernel: whole groups,
-    enough splits that the column tiles times the splits fill the card.  A
-    function of K, N and the group size alone, never of the rows of x, so a
-    row sums over K in the same order whatever the batch."""
-    groups = K // group_size
-    tiles = -(-N // _INT4_TILE_N)
-    want = min(groups, max(1, -(-_INT4_BLOCKS // tiles)))
-    per = -(-groups // want)
-    return per * group_size, -(-groups // per)
-
-
 def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     """x: [T, K]; qweight: int8 [K//2, N] packed (low nibble even k, high
     nibble odd k, ``repro_torch.quant``); scales/zeros: [K//group_size, N].
@@ -406,18 +441,15 @@ def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     x, qweight = x.contiguous(), qweight.contiguous()
     scales = scales.to(torch.float32).contiguous()
     zeros = zeros.to(torch.float32).contiguous()
-    k_split, splits = int4_splits(K, N, group_size)
-    rows = min(T, _INT4_ROWS_PER_PASS)
-    part = torch.empty(splits * rows * N, dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
+    k_split, splits = stream_plan(K, N, _STREAM_TILE_N, group_size)
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    part, ctr, stream = _stream_scratch(x.device, splits, 1, T, N)
     lib = build.lib("int4_matmul")
     with torch.cuda.device(x.device):
         LAUNCHES["int4_matmul"] += 1
         rc = lib.int4_matmul_launch(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                                    zeros.data_ptr(), out.data_ptr(),
-                                    None if part is None else part.data_ptr(), T, K, N,
-                                    group_size, k_split, splits, _INT4_ROWS_PER_PASS,
-                                    _DTYPE_CODE[x.dtype], _stream(x.device))
+                                    zeros.data_ptr(), out.data_ptr(), _ptr(part), _ptr(ctr), T,
+                                    K, N, group_size, k_split, splits, _STREAM_ROWS_PER_PASS,
+                                    _DTYPE_CODE[x.dtype], stream)
     build.check("int4_matmul", rc)
     return out

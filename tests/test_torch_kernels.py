@@ -292,6 +292,67 @@ def test_fused_swiglu_matches_reference(shape, dtype):
                                atol=tol, rtol=tol)
 
 
+def _swiglu_kernel_arithmetic(x, wg, wu, phases):
+    """fused_swiglu's split-K arithmetic, written out in torch: per split of
+    ``ops.stream_plan`` the products in f32 over the K values of each phase
+    (f32: the two warps that share columns take k = phase mod 2; bf16: the
+    MMA sums the split), the phases added in order, the splits in split
+    order, then silu(g) * u in f32 on the complete sums."""
+    M, K = x.shape
+    k_split, splits = ops.stream_plan(K, wg.shape[1], ops._STREAM_TILE_N, ops._SWIGLU_K_QUANTUM)
+    xf, gf, uf = x.float(), wg.float(), wu.float()
+    g = u = 0.0
+    for sp in range(splits):
+        bg = bu = 0.0
+        for ph in range(phases):
+            ks = torch.arange(sp * k_split, min(K, (sp + 1) * k_split))
+            ks = ks[ks % phases == ph]
+            bg = bg + xf[:, ks] @ gf[ks]
+            bu = bu + xf[:, ks] @ uf[ks]
+        g, u = g + bg, u + bu
+    return (torch.nn.functional.silu(g) * u).to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(3, 1100, 128), (2, 4096, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_swiglu_split_sum_matches_reference(shape, dtype):
+    """Summing K in the kernel's splits and phases, in their fixed order,
+    keeps fused_swiglu within its tolerances of the JAX package's reference
+    and of the plain version."""
+    T, d, ff = shape
+    rng = np.random.default_rng(3 * T + d + ff)
+    jx, x = _pair(rng.normal(size=(T, d)).astype(np.float32), dtype)
+    jg, wg = _pair((d ** -0.5 * rng.normal(size=(d, ff))).astype(np.float32), dtype)
+    ju, wu = _pair((d ** -0.5 * rng.normal(size=(d, ff))).astype(np.float32), dtype)
+    got = _swiglu_kernel_arithmetic(x, wg, wu, 2 if dtype == "float32" else 1)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np32(got), _np32(jref.fused_swiglu_ref(jx, jg, ju)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np32(got), _np32(ref.fused_swiglu_ref(x, wg, wu)),
+                               atol=tol, rtol=tol)
+
+
+def test_stream_plan_depends_on_K_N_and_the_quantum_only():
+    """The weight streams' split of K takes K, N, the column tile and the
+    quantum, never the rows of x; it covers K in whole quanta, and gives
+    the card at least 132 blocks wherever the column tiles times the quanta
+    of K allow it."""
+    assert list(inspect.signature(ops.stream_plan).parameters) == ["K", "N", "tile_n",
+                                                                    "k_quantum"]
+    tile = ops._STREAM_TILE_N
+    for q in (2, 6, 32, 64, 128, 2048):
+        for K in sorted({q, 3 * q, 4096 // q * q or q, 14336 // q * q or q, 40 * q}):
+            for N in (4, 100, 301, 1024, 4096, 8192, 10240, 14336, 128256):
+                per, splits = ops.stream_plan(K, N, tile, q)
+                tiles, quanta = -(-N // tile), -(-K // q)
+                assert per % q == 0 and splits == -(-K // per) and (splits - 1) * per < K
+                assert per <= max(ops._STREAM_MAX_K, q)
+                if tiles * quanta >= 132:
+                    assert tiles * splits >= 132, (K, N, q, per, splits)
+    assert ops.stream_plan(4096, 14336, tile, ops._SWIGLU_K_QUANTUM) == (1024, 4)  # 224 blocks
+    assert ops.stream_plan(2048, 8192, tile, ops._SWIGLU_K_QUANTUM) == (256, 8)  # 256 blocks
+
+
 def _random_plan(rng, B, S, M):
     """tests/test_kv_moves.py's plans: overlapping windows, -1 sources,
     duplicate destinations only among masked-off entries."""

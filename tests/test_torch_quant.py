@@ -149,17 +149,73 @@ def test_int4_matmul_takes_scales_of_another_float_dtype_as_f32():
 
 
 @pytest.mark.parametrize("K, N, g, want", [
-    (4096, 14336, 128, (896, 5)), (4096, 1024, 128, (128, 32)), (14336, 4096, 128, (896, 16)),
+    (4096, 14336, 128, (1024, 4)), (4096, 1024, 128, (128, 32)), (14336, 4096, 128, (896, 16)),
     (4096, 4096, 128, (256, 16)), (2048, 8192, 128, (256, 8)), (256, 96, 128, (128, 2)),
-    (128, 300, 128, (128, 1)), (6144, 301, 64, (64, 96)), (4096, 128256, 128, (4096, 1))])
+    (128, 300, 128, (128, 1)), (6144, 301, 64, (64, 96)), (4096, 128256, 128, (1024, 4))])
 def test_int4_splits_cover_K_in_whole_groups(K, N, g, want):
-    """The split depends on K, N and the group size only: whole groups, and
-    at least half the ``_INT4_BLOCKS`` blocks it aims at, or one group per
-    split."""
-    per, splits = ops.int4_splits(K, N, g)
+    """int4_matmul's split (``ops.stream_plan`` with the group as the
+    quantum) depends on K, N and the group size only: whole groups covering
+    K, the column tiles times the splits within the blocks the plan aims at
+    or one group per split, and no more than ``_STREAM_MAX_K`` per split
+    (x in shared memory) unless one group is longer."""
+    per, splits = ops.stream_plan(K, N, ops._STREAM_TILE_N, g)
     assert (per, splits) == want
     assert per % g == 0 and splits == -(-K // per) and (splits - 1) * per < K
-    assert 2 * splits * -(-N // 128) >= ops._INT4_BLOCKS or per == g
+    tiles = -(-N // ops._STREAM_TILE_N)
+    assert tiles * splits <= max(ops._STREAM_BLOCKS, tiles) or per == g or \
+        per == ops._STREAM_MAX_K // g * g
+    assert per <= max(ops._STREAM_MAX_K, g)
+
+
+def _int4_kernel_arithmetic(x, q, g, phases):
+    """The CUDA kernel's factored arithmetic, written out in torch: per split
+    of ``ops.stream_plan`` and per group, d = sum x*q (bf16 products are
+    exact in f32) and X = sum x over the K values of each phase (f32: the
+    warps that share columns read packed rows p = phase mod ``phases``;
+    bf16: the MMA sums the whole group), acc += s * (d - z * X) per phase,
+    the phases added in order, the splits added in split order."""
+    T, K = x.shape
+    N = q.qweight.shape[1]
+    qv = quant.unpack_int4(q.qweight).float()
+    xf = x.float()
+    k_split, splits = ops.stream_plan(K, N, ops._STREAM_TILE_N, g)
+    out = torch.zeros(T, N)
+    for sp in range(splits):
+        block = torch.zeros(T, N)
+        for ph in range(phases):
+            acc = torch.zeros(T, N)
+            for gi in range(sp * k_split // g, min(K, (sp + 1) * k_split) // g):
+                rows = torch.arange(gi * g // 2, (gi + 1) * g // 2)
+                rows = rows[rows % phases == ph]
+                ks = torch.stack([2 * rows, 2 * rows + 1], 1).reshape(-1)
+                d = xf[:, ks] @ qv[ks]
+                X = xf[:, ks].sum(1, keepdim=True)
+                acc = acc + q.scales[gi] * (d - q.zeros[gi] * X)
+            block = block + acc
+        out = out + block
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", [s for s in MATMUL_SHAPES if s[0]] + [(2, 2048, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_kernel_arithmetic_matches_reference(shape, dtype):
+    """The factored form s * (d - z * X) that the kernel computes, instead
+    of the reference's dequantized (q - z) * s per weight, stays within the
+    int4 tolerances of the plain version and of the JAX package's oracle on
+    the unpacked weight, split sums included."""
+    T, K, N = shape
+    g = 128
+    rng = np.random.default_rng(T * K + N)
+    x = rng.normal(size=(T, K)).astype(np.float32)
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    jq, tq = _quantized_pair(w, g)
+    jx, tx = jnp.asarray(x, jnp.dtype(dtype)), torch.tensor(x).to(getattr(torch, dtype))
+    got = _int4_kernel_arithmetic(tx, tq, g, 4 if dtype == "float32" else 1)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np32(got), _np32(ref.int4_matmul_ref(tx, *tq[:3], g)),
+                               atol=tol, rtol=tol)
+    want = jref.int4_matmul_ref(jx, jquant.unpack_int4(jq.qweight), jq.scales, jq.zeros, g)
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=tol, rtol=tol)
 
 
 def test_quantized_from_numpy_runs_on_cuda_unless_asked_for_the_cpu():
