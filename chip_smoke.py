@@ -10,10 +10,12 @@ It takes no options and runs every phase, in order:
            at n=1, and a call with kv_bound against one without —
            decode_attention — also bit for bit against tree_attention at
            one query — fused_swiglu and int4_matmul — row 0 alone and a
-           repeated call bit for bit too — kv_move_rows, slot_write_rows,
-           f32 and bf16), and time kernel, plain version and the PyTorch
-           call that computes the same function (for fused_swiglu a
-           composite of cuBLAS and elementwise calls), with CUDA events
+           repeated call bit for bit too — kv_move_rows and kv_move_leaves
+           (one leaf and the whole cache, in place and copying through),
+           slot_write_rows, f32 and bf16), and time kernel, plain version
+           and the PyTorch call that computes the same function (for
+           fused_swiglu a composite of cuBLAS and elementwise calls), with
+           CUDA events
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
@@ -63,6 +65,7 @@ JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -133,7 +136,7 @@ SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
 ]
 SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill", "8B-decode",
                 "1B-decode", "zamba2-decode")  # the last three: the chain paths' decode_step
-KV_TIMED = [  # (U, M, F) of the main path's calls of kv_move_rows
+KV_TIMED = [  # (U, M, F) of the main path's kv_move_leaves calls, timed at B 1 and 2
     ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
 ]
 SLOT_SHAPES = [  # the serving caches' leaf shapes (k and v: L 2) [U, B, S, Hkv, hd]
@@ -249,6 +252,75 @@ def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library,
           f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}) "
           f"on {card}", flush=True)
     rows.setdefault(name, row)
+
+
+def kv_plan(torch, M, n_off):
+    """One batch row's move plan as the paths make it: overlapping source
+    and destination windows (reversed beyond 8 rows), ``n_off`` entries
+    masked off and one negative source.  src/dst int32 [1, M], mask [1, M]."""
+    base = 96
+    src = torch.arange(base + 7, base + 7 + M, dtype=torch.int32, device="cuda")
+    dst = torch.arange(base, base + M, dtype=torch.int32, device="cuda")
+    src = src.flip(0) if M > 8 else src
+    mask = torch.ones(M, dtype=torch.bool, device="cuda")
+    mask[:n_off] = False
+    if M > 2:
+        src[-1] = -1
+    return src[None], dst[None], mask[None]
+
+
+def kv_plan2(torch, M, parked):
+    """Phase (c)'s 2-slot plans: row 0 as ``kv_plan``, row 1 its own
+    windows (destinations reversed beyond 8 rows, its last entry masked
+    off), or every entry of row 1 masked off (a parked slot)."""
+    src0, dst0, mask0 = kv_plan(torch, M, n_off=min(M, 3) if M > 8 else 0)
+    src1 = torch.arange(203, 203 + M, dtype=torch.int32, device="cuda")
+    dst1 = torch.arange(200, 200 + M, dtype=torch.int32, device="cuda")
+    dst1 = dst1.flip(0) if M > 8 else dst1
+    mask1 = torch.ones(M, dtype=torch.bool, device="cuda")
+    mask1[-1:] = False
+    if parked:
+        mask1[:] = False
+    return (torch.cat([src0, src1[None]]), torch.cat([dst0, dst1[None]]),
+            torch.cat([mask0, mask1[None]]))
+
+
+def kv_active(src, dst, mask, S):
+    """(batch rows, sources, destinations) of the active moves, int64."""
+    torch = sys.modules["torch"]
+    act = mask & (src >= 0) & (src < S) & (dst >= 0) & (dst < S)
+    b = torch.arange(src.shape[0], device=src.device)[:, None].expand_as(src)
+    return b[act], src[act].long(), dst[act].long()
+
+
+def kv_library(leaves, src, dst, mask, donate):
+    """The PyTorch call that computes the same moves: index assignment on
+    each leaf (a parallel assignment: the right side is gathered first),
+    after ``clone()`` when copying through."""
+    b, s, d = kv_active(src, dst, mask, leaves[0].shape[2])
+
+    def run():
+        for x in leaves:
+            y = x if donate else x.clone()
+            y[:, b, d] = x[:, b, s]
+
+    return run
+
+
+def kv_move_bytes(leaves, src, dst, mask, donate) -> int:
+    """The bytes the moves must move, each input byte read once and each
+    output byte written once: in place the active source rows read and
+    the destination rows written; copying through every row of the fresh
+    output written, and read the rows it needs — the unmoved rows and the
+    sources."""
+    B, S = leaves[0].shape[1:3]
+    b, s, d = kv_active(src, dst, mask, S)
+    if donate:
+        rows = 2 * len(s)
+    else:
+        rows = B * S + sum(len((set(range(S)) - set(d[b == r].tolist())) |
+                               set(s[b == r].tolist())) for r in range(B))
+    return sum(rows * x.shape[0] * x[0, 0, 0].numel() * x.element_size() for x in leaves)
 
 
 def phase_build():
@@ -441,85 +513,80 @@ def phase_kernels(torch, timer, card):
                       (M * K + 2 * K * N + M * N) * es, 4 * M * K * N,
                       "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
 
-    # --- kv_move_rows -----------------------------------------------------------
-    def plan(M, n_off):
-        """Overlapping source and destination windows (reversed beyond 8
-        rows), ``n_off`` entries masked off and one negative source."""
-        base = 96
-        src = torch.arange(base + 7, base + 7 + M, dtype=torch.int32, device="cuda")
-        dst = torch.arange(base, base + M, dtype=torch.int32, device="cuda")
-        src = src.flip(0) if M > 8 else src
-        mask = torch.ones(M, dtype=torch.bool, device="cuda")
-        mask[:n_off] = False
-        if M > 2:
-            src[-1] = -1
-        return src[None], dst[None], mask[None]
-
-    def check_moves(name, arr, src, dst, mask) -> float:
-        """Both variants against the plain version, exactly: donate=False
-        returns a fresh tensor and leaves its input as it was, donate=True
-        moves in place (on a copy, so ``arr`` is kept).  Returns the max error."""
-        want = ref.kv_move_rows_ref(arr, src, dst, mask)
-        before = arr.clone()
-        fresh = ops.kv_move_rows(arr, src, dst, mask, donate=False)
+    # --- kv_move_rows / kv_move_leaves ----------------------------------------------
+    def check_moves(name, leaves, src, dst, mask) -> float:
+        """Both entry points — ``kv_move_rows`` on each leaf alone and
+        ``kv_move_leaves`` on all of them in one launch — in both variants,
+        exactly against the plain version: donate=False returns fresh
+        tensors and leaves its inputs as they were, donate=True moves in
+        place (on copies, so ``leaves`` are kept).  Returns the max error."""
+        want = [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves]
+        before = [x.clone() for x in leaves]
+        got = {"kv_move_rows donate=False": [ops.kv_move_rows(x, src, dst, mask, donate=False)
+                                             for x in leaves],
+               "kv_move_leaves donate=False": ops.kv_move_leaves(leaves, src, dst, mask,
+                                                                 donate=False)}
         torch.cuda.synchronize()
-        if not torch.equal(arr, before) or fresh.data_ptr() == arr.data_ptr():
+        if not all(torch.equal(x, b) for x, b in zip(leaves, before)) or any(
+                g.data_ptr() == x.data_ptr() for outs in got.values()
+                for g, x in zip(outs, leaves)):
             fail(f"{name}: donate=False wrote or returned its input")
-        inplace = ops.kv_move_rows(before, src, dst, mask, donate=True)
-        torch.cuda.synchronize()
-        if inplace.data_ptr() != before.data_ptr():
-            fail(f"{name}: donate=True did not move in place")
-        err = max(max_err(fresh, want), max_err(inplace, want))
-        if not (torch.equal(fresh, want) and torch.equal(inplace, want)):
-            fail(f"{name}: kernel disagrees with the plain version: max |err| {err:.3e} "
-                 "(must be exact)")
-        print(f"  {name}: both variants exact, input kept by donate=False")
+        for entry in ("kv_move_rows", "kv_move_leaves"):
+            work = [x.clone() for x in leaves]
+            if entry == "kv_move_rows":
+                moved = [ops.kv_move_rows(x, src, dst, mask, donate=True) for x in work]
+            else:
+                moved = ops.kv_move_leaves(work, src, dst, mask, donate=True)
+            got[f"{entry} donate=True"] = moved
+            torch.cuda.synchronize()
+            if any(g.data_ptr() != w.data_ptr() for g, w in zip(moved, work)):
+                fail(f"{name}: {entry} donate=True did not move in place")
+        err = max(max_err(g, w) for outs in got.values() for g, w in zip(outs, want))
+        for what, outs in got.items():
+            if not all(torch.equal(g, w) for g, w in zip(outs, want)):
+                fail(f"{name}: {what} disagrees with the plain version: max |err| {err:.3e} "
+                     "(must be exact)")
+        print(f"  {name}: both entry points and both variants exact, inputs kept by "
+              "donate=False")
         return err
 
-    def plan2(M, parked):
-        """Phase (c)'s 2-slot plans: row 0 as ``plan``, row 1 its own
-        windows (destinations reversed beyond 8 rows, its last entry masked
-        off), or every entry of row 1 masked off (a parked slot)."""
-        src0, dst0, mask0 = plan(M, n_off=min(M, 3) if M > 8 else 0)
-        src1 = torch.arange(203, 203 + M, dtype=torch.int32, device="cuda")
-        dst1 = torch.arange(200, 200 + M, dtype=torch.int32, device="cuda")
-        dst1 = dst1.flip(0) if M > 8 else dst1
-        mask1 = torch.ones(M, dtype=torch.bool, device="cuda")
-        mask1[-1:] = False
-        if parked:
-            mask1[:] = False
-        return (torch.cat([src0, src1[None]]), torch.cat([dst0, dst1[None]]),
-                torch.cat([mask0, mask1[None]]))
-
-    U, B, S, Fw = 32, 1, 512, 1024
-    for dtype in dtypes:
-        arr = randn(U, B, S, Fw, dtype=dtype)
-        for M in (0, 8, 73):
-            src, dst, mask = plan(M, n_off=min(M, 3))
-            check_moves(f"kv_move_rows [U{U} B{B} S{S} F{Fw}] M={M} {dtype}", arr, src, dst, mask)
-    for dtype in dtypes:  # the main path's moves at phase (c)'s 2 slots
+    S = 512
+    for dtype in dtypes:  # a second leaf of other U and F shares the launch; rows of 20 or
+        # 10 bytes take the register path, 16-byte multiples the bulk copies
+        for F0, F1 in ((1024, (2, 36)), (5, (3,))):
+            leaves = [randn(32, 1, S, F0, dtype=dtype), randn(16, 1, S, *F1, dtype=dtype)]
+            for M in (0, 8, 73):
+                check_moves(f"kv_move [U32 F{F0} + U16 F{math.prod(F1)}, B1 S{S}] M={M} {dtype}",
+                            leaves, *kv_plan(torch, M, n_off=min(M, 3)))
+    for dtype in dtypes:  # the main path's moves at phase (c)'s 2 slots: k and v
         for label, (U, M, Fw) in KV_TIMED:
-            arr = randn(U, 2, S, Fw, dtype=dtype)
+            leaves = [randn(U, 2, S, Fw, dtype=dtype) for _ in range(2)]
             for parked in (False, True):
-                check_moves(f"kv_move_rows {label} U{U} B2 S{S} F{Fw} M{M}, "
+                check_moves(f"kv_move {label} k+v U{U} B2 S{S} F{Fw} M{M}, "
                             f"{'row 1 parked' if parked else 'a plan per row'} {dtype}",
-                            arr, *plan2(M, parked))
+                            leaves, *kv_plan2(torch, M, parked))
     for dtype in dtypes:
         for label, (U, M, Fw) in KV_TIMED:
-            arr = randn(U, 1, S, Fw, dtype=dtype)
-            src, dst, mask = plan(M, n_off=min(M, 3) if M > 8 else 0)
-            act = (mask & (src >= 0) & (dst >= 0))[0]
-            s_act, d_act = src[0][act].long(), dst[0][act].long()
-            shape = f"{label} U{U} B1 S{S} F{Fw} M{M} ({int(act.sum())} active)"
-            err = check_moves(f"kv_move_rows {shape} {dtype}", arr, src, dst, mask)
-
-            def library(arr=arr, s_act=s_act, d_act=d_act):
-                arr[:, 0, d_act] = arr[:, 0, s_act]
-
-            timed("kv_move_rows", f"{shape} in place", dtype, err,
-                  lambda: ops.kv_move_rows(arr, src, dst, mask, donate=True),
-                  lambda: ref.kv_move_rows_ref(arr, src, dst, mask), library,
-                  2 * int(act.sum()) * U * Fw * arr.element_size(), 0)
+            for B in (1, 2):
+                leaves = [randn(U, B, S, Fw, dtype=dtype) for _ in range(2)]  # k and v
+                src, dst, mask = kv_plan(torch, M, n_off=min(M, 3) if M > 8 else 0) if B == 1 \
+                    else kv_plan2(torch, M, parked=False)
+                act = mask & (src >= 0) & (dst >= 0)
+                shape = f"{label} U{U} B{B} S{S} F{Fw} M{M} ({int(act.sum())} active)"
+                err = check_moves(f"kv_move {shape} {dtype}", leaves, src, dst, mask)
+                for donate in (True, False):
+                    for use in (leaves[:1], leaves):
+                        what = ("in place" if donate else "copy-through") + \
+                            (", k+v in one launch" if len(use) == 2 else ", one leaf")
+                        note = "(index assignment" + ("" if donate else " after clone()") + \
+                            (", per leaf)" if len(use) == 2 else ")")
+                        timed("kv_move_rows", f"{shape} {what}", dtype, err,
+                              lambda use=use, donate=donate: ops.kv_move_leaves(
+                                  use, src, dst, mask, donate=donate),
+                              lambda use=use: [ref.kv_move_rows_ref(x, src, dst, mask)
+                                               for x in use],
+                              kv_library(use, src, dst, mask, donate),
+                              kv_move_bytes(use, src, dst, mask, donate), 0, note)
 
     # --- slot_write_rows ----------------------------------------------------------
     def check_slot(name, leaves, donors, slot) -> float:
@@ -771,10 +838,11 @@ def count_syncs(torch, sess, prompt, rounds: int):
     return sc.n / rounds, sorted(set(sc.where))
 
 
-KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to
-    # the weight streams are stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>
-    ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
-    ("kv_move_rows", "kv_move_rows"), ("slot_write_rows", "slot_write_rows"),
+KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to, first
+    # match wins: kv_move_leaves_kernel<uint4, ...> before the weight streams'
+    # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>
+    ("kv_move", "kv_move_rows"), ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
+    ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),
 )
@@ -904,6 +972,9 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card):
                  f"top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
         if any(not (0 <= t < eng.target.cfg.vocab_size) for t in out):
             fail(f"{label} request {i}: token out of the vocabulary")
+    if counts["kv_move_rows"] != 2 * rounds:
+        fail(f"{label}: kv_move_rows launched {counts['kv_move_rows']} times in {rounds} "
+             "rounds, not twice per round (compaction and re-root, one launch per cache)")
     cr = sum(s.total_emitted for s in stats_all) / max(rounds, 1)
     print(f"{label}: {len(prompts)} requests, {toks} tokens, {rounds} rounds, compression "
           f"{cr:.3f}, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, {toks / wall:.2f} tok/s, "
@@ -981,6 +1052,12 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
     missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the serving path: {missing}")
+    kv_want = 2 * st.rounds + st.spec_rounds - st.spec_commits  # + a re-root per rollback
+    print(f"{label}: kv_move_rows launches {counts['kv_move_rows']} in {st.rounds} rounds: "
+          f"compaction and re-root, one launch per cache each, the lookahead's re-root and "
+          f"a rollback's ({st.spec_rounds - st.spec_commits}) one each", flush=True)
+    if counts["kv_move_rows"] != kv_want:
+        fail(f"{label}: kv_move_rows launched {counts['kv_move_rows']} times, not {kv_want}")
     if counts["slot_write_rows"] != 4 * len(trace):
         fail(f"{label}: slot_write_rows launched {counts['slot_write_rows']} times for "
              f"{len(trace)} requests, not 4 per request")
@@ -1013,6 +1090,8 @@ class ShapeLog:
         "fused_swiglu": lambda x, wg, wu: tuple(x.shape) + (wg.shape[1],),
         "kv_move_rows": lambda arr, src, dst, mask, donate=False: (
             tuple(arr.shape), src.shape[1], bool(donate)),
+        "kv_move_leaves": lambda leaves, src, dst, mask, donate=False: (
+            tuple(tuple(t.shape) for t in leaves), src.shape[1], bool(donate)),
         "slot_write_rows": lambda leaves, donors, slot: (
             tuple(tuple(t.shape) for t in leaves), donors is None),
         "int4_matmul": lambda x, qweight, scales, zeros, group_size=128: (
@@ -1027,7 +1106,7 @@ class ShapeLog:
             fn = self.saved[name] = getattr(self.ops, name)
 
             def logged(*a, _fn=fn, _name=name, _key=key, **kw):
-                first = a[0][0] if _name == "slot_write_rows" else a[0]
+                first = a[0][0] if _name in ("slot_write_rows", "kv_move_leaves") else a[0]
                 self.seen[_name].add(_key(*a, **kw) + (str(first.dtype),))
                 return _fn(*a, **kw)
 
@@ -1279,18 +1358,21 @@ def phase_shapes(torch, log: ShapeLog, card):
                     randn((K, N), dtype) * K ** -0.5
                 check_close(what, ops.fused_swiglu(x, wg, wu), ref.fused_swiglu_ref(x, wg, wu),
                             dtype)
-            elif name == "kv_move_rows":
-                shape, M, donate = key[:3]
-                arr = randn(shape, dtype)
-                B, S = shape[1], shape[2]
+            elif name in ("kv_move_rows", "kv_move_leaves"):
+                shapes, M, donate = key[:3]
+                shapes = [shapes] if name == "kv_move_rows" else list(shapes)
+                leaves = [randn(sh, dtype) for sh in shapes]
+                B, S = shapes[0][1], shapes[0][2]
                 src = torch.randint(-1, S, (B, M), generator=gen, device="cuda", dtype=torch.int32)
                 dst = torch.stack([torch.randperm(S, generator=gen, device="cuda")[:M]
                                    for _ in range(B)]).to(torch.int32)
                 mask = torch.rand((B, M), generator=gen, device="cuda") < 0.8
-                want = ref.kv_move_rows_ref(arr, src, dst, mask)
-                got = ops.kv_move_rows(arr.clone(), src, dst, mask, donate=donate)
-                if not torch.equal(got, want):
-                    fail(f"{what}: kernel disagrees with the plain version (must be exact)")
+                want = [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves]
+                got = ops.kv_move_leaves([x.clone() for x in leaves], src, dst, mask,
+                                         donate=donate)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"{what}: kernel disagrees with the plain version leaf by leaf "
+                         "(must be exact)")
             elif name == "int4_matmul":
                 from repro_torch import quant
 

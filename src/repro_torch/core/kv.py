@@ -4,9 +4,10 @@ layout invariant.
 
 Moves are gather-then-scatter (every source read before any write), so
 overlapping src/dst rows are safe.  Row ops touch only attention-cache
-leaves ("k"/"v"/"ckv"/"krope").  Each row leaf is one ``kv_move_rows``
-call (``repro_torch.kernels.ops``): on the card one kernel launch over all
-U layers of the leaf, on the CPU the plain index-based version.
+leaves ("k"/"v"/"ckv"/"krope").  All row leaves of a cache are one
+``kv_move_leaves`` call (``repro_torch.kernels.ops``): on the card one
+kernel launch over every leaf and all U layers of each, on the CPU the
+plain index-based version leaf by leaf.
 
 In-place writes and the snapshot rule.  JAX arrays are immutable; torch
 tensors are not.  The lockstep round (``EngineSession.step``) owns every
@@ -51,10 +52,15 @@ def map_row_leaves(cache, fn):
 
 
 def apply_moves(cache, src, dst, mask, *, donate: bool = False):
-    """src/dst/mask: [B, M] row move plan, applied to every row leaf.
-    ``donate=True`` lets the card move rows in place: the caller must own
-    the cache (see the module docstring)."""
-    return map_row_leaves(cache, lambda arr: ops.kv_move_rows(arr, src, dst, mask, donate=donate))
+    """src/dst/mask: [B, M] row move plan, applied to every row leaf in one
+    ``kv_move_leaves`` call.  ``donate=True`` lets the card move rows in
+    place: the caller must own the cache (see the module docstring)."""
+    leaves = []
+    map_row_leaves(cache, leaves.append)
+    if not leaves:
+        return map_row_leaves(cache, lambda arr: arr)
+    moved = iter(ops.kv_move_leaves(leaves, src, dst, mask, donate=donate))
+    return map_row_leaves(cache, lambda arr: next(moved))
 
 
 def set_length(cache, new_len):

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # argument types of each library's exported launch function (void* for every
 # pointer and the stream, so ctypes never truncates them to 32 bits)
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, mask, out, part_acc, part_ml, counters, then B, n, Hq, Hkv, hd, S,
     # split_keys, n_launch, kv_end, scale, dtype, stream
@@ -45,7 +45,9 @@ SIGNATURES = {
     # x, wg, wu, out, part, counters, then M, K, N, k_per_split, splits,
     # rows_per_pass, dtype, stream
     "fused_swiglu": {"fused_swiglu_launch": [_P] * 6 + [_I] * 7 + [_P]},
-    "kv_moves": {"kv_move_rows_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P]},
+    # the leaf table (L rows of arr, out, F, U as int64), L, src, dst, mask,
+    # then B, S, M, elem_bytes, chunk_bytes, copy_through, stream
+    "kv_moves": {"kv_move_leaves_launch": [_P, _I] + [_P] * 3 + [_I] * 6 + [_P]},
     # pointer-table arrays (dst, src, row, U, B), then L, slot, elem_bytes, stream
     "slot_write": {
         "slot_write_rows_launch": [_P] * 5 + [_I] * 3 + [_P],

@@ -15,6 +15,7 @@ run in order, and launches on two streams never share a ticket.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 
@@ -288,51 +289,101 @@ def fused_swiglu(x, wg, wu):
 # KV-cache row moves
 # -----------------------------------------------------------------------------
 
-_KV_SMEM_BYTES = 96 * 1024  # shared-memory stage per block: M rows x FC columns
+_KV_SMEM_BYTES = 96 * 1024  # the staged segments of one block: M rows x chunk bytes
+_KV_CHUNK = 256  # the column chunk a block moves, bytes ...
+_KV_MIN_CHUNK = 128  # ... halved down to this while the grid is under ...
+_KV_MIN_BLOCKS = 2 * 132  # ... two blocks for each SM of an H100
+_KV_MAX_LEAVES = 16  # the leaves of one launch: kMaxLeaves of csrc/kv_moves.cu
 
 
-def kv_move_rows(arr, src, dst, mask, *, donate: bool = False):
-    """Move rows of one cache leaf: arr [U, B, S, ...]; src/dst int [B, M];
-    mask bool [B, M].  Parallel-assignment semantics (sources read before any
-    write); entries with mask False, src or dst outside [0, S) are dropped.
+def kv_move_plan(leaf_shapes, B: int, M: int, elem_bytes: int) -> tuple[int, int]:
+    """(chunk, blocks) of one ``kv_move_leaves`` launch on leaves of these
+    shapes ([U, B, S, ...]), ``M`` moves per batch row and ``elem_bytes``
+    per value: the bytes of a row each block moves for all M rows, and the
+    number of blocks.  A function of the shapes alone, never of the plan's
+    data: 256-byte chunks, 128 when that fills the card better, smaller
+    only when M rows of a chunk would not fit the block's shared memory."""
+    rows = [(int(s[0]), math.prod(s[3:]) * elem_bytes) for s in leaf_shapes]
 
-    ``donate=True`` moves in place on the card and returns ``arr`` itself —
-    the caller must own the buffer.  ``donate=False`` never writes ``arr``:
-    it returns a fresh tensor (the async snapshot contract, core/kv.py),
-    also for an empty plan.  On the CPU both return a fresh tensor when
-    there is a move."""
-    M = src.shape[1]
-    if M == 0:
-        return arr if donate else arr.clone()
-    if not _on_cuda("kv_move_rows", arr, src, dst, mask):
-        return ref.kv_move_rows_ref(arr, src, dst, mask)
-    U, B, S = arr.shape[:3]
+    def blocks(chunk):
+        return sum(U * B * -(-row // chunk) for U, row in rows)
+
+    chunk = _KV_CHUNK
+    while chunk > _KV_MIN_CHUNK and blocks(chunk) < _KV_MIN_BLOCKS:
+        chunk //= 2
+    while chunk > 16 and M * chunk > _KV_SMEM_BYTES:
+        chunk //= 2
+    if M * chunk > _KV_SMEM_BYTES:
+        raise ValueError(f"kv_move_leaves: M={M} rows do not fit the shared-memory stage")
+    return chunk, blocks(chunk)
+
+
+def kv_move_leaves(leaves, src, dst, mask, *, donate: bool = False) -> list:
+    """Move rows of every row leaf of one cache in one launch: leaves[i]
+    [U_i, B, S, ...] (U and trailing dims may differ; B, S and the dtype
+    are shared); src/dst int [B, M]; mask bool [B, M].  For every active
+    move (mask set, 0 <= src, dst < S) out[u, b, dst] = arr[u, b, src], as
+    a parallel assignment (all sources read before any write).
+
+    ``donate=True`` moves in place on the card and returns the leaves
+    themselves: the caller must own them.  ``donate=False`` never writes a
+    leaf and returns fresh tensors (the async snapshot contract,
+    core/kv.py), also for an empty plan.  On the CPU both return fresh
+    tensors when there is a move.  Too many leaves for the kernel's table
+    raise; nothing is split into several launches."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("kv_move_leaves: no leaf")
+    first = leaves[0]
+    for i, x in enumerate(leaves):
+        if x.ndim < 3 or tuple(x.shape[1:3]) != tuple(first.shape[1:3]):
+            raise ValueError(f"kv_move_leaves: leaf {i} {tuple(x.shape)} is no [U, B, S, ...] "
+                             f"leaf of B, S = {tuple(first.shape[1:3])}")
+        if x.dtype != first.dtype:
+            raise TypeError(f"kv_move_leaves: leaf {i} is {x.dtype}, leaf 0 {first.dtype}")
+    if len(leaves) > _KV_MAX_LEAVES:
+        raise ValueError(f"kv_move_leaves: {len(leaves)} leaves, one launch takes at most "
+                         f"{_KV_MAX_LEAVES}")
+    B, S = first.shape[1:3]
+    M = src.shape[-1]
     if src.shape != (B, M) or dst.shape != (B, M) or mask.shape != (B, M):
-        raise ValueError(f"kv_move_rows: src/dst/mask must be [B={B}, M], got "
+        raise ValueError(f"kv_move_leaves: src/dst/mask must be [B={B}, M], got "
                          f"{tuple(src.shape)}/{tuple(dst.shape)}/{tuple(mask.shape)}")
-    if not arr.is_contiguous():
-        raise ValueError("kv_move_rows: the cache leaf must be contiguous")
-    # rows move as raw bytes: as 16-byte elements where width and alignment allow
-    row_bytes = arr[0, 0, 0].numel() * arr.element_size()
-    es = 16 if row_bytes % 16 == 0 and arr.data_ptr() % 16 == 0 else arr.element_size()
-    F = row_bytes // es
+    if M == 0:
+        return leaves if donate else [x.clone() for x in leaves]
+    if not _on_cuda("kv_move_leaves", *leaves, src, dst, mask):
+        return [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves]
+    if not all(x.is_contiguous() for x in leaves):
+        raise ValueError("kv_move_leaves: the cache leaves must be contiguous")
+    outs = leaves if donate else [torch.empty_like(x) for x in leaves]
+    if all(x.numel() == 0 for x in leaves):
+        return outs  # no leaf holds an element: nothing to launch
+    # rows move as raw bytes: the widest element that every row length and
+    # base pointer allows (a divisor of 16), 16 bytes at the serving widths
+    row_bytes = [math.prod(x.shape[3:]) * x.element_size() for x in leaves]
+    ptrs = [(x.data_ptr(), y.data_ptr()) for x, y in zip(leaves, outs)]
+    es = math.gcd(16, *row_bytes, *(p for pair in ptrs for p in pair))
+    chunk, _ = kv_move_plan([x.shape for x in leaves], B, M, first.element_size())
     src = src.to(torch.int32).contiguous()
     dst = dst.to(torch.int32).contiguous()
     mask = mask.to(torch.bool).contiguous()
-    fc = 256
-    while fc > 1 and M * fc * es > _KV_SMEM_BYTES:
-        fc //= 2
-    if M * fc * es > _KV_SMEM_BYTES:
-        raise ValueError(f"kv_move_rows: M={M} rows do not fit the shared-memory stage")
-    out = arr if donate else torch.empty_like(arr)
+    # the leaf table, one row (arr, out, F, U) per leaf
+    table = array.array("q", [v for (a, o), r, x in zip(ptrs, row_bytes, leaves)
+                              for v in (a, o, r // es, x.shape[0])])
     lib = build.lib("kv_moves")
-    with torch.cuda.device(arr.device):
+    with torch.cuda.device(first.device):
         LAUNCHES["kv_move_rows"] += 1
-        rc = lib.kv_move_rows_launch(arr.data_ptr(), out.data_ptr(), src.data_ptr(),
-                                     dst.data_ptr(), mask.data_ptr(), U, B, S, F, M, es, fc,
-                                     0 if donate else 1, _stream(arr.device))
+        rc = lib.kv_move_leaves_launch(table.buffer_info()[0], len(leaves), src.data_ptr(),
+                                       dst.data_ptr(), mask.data_ptr(), B, S, M, es, chunk,
+                                       0 if donate else 1, _stream(first.device))
     build.check("kv_moves", rc)
-    return out
+    return outs
+
+
+def kv_move_rows(arr, src, dst, mask, *, donate: bool = False):
+    """Move rows of one cache leaf arr [U, B, S, ...]: ``kv_move_leaves``
+    on that one leaf (same semantics and contract); returns the tensor."""
+    return kv_move_leaves([arr], src, dst, mask, donate=donate)[0]
 
 
 # -----------------------------------------------------------------------------

@@ -75,35 +75,55 @@ def update_rows_contiguous(cache, rows, start: int):
     return cache
 
 
-def scatter_rows(cache, rows, row_idx, row_mask=None):
-    """Write ``rows [B, n, ...]`` into ``cache [B, S, ...]`` at ``row_idx
-    [B, n]``, in place.  Entries with row_idx outside [0, S) (or row_mask
-    False) are dropped without a host sync: each is pointed at the row of
-    the batch's first kept entry with that entry's own value (a duplicate
-    write of identical bytes), or, when a batch keeps nothing, at row 0
-    with row 0's current value."""
-    B, S = cache.shape[:2]
-    n = rows.shape[1]
+def plan_row_writes(row_idx, S: int, row_mask=None):
+    """The index side of ``scatter_rows`` for ``row_idx [B, n]`` into S
+    cache rows: one plan serves every cache that a forward writes at these
+    rows (k and v of every attention layer).  An entry is kept when its
+    row lies in [0, S) (and row_mask is set).  Dropped entries write no
+    row of their own: each rewrites the batch row's highest kept row with
+    that row's final value, or, when a batch row keeps nothing, row 0 with
+    row 0's current value — no host sync, and never counted as a writer.
+
+    Returns (idx [B, n, 1] int64: the row each entry writes; same [B, n, n]
+    bool: entry j is kept and writes entry i's row; first [B, n, 1] int64:
+    the first such j; dup [B, n, 1] bool: more than one; keep [B, 1, 1]
+    bool: the batch row keeps an entry)."""
     valid = (row_idx >= 0) & (row_idx < S)
     if row_mask is not None:
-        valid &= row_mask
+        valid = valid & row_mask
+    key = torch.where(valid, row_idx, -1)  # the row a kept entry writes, -1 if dropped
+    top = key.amax(1, keepdim=True)  # [B, 1]: the highest kept row, -1 if none
+    idx = torch.where(valid, row_idx, top.clamp_min(0)).long()
+    same = idx[:, :, None] == key[:, None, :]
+    return (idx[:, :, None], same, same.int().argmax(2, keepdim=True),
+            same.sum(2, keepdim=True) > 1, (top >= 0)[:, :, None])
+
+
+def scatter_rows(cache, rows, row_idx, row_mask=None, *, plan=None):
+    """Write ``rows [B, n, ...]`` into ``cache [B, S, ...]`` at ``row_idx
+    [B, n]``, in place, as the reference's one-hot write does: a row that
+    one kept entry writes takes that entry's value bit for bit, a row that
+    several write takes their sum (in entry order, so every writer of the
+    row writes the same bytes).  Entries with row_idx outside [0, S) (or
+    row_mask False) are dropped.  ``plan``: ``plan_row_writes(row_idx, S,
+    row_mask)``, computed here when None."""
+    B, S = cache.shape[:2]
+    n = rows.shape[1]
+    idx, same, first, dup, keep = plan if plan is not None else \
+        plan_row_writes(row_idx, S, row_mask)
     flat_c = cache.view(B, S, -1)
     flat_r = rows.reshape(B, n, -1).to(cache.dtype)
     F = flat_c.shape[-1]
-    any_valid = valid.any(1)
-    first = valid.int().argmax(1, keepdim=True)  # [B, 1]
-    fb_idx = torch.where(any_valid, row_idx.gather(1, first).squeeze(1), 0)
-    idx = torch.where(valid, row_idx, fb_idx[:, None]).long()
-    fb_val = torch.where(any_valid[:, None],
-                         flat_r.gather(1, first[:, :, None].expand(B, 1, F)).squeeze(1),
-                         flat_c[:, 0])
-    val = torch.where(valid[:, :, None], flat_r, fb_val[:, None, :])
-    flat_c.scatter_(1, idx[:, :, None].expand(B, n, F), val)
+    # -0.0 is the additive identity that leaves every value as it was
+    sums = torch.where(same[..., None], flat_r[:, None], -0.0).sum(2)
+    val = torch.where(dup, sums, flat_r.gather(1, first.expand(B, n, F)))
+    val = torch.where(keep, val, flat_c[:, :1])
+    flat_c.scatter_(1, idx.expand(B, n, F), val)
     return cache
 
 
 def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask, *,
-                     row_start=None):
+                     row_start=None, row_plan=None):
     """Cached attention for decode / spec-tree forward.
 
     x: [B, n, d] new tokens; their K/V are written at ``row_idx`` [B, n]
@@ -113,6 +133,7 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
     n = 1 with ``row_start`` and no sliding window that mask is cols <=
     row_start, so ``decode_attention`` computes it from the length
     row_start + 1; its K/V write is enqueued on the same stream first.
+    ``row_plan``: ``plan_row_writes(row_idx, S)``, shared by the layers.
     With ``row_start`` no query attends a row at or past row_start + n,
     so tree_attention gets that host-int bound (it launches only the
     splits below it).  Returns (out, cache_k, cache_v)."""
@@ -121,8 +142,9 @@ def attention_cached(cfg, p, x, cache_k, cache_v, row_idx, positions, attn_mask,
         update_rows_contiguous(cache_k, k_new, row_start)
         update_rows_contiguous(cache_v, v_new, row_start)
     else:
-        scatter_rows(cache_k, k_new, row_idx)
-        scatter_rows(cache_v, v_new, row_idx)
+        row_plan = row_plan or plan_row_writes(row_idx, cache_k.shape[1])
+        scatter_rows(cache_k, k_new, row_idx, plan=row_plan)
+        scatter_rows(cache_v, v_new, row_idx, plan=row_plan)
     if row_start is not None and x.shape[1] == 1 and not cfg.sliding_window:
         out = ops.decode_attention(q[:, 0], cache_k, cache_v, int(row_start) + 1)[:, None]
     else:

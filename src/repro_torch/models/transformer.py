@@ -9,9 +9,9 @@ weight-shared attention block after every k mamba2 layers).  The cache is
 leaves stack the U repeats first: ``{"k", "v"}`` [U, B, S, Hkv, hd] for an
 attention block (dense or a shared invocation, each invocation its own
 rows), ``{"conv", "ssm"}`` [U, B, K-1, conv_dim] / [U, B, H, hd, N] for a
-mamba2 block.  One ``kv_move_rows`` launch moves the rows of every layer of
-a leaf, as the Pallas grid (U, B) does.  ``"len"`` is a host int: decode
-reads it as its start row.
+mamba2 block.  One ``kv_move_leaves`` launch moves the rows of every layer
+of every row leaf, where the Pallas grid (U, B) runs once per leaf.
+``"len"`` is a host int: decode reads it as its start row.
 
 Cached forwards write K/V rows into the cache in place (rows past the
 committed length are dead and may be shared), but return new mamba2 state
@@ -31,7 +31,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.attention import attention_cached, attention_full
+from repro_torch.models.attention import attention_cached, attention_full, plan_row_writes
 from repro_torch.models.common import dense_init, rms_norm
 
 # -----------------------------------------------------------------------------
@@ -80,6 +80,7 @@ class Ctx:
     make_cache: int = 0  # S_max when prefill should emit a cache
     positions: Any = None  # [B, n] absolute rope positions
     row_idx: Any = None  # [B, n] cache rows for new K/V (-1 = skip)
+    row_plan: Any = None  # plan_row_writes(row_idx, S): shared by every attention layer
     attn_mask: Any = None  # [B, n, S_max] non-square mask (cached mode)
     row_start: Any = None  # int: rows are [start, start+n) for every batch row
     n_commit: Any = None  # int: chain mode, state blocks commit the first n_commit steps
@@ -213,7 +214,7 @@ def _attn_mlp(cfg, p: DenseBlock, h, ctx: Ctx, leaves, r: int):
     if ctx.mode == "cached":
         a, _, _ = attention_cached(cfg, p.attn, hn, leaves["k"][r], leaves["v"][r],
                                    ctx.row_idx, ctx.positions, ctx.attn_mask,
-                                   row_start=ctx.row_start)
+                                   row_start=ctx.row_start, row_plan=ctx.row_plan)
     else:
         a, (k, v) = attention_full(cfg, p.attn, hn, ctx.positions)
         if ctx.make_cache:
@@ -235,6 +236,9 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
     unit = None
     if ctx.mode == "cached":
         unit = cache["groups"][0]
+        S = next((leaves["k"].shape[2] for leaves in unit if "k" in leaves), None)
+        if ctx.row_start is None and S is not None:  # the K/V row writes, planned once
+            ctx = dataclasses.replace(ctx, row_plan=plan_row_writes(ctx.row_idx, S))
     elif ctx.make_cache:
         unit = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"][0]
     states = {bi: ([], []) for bi, kind in enumerate(unit_def) if kind == "mamba2"}

@@ -21,7 +21,8 @@ torch.set_num_threads(2)  # beside the other test workers and the reference's wa
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "tools").glob("*_variants.py"))
 OK_LINE = '{"ok": true'
 
 

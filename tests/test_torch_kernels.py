@@ -438,6 +438,115 @@ def test_kv_move_rows_zero_moves_is_a_no_op():
     assert fresh.data_ptr() != arr.data_ptr() and torch.equal(fresh, arr)
 
 
+KV_CASES = ["random", "overlap", "reversed", "negative", "empty"]
+
+
+@pytest.mark.parametrize("case", KV_CASES)
+@pytest.mark.parametrize("donate", [False, True])
+def test_kv_move_leaves_matches_reference_leaf_by_leaf(case, donate):
+    """One ``kv_move_leaves`` call on two leaves of different U and row
+    width (the case's leaf and a wider one of U + 1) against the
+    reference's ``kv_move_rows_ref`` on each leaf alone, exactly."""
+    arr, src, dst, mask = _kv_case(case)
+    U, B, S = arr.shape[:3]
+    other = np.random.default_rng(11).normal(size=(U + 1, B, S, 3, 4)).astype(np.float32)
+    leaves = [torch.tensor(arr), torch.tensor(other)]
+    before = [x.clone() for x in leaves]
+    t_plan = tuple(map(torch.tensor, (src, dst, mask)))
+    got = ops.kv_move_leaves(leaves, *t_plan, donate=donate)
+    assert len(got) == 2
+    for g, a in zip(got, (arr, other)):
+        want = np.asarray(jref.kv_move_rows_ref(*map(jnp.asarray, (a, src, dst, mask))))
+        np.testing.assert_array_equal(g.numpy(), want)
+    for x, b in zip(leaves, before):
+        assert torch.equal(x, b), "the CPU path never writes its input"
+    if src.shape[1] == 0 and not donate:
+        assert all(g.data_ptr() != x.data_ptr() for g, x in zip(got, leaves))
+
+
+def test_apply_moves_is_one_call_per_cache(monkeypatch):
+    """``apply_moves`` hands every row leaf of a cache (zamba2's shared
+    block here: k and v between mamba2 state leaves) to one
+    ``kv_move_leaves`` call, and ``donate=False`` leaves the cache as it
+    was."""
+    rng = np.random.default_rng(3)
+    U, B, S = 2, 2, 10
+
+    def leaf(*trail):
+        return torch.tensor(rng.normal(size=(U, B) + trail).astype(np.float32))
+
+    cache = {"len": 4, "groups": [({"conv": leaf(3, 5), "ssm": leaf(2, 3, 4)},
+                                   {"k": leaf(S, 2, 3), "v": leaf(S, 2, 3)})]}
+    before = [x.clone() for x in kv._flatten(cache["groups"])]
+    src = torch.tensor([[1, 2], [3, -1]], dtype=torch.int32)
+    dst = torch.tensor([[5, 6], [0, 1]], dtype=torch.int32)
+    mask = torch.tensor([[True, True], [True, True]])
+    calls = []
+    real = ops.kv_move_leaves
+
+    def spy(leaves, *a, **kw):
+        calls.append([tuple(x.shape) for x in leaves])
+        return real(leaves, *a, **kw)
+
+    monkeypatch.setattr(ops, "kv_move_leaves", spy)
+    monkeypatch.setattr(ops, "kv_move_rows", None)  # no leaf goes through the one-leaf call
+    out = kv.apply_moves(cache, src, dst, mask, donate=False)
+    assert calls == [[(U, B, S, 2, 3), (U, B, S, 2, 3)]]
+    for x, b in zip(kv._flatten(cache["groups"]), before):
+        assert torch.equal(x, b)
+    unit = out["groups"][0]
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(
+            unit[1][key].numpy(), ref.kv_move_rows_ref(cache["groups"][0][1][key], src, dst,
+                                                        mask).numpy())
+    assert unit[0]["conv"] is cache["groups"][0][0]["conv"]  # state leaves are not moved
+    assert out["len"] == 4
+
+
+KV_PATH_SHAPES = [  # chip_smoke.py's KV_TIMED at the paths' caches: (U, M, Hkv, hd), S 512
+    ("8B-reroot", (32, 73, 8, 128)), ("8B-compact", (32, 8, 8, 128)),
+    ("1B-reroot", (16, 73, 8, 64)),
+]
+
+
+@pytest.mark.parametrize("label", [lb for lb, _ in KV_PATH_SHAPES])
+@pytest.mark.parametrize("B", [1, 2])
+def test_kv_move_plan_fills_the_card_from_the_shapes_alone(label, B):
+    """``kv_move_plan`` takes shapes, never a plan's data, and gives at
+    least two blocks per SM of an H100 (264) for the whole cache (k and v)
+    at the paths' shapes in f32 (the paths' dtype) and at their B 2 in
+    bf16, with row segments of at least 128 bytes.  (The 1B re-root in
+    bf16 at B 1 has 1 KB rows: 256 blocks of 128 bytes.)"""
+    assert list(inspect.signature(ops.kv_move_plan).parameters) == \
+        ["leaf_shapes", "B", "M", "elem_bytes"]
+    U, M, hkv, hd = dict(KV_PATH_SHAPES)[label]
+    shape = (U, B, 512, hkv, hd)
+    for es in (4, 2):
+        chunk, blocks = ops.kv_move_plan([shape, shape], B, M, es)
+        assert (chunk, blocks) == ops.kv_move_plan([shape, shape], B, M, es)
+        assert chunk >= 128 and M * chunk <= 96 * 1024, (chunk, blocks)
+        assert blocks >= (256 if (label, B, es) == ("1B-reroot", 1, 2) else 264), (chunk, blocks)
+        assert blocks == 2 * U * B * -(-hkv * hd * es // chunk)
+    assert ops.kv_move_plan([(32, 1, 512, 8, 128)], 1, 73, 4) == (256, 512)
+
+
+def test_kv_move_leaves_refuses_what_one_launch_cannot_take():
+    x = torch.zeros(2, 1, 6, 3)
+    plan = (torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, 2, dtype=torch.int32),
+            torch.ones(1, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="at most 16"):
+        ops.kv_move_leaves([x] * 17, *plan)
+    assert len(ops.kv_move_leaves([x] * 16, *plan)) == 16
+    with pytest.raises(ValueError, match="no leaf"):
+        ops.kv_move_leaves([], *plan)
+    with pytest.raises(ValueError, match="B, S"):
+        ops.kv_move_leaves([x, torch.zeros(2, 1, 5, 3)], *plan)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.kv_move_leaves([x, x.to(torch.bfloat16)], *plan)
+    with pytest.raises(ValueError, match=r"\[B=1, M\]"):
+        ops.kv_move_leaves([x], plan[0], plan[1][:, :1], plan[2])
+
+
 def test_wrappers_refuse_mixed_and_foreign_devices():
     q = torch.zeros(1, 1, 2, 4)
     kv = torch.zeros(1, 3, 1, 4, device="meta")

@@ -168,3 +168,72 @@ def test_unported_families_raise():
                       vocab_size=64, block_pattern=("moe",), n_experts=4, moe_top_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model(moe, "cpu").init(0)
+
+
+# -----------------------------------------------------------------------------
+# scatter_rows: the K/V write of a cached forward
+# -----------------------------------------------------------------------------
+
+SCATTER_CASES = {  # name -> (row_idx [B, n], row_mask [B, n] or None)
+    # a repeated row, a -1 and a masked-off entry that repeats a kept row
+    "repeat": ([[3, 5, 3, -1, 7, 5]], [[True, True, True, True, True, False]]),
+    # two batch rows: a pair in each, one of them keeps nothing else
+    "two-rows": ([[1, 1, 9, 2], [6, -1, 6, 0]], None),
+    # every entry of batch row 1 dropped (-1, past S, masked)
+    "row-keeps-nothing": ([[4, 2, 2, 0], [-1, 12, 5, 1]],
+                          [[True, True, True, True], [True, True, False, False]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_scatter_rows_sums_repeated_rows_as_the_reference(case):
+    """The port's ``scatter_rows`` against the reference's one-hot write on
+    the same numpy input: a row written twice holds the sum of both rows
+    (exact in f32 for two), dropped entries write nothing and are no
+    writers, and every other row is as it was."""
+    from repro.models.attention import scatter_rows as jscatter
+    from repro_torch.models.attention import scatter_rows
+
+    idx, mask = SCATTER_CASES[case]
+    idx = np.asarray(idx, np.int32)
+    rng = np.random.default_rng(len(case))
+    B, n = idx.shape
+    S = 12
+    cache = rng.normal(size=(B, S, 2, 3)).astype(np.float32)
+    rows = rng.normal(size=(B, n, 2, 3)).astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(np.asarray(mask))
+    want = np.asarray(jscatter(jnp.asarray(cache), jnp.asarray(rows), jnp.asarray(idx), jmask))
+    tmask = None if mask is None else torch.tensor(np.asarray(mask))
+    got = scatter_rows(torch.tensor(cache), torch.tensor(rows), torch.tensor(idx), tmask)
+    np.testing.assert_array_equal(got.numpy(), want)
+    again = scatter_rows(torch.tensor(cache), torch.tensor(rows), torch.tensor(idx), tmask)
+    assert torch.equal(again, got)
+
+
+def test_scatter_rows_without_repeats_writes_each_row_bit_for_bit():
+    """No repeated row: every written row holds its entry's bytes, signed
+    zeros included, through a plan shared by two caches as a forward
+    shares it between k and v."""
+    from repro_torch.models.attention import plan_row_writes, scatter_rows
+
+    rng = np.random.default_rng(5)
+    rows = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    rows[0, 1, :2] = -0.0
+    rows[1, 2, 1] = 0.0
+    idx = torch.tensor([[2, 6, -1, 0], [7, 1, 3, 8]], dtype=torch.int32)
+    plan = plan_row_writes(idx, 8)
+    for cache in (torch.zeros(2, 8, 3), torch.full((2, 8, 3), -0.0)):
+        before = cache.clone()
+        scatter_rows(cache, torch.tensor(rows), idx, plan=plan)
+        for b in range(2):
+            for i in range(4):
+                r = int(idx[b, i])
+                if 0 <= r < 8:
+                    assert torch.equal(cache[b, r].view(torch.int32),
+                                       torch.tensor(rows[b, i]).view(torch.int32))
+        written = {(b, int(r)) for b in range(2) for r in idx[b] if 0 <= int(r) < 8}
+        for b in range(2):
+            for r in range(8):
+                if (b, r) not in written:
+                    assert torch.equal(cache[b, r].view(torch.int32),
+                                       before[b, r].view(torch.int32))
