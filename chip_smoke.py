@@ -12,10 +12,14 @@ It takes no options and runs every phase, in order:
            one query — fused_swiglu and int4_matmul — row 0 alone and a
            repeated call bit for bit too — kv_move_rows and kv_move_leaves
            (one leaf and the whole cache, in place and copying through),
-           slot_write_rows, f32 and bf16), and time kernel, plain version
-           and the PyTorch call that computes the same function (for
-           fused_swiglu a composite of cuBLAS and elementwise calls), with
-           CUDA events
+           slot_write_rows, f32 and bf16), also at the single-layer shapes
+           of llama3-3b, llama3-70b, deepseek-coder-1.3b / 33b and
+           granite-20b (head groupings 3, 8, 1, 7, 48: tree_attention at
+           the verify n 8 and an expansion n 4, decode_attention,
+           fused_swiglu at M 1 and 8, kv_move_leaves on each full-depth
+           cache), and time kernel, plain version and the PyTorch call that
+           computes the same function (for fused_swiglu a composite of
+           cuBLAS and elementwise calls), with CUDA events
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
@@ -23,7 +27,8 @@ It takes no options and runs every phase, in order:
            profile pass; (b) self-draft on the same 8B weights, 2 requests —
            then continuous batching through ``ContinuousBatchingRuntime``
            on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
-           (prompts 8-16, max_new 32): (c1) lockstep 8B+1B, (c2) async
+           (prompts 8-16, max_new 32), reduced to the first 16 of the 8B's
+           layers and 8 of the 1B's: (c1) lockstep 8B+1B, (c2) async
            rounds 8B+1B (nearly every lookahead rolls back), (c3) async 8B
            self-draft (lookaheads commit), (c4) lockstep 8B self-draft (the
            control of (c3)).  Every output must equal the
@@ -52,6 +57,19 @@ It takes no options and runs every phase, in order:
            ``x @ dequantize(q)`` and the plain version, row 0 alone and a
            repeated call bit for bit; the 8B wq, wk, wg and wd timed at
            M 1 and 8, beside torch's ``_weight_int4pack_mm`` in bf16.
+  dense    (f1) llama3-3b + llama3-1b at full width and depth through
+           ``build_engine`` (the serve CLI's defaults: bs 8, w 4, c 2, d from
+           the profile pass), 2 requests; (f2) deepseek-coder-33b reduced to
+           8 of its 62 layers + deepseek-coder-1.3b, 1 request; (f3)
+           granite-20b reduced to 8 of its 52 layers drafting for itself at
+           d 2, 1 request: lockstep, f32, max_new 32, each output equal to
+           the greedy decode, one host sync per round
+  rwkv6    chain mode on rwkv6-7b at full width and depth (k 4, f32,
+           max_new 32, 1 request): (g1) self-draft, parallel; (g2)/(g2s) an
+           independent seed-7 draft reduced to 8 of its 32 layers, parallel
+           and serial.  rwkv6 calls none of the port's kernels; each output
+           must equal the greedy decode with one host sync per round and
+           one per request
   shapes   every shape at which a path called a kernel, held against its
            plain version again
 
@@ -156,6 +174,36 @@ CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu")  # by the
 ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
                "slot_write_rows", "int4_matmul")
 CHAIN_K, CHAIN_NEW = 4, 32  # chain length and new tokens per request of phase (d)
+DENSE_NEW = (  # (label, config) of the dense configs of phase (f) and their kernel checks
+    ("3B", "llama3-3b"), ("70B", "llama3-70b"), ("ds1.3B", "deepseek-coder-1.3b"),
+    ("ds33B", "deepseek-coder-33b"), ("granite", "granite-20b"))
+DENSE_NEW_PATHS = {  # (f1)-(f3): target, its depth on the card (None: full), draft (None: self)
+    "f1": ("llama3-3b", None, "llama3-1b"),
+    "f2": ("deepseek-coder-33b", 8, "deepseek-coder-1.3b"),
+    "f3": ("granite-20b", 8, None),
+}
+DENSE_NEW_TOKENS = 32  # max_new per request of phase (f)
+RWKV_DRAFT_LAYERS = 8  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
+SERVE_C_LAYERS = (16, 8)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
+
+
+def dense_new_shapes() -> dict:
+    """label -> the single-layer shapes of a DENSE_NEW config at full width
+    and S 512: tree_attention (B, n, Hq, Hkv, hd, S) at the verify (n 8) and
+    a draft expansion (n 4), decode_attention (B, Hq, Hkv, hd, S),
+    fused_swiglu (M, K, N) at M 1 and 8, and the cache's (U, row width)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for label, name in DENSE_NEW:
+        c = get_config(name)
+        hq, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+        out[label] = dict(verify=(1, 8, hq, hkv, hd, 512), expand=(1, 4, hq, hkv, hd, 512),
+                          decode=(1, hq, hkv, hd, 512),
+                          swiglu=[(1, c.d_model, c.d_ff), (8, c.d_model, c.d_ff)],
+                          kv=(c.n_layers, hkv * hd))
+    return out
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -249,7 +297,7 @@ def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library,
     lib = f"- {library_note}".rstrip() if library is None else \
         f"{row['library_ms']:.4f} ms {library_note}".rstrip()
     print(f"  time {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({b_by}) "
+          f"{row['plain_ms']:.4f} ms, library {lib}, bound {b_ms:.6f} ms ({b_by}) "
           f"on {card}", flush=True)
     rows.setdefault(name, row)
 
@@ -350,6 +398,7 @@ def phase_kernels(torch, timer, card):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
     rows = {}
+    new = dense_new_shapes()
 
     def timed(*args):
         time_row(rows, timer, card, *args)
@@ -359,7 +408,8 @@ def phase_kernels(torch, timer, card):
 
     # --- tree_attention --------------------------------------------------------
     cases = [(shape, False) for shape in TREE_SHAPES + [TREE_ODD_HD]] + \
-        [(shape, parked) for shape in TREE_SERVE_SHAPES for parked in (False, True)]
+        [(shape, parked) for shape in TREE_SERVE_SHAPES for parked in (False, True)] + \
+        [(m[kind], False) for m in new.values() for kind in ("verify", "expand")]
     for dtype in dtypes:
         for (B, n, hq, hkv, hd, S), parked in cases:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
@@ -392,8 +442,9 @@ def phase_kernels(torch, timer, card):
     # row i of a call equals row i alone at n = 1, bit for bit, under a random
     # mask (every split live) and under the path's mask, there also with the
     # bound PREFIX + n (one live split), which must equal the call without it
+    row_alone = TREE_ROW_ALONE + [(f"{label}-verify", m["verify"]) for label, m in new.items()]
     for dtype in dtypes:
-        for label, (B, n, hq, hkv, hd, S) in TREE_ROW_ALONE:
+        for label, (B, n, hq, hkv, hd, S) in row_alone:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             rand = torch.rand((B, n, S), generator=gen, device="cuda") < 0.5
@@ -415,8 +466,10 @@ def phase_kernels(torch, timer, card):
                   f"kv_bound {PREFIX + n} bit for bit equal to none")
     # times under the path's mask, without a bound (the tree engine's calls)
     # and with the bound PREFIX + n (the chain verify's)
+    tree_timed = TREE_TIMED + [(f"{label}-{kind}", m[kind]) for label, m in new.items()
+                               for kind in ("verify", "expand")]
     for dtype in dtypes:
-        for label, (B, n, hq, hkv, hd, S) in TREE_TIMED:
+        for label, (B, n, hq, hkv, hd, S) in tree_timed:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             mask = path_mask(B, n, S)
@@ -443,7 +496,8 @@ def phase_kernels(torch, timer, card):
     # must agree with the plain version and equal tree_attention at n = 1
     # under the mask cols < length bit for bit
     for dtype in dtypes:
-        for B, hq, hkv, hd, S in DECODE_SHAPES + [DECODE_ODD_HD] + [s for _, s in DECODE_TIMED]:
+        for B, hq, hkv, hd, S in DECODE_SHAPES + [DECODE_ODD_HD] + [s for _, s in DECODE_TIMED] + \
+                [m["decode"] for m in new.values()]:
             q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             errs = []
@@ -471,8 +525,9 @@ def phase_kernels(torch, timer, card):
                   "to tree_attention at n=1")
     print(f"  decode_attention: every case above bit for bit equal to tree_attention at n=1, "
           f"f32 and bf16, on {card}")
+    decode_timed = DECODE_TIMED + [(f"{label}-decode", m["decode"]) for label, m in new.items()]
     for dtype in dtypes:  # times at a decode step mid-request (length PREFIX)
-        for label, (B, hq, hkv, hd, S) in DECODE_TIMED:
+        for label, (B, hq, hkv, hd, S) in decode_timed:
             q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             L = PREFIX
@@ -489,8 +544,10 @@ def phase_kernels(torch, timer, card):
                   2 * q.numel() * es + 2 * B * L * hkv * hd * es, 4 * B * hq * hd * L)
 
     # --- fused_swiglu -----------------------------------------------------------
+    swiglu_new = [(f"{label}-M{shape[0]}", shape) for label, m in new.items()
+                  for shape in m["swiglu"]]
     for dtype in dtypes:
-        for label, (M, K, N) in SWIGLU_SHAPES:
+        for label, (M, K, N) in SWIGLU_SHAPES + swiglu_new:
             x = randn(M, K, dtype=dtype)
             wg, wu = randn(K, N, dtype=dtype, scale=K ** -0.5), randn(K, N, dtype=dtype, scale=K ** -0.5)
             got, want = ops.fused_swiglu(x, wg, wu), ref.fused_swiglu_ref(x, wg, wu)
@@ -503,7 +560,7 @@ def phase_kernels(torch, timer, card):
                 fail(f"fused_swiglu {(M, K, N)} {dtype}: two calls on the same input differ")
             print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}, row 0 "
                   "alone and a repeated call bit for bit equal")
-            if label in SWIGLU_TIMED:
+            if label in SWIGLU_TIMED or (label, (M, K, N)) in swiglu_new:
                 es = x.element_size()
                 # no single PyTorch call computes silu(x@wg) * (x@wu): the library
                 # time is a composite of two cuBLAS products and two elementwise passes
@@ -587,6 +644,22 @@ def phase_kernels(torch, timer, card):
                                                for x in use],
                               kv_library(use, src, dst, mask, donate),
                               kv_move_bytes(use, src, dst, mask, donate), 0, note)
+    for dtype in dtypes:  # the dense configs' caches (full depth), k and v, B 1: the
+        # compaction (M 8) and a re-root (M 73), timed in place as the paths move them
+        for label, m in new.items():
+            U, Fw = m["kv"]
+            leaves = [randn(U, 1, S, Fw, dtype=dtype) for _ in range(2)]
+            for M in (8, 73):
+                src, dst, mask = kv_plan(torch, M, n_off=min(M, 3) if M > 8 else 0)
+                act = mask & (src >= 0) & (dst >= 0)
+                shape = f"{label} U{U} B1 S{S} F{Fw} M{M} ({int(act.sum())} active)"
+                err = check_moves(f"kv_move {shape} {dtype}", leaves, src, dst, mask)
+                timed("kv_move_rows", f"{shape} in place, k+v in one launch", dtype, err,
+                      lambda: ops.kv_move_leaves(leaves, src, dst, mask, donate=True),
+                      lambda: [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves],
+                      kv_library(leaves, src, dst, mask, True),
+                      kv_move_bytes(leaves, src, dst, mask, True), 0,
+                      "(index assignment, per leaf)")
 
     # --- slot_write_rows ----------------------------------------------------------
     def check_slot(name, leaves, donors, slot) -> float:
@@ -975,6 +1048,8 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card):
     if counts["kv_move_rows"] != 2 * rounds:
         fail(f"{label}: kv_move_rows launched {counts['kv_move_rows']} times in {rounds} "
              "rounds, not twice per round (compaction and re-root, one launch per cache)")
+    if syncs != 1.0:
+        fail(f"{label}: {syncs:.2f} host syncs per round, not one")
     cr = sum(s.total_emitted for s in stats_all) / max(rounds, 1)
     print(f"{label}: {len(prompts)} requests, {toks} tokens, {rounds} rounds, compression "
           f"{cr:.3f}, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, {toks / wall:.2f} tok/s, "
@@ -1151,10 +1226,11 @@ class RoundTracer:
         self.tracer = _Tracer()
 
 
-def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card):
+def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card, kernels=CHAIN_KERNELS):
     """Generate every prompt through ``ChainSpecEngine.session().generate``,
     check it against the greedy decode, count launches and host syncs, and
-    trace two rounds of one more request.  Returns the launch counts."""
+    trace two rounds of one more request.  Each of ``kernels`` must have
+    launched.  Returns the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import monotonic
 
@@ -1195,7 +1271,7 @@ def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card):
     if sc.n != rounds + len(prompts):
         fail(f"{label}: {sc.n} host syncs for {rounds} rounds of {len(prompts)} request(s), not "
              "one per round and one per request")
-    missing = [k for k in CHAIN_KERNELS if counts[k] == 0]
+    missing = [k for k in kernels if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the chain path: {missing}")
     rt = RoundTracer(torch)
@@ -1212,6 +1288,20 @@ def chain_prompts(vocab: int, n: int):
     from repro_torch.data import make_request_stream
 
     return list(make_request_stream(vocab, 16, 1, n))
+
+
+def cut_depth(model, params, n_layers):
+    """(model, params) of the first ``n_layers`` layers of a drawn dense
+    model, on the same tensors (nothing is copied)."""
+    import dataclasses
+
+    from repro_torch.models.api import make_model
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    return make_model(cfg, model.device), DecoderLM(
+        params.embed, params.final_norm, params.lm_head, list(params.layers[:n_layers]),
+        params.shared_attn)
 
 
 def phase_serve(torch, card):
@@ -1240,29 +1330,36 @@ def phase_serve(torch, card):
 
     # (c) continuous batching: a Poisson trace at about one request per second,
     # so that arrivals land mid-round and queue while both slots are busy.  The
-    # engines share build_engine's weights: (c2) is what
-    # build_engine(..., async_rounds=True) builds, without drawing them again.
-    # 4 requests keep the whole script inside its time limit
+    # engines run the first SERVE_C_LAYERS layers of build_engine's weights: (c2)
+    # is what build_engine(..., async_rounds=True) builds, at that depth, without
+    # drawing them again.  4 requests and the cut depth keep the whole script
+    # inside its time limit
     trace = make_request_trace(cfgT.vocab_size, 4, rate_rps=1.0, prompt_len=(8, 16),
                                max_new=32, seed=0)
+    Tc, tpc = cut_depth(eng.target, tp, SERVE_C_LAYERS[0])
+    Dc, dpc = cut_depth(eng.draft, dp, SERVE_C_LAYERS[1])
     print(f"serve (c): trace of {len(trace)} requests, arrivals "
           f"{[round(r.arrival_s, 3) for r in trace]} s, prompts "
-          f"{[int(r.prompt.size) for r in trace]}, max_new 32, 2 slots", flush=True)
-    refs_c = {r.rid: greedy_decode(torch, eng.target, tp, r.prompt.reshape(1, -1), r.max_new,
+          f"{[int(r.prompt.size) for r in trace]}, max_new 32, 2 slots; reduced: the first "
+          f"{Tc.cfg.n_layers} of the 8B's {cfgT.n_layers} layers and {Dc.cfg.n_layers} of the "
+          f"1B's {eng.draft.cfg.n_layers}", flush=True)
+    refs_c = {r.rid: greedy_decode(torch, Tc, tpc, r.prompt.reshape(1, -1), r.max_new,
                                    eng.S_max_t) for r in trace}
+
+    def engine_c(target, draft, cfg):
+        return SpecEngine(target, draft, cfg, S_max_t=512, S_max_d=512)
+
     runs = [
-        ("c1", "continuous (c1) lockstep 8B+1B", eng, dp),
+        ("c1", "continuous (c1) lockstep 8B+1B", engine_c(Tc, Dc, eng.cfg), dpc),
         ("c2", "continuous (c2) async 8B+1B",
-         SpecEngine(eng.target, eng.draft, dataclasses.replace(eng.cfg, async_rounds=True),
-                    S_max_t=512, S_max_d=512), dp),
+         engine_c(Tc, Dc, dataclasses.replace(eng.cfg, async_rounds=True)), dpc),
         ("c3", "continuous (c3) async 8B self-draft",
-         SpecEngine(eng.target, eng.target, dataclasses.replace(cfg_b, async_rounds=True),
-                    S_max_t=512, S_max_d=512), tp),
-        ("c4", "continuous (c4) lockstep 8B self-draft", eng_b, tp),
+         engine_c(Tc, Tc, dataclasses.replace(cfg_b, async_rounds=True)), tpc),
+        ("c4", "continuous (c4) lockstep 8B self-draft", engine_c(Tc, Tc, cfg_b), tpc),
     ]
     perf = {}
     for tag, label, e, draft_params in runs:
-        counts[tag], st, perf[tag] = serve_continuous(torch, label, tag, e, tp, draft_params,
+        counts[tag], st, perf[tag] = serve_continuous(torch, label, tag, e, tpc, draft_params,
                                                       trace, refs_c, card)
         if tag == "c2" and st.spec_rounds == st.spec_commits:
             fail(f"{label}: no lookahead rolled back")
@@ -1288,6 +1385,11 @@ def phase_serve(torch, card):
     return counts, (("8B", tp), ("1B", dp))
 
 
+def peaked(params):
+    params.lm_head.mul_(4.0)  # peaked logits, as build_engine draws them
+    return params
+
+
 def phase_chain(torch, card):
     """(d1)-(d2): zamba2-2.7b at full width, chain mode."""
     from repro_torch.configs import get_config
@@ -1296,9 +1398,7 @@ def phase_chain(torch, card):
 
     cfg = get_config("zamba2-2.7b")
     model = make_model(cfg, "cuda")
-    tp, dp = model.init(0), model.init(7)
-    for p in (tp, dp):
-        p.lm_head.mul_(4.0)  # peaked logits, as build_engine draws them
+    tp, dp = peaked(model.init(0)), peaked(model.init(7))
     n_params = sum(t.numel() for t in tp.parameters())
     print(f"chain: zamba2-2.7b ({n_params / 1e9:.3f} B parameters: {cfg.n_layers} mamba2 layers, "
           f"the shared attention block every {cfg.shared_attn_every}), f32, target seed 0 and "
@@ -1315,6 +1415,98 @@ def phase_chain(torch, card):
     for mode, tag in (("parallel", "d2"), ("serial", "d2s")):
         counts[tag] = run_chain(torch, f"chain (d2) zamba2-2.7b + seed-7 draft, {mode}", tag,
                                 engine(mode), tp, dp, prompts[:1], refs[:1], card)
+    return counts
+
+
+def phase_dense(torch, card):
+    """(f1)-(f3): the dense configs of DENSE_NEW_PATHS through the tree
+    engine, lockstep, at full width (depth cut where named), f32, target
+    seed 0 and draft seed 1 with the lm_heads x4; (f1) through
+    ``build_engine`` with the serve CLI's defaults, (f2)/(f3) through the
+    same ``SpecEngine``.  Each path's weights go before the next's are drawn.
+    Returns the launch counts by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.data import make_request_stream
+    from repro_torch.launch.serve import build_engine, profile_depth
+    from repro_torch.models.api import make_model
+    from repro_torch.obs.clock import monotonic
+
+    counts = {}
+    for tag, (tname, depth, dname) in DENSE_NEW_PATHS.items():
+        t0 = monotonic()
+        if depth is None:  # full depth: the serve CLI's own engine
+            eng, tp, dp, cfgT = build_engine(tname, dname, smoke=False, device="cuda",
+                                             max_new=DENSE_NEW_TOKENS)
+            print(profile_depth(eng, tp, dp, 16), flush=True)
+        else:
+            cfgT = dataclasses.replace(get_config(tname), n_layers=depth)
+            T = make_model(cfgT, "cuda")
+            tp = peaked(T.init(0))
+            if dname is None:  # self-draft at d 2
+                D, dp, d = T, tp, 2
+            else:
+                D = make_model(get_config(dname), "cuda")
+                dp, d = peaked(D.init(1)), 2
+            eng = SpecEngine(T, D, SpecConfig(bs=8, w=4, c=2, d=d, mode="parallel",
+                                              max_new=DENSE_NEW_TOKENS), S_max_t=512, S_max_d=512)
+            if dname is not None:
+                print(profile_depth(eng, tp, dp, 16), flush=True)
+        torch.cuda.synchronize()
+        full = get_config(tname).n_layers
+        cut = "" if depth is None else f" (reduced: {depth} of its {full} layers)"
+        print(f"dense ({tag}): {tname}{cut} target, {cfgT.param_count() / 1e9:.2f} B params, "
+              f"{'self-draft' if dname is None else dname + ' draft'}, f32, weights drawn on the "
+              f"card in {monotonic() - t0:.1f}s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+              "allocated", flush=True)
+        n_req = 2 if tag == "f1" else 1
+        prompts = list(make_request_stream(cfgT.vocab_size, 16, 1, n_req))
+        refs = [greedy_decode(torch, eng.target, tp, p, eng.cfg.max_new, eng.S_max_t)
+                for p in prompts]
+        draft = "self-draft" if dname is None else f"+ {dname}"
+        counts[tag] = run_path(torch, f"dense path ({tag}) {tname} {draft}", eng, tp, dp,
+                               prompts, refs, card)
+        del eng, tp, dp
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_rwkv(torch, card):
+    """(g1)-(g2s): rwkv6-7b chain mode at full width and depth, f32, target
+    seed 0 with the lm_head x4: (g1) drafting for itself, parallel; (g2) an
+    independent seed-7 draft of RWKV_DRAFT_LAYERS layers, parallel, and
+    (g2s) the same serial.  rwkv6 calls none of the port's kernels.
+    Returns the launch counts by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+    from repro_torch.models.api import make_model
+
+    cfg = get_config("rwkv6-7b")
+    model = make_model(cfg, "cuda")
+    tp = peaked(model.init(0))
+    dcfg = dataclasses.replace(cfg, n_layers=RWKV_DRAFT_LAYERS)
+    dmodel = make_model(dcfg, "cuda")
+    dp = peaked(dmodel.init(7))
+    print(f"chain: rwkv6-7b ({cfg.param_count() / 1e9:.3f} B parameters, {cfg.n_layers} layers, "
+          f"d {cfg.d_model}), f32, target seed 0; seed-7 draft reduced to {RWKV_DRAFT_LAYERS} of "
+          f"{cfg.n_layers} layers ({dcfg.param_count() / 1e9:.3f} B); "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    prompts = chain_prompts(cfg.vocab_size, 1)
+    refs = [greedy_decode(torch, model, tp, p, CHAIN_NEW, 512) for p in prompts]
+
+    def engine(draft, mode):
+        return ChainSpecEngine(model, draft, ChainConfig(k=CHAIN_K, mode=mode, max_new=CHAIN_NEW),
+                               512, 512)
+
+    counts = {"g1": run_chain(torch, "chain (g1) rwkv6-7b self-draft", "g1",
+                              engine(model, "parallel"), tp, tp, prompts, refs, card, kernels=())}
+    for mode, tag in (("parallel", "g2"), ("serial", "g2s")):
+        counts[tag] = run_chain(torch, f"chain ({tag}) rwkv6-7b + seed-7 draft, {mode}", tag,
+                                engine(dmodel, mode), tp, dp, prompts, refs, card, kernels=())
     return counts
 
 
@@ -1434,7 +1626,13 @@ def main() -> int:
     del weights  # the 8B and 1B weights go before zamba2's are drawn
     timing("awq (e)")
     counts.update(phase_chain(torch, card))
+    torch.cuda.empty_cache()
     timing("chain (d1)-(d2)")
+    counts.update(phase_dense(torch, card))
+    timing("dense (f1)-(f3)")
+    counts.update(phase_rwkv(torch, card))
+    torch.cuda.empty_cache()
+    timing("chain (g1)-(g2s)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

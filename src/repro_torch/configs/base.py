@@ -4,8 +4,8 @@ registry of the architectures this port runs.
 Each architecture lives in ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (full published shape) and ``smoke_config()`` (reduced same-family
 shape for CPU tests), as in the reference package.  Here so far: the
-dense configs and the zamba2 hybrid (mamba2 + a shared attention block);
-the other families come with their blocks.
+dense configs, the zamba2 hybrid (mamba2 + a shared attention block) and
+rwkv6 (attention-free); the other families come with their blocks.
 """
 
 from __future__ import annotations
@@ -161,14 +161,15 @@ class ModelConfig:
         return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
 
 
-PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b", "zamba2-2.7b"]
+PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b", "zamba2-2.7b", "llama3-3b", "llama3-70b",
+          "deepseek-coder-1.3b", "deepseek-coder-33b", "granite-20b", "rwkv6-7b"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported yet (ported: {', '.join(PORTED)}); the "
-            "other model families are ROADMAP queue 1, items 9-10")
+            "other model families are ROADMAP queue 1, item 9")
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.CONFIG

@@ -6,7 +6,9 @@ unbox every ``Param`` to a numpy array, and hand the tree to
 is the unit tuple, one dict per block of the unit, whose leaves carry the
 stacked repeat axis U first (``repro/models/transformer.py:307-316``); a
 zamba2 tree also holds the model-level ``shared_attn`` block (no U axis),
-and each ``shared`` entry of the unit its per-invocation ``in_w``.
+and each ``shared`` entry of the unit its per-invocation ``in_w``; an rwkv6
+entry holds ``ln1``, ``ln2`` and ``tm``, the parameters of its time-mix and
+channel-mix.
 
 ``quantized_from_numpy`` does the same for the reference's
 ``QuantizedLinear`` (``repro.quant``), so both packages multiply by the
@@ -19,10 +21,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.transformer import (
     DecoderLM,
     DenseBlock,
     Mamba2Block,
+    RWKV6Block,
     SharedBlock,
     check_plan,
 )
@@ -52,6 +56,9 @@ def params_from_numpy(cfg, tree, device) -> DecoderLM:
             elif kind == "mamba2":
                 layers.append(Mamba2Block(t(p["ln"][u]), m2.params_from_reference(
                     {k: t(v[u]) for k, v in p["mamba"].items()})))
+            elif kind == "rwkv6":
+                layers.append(RWKV6Block(t(p["ln1"][u]), rk.params_from_reference(
+                    {k: t(v[u]) for k, v in p["tm"].items()}), t(p["ln2"][u])))
             else:
                 layers.append(SharedBlock(t(p["in_w"][u])))
     shared = dense(tree["shared_attn"]) if "shared" in unit_def else None

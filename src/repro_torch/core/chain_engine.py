@@ -1,5 +1,6 @@
 """Chain-mode speculative decoding for recurrent-state architectures
-(``repro.core.chain_engine``; SSM / hybrid: zamba2, and dense pairs).
+(``repro.core.chain_engine``; SSM / hybrid: zamba2, rwkv6, and dense
+pairs).
 
 Tree speculation does not fit a recurrent state (the tree's branches cannot
 share one sequential state), so speculation runs on chains, with the
@@ -19,10 +20,10 @@ paper's asynchronous draft/target split kept:
 
 The snapshot.  The reference's caches are immutable, so its snapshot is
 free.  Here the forwards write K/V rows in place, but only rows at or past
-``len`` (dead until committed) and the mamba2 blocks return new state
-tensors and never write their input's (``models/mamba2.py``): a cache kept
-from before a forward keeps its state and its live rows, whatever runs
-from it.  No cache is cloned.
+``len`` (dead until committed) and the mamba2 and rwkv6 blocks return new
+state tensors and never write their input's (``models/mamba2.py``,
+``models/rwkv6.py``): a cache kept from before a forward keeps its state
+and its live rows, whatever runs from it.  No cache is cloned.
 
 On the card, in parallel mode, the target's work runs on one CUDA stream
 and the draft's on another (as the tree engine's async round,

@@ -12,14 +12,17 @@
 // length and load nothing past it, and a split that holds no attended key
 // need not be launched at all (below).
 //
-// What bounds it on this card.  By bytes it would take well under a
-// microsecond: at the port's shapes (G = Hq/Hkv <= 4 query heads per KV
-// head, n <= 8 tree nodes, S = 512) every K/V element is used by at most
-// G*n = 32 query rows, far below the ~20 f32 (~295 bf16) operations per
-// byte at which the card's arithmetic, not its memory, would be the limit.
-// In practice it is bound by latency: the launch, one round trip to device
-// memory for Q/K/V/mask, a chain of dependent arithmetic per row, and — when
-// a row's keys span several splits — a second round trip for the combine.
+// What bounds it on this card.  By bytes or by operations it would take
+// well under a microsecond: at the port's shapes (G = Hq/Hkv from 1 to 48
+// query heads per KV head, n <= 8 tree nodes, S = 512) every K/V element
+// is used by at most G*n query rows — 32 at the llama3-8b verify, 384 at
+// granite-20b's (G 48 on its one KV head, 48 f32 or 24 bf16 row tiles that
+// each load the same K/V tiles) — against the ~20 f32 (~295 bf16)
+// operations per byte at which the card's arithmetic, not its memory, is
+// the limit.  In practice it is bound by latency: the
+// launch, one round trip to device memory for Q/K/V/mask, a chain of
+// dependent arithmetic per row, and — when a row's keys span several
+// splits — a second round trip for the combine.
 // Measured on an H100 (tools/attention_variants.py, PERF.md): at a decode
 // step the launch and the loads alone take about as long as
 // scaled_dot_product_attention's whole call, the arithmetic adds a tenth
@@ -56,8 +59,8 @@
 //   are and whichever rows share its block.
 // * bf16 on tensor cores: mma.sync.m16n8k16 (f32 accumulate) fed by
 //   ldmatrix (ldmatrix.trans for V), not wgmma — wgmma needs 64 rows and a
-//   block here has at most 16 live rows (4 at a decode step); the work is
-//   bound by latency, not by the tensor cores' rate.  The 16 rows of a
+//   block here has at most 16 live rows (min(G, 16) at a decode step); the
+//   work is bound by latency, not by the tensor cores' rate.  The 16 rows of a
 //   block are the MMA's M (rows past G*n are zeros), a warp's 16 keys its
 //   N, the head dim its K, zero-padded in shared memory to 16*KS.  The
 //   scores stay in the accumulator fragments; a row's max and sum reduce

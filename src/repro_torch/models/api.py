@@ -3,8 +3,8 @@
 
 Token, position and row arguments may be tensors or numpy arrays; they are
 moved to the model's device.  The cached forwards write K/V rows into the
-cache in place and return new mamba2 state tensors (the input cache keeps
-its state; ``models/transformer.py``).
+cache in place and return new mamba2 and rwkv6 state tensors (the input
+cache keeps its state; ``models/transformer.py``).
 """
 
 from __future__ import annotations

@@ -1,24 +1,26 @@
-"""Decoder assembly (``repro.models.transformer``): the dense plan and the
-zamba2 hybrid plan.
+"""Decoder assembly (``repro.models.transformer``): the dense plan, the
+zamba2 hybrid plan and the rwkv6 plan.
 
 The plan, the cache layout and the block math follow the reference.  A plan
 is one group: a unit of block kinds repeated U times — ``("dense",)`` for a
 dense decoder, ``("mamba2",) * k + ("shared",)`` for zamba2 (a
-weight-shared attention block after every k mamba2 layers).  The cache is
+weight-shared attention block after every k mamba2 layers), ``("rwkv6",)``
+for rwkv6 (attention-free: time-mix + channel-mix).  The cache is
 ``{"len", "groups": [unit]}``, ``unit`` one dict per block of the unit whose
 leaves stack the U repeats first: ``{"k", "v"}`` [U, B, S, Hkv, hd] for an
 attention block (dense or a shared invocation, each invocation its own
 rows), ``{"conv", "ssm"}`` [U, B, K-1, conv_dim] / [U, B, H, hd, N] for a
-mamba2 block.  One ``kv_move_leaves`` launch moves the rows of every layer
-of every row leaf, where the Pallas grid (U, B) runs once per leaf.
-``"len"`` is a host int: decode reads it as its start row.
+mamba2 block, ``{"sx_tm", "wkv", "sx_cm"}`` [U, B, d] / [U, B, H, hd, hd] /
+[U, B, d] for an rwkv6 block.  One ``kv_move_leaves`` launch moves the rows
+of every layer of every row leaf, where the Pallas grid (U, B) runs once
+per leaf.  ``"len"`` is a host int: decode reads it as its start row.
 
 Cached forwards write K/V rows into the cache in place (rows past the
-committed length are dead and may be shared), but return new mamba2 state
-tensors and leave the input's as they were, so a caller may keep a cache as
-a snapshot of its recurrent state (the chain engine does).  Other block
-kinds (moe, mla, rwkv6, cross) raise NotImplementedError: ROADMAP queue 1,
-items 9-10.
+committed length are dead and may be shared), but return new mamba2 and
+rwkv6 state tensors and leave the input's as they were, so a caller may
+keep a cache as a snapshot of its recurrent state (the chain engine does).
+Other block kinds (moe, mla, cross) raise NotImplementedError: ROADMAP
+queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.attention import attention_cached, attention_full, plan_row_writes
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -38,7 +41,9 @@ from repro_torch.models.common import dense_init, rms_norm
 # Plans
 # -----------------------------------------------------------------------------
 
-PORTED_KINDS = ("dense", "mamba2", "shared")
+PORTED_KINDS = ("dense", "mamba2", "shared", "rwkv6")
+ATTENTION_KINDS = ("dense", "shared")  # blocks that hold K/V rows
+STATE_LEAVES = {"mamba2": ("conv", "ssm"), "rwkv6": ("sx_tm", "wkv", "sx_cm")}
 
 
 def build_plan(cfg):
@@ -60,15 +65,17 @@ def build_plan(cfg):
 
 
 def check_plan(cfg) -> tuple:
-    """(unit_def, U) of a ported plan — one group of dense, mamba2 and
-    shared blocks with GQA attention; raises for any other."""
+    """(unit_def, U) of a ported plan — one group of dense, mamba2, shared
+    and rwkv6 blocks, with GQA attention (or none, where the unit holds no
+    attention block); raises for any other."""
     plan = build_plan(cfg)
-    if (cfg.attn_kind != "gqa" or len(plan) != 1
-            or any(kind not in PORTED_KINDS for kind in plan[0][0])):
+    has_attn = any(kind in ATTENTION_KINDS for kind in plan[0][0])
+    if (cfg.attn_kind not in ("gqa", "none") or (cfg.attn_kind == "none" and has_attn)
+            or len(plan) != 1 or any(kind not in PORTED_KINDS for kind in plan[0][0])):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and the zamba2 hybrid plans with GQA attention "
-            f"are ported (got {plan}, attn {cfg.attn_kind!r}); moe/mla/rwkv6/cross "
-            "blocks are ROADMAP queue 1, items 9-10")
+            f"{cfg.name}: only the dense, the zamba2 hybrid and the rwkv6 plans are ported, "
+            f"with GQA attention (got {plan}, attn {cfg.attn_kind!r}); moe/mla/cross "
+            "blocks are ROADMAP queue 1, item 9")
     return plan[0]
 
 
@@ -115,6 +122,18 @@ class Mamba2Block(nn.Module):
         super().__init__()
         self.ln = nn.Parameter(ln, requires_grad=False)
         self.mamba = _frozen(mamba)
+
+
+class RWKV6Block(nn.Module):
+    """Weights of one rwkv6 block: the pre-norms of its time-mix and
+    channel-mix, and both sub-blocks' parameters in one dict (the
+    reference's ``tm``; ``models/rwkv6.py`` layout)."""
+
+    def __init__(self, ln1, tm: dict, ln2):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.tm = _frozen(tm)
+        self.ln2 = nn.Parameter(ln2, requires_grad=False)
 
 
 class SharedBlock(nn.Module):
@@ -172,6 +191,9 @@ def init_model(cfg, seed: int, device) -> DecoderLM:
                 layers.append(dense_block())
             elif kind == "mamba2":
                 layers.append(Mamba2Block(const((d,), 1.0), m2.init_mamba2(cfg, gen, device)))
+            elif kind == "rwkv6":
+                layers.append(RWKV6Block(const((d,), 1.0), rk.init_rwkv6(cfg, gen, device),
+                                         const((d,), 1.0)))
             else:
                 layers.append(SharedBlock(init((2 * d, d))))
     shared = dense_block() if "shared" in unit_def else None
@@ -187,8 +209,9 @@ def init_cache(cfg, B, S_max, dtype, device):
 
     unit = []
     for kind in unit_def:
-        if kind == "mamba2":
-            one = m2.init_mamba_cache(cfg, B, dtype, device)
+        if kind in STATE_LEAVES:
+            init_state = m2.init_mamba_cache if kind == "mamba2" else rk.init_rwkv_cache
+            one = init_state(cfg, B, dtype, device)
             unit.append({k: zeros(v.shape, v.dtype) for k, v in one.items()})
         else:  # dense or a shared invocation: K/V rows
             shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
@@ -228,8 +251,8 @@ def _attn_mlp(cfg, p: DenseBlock, h, ctx: Ctx, leaves, r: int):
 def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
     """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
     in "cached" mode the K/V leaves of ``cache`` are written in place and
-    the returned cache holds them and new mamba2 state leaves; a prefill
-    with ``make_cache`` returns a new cache."""
+    the returned cache holds them and new mamba2 and rwkv6 state leaves; a
+    prefill with ``make_cache`` returns a new cache."""
     unit_def, U = check_plan(cfg)
     B = h.shape[0]
     x0 = h  # the embeddings: input of every shared invocation
@@ -241,29 +264,40 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
             ctx = dataclasses.replace(ctx, row_plan=plan_row_writes(ctx.row_idx, S))
     elif ctx.make_cache:
         unit = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"][0]
-    states = {bi: ([], []) for bi, kind in enumerate(unit_def) if kind == "mamba2"}
+    # the new state leaves of every recurrent block, one list per leaf over U
+    states = {bi: {key: [] for key in STATE_LEAVES[kind]}
+              for bi, kind in enumerate(unit_def) if kind in STATE_LEAVES}
     for r in range(U):
         for bi, kind in enumerate(unit_def):
             p = params.layers[r * len(unit_def) + bi]
+            c = None
+            if kind in STATE_LEAVES and ctx.mode == "cached":
+                c = {key: unit[bi][key][r] for key in STATE_LEAVES[kind]}
             if kind == "mamba2":
-                c = None
-                if ctx.mode == "cached":
-                    c = {"conv": unit[bi]["conv"][r], "ssm": unit[bi]["ssm"][r]}
                 out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
                                           ctx.n_commit)
                 h = h + out
-                states[bi][0].append(nc["conv"])
-                states[bi][1].append(nc["ssm"])
+            elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
+                out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
+                                            ctx.n_commit)
+                h = h + out
+                out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps), c,
+                                                  ctx.n_commit)
+                h = h + out
+                nc = {**nc, **nc_cm}
             elif kind == "dense":
                 h = _attn_mlp(cfg, p, h, ctx, None if unit is None else unit[bi], r)
             else:  # shared: the model's attention + MLP on concat(h, x0) @ in_w
                 inp = torch.cat([h, x0], dim=-1) @ p.in_w
                 h = h + _attn_mlp(cfg, params.shared_attn, inp, ctx,
                                  None if unit is None else unit[bi], r)
+            if bi in states:
+                for key, leaf in states[bi].items():
+                    leaf.append(nc[key])
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     if unit is None:
         return h, None
-    unit = tuple({"conv": torch.stack(states[bi][0]), "ssm": torch.stack(states[bi][1])}
+    unit = tuple({key: torch.stack(leaf) for key, leaf in states[bi].items()}
                  if bi in states else leaves for bi, leaves in enumerate(unit))
     return h, {"len": None, "groups": [unit]}  # len managed by the caller
 

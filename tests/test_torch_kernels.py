@@ -36,6 +36,11 @@ TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S), as tests/test_kernels.py
     (2, 3, 6, 3, 80, 200),
     (1, 16, 8, 1, 128, 256),
     (3, 1, 4, 2, 128, 64),
+    # ... and the dense configs' head groupings: G 3 (llama3-3b), 7 (deepseek-coder-33b)
+    # and 48 on one KV head at verify width 8 (granite-20b, MQA: 384 query rows)
+    (2, 5, 9, 3, 64, 100),
+    (1, 8, 14, 2, 128, 160),
+    (1, 8, 48, 1, 128, 200),
 ]
 DECODE_SHAPES = [  # (B, Hq, Hkv, hd, S): hd 64/80/128, G 1 and 4, S no multiple of 128
     (2, 8, 2, 64, 160),
@@ -44,6 +49,11 @@ DECODE_SHAPES = [  # (B, Hq, Hkv, hd, S): hd 64/80/128, G 1 and 4, S no multiple
     (3, 4, 4, 64, 100),
     (2, 8, 2, 80, 72),
     (2, 4, 4, 128, 136),
+    # ... and G 3, 7, 8 and 48 (llama3-3b, deepseek-coder-33b, llama3-70b, granite-20b)
+    (2, 6, 2, 128, 136),
+    (1, 14, 2, 64, 100),
+    (2, 16, 2, 128, 96),
+    (2, 48, 1, 128, 160),
 ]
 SWIGLU_SHAPES = [(8, 64, 128), (100, 96, 200), (1, 256, 64), (130, 128, 384)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -7,6 +7,10 @@ and ``decode_step`` must agree at atol = rtol = 1e-4 in float32, and the
 greedy streams must be equal token for token.  The qwen2.5 smoke model
 carries the QKV bias; its biases and norm weights are drawn at random so
 that those paths are not multiplications by one and additions of zero.
+The five other dense configs run at their smoke sizes from the port's own
+registry: their head groupings G = Hq/Hkv are 2 (llama3-3b, llama3-70b), 1
+(deepseek-coder-1.3b), 4 (deepseek-coder-33b) and 4 with one KV head
+(granite-20b, MQA).
 """
 
 import dataclasses
@@ -61,6 +65,12 @@ def models(dense_pair):
                            "qwen2.5-smoke": (Q, qp)}.items():
         cfg = port_config(jm.cfg)
         out[name] = (jm, jp, make_model(cfg, "cpu"), params_from_numpy(cfg, unbox(jp), "cpu"))
+    for seed, name in enumerate(DENSE_CONFIGS, start=3):
+        jm = jmake_model(jget_config(name, smoke=True))
+        jp = jm.init(jax.random.PRNGKey(seed))
+        jp["lm_head"].value = jp["lm_head"].value * 4.0  # peaked, as the serving weights
+        cfg = get_config(name, smoke=True)
+        out[name] = (jm, jp, make_model(cfg, "cpu"), params_from_numpy(cfg, unbox(jp), "cpu"))
     return out
 
 
@@ -77,7 +87,9 @@ def _prompt(cfg, B=2, P=8, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, P)).astype(np.int32)
 
 
-MODELS = ["dense-target", "dense-draft", "qwen2.5-smoke"]
+DENSE_CONFIGS = ["llama3-3b", "llama3-70b", "deepseek-coder-1.3b", "deepseek-coder-33b",
+                 "granite-20b"]
+MODELS = ["dense-target", "dense-draft", "qwen2.5-smoke"] + DENSE_CONFIGS
 
 
 @pytest.mark.parametrize("name", MODELS)
