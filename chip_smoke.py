@@ -17,9 +17,14 @@ It takes no options and runs every phase, in order:
            granite-20b (head groupings 3, 8, 1, 7, 48: tree_attention at
            the verify n 8 and an expansion n 4, decode_attention,
            fused_swiglu at M 1 and 8, kv_move_leaves on each full-depth
-           cache), and time kernel, plain version and the PyTorch call that
-           computes the same function (for fused_swiglu a composite of
-           cuBLAS and elementwise calls), with CUDA events
+           cache) and of the families of phase (h) (tree_attention and
+           decode_attention at mixtral's G 6 and musicgen's hd 64,
+           fused_swiglu at every dense MLP, kv_move_leaves in place and
+           copying through and slot_write_rows on deepseek-moe's two-group
+           cache and minicpm3's MLA latents), and time kernel, plain
+           version and the PyTorch call that computes the same function
+           (for fused_swiglu a composite of cuBLAS and elementwise calls),
+           with CUDA events
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
@@ -70,6 +75,21 @@ It takes no options and runs every phase, in order:
            and serial.  rwkv6 calls none of the port's kernels; each output
            must equal the greedy decode with one host sync per round and
            one per request
+  families (h1) deepseek-moe-16b at full depth (a dense layer, then 27 moe
+           layers of 64 experts, top 6, 2 shared), (h2) mixtral-8x22b cut
+           to 4 of its 56 layers (8 experts, top 2, G 6, sliding window),
+           (h3) minicpm3-4b at full depth (MLA), (h4) musicgen-large at
+           full depth (hd 64; a prefill of the table's embeddings must
+           equal the token prefill bit for bit): each drafting for itself
+           at d 2 through the tree engine, lockstep, f32, 1 request,
+           max_new 24, the MoE paths drop-free (capacity_factor E / k),
+           each output equal to the greedy decode with one host sync per
+           round, the greedy decode's launches counted with the run's;
+           (h5) llama-3.2-vision-90b cut to one unit (4 dense blocks and a
+           cross block) through the Model API: prefill 16 tokens with
+           seeded stub encoder states, 16 greedy decode steps, then one
+           traced spec_forward of the same tokens under a causal chain
+           mask, whose argmax must equal the decode at every position
   shapes   every shape at which a path called a kernel, held against its
            plain version again
 
@@ -157,8 +177,8 @@ SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill", 
 KV_TIMED = [  # (U, M, F) of the main path's kv_move_leaves calls, timed at B 1 and 2
     ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
 ]
-SLOT_SHAPES = [  # the serving caches' leaf shapes (k and v: L 2) [U, B, S, Hkv, hd]
-    ("8B", (32, 2, 512, 8, 128)), ("1B", (16, 2, 512, 8, 64)),
+SLOT_SHAPES = [  # the serving caches' leaves (k and v) [U, B, S, Hkv, hd]
+    ("8B", [(32, 2, 512, 8, 128)] * 2), ("1B", [(16, 2, 512, 8, 64)] * 2),
 ]
 INT4_SHAPES = [  # (M, K, N): tests/test_kernels.py's, and a ragged N (no multiple of 4)
     (8, 256, 96), (32, 128, 300), (5, 384, 128), (3, 256, 301),
@@ -185,23 +205,58 @@ DENSE_NEW_PATHS = {  # (f1)-(f3): target, its depth on the card (None: full), dr
 DENSE_NEW_TOKENS = 32  # max_new per request of phase (f)
 RWKV_DRAFT_LAYERS = 8  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
 SERVE_C_LAYERS = (16, 8)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
+FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attention" holds
+    # tree and decode attention at its heads, "kv" kv_move_leaves and slot_write_rows at its
+    # cache; fused_swiglu is held at every dense MLP
+    ("mixtral", "mixtral-8x22b", {"attention"}), ("dsmoe", "deepseek-moe-16b", {"kv"}),
+    ("minicpm3", "minicpm3-4b", {"kv"}), ("musicgen", "musicgen-large", {"attention"}),
+    ("vision", "llama-3.2-vision-90b", set()))
+FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the kernels it launches
+    "h1": ("deepseek-moe-16b", None, MAIN_KERNELS + ("decode_attention",)),
+    "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")),  # no dense MLP; decode by tree
+    "h3": ("minicpm3-4b", None, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
+    "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
+}
+FAMILY_TOKENS = 24  # max_new of (h1)-(h4)
+VISION_LAYERS = 5  # (h5): one unit of llama-3.2-vision-90b, 4 dense blocks + 1 cross, of 100
+VISION_STEPS = 16  # (h5): prompt 16, then 16 greedy decode steps
 
 
-def dense_new_shapes() -> dict:
-    """label -> the single-layer shapes of a DENSE_NEW config at full width
-    and S 512: tree_attention (B, n, Hq, Hkv, hd, S) at the verify (n 8) and
-    a draft expansion (n 4), decode_attention (B, Hq, Hkv, hd, S),
-    fused_swiglu (M, K, N) at M 1 and 8, and the cache's (U, row width)."""
+def new_shapes() -> dict:
+    """label -> the single-layer shapes of a DENSE_NEW or FAMILY_NEW config
+    at full width and S 512 where its paths call a kernel: tree_attention
+    (B, n, Hq, Hkv, hd, S) at the verify (n 8) and a draft expansion (n 4)
+    and decode_attention (B, Hq, Hkv, hd, S) — of the families only
+    mixtral's (G 6) and musicgen's (hd 64), the new head shapes —,
+    fused_swiglu (M, K, N) at M 1 and 8 for every dense MLP, the cache's row
+    leaves [(U, row width)] for kv_move_leaves (the dense configs and
+    deepseek-moe's two groups: k and v of each; minicpm3: the MLA latents),
+    and for those two families the serving leaves [U, B 2, S, ...] for
+    slot_write_rows."""
     from repro_torch.configs import get_config
 
     out = {}
-    for label, name in DENSE_NEW:
+    dense = [(label, name, {"attention", "kv"}) for label, name in DENSE_NEW]
+    for label, name, checks in dense + list(FAMILY_NEW):
         c = get_config(name)
         hq, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-        out[label] = dict(verify=(1, 8, hq, hkv, hd, 512), expand=(1, 4, hq, hkv, hd, 512),
-                          decode=(1, hq, hkv, hd, 512),
-                          swiglu=[(1, c.d_model, c.d_ff), (8, c.d_model, c.d_ff)],
-                          kv=(c.n_layers, hkv * hd))
+        family = label not in dict(DENSE_NEW)
+        m = out[label] = {}
+        if "attention" in checks:
+            m.update(verify=(1, 8, hq, hkv, hd, 512), expand=(1, 4, hq, hkv, hd, 512),
+                     decode=(1, hq, hkv, hd, 512))
+        if "dense" in c.layer_kinds:
+            m["swiglu"] = [(1, c.d_model, c.d_ff), (8, c.d_model, c.d_ff)]
+        if "kv" not in checks:
+            continue
+        if c.attn_kind == "mla":
+            m["kv"] = [(c.n_layers, c.kv_lora_rank), (c.n_layers, c.rope_head_dim)]
+        else:
+            Us = [c.first_k_dense, c.n_layers - c.first_k_dense] if c.first_k_dense else \
+                [c.n_layers]
+            m["kv"] = [(U, hkv * hd) for U in Us for _ in "kv"]
+        if family:
+            m["slot"] = [(U, 2, 512, F) for U, F in m["kv"]]
     return out
 
 
@@ -398,7 +453,7 @@ def phase_kernels(torch, timer, card):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
     rows = {}
-    new = dense_new_shapes()
+    new = new_shapes()
 
     def timed(*args):
         time_row(rows, timer, card, *args)
@@ -409,7 +464,7 @@ def phase_kernels(torch, timer, card):
     # --- tree_attention --------------------------------------------------------
     cases = [(shape, False) for shape in TREE_SHAPES + [TREE_ODD_HD]] + \
         [(shape, parked) for shape in TREE_SERVE_SHAPES for parked in (False, True)] + \
-        [(m[kind], False) for m in new.values() for kind in ("verify", "expand")]
+        [(m[kind], False) for m in new.values() if "verify" in m for kind in ("verify", "expand")]
     for dtype in dtypes:
         for (B, n, hq, hkv, hd, S), parked in cases:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
@@ -442,7 +497,8 @@ def phase_kernels(torch, timer, card):
     # row i of a call equals row i alone at n = 1, bit for bit, under a random
     # mask (every split live) and under the path's mask, there also with the
     # bound PREFIX + n (one live split), which must equal the call without it
-    row_alone = TREE_ROW_ALONE + [(f"{label}-verify", m["verify"]) for label, m in new.items()]
+    row_alone = TREE_ROW_ALONE + [(f"{label}-verify", m["verify"]) for label, m in new.items()
+                                  if "verify" in m]
     for dtype in dtypes:
         for label, (B, n, hq, hkv, hd, S) in row_alone:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
@@ -467,7 +523,7 @@ def phase_kernels(torch, timer, card):
     # times under the path's mask, without a bound (the tree engine's calls)
     # and with the bound PREFIX + n (the chain verify's)
     tree_timed = TREE_TIMED + [(f"{label}-{kind}", m[kind]) for label, m in new.items()
-                               for kind in ("verify", "expand")]
+                               if "verify" in m for kind in ("verify", "expand")]
     for dtype in dtypes:
         for label, (B, n, hq, hkv, hd, S) in tree_timed:
             q, k, v = randn(B, n, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
@@ -497,7 +553,7 @@ def phase_kernels(torch, timer, card):
     # under the mask cols < length bit for bit
     for dtype in dtypes:
         for B, hq, hkv, hd, S in DECODE_SHAPES + [DECODE_ODD_HD] + [s for _, s in DECODE_TIMED] + \
-                [m["decode"] for m in new.values()]:
+                [m["decode"] for m in new.values() if "decode" in m]:
             q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
                 randn(B, S, hkv, hd, dtype=dtype)
             errs = []
@@ -525,7 +581,8 @@ def phase_kernels(torch, timer, card):
                   "to tree_attention at n=1")
     print(f"  decode_attention: every case above bit for bit equal to tree_attention at n=1, "
           f"f32 and bf16, on {card}")
-    decode_timed = DECODE_TIMED + [(f"{label}-decode", m["decode"]) for label, m in new.items()]
+    decode_timed = DECODE_TIMED + [(f"{label}-decode", m["decode"]) for label, m in new.items()
+                                   if "decode" in m]
     for dtype in dtypes:  # times at a decode step mid-request (length PREFIX)
         for label, (B, hq, hkv, hd, S) in decode_timed:
             q, k, v = randn(B, hq, hd, dtype=dtype), randn(B, S, hkv, hd, dtype=dtype), \
@@ -545,7 +602,7 @@ def phase_kernels(torch, timer, card):
 
     # --- fused_swiglu -----------------------------------------------------------
     swiglu_new = [(f"{label}-M{shape[0]}", shape) for label, m in new.items()
-                  for shape in m["swiglu"]]
+                  for shape in m.get("swiglu", ())]
     for dtype in dtypes:
         for label, (M, K, N) in SWIGLU_SHAPES + swiglu_new:
             x = randn(M, K, dtype=dtype)
@@ -644,22 +701,30 @@ def phase_kernels(torch, timer, card):
                                                for x in use],
                               kv_library(use, src, dst, mask, donate),
                               kv_move_bytes(use, src, dst, mask, donate), 0, note)
-    for dtype in dtypes:  # the dense configs' caches (full depth), k and v, B 1: the
-        # compaction (M 8) and a re-root (M 73), timed in place as the paths move them
+    for dtype in dtypes:  # the configs' caches (full depth), every row leaf, B 1: the
+        # compaction (M 8) and a re-root (M 73), timed in place as the paths move them;
+        # the families' also copying through
         for label, m in new.items():
-            U, Fw = m["kv"]
-            leaves = [randn(U, 1, S, Fw, dtype=dtype) for _ in range(2)]
+            if "kv" not in m:
+                continue
+            leaves = [randn(U, 1, S, Fw, dtype=dtype) for U, Fw in m["kv"]]
+            what = " + ".join(f"U{U} F{Fw}" for U, Fw in m["kv"])
             for M in (8, 73):
                 src, dst, mask = kv_plan(torch, M, n_off=min(M, 3) if M > 8 else 0)
                 act = mask & (src >= 0) & (dst >= 0)
-                shape = f"{label} U{U} B1 S{S} F{Fw} M{M} ({int(act.sum())} active)"
+                shape = f"{label} [{what}] B1 S{S} M{M} ({int(act.sum())} active)"
                 err = check_moves(f"kv_move {shape} {dtype}", leaves, src, dst, mask)
-                timed("kv_move_rows", f"{shape} in place, k+v in one launch", dtype, err,
-                      lambda: ops.kv_move_leaves(leaves, src, dst, mask, donate=True),
-                      lambda: [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves],
-                      kv_library(leaves, src, dst, mask, True),
-                      kv_move_bytes(leaves, src, dst, mask, True), 0,
-                      "(index assignment, per leaf)")
+                for donate in (True, False) if "slot" in m else (True,):
+                    how = "in place" if donate else "copy-through"
+                    timed("kv_move_rows", f"{shape} {how}, {len(leaves)} leaves in one launch",
+                          dtype, err,
+                          lambda donate=donate: ops.kv_move_leaves(leaves, src, dst, mask,
+                                                                   donate=donate),
+                          lambda: [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves],
+                          kv_library(leaves, src, dst, mask, donate),
+                          kv_move_bytes(leaves, src, dst, mask, donate), 0,
+                          "(index assignment" + ("" if donate else " after clone()") +
+                          ", per leaf)")
 
     # --- slot_write_rows ----------------------------------------------------------
     def check_slot(name, leaves, donors, slot) -> float:
@@ -681,23 +746,24 @@ def phase_kernels(torch, timer, card):
             fail(f"{name}: a row other than slot {slot} changed")
         return err
 
+    slot_cases = SLOT_SHAPES + [(label, m["slot"]) for label, m in new.items() if "slot" in m]
     for dtype in dtypes:
-        for label, shape in SLOT_SHAPES:
-            U = shape[0]
-            leaves = [randn(*shape, dtype=dtype) for _ in range(2)]
-            donors = [randn(U, 1, *shape[2:], dtype=dtype) for _ in range(2)]
-            for slot in range(shape[1]):
+        for label, shapes in slot_cases:
+            leaves = [randn(*sh, dtype=dtype) for sh in shapes]
+            donors = [randn(sh[0], 1, *sh[2:], dtype=dtype) for sh in shapes]
+            for slot in range(shapes[0][1]):
                 errs = [check_slot(f"slot_write_rows {label} {what} slot {slot} {dtype}",
                                    leaves, d, slot)
                         for what, d in (("install", donors), ("zero", None))]
-                print(f"  slot_write_rows {label} L2 {list(shape)} slot {slot} {dtype}: install "
-                      f"and zero exact (max|err| {max(errs):.1e}), other rows unchanged")
+                print(f"  slot_write_rows {label} L{len(shapes)} {[list(sh) for sh in shapes]} "
+                      f"slot {slot} {dtype}: install and zero exact (max|err| {max(errs):.1e}), "
+                      "other rows unchanged")
     for dtype in dtypes:
-        for label, shape in SLOT_SHAPES:
-            U = shape[0]
-            leaves = [randn(*shape, dtype=dtype) for _ in range(2)]
-            donors = [randn(U, 1, *shape[2:], dtype=dtype) for _ in range(2)]
-            slab = U * leaves[0][0, 0].numel() * leaves[0].element_size()  # one leaf's row
+        for label, shapes in slot_cases:
+            leaves = [randn(*sh, dtype=dtype) for sh in shapes]
+            donors = [randn(sh[0], 1, *sh[2:], dtype=dtype) for sh in shapes]
+            slab = sum(x.shape[0] * x[0, 0].numel() * x.element_size() for x in leaves)  # a row
+            what = f"L{len(shapes)} {[list(sh) for sh in shapes]}"
 
             def install_lib(leaves=leaves, donors=donors):
                 for big, one in zip(leaves, donors):
@@ -708,14 +774,13 @@ def phase_kernels(torch, timer, card):
                     big[:, 1].zero_()
 
             err = check_slot(f"slot_write_rows {label} install {dtype}", leaves, donors, 1)
-            timed("slot_write_rows", f"{label}-install L2 {list(shape)} slot 1", dtype, err,
+            timed("slot_write_rows", f"{label}-install {what} slot 1", dtype, err,
                   lambda: ops.slot_write_rows(leaves, donors, 1),
-                  lambda: ref.slot_write_rows_ref(leaves, donors, 1), install_lib,
-                  2 * 2 * slab, 0)
+                  lambda: ref.slot_write_rows_ref(leaves, donors, 1), install_lib, 2 * slab, 0)
             err = check_slot(f"slot_write_rows {label} zero {dtype}", leaves, None, 1)
-            timed("slot_write_rows", f"{label}-zero L2 {list(shape)} slot 1 (no donor)", dtype,
-                  err, lambda: ops.slot_write_rows(leaves, None, 1),
-                  lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib, 2 * slab, 0)
+            timed("slot_write_rows", f"{label}-zero {what} slot 1 (no donor)", dtype, err,
+                  lambda: ops.slot_write_rows(leaves, None, 1),
+                  lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib, slab, 0)
 
     # --- int4_matmul ----------------------------------------------------------------
     # the reference's shapes, a ragged N, and phase (e)'s timed 8B shapes; times
@@ -1015,8 +1080,9 @@ def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float) -> Non
                                    sorted(by_layer.items(), key=lambda kv: -kv[1][1])), flush=True)
 
 
-def run_path(torch, label, eng, tp, dp, prompts, refs, card):
-    """Generate every prompt, check it against the greedy decode, report."""
+def run_path(torch, label, eng, tp, dp, prompts, refs, card, kernels=MAIN_KERNELS):
+    """Generate every prompt, check it against the greedy decode, report.
+    Each of ``kernels`` must have launched.  Returns the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import monotonic
 
@@ -1059,7 +1125,7 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card):
     print(f"{label}: kernel launches {counts}", flush=True)
     trace_rounds(torch, sess, lambda se: setattr(se, "state", eng._prefill_state(
         tp, dp, prompts[0])), label, tag=label.split()[2].strip("()"))
-    missing = [k for k in MAIN_KERNELS if counts[k] == 0]
+    missing = [k for k in kernels if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the main path: {missing}")
     return counts
@@ -1510,6 +1576,152 @@ def phase_rwkv(torch, card):
     return counts
 
 
+def phase_families(torch, card):
+    """(h1)-(h5): the MoE, MLA, cross-attention and embeddings-input
+    families at full width, f32, seed 0 with the lm_head x4.  (h1)-(h4)
+    draft for themselves at d 2 through the tree engine, lockstep, 1
+    request of FAMILY_TOKENS: each output equal to the greedy decode, one
+    host sync per round, and each of the path's kernels launched by the
+    engine's run; the greedy decode it is held against (the Model API's
+    ``decode_step``) is counted as a run of its own, "<path>-greedy", which
+    must launch decode_attention where the path names it.  The MoE paths run
+    drop-free: the greedy decode of one row never drops a routed pair, so a
+    verify of 8 rows that drops some could not equal it.  (h5) drives the
+    vision model through the Model API.  Each path's weights go before the
+    next's are drawn.  Returns the launch counts by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.data import make_request_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_model
+    from repro_torch.obs.clock import monotonic
+
+    counts = {}
+    for tag, (name, depth, kernels) in FAMILY_PATHS.items():
+        t0 = monotonic()
+        full = get_config(name)
+        cfg, notes = full, []
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+            notes.append(f"reduced: {depth} of its {full.n_layers} layers")
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+            notes.append(f"capacity_factor {full.capacity_factor} -> {cfg.capacity_factor:.4g} "
+                         "(drop-free: the greedy decode of one row never drops, so a verify "
+                         "that drops could not equal it)")
+        model = make_model(cfg, "cuda")
+        tp = peaked(model.init(0))
+        eng = SpecEngine(model, model, SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel",
+                                                  max_new=FAMILY_TOKENS), S_max_t=512, S_max_d=512)
+        torch.cuda.synchronize()
+        print(f"family ({tag}): {name}, {cfg.param_count() / 1e9:.2f} B params, self-draft d 2, "
+              f"f32, weights drawn on the card in {monotonic() - t0:.1f}s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated"
+              + "".join(f"; {n}" for n in notes), flush=True)
+        prompts = list(make_request_stream(cfg.vocab_size, 16, 1, 1))
+        if tag == "h4":  # frame embeddings that are the table's rows: the token prefill, exactly
+            tl, _ = model.prefill(tp, prompts[0], S_max=512)
+            el, _ = model.prefill(tp, embeds=tp.embed[torch.as_tensor(prompts[0], device="cuda")
+                                                      .long()], S_max=512)
+            if not torch.equal(el, tl):
+                fail(f"family ({tag}): prefill(embeds=embed(prompt)) differs from "
+                     f"prefill(tokens=prompt) by {max_err(el, tl):.3e}")
+            print(f"family ({tag}): prefill(embeds=embed(prompt)) bit for bit equal to "
+                  "prefill(tokens=prompt)", flush=True)
+        ops.reset_launch_counts()
+        refs = [greedy_decode(torch, model, tp, p, FAMILY_TOKENS, 512) for p in prompts]
+        greedy = counts[f"{tag}-greedy"] = ops.launch_counts()
+        print(f"family ({tag}): kernel launches of the greedy decode {greedy}", flush=True)
+        if "decode_attention" in kernels and greedy["decode_attention"] == 0:
+            fail(f"family ({tag}): the greedy decode never launched decode_attention")
+        if tag == "h2":
+            print(f"family ({tag}): no decode_attention launch: a config with a sliding window "
+                  "decodes through tree_attention at n 1", flush=True)
+        counts[tag] = run_path(torch, f"family path ({tag}) {name} self-draft", eng, tp, tp,
+                               prompts, refs, card,
+                               kernels=tuple(k for k in kernels if k != "decode_attention"))
+        del eng, tp, model, refs
+        torch.cuda.empty_cache()
+    counts["h5"] = vision_path(torch, card)
+    return counts
+
+
+def vision_path(torch, card):
+    """(h5): llama-3.2-vision-90b cut to VISION_LAYERS layers (one unit: 4
+    dense blocks and a cross block) through the Model API: prefill a 16-token
+    prompt with seeded stub encoder states [1, n_enc, d], take VISION_STEPS
+    greedy ``decode_step``s, then run the same tokens through one
+    ``spec_forward`` from the prompt's cache under a causal chain mask: its
+    argmax at every position must be the decode's next token.  The
+    spec_forward is traced.  Returns the launch counts."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import kv
+    from repro_torch.data import make_request_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_model
+    from repro_torch.obs.clock import monotonic
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=VISION_LAYERS)
+    t0 = monotonic()
+    model = make_model(cfg, "cuda")
+    tp = peaked(model.init(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    enc = torch.randn((1, cfg.n_enc_tokens, cfg.d_model), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"family (h5): llama-3.2-vision-90b (reduced: {VISION_LAYERS} of its {full.n_layers} "
+          f"layers, one unit {model.cfg.block_pattern}), {cfg.param_count() / 1e9:.2f} B params, "
+          f"f32, stub encoder states [1, {cfg.n_enc_tokens}, {cfg.d_model}] seed 0, weights drawn "
+          f"on the card in {monotonic() - t0:.1f}s; {torch.cuda.memory_allocated() / 2**30:.1f} "
+          "GiB allocated", flush=True)
+    prompt = next(iter(make_request_stream(cfg.vocab_size, 16, 1, 1)))
+    P, n, S = prompt.shape[1], VISION_STEPS, 512
+    model.prefill(tp, prompt, enc=enc, S_max=S)  # warm the allocator and kernels
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lg, cache = model.prefill(tp, prompt, enc=enc, S_max=S)
+    snap = {"len": cache["len"], "groups": kv._unflatten(
+        cache["groups"], (x.clone() for x in kv._flatten(cache["groups"])))}
+    toks = [lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+    for _ in range(n):
+        lg, cache = model.decode_step(tp, cache, toks[-1], S)
+        toks.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    fed = torch.cat(toks[:-1], 1)  # [1, n]: the tokens the decode steps took
+    pos = (P + torch.arange(n, device="cuda", dtype=torch.int32))[None]
+    mask = torch.arange(S, device="cuda")[None, None, :] <= pos[:, :, None]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the profiler's notes on its cycles
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = monotonic()
+            sl, _ = model.spec_forward(tp, snap, fed, pos, pos, mask)
+            torch.cuda.synchronize()
+            wall_ms = (monotonic() - t1) * 1e3
+    counts = ops.launch_counts()
+    want = torch.cat(toks[1:], 1)[0].tolist()
+    got = sl[0].argmax(-1).tolist()
+    if got != want:
+        j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"family (h5): spec_forward's argmax differs from the decode's token at position "
+             f"{j} ({got[j]} against {want[j]})")
+    print(f"family (h5): prefill, {n} greedy decode steps and one spec_forward of the same "
+          f"{n} tokens under a causal chain mask: argmax equal at all {n} positions on {card}",
+          flush=True)
+    print(f"family (h5): kernel launches {counts}", flush=True)
+    report_trace(prof, "family (h5) spec_forward", "h5", 1, wall_ms)
+    missing = [k for k in ("tree_attention", "decode_attention", "fused_swiglu") if counts[k] == 0]
+    if missing:
+        fail(f"family (h5): kernels never launched on the path: {missing}")
+    del tp, model, cache, snap
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_shapes(torch, log: ShapeLog, card):
     """Hold each kernel against its plain version at every shape a path
     called it with: random inputs (plans, lengths) at that shape, f32 and
@@ -1633,6 +1845,8 @@ def main() -> int:
     counts.update(phase_rwkv(torch, card))
     torch.cuda.empty_cache()
     timing("chain (g1)-(g2s)")
+    counts.update(phase_families(torch, card))
+    timing("families (h1)-(h5)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

@@ -3,9 +3,9 @@ registry of the architectures this port runs.
 
 Each architecture lives in ``repro_torch/configs/<id>.py`` exposing
 ``CONFIG`` (full published shape) and ``smoke_config()`` (reduced same-family
-shape for CPU tests), as in the reference package.  Here so far: the
-dense configs, the zamba2 hybrid (mamba2 + a shared attention block) and
-rwkv6 (attention-free); the other families come with their blocks.
+shape for CPU tests), as in the reference package: all fifteen of its
+configs — dense (GQA and MLA), MoE, the zamba2 hybrid, rwkv6, audio
+(embedding inputs) and vision (cross-attention).
 """
 
 from __future__ import annotations
@@ -162,14 +162,14 @@ class ModelConfig:
 
 
 PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b", "zamba2-2.7b", "llama3-3b", "llama3-70b",
-          "deepseek-coder-1.3b", "deepseek-coder-33b", "granite-20b", "rwkv6-7b"]
+          "deepseek-coder-1.3b", "deepseek-coder-33b", "granite-20b", "rwkv6-7b",
+          "mixtral-8x22b", "deepseek-moe-16b", "minicpm3-4b", "musicgen-large",
+          "llama-3.2-vision-90b"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ported: {', '.join(PORTED)}); the "
-            "other model families are ROADMAP queue 1, item 9")
+        raise KeyError(f"unknown architecture {name!r}; known: {', '.join(PORTED)}")
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.CONFIG

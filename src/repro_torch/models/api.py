@@ -1,8 +1,12 @@
 """Model API (``repro.models.api``): init, caches, prefill, the tree-masked
 ``spec_forward`` and the chain/decode forwards, on one device.
 
-Token, position and row arguments may be tensors or numpy arrays; they are
-moved to the model's device.  The cached forwards write K/V rows into the
+Token, embedding, encoder-state, position and row arguments may be tensors
+or numpy arrays; they are moved to the model's device.  A prefill takes
+token ids or embeddings (musicgen's stub frontend feeds frame embeddings;
+its decode still takes token ids through the embedding table) and, for a
+model with cross blocks, the stub encoder states; the cached forwards read
+the encoder K/V that the prefill cached.  The cached forwards write K/V rows into the
 cache in place and return new mamba2 and rwkv6 state tensors (the input
 cache keeps its state; ``models/transformer.py``).
 """
@@ -19,6 +23,7 @@ from repro_torch.models.transformer import (
     Ctx,
     DecoderLM,
     apply_model,
+    build_plan,
     embed_tokens,
     init_cache,
     init_model,
@@ -41,14 +46,25 @@ class Model:
     def _dev(self, x, dtype=torch.int32):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    # ---- embedding helpers -------------------------------------------------
+    def _embed(self, params, tokens=None, embeds=None):
+        """Token ids through the embedding table, or ``embeds`` [B, S, d]
+        (a stub frontend's frame embeddings) cast to the compute dtype."""
+        if embeds is not None:
+            return self._dev(embeds, getattr(torch, self.cfg.dtype))
+        return embed_tokens(self.cfg, params, self._dev(tokens))
+
     # ---- serving -----------------------------------------------------------
-    def prefill(self, params, tokens, S_max=None):
-        """Returns (logits [B, S, V], cache with len=S)."""
-        tokens = self._dev(tokens)
-        B, S = tokens.shape
-        h = embed_tokens(self.cfg, params, tokens)
+    def prefill(self, params, tokens=None, embeds=None, enc=None, S_max=None):
+        """Returns (logits [B, S, V], cache with len=S).  ``embeds`` [B, S, d]
+        stand in for ``tokens``; ``enc`` [B, n_enc, d] are the stub encoder
+        states that a model with cross blocks attends (``needs_enc``)."""
+        h = self._embed(params, tokens, embeds)
+        B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
-        ctx = Ctx(mode="full", make_cache=S_max or S, positions=positions)
+        if enc is not None:
+            enc = self._dev(enc, h.dtype)
+        ctx = Ctx(mode="full", make_cache=S_max or S, positions=positions, enc=enc)
         h, cache = apply_model(self.cfg, params, h, ctx)
         cache["len"] = S
         return logits_from_hidden(self.cfg, params, h), cache
@@ -93,6 +109,9 @@ class Model:
     @property
     def uses_chain_spec(self) -> bool:
         return self.cfg.sub_quadratic  # SSM/hybrid: tree spec inapplicable
+
+    def needs_enc(self) -> bool:
+        return any("cross" in unit for unit, _ in build_plan(self.cfg))
 
 
 def make_model(cfg: ModelConfig, device=None) -> Model:

@@ -7,8 +7,9 @@ decode step (one token at contiguous rows, no sliding window) goes through
 ``decode_attention`` instead, whose mask is the length.  It writes the new
 K/V rows into the cache first and then attends, so every node sees its own
 row.  Cache writes are in place: the lockstep round owns
-every cache it touches (see ``core/kv.py``).  Prefill attention is plain
-PyTorch, as the reference computes it in XLA outside any Pallas kernel.
+every cache it touches (see ``core/kv.py``).  Prefill attention and the
+cross blocks' attention to the encoder states are plain PyTorch, as the
+reference computes them in XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -65,6 +66,25 @@ def attention_full(cfg, p, x, positions):
     if cfg.sliding_window:
         m &= positions[:, None, :] > (positions[:, :, None] - cfg.sliding_window)
     return _out_proj(p, _attend(q, k, v, m)), (k, v)
+
+
+def encoder_kv(p, enc):
+    """The cross block's K/V of the encoder states enc [B, m, d]: [B, m,
+    Hkv, hd] each, no bias and no RoPE (the reference's cross path)."""
+    B, m, d = enc.shape
+    k = (enc @ p["wk"].reshape(d, -1)).reshape(B, m, *p["wk"].shape[1:])
+    v = (enc @ p["wv"].reshape(d, -1)).reshape(B, m, *p["wv"].shape[1:])
+    return k, v
+
+
+def cross_attention(p, x, enc_k, enc_v):
+    """x [B, n, d] attends every encoder row of enc_k/enc_v [B, m, Hkv, hd]:
+    no mask, no RoPE, no bias.  Plain PyTorch, as the reference computes it
+    outside any Pallas kernel."""
+    B, n, d = x.shape
+    q = (x @ p["wq"].reshape(d, -1)).reshape(B, n, *p["wq"].shape[1:])
+    every = torch.ones((1, 1, 1), dtype=torch.bool, device=x.device)
+    return _out_proj(p, _attend(q, enc_k, enc_v, every))
 
 
 def update_rows_contiguous(cache, rows, start: int):

@@ -1,26 +1,34 @@
-"""Decoder assembly (``repro.models.transformer``): the dense plan, the
-zamba2 hybrid plan and the rwkv6 plan.
+"""Decoder assembly (``repro.models.transformer``): every plan of the
+reference's configs.
 
 The plan, the cache layout and the block math follow the reference.  A plan
-is one group: a unit of block kinds repeated U times — ``("dense",)`` for a
-dense decoder, ``("mamba2",) * k + ("shared",)`` for zamba2 (a
-weight-shared attention block after every k mamba2 layers), ``("rwkv6",)``
-for rwkv6 (attention-free: time-mix + channel-mix).  The cache is
-``{"len", "groups": [unit]}``, ``unit`` one dict per block of the unit whose
-leaves stack the U repeats first: ``{"k", "v"}`` [U, B, S, Hkv, hd] for an
-attention block (dense or a shared invocation, each invocation its own
-rows), ``{"conv", "ssm"}`` [U, B, K-1, conv_dim] / [U, B, H, hd, N] for a
+is a list of groups, each a unit of block kinds repeated U times:
+``[(("dense",), L)]`` for a dense decoder (GQA or MLA attention),
+``[(("moe",), L)]`` for mixtral, ``[(("dense",), 1), (("moe",), L-1)]`` for
+deepseek-moe (its dense first layer), ``[(("mamba2",) * k + ("shared",),
+U)]`` for zamba2 (a weight-shared attention block after every k mamba2
+layers), ``[(("dense",) * 4 + ("cross",), U)]`` for llama-3.2-vision (a
+cross-attention block to the stub encoder states after every four) and
+``[(("rwkv6",), L)]`` for rwkv6 (attention-free: time-mix + channel-mix).
+
+The cache is ``{"len", "groups": [unit per group]}``, ``unit`` one dict per
+block of the unit whose leaves stack the U repeats first: ``{"k", "v"}``
+[U, B, S, Hkv, hd] for a GQA block (dense, moe, or a shared invocation,
+each invocation its own rows), ``{"ckv", "krope"}`` [U, B, S, kv_lora_rank]
+/ [U, B, S, rope_head_dim] for an MLA block, ``{"ek", "ev"}`` [U, B, n_enc,
+Hkv, hd] for a cross block (the encoder K/V, filled by the prefill; no row
+leaves), ``{"conv", "ssm"}`` [U, B, K-1, conv_dim] / [U, B, H, hd, N] for a
 mamba2 block, ``{"sx_tm", "wkv", "sx_cm"}`` [U, B, d] / [U, B, H, hd, hd] /
 [U, B, d] for an rwkv6 block.  One ``kv_move_leaves`` launch moves the rows
-of every layer of every row leaf, where the Pallas grid (U, B) runs once
-per leaf.  ``"len"`` is a host int: decode reads it as its start row.
+of every layer of every row leaf of every group, where the Pallas grid
+(U, B) runs once per leaf.  ``"len"`` is a host int: decode reads it as its
+start row.
 
-Cached forwards write K/V rows into the cache in place (rows past the
-committed length are dead and may be shared), but return new mamba2 and
-rwkv6 state tensors and leave the input's as they were, so a caller may
-keep a cache as a snapshot of its recurrent state (the chain engine does).
-Other block kinds (moe, mla, cross) raise NotImplementedError: ROADMAP
-queue 1, item 9.
+Cached forwards write K/V and latent rows into the cache in place (rows
+past the committed length are dead and may be shared), but return new
+mamba2 and rwkv6 state tensors and leave the input's as they were, so a
+caller may keep a cache as a snapshot of its recurrent state (the chain
+engine does).
 """
 
 from __future__ import annotations
@@ -31,18 +39,27 @@ from typing import Any
 import torch
 from torch import nn
 
+from repro_torch.core.kv import ROW_KEYS
 from repro_torch.kernels import ops
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
-from repro_torch.models.attention import attention_cached, attention_full, plan_row_writes
+from repro_torch.models.attention import (
+    attention_cached,
+    attention_full,
+    cross_attention,
+    encoder_kv,
+    plan_row_writes,
+)
 from repro_torch.models.common import dense_init, rms_norm
 
 # -----------------------------------------------------------------------------
 # Plans
 # -----------------------------------------------------------------------------
 
-PORTED_KINDS = ("dense", "mamba2", "shared", "rwkv6")
-ATTENTION_KINDS = ("dense", "shared")  # blocks that hold K/V rows
+BLOCK_KINDS = ("dense", "moe", "cross", "mamba2", "shared", "rwkv6")
+ATTENTION_KINDS = ("dense", "moe", "cross", "shared")  # blocks with an attention sub-block
 STATE_LEAVES = {"mamba2": ("conv", "ssm"), "rwkv6": ("sx_tm", "wkv", "sx_cm")}
 
 
@@ -64,19 +81,22 @@ def build_plan(cfg):
     return plan
 
 
-def check_plan(cfg) -> tuple:
-    """(unit_def, U) of a ported plan — one group of dense, mamba2, shared
-    and rwkv6 blocks, with GQA attention (or none, where the unit holds no
-    attention block); raises for any other."""
+def check_plan(cfg) -> list:
+    """The plan, once every group is known to hold only block kinds of the
+    reference, with attention where a block has an attention sub-block;
+    raises for any other."""
     plan = build_plan(cfg)
-    has_attn = any(kind in ATTENTION_KINDS for kind in plan[0][0])
-    if (cfg.attn_kind not in ("gqa", "none") or (cfg.attn_kind == "none" and has_attn)
-            or len(plan) != 1 or any(kind not in PORTED_KINDS for kind in plan[0][0])):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, the zamba2 hybrid and the rwkv6 plans are ported, "
-            f"with GQA attention (got {plan}, attn {cfg.attn_kind!r}); moe/mla/cross "
-            "blocks are ROADMAP queue 1, item 9")
-    return plan[0]
+    kinds = {kind for unit, _ in plan for kind in unit}
+    if (cfg.attn_kind not in ("gqa", "mla", "none") or not kinds <= set(BLOCK_KINDS)
+            or (cfg.attn_kind == "none" and kinds & set(ATTENTION_KINDS))):
+        raise ValueError(f"{cfg.name}: no such plan {plan} with attention {cfg.attn_kind!r}")
+    return plan
+
+
+def _mla(cfg, kind: str) -> bool:
+    """Whether a block of this kind attends through MLA (a cross block and
+    zamba2's shared block are always GQA, as in the reference)."""
+    return cfg.attn_kind == "mla" and kind in ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -91,6 +111,7 @@ class Ctx:
     attn_mask: Any = None  # [B, n, S_max] non-square mask (cached mode)
     row_start: Any = None  # int: rows are [start, start+n) for every batch row
     n_commit: Any = None  # int: chain mode, state blocks commit the first n_commit steps
+    enc: Any = None  # [B, n_enc, d] stub encoder states (cross blocks, prefill)
 
 
 # -----------------------------------------------------------------------------
@@ -103,15 +124,32 @@ def _frozen(tensors: dict) -> nn.ParameterDict:
 
 
 class DenseBlock(nn.Module):
-    """Weights of one dense block: attention + SwiGLU MLP (also the zamba2
+    """Weights of one dense block: attention + SwiGLU MLP (also a cross
+    block, whose attention reads the encoder states, and the zamba2
     model's shared attention block)."""
 
     def __init__(self, ln1, attn: dict, ln2, mlp: dict):
         super().__init__()
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
-        self.attn = _frozen(attn)  # wq [d,Hq,hd], wk/wv [d,Hkv,hd], wo [Hq,hd,d] (+ bq/bk/bv)
+        # GQA: wq [d,Hq,hd], wk/wv [d,Hkv,hd], wo [Hq,hd,d] (+ bq/bk/bv); MLA: models/mla.py
+        self.attn = _frozen(attn)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
         self.mlp = _frozen(mlp)  # wg/wu [d,ff], wd [ff,d]
+
+
+class MoEBlock(nn.Module):
+    """Weights of one moe block: attention + the mixture of experts —
+    ``moe`` the router [d, E] and the routed experts wg/wu [E, d, ff], wd
+    [E, ff, d]; ``shared`` the shared experts' wg/wu [d, S*ff], wd [S*ff, d]
+    (None without any)."""
+
+    def __init__(self, ln1, attn: dict, ln2, moe: dict, shared: dict | None):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.attn = _frozen(attn)
+        self.ln2 = nn.Parameter(ln2, requires_grad=False)
+        self.moe = _frozen(moe)
+        self.shared = None if shared is None else _frozen(shared)
 
 
 class Mamba2Block(nn.Module):
@@ -147,9 +185,10 @@ class SharedBlock(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Weights of a decoder: embedding, the blocks of the plan in order (U
-    repeats of the unit, flattened), final norm, lm_head, and zamba2's
-    shared attention block (None otherwise)."""
+    """Weights of a decoder: embedding, the blocks of the plan in order
+    (each group's U repeats of its unit, flattened, group after group),
+    final norm, lm_head, and zamba2's shared attention block (None
+    otherwise)."""
 
     def __init__(self, embed, final_norm, lm_head, layers, shared_attn=None):
         super().__init__()
@@ -164,7 +203,7 @@ def init_model(cfg, seed: int, device) -> DecoderLM:
     """Seeded truncated-normal weights drawn directly on ``device`` (the
     reference's init scales; torch's generator gives other numbers than
     ``jax.random``, so parity tests convert JAX weights instead)."""
-    unit_def, U = check_plan(cfg)
+    plan = check_plan(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -175,48 +214,70 @@ def init_model(cfg, seed: int, device) -> DecoderLM:
     def const(shape, val):
         return torch.full(shape, val, dtype=dt, device=device)
 
-    def dense_block():
+    def attention(kind):
+        if _mla(cfg, kind):
+            return mla_mod.init_mla(cfg, gen, device, dt)
         attn = {"wq": init((d, hq, hd)), "wk": init((d, hkv, hd)), "wv": init((d, hkv, hd)),
                 "wo": init((hq, hd, d), scale=(hq * hd) ** -0.5)}
         if cfg.qkv_bias:
             attn.update(bq=const((hq, hd), 0.0), bk=const((hkv, hd), 0.0),
                         bv=const((hkv, hd), 0.0))
+        return attn
+
+    def block(kind):
+        attn = attention(kind)
+        if kind == "moe":
+            return MoEBlock(const((d,), 1.0), attn, const((d,), 1.0),
+                            *moe_mod.init_moe(cfg, gen, device, dt))
         mlp = {"wg": init((d, ff)), "wu": init((d, ff)), "wd": init((ff, d))}
         return DenseBlock(const((d,), 1.0), attn, const((d,), 1.0), mlp)
 
     layers = []
-    for _ in range(U):
-        for kind in unit_def:
-            if kind == "dense":
-                layers.append(dense_block())
-            elif kind == "mamba2":
-                layers.append(Mamba2Block(const((d,), 1.0), m2.init_mamba2(cfg, gen, device)))
-            elif kind == "rwkv6":
-                layers.append(RWKV6Block(const((d,), 1.0), rk.init_rwkv6(cfg, gen, device),
-                                         const((d,), 1.0)))
-            else:
-                layers.append(SharedBlock(init((2 * d, d))))
-    shared = dense_block() if "shared" in unit_def else None
+    for unit_def, U in plan:
+        for _ in range(U):
+            for kind in unit_def:
+                if kind in ("dense", "moe", "cross"):
+                    layers.append(block(kind))
+                elif kind == "mamba2":
+                    layers.append(Mamba2Block(const((d,), 1.0), m2.init_mamba2(cfg, gen, device)))
+                elif kind == "rwkv6":
+                    layers.append(RWKV6Block(const((d,), 1.0), rk.init_rwkv6(cfg, gen, device),
+                                             const((d,), 1.0)))
+                else:
+                    layers.append(SharedBlock(init((2 * d, d))))
+    has_shared = any("shared" in unit for unit, _ in plan)
+    shared = block("shared") if has_shared else None
     return DecoderLM(init((cfg.vocab_size, d), scale=1.0), const((d,), 1.0),
                      init((d, cfg.vocab_size)), layers, shared)
 
 
+def _block_cache(cfg, kind, B, S_max, dtype, device) -> dict:
+    """One block's cache leaves, without the U axis."""
+    if kind in STATE_LEAVES:
+        init_state = m2.init_mamba_cache if kind == "mamba2" else rk.init_rwkv_cache
+        return init_state(cfg, B, dtype, device)
+    if _mla(cfg, kind):
+        return {"ckv": torch.zeros((B, S_max, cfg.kv_lora_rank), dtype=dtype, device=device),
+                "krope": torch.zeros((B, S_max, cfg.rope_head_dim), dtype=dtype, device=device)}
+    if kind == "cross":
+        shape = (B, cfg.n_enc_tokens, cfg.n_kv_heads, cfg.head_dim)
+        return {"ek": torch.zeros(shape, dtype=dtype, device=device),
+                "ev": torch.zeros(shape, dtype=dtype, device=device)}
+    shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)  # dense, moe or a shared invocation
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_cache(cfg, B, S_max, dtype, device):
-    unit_def, U = check_plan(cfg)
-
-    def zeros(shape, dt=dtype):
-        return torch.zeros((U,) + tuple(shape), dtype=dt, device=device)
-
-    unit = []
-    for kind in unit_def:
-        if kind in STATE_LEAVES:
-            init_state = m2.init_mamba_cache if kind == "mamba2" else rk.init_rwkv_cache
-            one = init_state(cfg, B, dtype, device)
-            unit.append({k: zeros(v.shape, v.dtype) for k, v in one.items()})
-        else:  # dense or a shared invocation: K/V rows
-            shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
-            unit.append({"k": zeros(shape), "v": zeros(shape)})
-    return {"len": 0, "groups": [tuple(unit)]}
+    groups = []
+    for unit_def, U in check_plan(cfg):
+        unit = []
+        for kind in unit_def:
+            one = _block_cache(cfg, kind, B, S_max, dtype, device)
+            unit.append({k: torch.zeros((U,) + tuple(v.shape), dtype=v.dtype, device=device)
+                         for k, v in one.items()})
+        groups.append(tuple(unit))
+    return {"len": 0, "groups": groups}
 
 
 # -----------------------------------------------------------------------------
@@ -230,76 +291,125 @@ def _mlp_apply(cfg, p, x):
     return (h @ p["wd"]).reshape(B, S, d)
 
 
-def _attn_mlp(cfg, p: DenseBlock, h, ctx: Ctx, leaves, r: int):
-    """Attention + SwiGLU sub-blocks with pre-norms, on the K/V rows of
-    repeat ``r`` of ``leaves``; a prefill with ``make_cache`` fills them."""
-    hn = rms_norm(h, p.ln1, cfg.norm_eps)
-    if ctx.mode == "cached":
-        a, _, _ = attention_cached(cfg, p.attn, hn, leaves["k"][r], leaves["v"][r],
-                                   ctx.row_idx, ctx.positions, ctx.attn_mask,
-                                   row_start=ctx.row_start, row_plan=ctx.row_plan)
-    else:
-        a, (k, v) = attention_full(cfg, p.attn, hn, ctx.positions)
-        if ctx.make_cache:
-            n = h.shape[1]
+def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
+    """The attention sub-block of a block of ``kind`` on its normed input,
+    with the cache rows (or encoder K/V) of repeat ``r`` of ``leaves``; a
+    prefill with ``make_cache`` fills them."""
+    full = ctx.mode != "cached"
+    fill = full and ctx.make_cache
+    if kind == "cross":
+        if full:
+            if ctx.enc is None:
+                raise ValueError(f"{cfg.name}: a cross block needs the encoder states (enc)")
+            ek, ev = encoder_kv(p, ctx.enc)
+            if fill:
+                leaves["ek"][r] = ek
+                leaves["ev"][r] = ev
+        else:
+            ek, ev = leaves["ek"][r], leaves["ev"][r]
+        return cross_attention(p, hn, ek, ev)
+    n = hn.shape[1]
+    if _mla(cfg, kind):
+        if full:
+            a, (ckv, krope) = mla_mod.mla_full(cfg, p, hn, ctx.positions)
+            if fill:
+                leaves["ckv"][r, :, :n] = ckv
+                leaves["krope"][r, :, :n] = krope
+            return a
+        return mla_mod.mla_cached(cfg, p, hn, leaves["ckv"][r], leaves["krope"][r], ctx.row_idx,
+                                  ctx.positions, ctx.attn_mask, row_start=ctx.row_start,
+                                  row_plan=ctx.row_plan)[0]
+    if full:
+        a, (k, v) = attention_full(cfg, p, hn, ctx.positions)
+        if fill:
             leaves["k"][r, :, :n] = k
             leaves["v"][r, :, :n] = v
-    h = h + a
-    return h + _mlp_apply(cfg, p.mlp, rms_norm(h, p.ln2, cfg.norm_eps))
+        return a
+    return attention_cached(cfg, p, hn, leaves["k"][r], leaves["v"][r], ctx.row_idx,
+                            ctx.positions, ctx.attn_mask, row_start=ctx.row_start,
+                            row_plan=ctx.row_plan)[0]
+
+
+def _attn_mlp(cfg, kind, p, h, ctx: Ctx, leaves, r: int):
+    """A block with an attention sub-block and an MLP (SwiGLU, or the
+    mixture of experts of a moe block), both with pre-norms."""
+    h = h + _attn_apply(cfg, kind, p.attn, rms_norm(h, p.ln1, cfg.norm_eps), ctx, leaves, r)
+    hn = rms_norm(h, p.ln2, cfg.norm_eps)
+    if kind == "moe":
+        return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn)
+    return h + _mlp_apply(cfg, p.mlp, hn)
+
+
+def _row_leaves_len(groups):
+    """S of the first row leaf of a cache's groups (None without any)."""
+    for unit in groups:
+        for leaves in unit:
+            for key in ROW_KEYS:
+                if key in leaves:
+                    return leaves[key].shape[2]
+    return None
 
 
 def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
     """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
-    in "cached" mode the K/V leaves of ``cache`` are written in place and
-    the returned cache holds them and new mamba2 and rwkv6 state leaves; a
-    prefill with ``make_cache`` returns a new cache."""
-    unit_def, U = check_plan(cfg)
+    in "cached" mode the row leaves of ``cache`` are written in place and
+    the returned cache holds them, the cross blocks' encoder K/V as they
+    were, and new mamba2 and rwkv6 state leaves; a prefill with
+    ``make_cache`` returns a new cache."""
+    plan = check_plan(cfg)
     B = h.shape[0]
     x0 = h  # the embeddings: input of every shared invocation
-    unit = None
+    groups = None
     if ctx.mode == "cached":
-        unit = cache["groups"][0]
-        S = next((leaves["k"].shape[2] for leaves in unit if "k" in leaves), None)
-        if ctx.row_start is None and S is not None:  # the K/V row writes, planned once
+        groups = cache["groups"]
+        S = _row_leaves_len(groups)
+        if ctx.row_start is None and S is not None:  # the row writes, planned once
             ctx = dataclasses.replace(ctx, row_plan=plan_row_writes(ctx.row_idx, S))
     elif ctx.make_cache:
-        unit = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"][0]
-    # the new state leaves of every recurrent block, one list per leaf over U
-    states = {bi: {key: [] for key in STATE_LEAVES[kind]}
-              for bi, kind in enumerate(unit_def) if kind in STATE_LEAVES}
-    for r in range(U):
-        for bi, kind in enumerate(unit_def):
-            p = params.layers[r * len(unit_def) + bi]
-            c = None
-            if kind in STATE_LEAVES and ctx.mode == "cached":
-                c = {key: unit[bi][key][r] for key in STATE_LEAVES[kind]}
-            if kind == "mamba2":
-                out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
-                                          ctx.n_commit)
-                h = h + out
-            elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
-                out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
-                                            ctx.n_commit)
-                h = h + out
-                out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps), c,
-                                                  ctx.n_commit)
-                h = h + out
-                nc = {**nc, **nc_cm}
-            elif kind == "dense":
-                h = _attn_mlp(cfg, p, h, ctx, None if unit is None else unit[bi], r)
-            else:  # shared: the model's attention + MLP on concat(h, x0) @ in_w
-                inp = torch.cat([h, x0], dim=-1) @ p.in_w
-                h = h + _attn_mlp(cfg, params.shared_attn, inp, ctx,
-                                 None if unit is None else unit[bi], r)
-            if bi in states:
-                for key, leaf in states[bi].items():
-                    leaf.append(nc[key])
+        groups = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"]
+    new_groups = []
+    li = 0  # index of the next layer in params.layers
+    for gi, (unit_def, U) in enumerate(plan):
+        unit = None if groups is None else groups[gi]
+        # the new state leaves of every recurrent block, one list per leaf over U
+        states = {bi: {key: [] for key in STATE_LEAVES[kind]}
+                  for bi, kind in enumerate(unit_def) if kind in STATE_LEAVES}
+        for r in range(U):
+            for bi, kind in enumerate(unit_def):
+                p = params.layers[li]
+                li += 1
+                leaves = None if unit is None else unit[bi]
+                c = None
+                if kind in STATE_LEAVES and ctx.mode == "cached":
+                    c = {key: leaves[key][r] for key in STATE_LEAVES[kind]}
+                if kind == "mamba2":
+                    out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
+                                              ctx.n_commit)
+                    h = h + out
+                elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
+                    out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
+                                                ctx.n_commit)
+                    h = h + out
+                    out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps),
+                                                      c, ctx.n_commit)
+                    h = h + out
+                    nc = {**nc, **nc_cm}
+                elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w
+                    inp = torch.cat([h, x0], dim=-1) @ p.in_w
+                    h = h + _attn_mlp(cfg, "shared", params.shared_attn, inp, ctx, leaves, r)
+                else:  # dense, moe, cross
+                    h = _attn_mlp(cfg, kind, p, h, ctx, leaves, r)
+                if bi in states:
+                    for key, leaf in states[bi].items():
+                        leaf.append(nc[key])
+        if unit is not None:
+            new_groups.append(tuple(
+                {key: torch.stack(leaf) for key, leaf in states[bi].items()}
+                if bi in states else leaves for bi, leaves in enumerate(unit)))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    if unit is None:
+    if groups is None:
         return h, None
-    unit = tuple({key: torch.stack(leaf) for key, leaf in states[bi].items()}
-                 if bi in states else leaves for bi, leaves in enumerate(unit))
-    return h, {"len": None, "groups": [unit]}  # len managed by the caller
+    return h, {"len": None, "groups": new_groups}  # len managed by the caller
 
 
 def logits_from_hidden(cfg, params: DecoderLM, h):

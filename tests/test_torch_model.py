@@ -14,6 +14,7 @@ registry: their head groupings G = Hq/Hkv are 2 (llama3-3b, llama3-70b), 1
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
 torch.set_num_threads(2)  # beside the other test workers and the reference's wall-clock gates
 
 from conftest import greedy_reference
+import repro.configs as jconfigs
 from repro.configs import get_config as jget_config
 from repro.models.api import make_model as jmake_model
 from repro.sharding import Param
@@ -173,13 +175,32 @@ def test_configs_are_the_reference_configs(arch):
         assert cfg.param_count() == jcfg.param_count()
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
+def test_ported_configs_are_the_reference_config_modules():
+    """``PORTED`` names every config module of the reference, no more."""
+    jdir = os.path.dirname(jconfigs.__file__)
+    modules = {f[:-3] for f in os.listdir(jdir)
+               if f.endswith(".py") and f not in ("__init__.py", "base.py")}
+    assert len(PORTED) == len(set(PORTED)) == 15
+    assert {name.replace("-", "_").replace(".", "_") for name in PORTED} == modules
+
+
+def test_unknown_config_raises():
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("no-such-model")
+
+
+def test_moe_model_config_builds_and_runs_a_forward():
+    """A ``moe`` plan that no registry config has (top-1 routing, with a
+    shared expert) draws its weights, prefills and decodes a step."""
     moe = ModelConfig(name="m", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
-                      vocab_size=64, block_pattern=("moe",), n_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(moe, "cpu").init(0)
+                      vocab_size=64, block_pattern=("moe",), n_experts=4, moe_top_k=1,
+                      n_shared_experts=1)
+    model = make_model(moe, "cpu")
+    params = model.init(0)
+    logits, cache = model.prefill(params, np.arange(6, dtype=np.int32).reshape(1, 6), S_max=16)
+    assert logits.shape == (1, 6, 64) and torch.isfinite(logits).all()
+    logits, cache = model.decode_step(params, cache, np.array([[3]], np.int32), 16)
+    assert logits.shape == (1, 1, 64) and torch.isfinite(logits).all() and cache["len"] == 7
 
 
 # -----------------------------------------------------------------------------
