@@ -24,11 +24,14 @@ It takes no options and runs every phase, in order:
            cache and minicpm3's MLA latents), and time kernel, plain
            version and the PyTorch call that computes the same function
            (for fused_swiglu a composite of cuBLAS and elementwise calls),
-           with CUDA events
+           with CUDA events; fused_swiglu's autograd op at phase (t)'s
+           shape (M = B·S 512, K 2048, N 8192, f32): output, dx, dwg and
+           dwu against autograd through the plain version, forward and
+           backward timed beside the composite and its autograd
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
-           llama3-1b draft, 3 requests, prompt 16, max_new 48, d from the
+           llama3-1b draft, 2 of its 3 requests, prompt 16, max_new 48, d from the
            profile pass; (b) self-draft on the same 8B weights, 2 requests —
            then continuous batching through ``ContinuousBatchingRuntime``
            on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
@@ -36,15 +39,19 @@ It takes no options and runs every phase, in order:
            layers and 8 of the 1B's: (c1) lockstep 8B+1B, (c2) async
            rounds 8B+1B (nearly every lookahead rolls back), (c3) async 8B
            self-draft (lookaheads commit), (c4) lockstep 8B self-draft (the
-           control of (c3)).  Every output must equal the
+           control of (c3)), (c5) the router: ``ShardedServingRuntime``
+           over two replicas of (c2)'s async engine sharing the card (the
+           shared-device fallback of ``make_serving_devices``), 1 slot
+           each, the fleet report printed.  Every output must equal the
            port's own target-only greedy decode (and, in (c), its solo
            ``generate()``); each kernel of a path must have launched in its
            run; each run must make one host sync per round.
   chain    chain-mode speculation, ``ChainSpecEngine.session().generate()``,
            k 4, f32, prompt 16, max_new 32, S_max 512: (d3) llama3-8b +
            llama3-1b on the weights above, parallel, 1 request; then
-           zamba2-2.7b at full width (54 mamba2 layers, the shared attention
-           block every 6), weights seed 0 with the lm_head x4: (d1)
+           zamba2-2.7b at full width, reduced to 24 of its 54 mamba2 layers
+           (4 of its 9 units; the shared attention block every 6), weights
+           seed 0 with the lm_head x4: (d1)
            self-draft, parallel, 2 requests (every chain commits and the
            next one is reused); (d2) an independent seed-7 draft of the same
            config, parallel and serial, 1 request (rollback: the draft
@@ -69,8 +76,9 @@ It takes no options and runs every phase, in order:
            granite-20b reduced to 8 of its 52 layers drafting for itself at
            d 2, 1 request: lockstep, f32, max_new 32, each output equal to
            the greedy decode, one host sync per round
-  rwkv6    chain mode on rwkv6-7b at full width and depth (k 4, f32,
-           max_new 32, 1 request): (g1) self-draft, parallel; (g2)/(g2s) an
+  rwkv6    chain mode on rwkv6-7b at full width, reduced to 16 of its 32
+           layers (k 4, f32, max_new 32, 1 request): (g1) self-draft,
+           parallel; (g2)/(g2s) an
            independent seed-7 draft reduced to 8 of its 32 layers, parallel
            and serial.  rwkv6 calls none of the port's kernels; each output
            must equal the greedy decode with one host sync per round and
@@ -78,8 +86,8 @@ It takes no options and runs every phase, in order:
   families (h1) deepseek-moe-16b at full depth (a dense layer, then 27 moe
            layers of 64 experts, top 6, 2 shared), (h2) mixtral-8x22b cut
            to 4 of its 56 layers (8 experts, top 2, G 6, sliding window),
-           (h3) minicpm3-4b at full depth (MLA), (h4) musicgen-large at
-           full depth (hd 64; a prefill of the table's embeddings must
+           (h3) minicpm3-4b cut to 31 of its 62 layers (MLA), (h4)
+           musicgen-large at full depth (hd 64; a prefill of the table's embeddings must
            equal the token prefill bit for bit): each drafting for itself
            at d 2 through the tree engine, lockstep, f32, 1 request,
            max_new 24, the MoE paths drop-free (capacity_factor E / k),
@@ -90,6 +98,16 @@ It takes no options and runs every phase, in order:
            seeded stub encoder states, 16 greedy decode steps, then one
            traced spec_forward of the same tokens under a causal chain
            mask, whose argmax must equal the decode at every position
+  train    (t) the single-device trainer, ``launch.train.train``, on
+           llama3-1b at full width and depth (1.50 B params, f32, B 2 x S
+           256): step 1's gradient finite and non-zero on every trainable
+           tensor (wg and wu through fused_swiglu's autograd op), 6 steps
+           on one repeated batch lowering its loss by at least 1 nat with
+           fused_swiglu launched in every layer, the step time, a traced
+           step's device busy share and the peak memory; then, on the
+           smoke config (reduced), save/restore bit for bit and a run
+           stopped as by a preemption and resumed from its checkpoint
+           bit for bit equal to the uninterrupted run
   shapes   every shape at which a path called a kernel, held against its
            plain version again
 
@@ -174,6 +192,17 @@ SWIGLU_SHAPES = [  # (M, K, N) of the main path's calls of fused_swiglu
 ]
 SWIGLU_TIMED = ("8B-verify", "8B-expand", "1B-expand", "1B-fill", "8B-prefill", "8B-decode",
                 "1B-decode", "zamba2-decode")  # the last three: the chain paths' decode_step
+TRAIN_B, TRAIN_S = 2, 256  # phase (t)'s batch: B·S = 512 rows through every MLP
+SWIGLU_TRAIN = ("1B-train", (TRAIN_B * TRAIN_S, 2048, 8192))  # llama3-1b's MLP at M = B·S, f32
+# fused_swiglu's gradients against autograd through the plain version: the output and dx
+# at the kernels' f32 2e-5; dwg and dwu (each a sum over the M = 512 rows, entries of order
+# sqrt(M)) at 2e-5 of their largest magnitude, since the two sides' products sum the rows
+# in cuBLAS's order for their own operand layouts
+SWIGLU_GRAD_TOL = 2e-5
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 6, 3e-4, 1  # phase (t): steps on one repeated batch
+TRAIN_MARGIN = 1.0  # the repeated batch's loss must fall by at least this (nats) in TRAIN_STEPS
+CKPT_STEPS, CKPT_CUT = 8, 6  # phase (t)'s resume check: 8 steps whole, or stopped before step 6
+# (checkpoints every 2 steps: the last at step 4) and resumed at step 5
 KV_TIMED = [  # (U, M, F) of the main path's kv_move_leaves calls, timed at B 1 and 2
     ("8B-reroot", (32, 73, 1024)), ("8B-compact", (32, 8, 1024)), ("1B-reroot", (16, 73, 512)),
 ]
@@ -204,6 +233,8 @@ DENSE_NEW_PATHS = {  # (f1)-(f3): target, its depth on the card (None: full), dr
 }
 DENSE_NEW_TOKENS = 32  # max_new per request of phase (f)
 RWKV_DRAFT_LAYERS = 8  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
+RWKV_LAYERS = 16  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
+ZAMBA_LAYERS = 24  # phase (d1)-(d2s)'s zamba2-2.7b: 4 of its 9 units (6 mamba2 + the shared block)
 SERVE_C_LAYERS = (16, 8)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
 FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attention" holds
     # tree and decode attention at its heads, "kv" kv_move_leaves and slot_write_rows at its
@@ -214,7 +245,7 @@ FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attenti
 FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the kernels it launches
     "h1": ("deepseek-moe-16b", None, MAIN_KERNELS + ("decode_attention",)),
     "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")),  # no dense MLP; decode by tree
-    "h3": ("minicpm3-4b", None, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
+    "h3": ("minicpm3-4b", 31, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
     "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
 }
 FAMILY_TOKENS = 24  # max_new of (h1)-(h4)
@@ -627,6 +658,8 @@ def phase_kernels(torch, timer, card):
                       (M * K + 2 * K * N + M * N) * es, 4 * M * K * N,
                       "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
 
+    check_swiglu_autograd(torch, timer, timed, randn, card)
+
     # --- kv_move_rows / kv_move_leaves ----------------------------------------------
     def check_moves(name, leaves, src, dst, mask) -> float:
         """Both entry points — ``kv_move_rows`` on each leaf alone and
@@ -796,6 +829,59 @@ def phase_kernels(torch, timer, card):
             print(f"  int4_matmul M{M} K{K} N{N} g{AWQ_GROUP} {dtype}: max|err| {err:.2e}, row 0 "
                   "alone and a repeated call bit for bit equal")
     return rows
+
+
+def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
+    """fused_swiglu in a training forward (phase (t)): at llama3-1b's MLP and
+    M = B·S rows, f32, the kernel's autograd op (forward: the kernel;
+    backward: ``ops.swiglu_backward``, plain products — the TPU kernel has
+    no backward kernel) against autograd through the plain version:
+    output, dx, dwg and dwu.  Times the forward beside the plain version and
+    the composite ``silu(x@wg) * (x@wu)``, and the backward beside the
+    composite's autograd backward."""
+    from repro_torch.kernels import ops, ref
+
+    label, (M, K, N) = SWIGLU_TRAIN
+    x, wg, wu = randn(M, K), randn(K, N, scale=K ** -0.5), randn(K, N, scale=K ** -0.5)
+    dh = randn(M, N)
+    leaves = [t.clone().requires_grad_(True) for t in (x, wg, wu)]
+    plain = [t.clone().requires_grad_(True) for t in (x, wg, wu)]
+    before = ops.launch_counts()["fused_swiglu"]
+    out = ops.fused_swiglu(*leaves)
+    if out.grad_fn is None or ops.launch_counts()["fused_swiglu"] != before + 1:
+        fail("fused_swiglu on inputs that require a gradient did not run its kernel in an "
+             "autograd op")
+    got = (out,) + torch.autograd.grad(out, leaves, dh)
+    out_p = ref.fused_swiglu_ref(*plain)
+    want = (out_p,) + torch.autograd.grad(out_p, plain, dh)
+    errs = []
+    for what, g, w in zip(("out", "dx", "dwg", "dwu"), got, want):
+        g, w = g.detach(), w.detach()
+        tol = SWIGLU_GRAD_TOL * (float(w.abs().max()) if what in ("dwg", "dwu") else 1.0)
+        err = max_err(g, w)
+        if not torch.allclose(g, w, atol=tol, rtol=SWIGLU_GRAD_TOL):
+            fail(f"fused_swiglu autograd {label} M{M} K{K} N{N}: {what} differs from autograd "
+                 f"through the plain version by {err:.3e} (tol {tol:.3e})")
+        errs.append(f"{what} {err:.2e} (atol {tol:.2e}, rtol {SWIGLU_GRAD_TOL:g})")
+    print(f"  fused_swiglu autograd {label} M{M} K{K} N{N} float32 against autograd through the "
+          f"plain version: max|err| {', '.join(errs)}")
+    timed("fused_swiglu", f"{label} M{M} K{K} N{N} forward", torch.float32,
+          max_err(got[0].detach(), want[0].detach()), lambda: ops.fused_swiglu(x, wg, wu),
+          lambda: ref.fused_swiglu_ref(x, wg, wu),
+          lambda: torch.nn.functional.silu(x @ wg) * (x @ wu),
+          (M * K + 2 * K * N + M * N) * 4, 4 * M * K * N,
+          "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
+    comp = [t.clone().requires_grad_(True) for t in (x, wg, wu)]
+    out_c = torch.nn.functional.silu(comp[0] @ comp[1]) * (comp[0] @ comp[2])
+    t_bwd = timer(lambda: ops.swiglu_backward(x, wg, wu, dh))
+    t_cbwd = timer(lambda: torch.autograd.grad(out_c, comp, dh, retain_graph=True))
+    # the backward's least work: 6 products of M·K·N multiply-adds (g and u again, dx's two,
+    # dwg and dwu), reading x, wg, wu, dh once and writing dx, dwg, dwu once
+    b_ms, b_by = bound((2 * M * K + 4 * K * N + M * N) * 4, 12 * M * K * N, torch.float32)
+    print(f"  time fused_swiglu backward {label} M{M} K{K} N{N} float32: ops.swiglu_backward "
+          f"{t_bwd:.4f} ms (no kernel: the TPU kernel has no backward, so the port's is plain "
+          f"products and elementwise ops), composite autograd backward {t_cbwd:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}) on {card}", flush=True)
 
 
 def check_int4(torch, name, x, q, dtype, got=None) -> float:
@@ -1052,10 +1138,11 @@ def trace_rounds(torch, sess, setup, label: str, tag: str, rounds: int = 2) -> N
         report_trace(prof, label, tag, rounds, wall_ms)
 
 
-def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float) -> None:
+def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float,
+                 unit: str = "rounds") -> float | None:
     """Write a finished profile's kernels to ``build/traces/trace_<tag>.json``
     and print them summed by layer, with the idle and both-streams shares of
-    ``wall_ms``."""
+    ``wall_ms``.  Returns the device busy share (None: no kernel traced)."""
     path = os.path.join(HERE, "build", "traces", f"trace_{tag}.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
@@ -1065,7 +1152,7 @@ def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float) -> Non
         json.dump({"traceEvents": kernels}, f)
     if not kernels:
         print(f"{label}: device busy share not measured (the profiler recorded no kernel)")
-        return
+        return None
     by_layer: dict = {}
     for e in kernels:
         layer = layer_of(e["name"])
@@ -1073,11 +1160,12 @@ def report_trace(prof, label: str, tag: str, rounds: int, wall_ms: float) -> Non
         by_layer[layer] = (n + 1, ms + e["dur"] / 1e3)
     busy = sum(ms for _, ms in by_layer.values())
     both_us, n_streams = both_streams_busy_us(kernels)
-    print(f"{label}: traced {rounds} rounds in {wall_ms:.2f} ms wall, {len(kernels)} kernels on "
+    print(f"{label}: traced {rounds} {unit} in {wall_ms:.2f} ms wall, {len(kernels)} kernels on "
           f"{n_streams} stream(s), device busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
           f"both streams busy {both_us / 1e3:.3f} ms (share {both_us / 1e3 / wall_ms:.4f}); "
           "by layer: " + ", ".join(f"{k} {ms:.3f} ms/{n}" for k, (n, ms) in
                                    sorted(by_layer.items(), key=lambda kv: -kv[1][1])), flush=True)
+    return busy / wall_ms
 
 
 def run_path(torch, label, eng, tp, dp, prompts, refs, card, kernels=MAIN_KERNELS):
@@ -1217,6 +1305,75 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
 
     trace_rounds(torch, eng.session(tp, dp), two_live_rows, label, tag=tag)
     return counts, st, (round_ms, toks / wall, summ["ttft_p50_s"] * 1e3)
+
+
+def serve_fleet(torch, label, eng, tp, dp, trace, refs, card, replicas: int = 2):
+    """Serve ``trace`` through ShardedServingRuntime: ``replicas`` replicas of
+    ONE engine (the shared-device fallback of ``make_serving_devices`` on one
+    card), 1 slot each, on a wall clock.  Every output must equal the greedy
+    decode and the engine's solo ``generate()``; every replica must serve;
+    each replica's round makes one host sync; kv_move_rows and
+    slot_write_rows launch as a single engine's would, summed over the
+    replicas.  Prints the fleet report.  Returns the launch counts."""
+    from repro_torch import indexed_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_serving_devices
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.serving import Request, ShardedServingRuntime, WallClock
+
+    pairs = make_serving_devices(1, 1, replicas=replicas)
+    card_dev = (indexed_device(eng.device),)
+    if any(pair != (card_dev, card_dev) for pair in pairs):
+        fail(f"{label}: carving 1 + 1 devices {replicas} times on one card gave {pairs}, not "
+             "the shared fallback")
+    rt = ShardedServingRuntime([eng] * replicas, tp, dp, n_slots=1, clock=WallClock())
+    rt.submit_trace(Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s,
+                            max_new=r.max_new) for r in trace)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = monotonic()
+    with SyncCounter(torch) as sc:
+        results = rt.run()
+    torch.cuda.synchronize()
+    wall = monotonic() - t0
+    counts = ops.launch_counts()
+    sts = [st.spec_stats for st in rt.steppers]
+    rounds = sum(st.rounds for st in sts)
+    rollbacks = sum(st.spec_rounds - st.spec_commits for st in sts)
+    toks = sum(len(v) for v in results.values())
+    where = {r.rid: rt.replica_of(r.rid) for r in trace}
+    print(f"{label}: {len(results)} requests over {replicas} replicas of one engine x 1 slot, "
+          f"replica of each request {where}, {toks} tokens, rounds per replica "
+          f"{[st.rounds for st in sts]}, wall {wall:.2f} s, {toks / wall:.2f} tok/s over the "
+          f"wall, async rounds {sum(st.spec_rounds for st in sts)}: {rollbacks} rollbacks; "
+          f"{sc.n / max(rounds, 1):.2f} host syncs per replica round on {card}", flush=True)
+    print(rt.report(), flush=True)
+    print(f"{label}: kernel launches {counts}", flush=True)
+    if sorted(results) != [r.rid for r in trace]:
+        fail(f"{label}: served {sorted(results)}, not every request of the trace")
+    if set(where.values()) != set(range(replicas)):
+        fail(f"{label}: requests went to replicas {sorted(set(where.values()))} only")
+    sess = eng.session(tp, dp)
+    for r in trace:
+        out = results[r.rid]
+        if out != refs[r.rid][0][:r.max_new] or len(out) != r.max_new:
+            fail(f"{label} request {r.rid}: served output differs from the greedy decode")
+        solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
+        if solo[0] != out:
+            fail(f"{label} request {r.rid}: served output differs from the solo generate()")
+    print(f"{label}: every output equals the solo generate() and the greedy decode", flush=True)
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"{label}: kernels never launched on the router's path: {missing}")
+    if sc.n != rounds:
+        fail(f"{label}: {sc.n} host syncs in {rounds} replica rounds, not one per round")
+    if counts["kv_move_rows"] != 2 * rounds + rollbacks:
+        fail(f"{label}: kv_move_rows launched {counts['kv_move_rows']} times, not "
+             f"{2 * rounds + rollbacks}")
+    if counts["slot_write_rows"] != 4 * len(trace):
+        fail(f"{label}: slot_write_rows launched {counts['slot_write_rows']} times for "
+             f"{len(trace)} requests, not 4 per request")
+    return counts
 
 
 class ShapeLog:
@@ -1385,7 +1542,9 @@ def phase_serve(torch, card):
           f"f32, seeded weights drawn on the card in {monotonic() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     print(profile_depth(eng, tp, dp, 16), flush=True)
-    prompts = list(make_request_stream(cfgT.vocab_size, 16, 1, 3))
+    # reduced: 2 of the serve CLI's 3 requests, to keep the script in its time limit
+    prompts = list(make_request_stream(cfgT.vocab_size, 16, 1, 3))[:2]
+    print("serve (a): reduced: the first 2 of the serve CLI's 3 requests", flush=True)
     refs = [greedy_decode(torch, eng.target, tp, p, eng.cfg.max_new, eng.S_max_t) for p in prompts]
     counts = {"a": run_path(torch, "main path (a) 8B+1B", eng, tp, dp, prompts, refs, card)}
     # (b) self-draft, built the way examples/quickstart.py builds it (draft = target)
@@ -1431,12 +1590,16 @@ def phase_serve(torch, card):
             fail(f"{label}: no lookahead rolled back")
         if tag == "c3" and st.spec_commits == 0:
             fail(f"{label}: no lookahead committed")
+    # (c5) the router: two replicas of (c2)'s async engine share the card (the shared-device
+    # fallback), 1 slot each, on the same trace
+    counts["c5"] = serve_fleet(torch, "continuous (c5) router, 2 replicas of (c2)", runs[1][2],
+                               tpc, dpc, trace, refs_c, card)
     for asyn, lock in (("c2", "c1"), ("c3", "c4")):  # async against its lockstep twin
         (ra, ta, fa), (rl, tl, fl) = perf[asyn], perf[lock]
         print(f"serve ({asyn}) async against ({lock}) lockstep: mean round {ra:.2f} / {rl:.2f} ms "
               f"({ra / rl - 1:+.1%}), tok/s {ta:.2f} / {tl:.2f} ({ta / tl - 1:+.1%}), TTFT p50 "
               f"{fa:.1f} / {fl:.1f} ms on {card}", flush=True)
-    timing("serve (a)-(c)")
+    timing("serve (a)-(c5)")
 
     # (d3) chain mode on the same weights: an attention-only target commits by moving len
     from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
@@ -1457,18 +1620,23 @@ def peaked(params):
 
 
 def phase_chain(torch, card):
-    """(d1)-(d2): zamba2-2.7b at full width, chain mode."""
+    """(d1)-(d2): zamba2-2.7b at full width, ZAMBA_LAYERS deep, chain mode."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
     from repro_torch.models.api import make_model
 
-    cfg = get_config("zamba2-2.7b")
+    full = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(full, n_layers=ZAMBA_LAYERS)
     model = make_model(cfg, "cuda")
     tp, dp = peaked(model.init(0)), peaked(model.init(7))
     n_params = sum(t.numel() for t in tp.parameters())
     print(f"chain: zamba2-2.7b ({n_params / 1e9:.3f} B parameters: {cfg.n_layers} mamba2 layers, "
-          f"the shared attention block every {cfg.shared_attn_every}), f32, target seed 0 and "
-          f"draft seed 7; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+          f"the shared attention block every {cfg.shared_attn_every}; reduced: {cfg.n_layers} of "
+          f"its {full.n_layers} layers, to keep the script in its time limit), f32, target seed "
+          f"0 and draft seed 7; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
     prompts = chain_prompts(cfg.vocab_size, 2)
     refs = [greedy_decode(torch, model, tp, p, CHAIN_NEW, 512) for p in prompts]
 
@@ -1540,8 +1708,8 @@ def phase_dense(torch, card):
 
 
 def phase_rwkv(torch, card):
-    """(g1)-(g2s): rwkv6-7b chain mode at full width and depth, f32, target
-    seed 0 with the lm_head x4: (g1) drafting for itself, parallel; (g2) an
+    """(g1)-(g2s): rwkv6-7b chain mode at full width, RWKV_LAYERS deep, f32,
+    target seed 0 with the lm_head x4: (g1) drafting for itself, parallel; (g2) an
     independent seed-7 draft of RWKV_DRAFT_LAYERS layers, parallel, and
     (g2s) the same serial.  rwkv6 calls none of the port's kernels.
     Returns the launch counts by path."""
@@ -1551,15 +1719,17 @@ def phase_rwkv(torch, card):
     from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
     from repro_torch.models.api import make_model
 
-    cfg = get_config("rwkv6-7b")
+    full = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(full, n_layers=RWKV_LAYERS)
     model = make_model(cfg, "cuda")
     tp = peaked(model.init(0))
-    dcfg = dataclasses.replace(cfg, n_layers=RWKV_DRAFT_LAYERS)
+    dcfg = dataclasses.replace(full, n_layers=RWKV_DRAFT_LAYERS)
     dmodel = make_model(dcfg, "cuda")
     dp = peaked(dmodel.init(7))
     print(f"chain: rwkv6-7b ({cfg.param_count() / 1e9:.3f} B parameters, {cfg.n_layers} layers, "
-          f"d {cfg.d_model}), f32, target seed 0; seed-7 draft reduced to {RWKV_DRAFT_LAYERS} of "
-          f"{cfg.n_layers} layers ({dcfg.param_count() / 1e9:.3f} B); "
+          f"d {cfg.d_model}; reduced: {cfg.n_layers} of its {full.n_layers} layers, to keep the "
+          f"script in its time limit), f32, target seed 0; seed-7 draft reduced to "
+          f"{RWKV_DRAFT_LAYERS} of {full.n_layers} layers ({dcfg.param_count() / 1e9:.3f} B); "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
     prompts = chain_prompts(cfg.vocab_size, 1)
     refs = [greedy_decode(torch, model, tp, p, CHAIN_NEW, 512) for p in prompts]
@@ -1722,6 +1892,137 @@ def vision_path(torch, card):
     return counts
 
 
+def phase_train(torch, card):
+    """(t): the single-device trainer (``launch.train.train``) on llama3-1b
+    at full width and depth, f32, B·S = TRAIN_B x TRAIN_S.  Step 1's
+    gradient (``launch.steps.loss_and_grads``, the trainer's own) must be
+    finite and non-zero on every trainable tensor, the MLP's wg and wu
+    included (they come through the fused_swiglu kernel's autograd op);
+    TRAIN_STEPS steps on one repeated batch must lower its loss by
+    TRAIN_MARGIN and launch fused_swiglu in every layer of every step.
+    Prints the step time, one traced step's device busy share and the peak
+    memory.  Then the checkpoint on the smoke config: save and restore bit
+    for bit, and a run of CKPT_STEPS stopped before step CKPT_CUT (as a
+    preemption would) and resumed from its last checkpoint equal to the
+    uninterrupted run bit for bit.  Returns
+    the launch counts of the full-width run."""
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import make_batch, train
+    from repro_torch.models.api import make_model
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.optim.adamw import param_leaves
+
+    label = "train (t) llama3-1b"
+    cfg = get_config("llama3-1b")
+    torch.cuda.empty_cache()
+    t0 = monotonic()
+    model = make_model(cfg, "cuda")
+    params = model.init(0, trainable=True)
+    ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batch = make_batch(cfg, ds.batch(0), "cuda")
+    loss, grads = loss_and_grads(model, params, batch)
+    names = [n for n, _ in params.named_parameters()]
+    gmax = [float(g.abs().max()) for g in grads]
+    bad = [n for n, g, m in zip(names, grads, gmax) if not (m > 0 and bool(torch.isfinite(g).all()))]
+    if bad:
+        fail(f"{label}: step 1's gradient is zero or not finite on {bad[:6]} ({len(bad)} tensors)")
+    mlp = [m for n, m in zip(names, gmax) if n.endswith(("mlp.wg", "mlp.wu"))]
+    print(f"{label}: {cfg.param_count() / 1e9:.2f} B params, f32, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, V {cfg.vocab_size}, batch {TRAIN_B} x {TRAIN_S}; step 1 loss "
+          f"{float(loss):.4f}, gradient finite and non-zero on all {len(names)} trainable "
+          f"tensors (max|g| from {min(gmax):.3e} to {max(gmax):.3e}; the {len(mlp)} MLP wg/wu "
+          f"{min(mlp):.3e} to {max(mlp):.3e}) in {monotonic() - t0:.1f} s", flush=True)
+    del params, grads, loss
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR,
+                warmup_steps=TRAIN_WARMUP, repeat_batch=True, log_every=1, device="cuda",
+                log=lambda m: print(f"{label}: {m}", flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if losses[0] - losses[-1] < TRAIN_MARGIN:
+        fail(f"{label}: the repeated batch's loss fell by {losses[0] - losses[-1]:.4f}, less "
+             f"than {TRAIN_MARGIN} in {TRAIN_STEPS} steps ({losses})")
+    if counts["fused_swiglu"] < cfg.n_layers * TRAIN_STEPS:
+        fail(f"{label}: fused_swiglu launched {counts['fused_swiglu']} times in {TRAIN_STEPS} "
+             f"steps of {cfg.n_layers} layers")
+    step_ms = statistics.median(out["step_s"][1:]) * 1e3
+    print(f"{label}: {TRAIN_STEPS} steps at peak lr {TRAIN_LR} (warmup {TRAIN_WARMUP}) on one "
+          f"repeated batch, loss {losses[0]:.4f} -> {losses[-1]:.4f} (fell "
+          f"{losses[0] - losses[-1]:.4f} >= {TRAIN_MARGIN}); step {step_ms:.2f} ms (median of "
+          f"steps 2-{TRAIN_STEPS}, host clock, the loss's transfer included), "
+          f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB allocated on {card}", flush=True)
+    print(f"{label}: kernel launches {counts}", flush=True)
+    step = make_train_step(cfg, model, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    params, opt = out["params"], out["opt"]
+    del out
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the profiler's notes on its cycles
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = monotonic()
+            new = step(params, opt, batch)
+            float(new[2])
+            torch.cuda.synchronize()
+            wall_ms = (monotonic() - t1) * 1e3
+        busy = report_trace(prof, label, "t", 1, wall_ms, unit="step")
+    print(f"{label}: device busy share of a traced step "
+          f"{'not measured' if busy is None else f'{busy:.4f}'} on {card}", flush=True)
+    del params, opt, new, batch
+    torch.cuda.empty_cache()
+
+    small = get_config("llama3-1b", smoke=True)
+    print(f"{label} checkpoint: reduced: llama3-1b's smoke config ({small.n_layers} layers, d "
+          f"{small.d_model}, V {small.vocab_size}); a full-width state is about 24 GB of disk "
+          "per save", flush=True)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    kw = dict(steps=CKPT_STEPS, batch=2, seq=32, lr=1e-3, warmup_steps=2, device="cuda",
+              log=lambda *_: None)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        whole = train(small, **kw)
+        train(small, ckpt=os.path.join(d, "cut"), ckpt_every=2, stop_at=CKPT_CUT, **kw)
+        resumed = train(small, ckpt=os.path.join(d, "cut"), ckpt_every=2, **kw)
+        cm = CheckpointManager(os.path.join(d, "once"))
+        state = (whole["params"], whole["opt"])
+        cm.save(CKPT_STEPS - 1, state)
+        _, back = cm.restore_latest(state)
+    leaves = param_leaves(whole["params"]) + whole["opt"].mu + whole["opt"].nu + \
+        whole["opt"].master
+    back_leaves = param_leaves(back[0]) + back[1].mu + back[1].nu + back[1].master
+    if back[1].step != whole["opt"].step or not all(
+            torch.equal(a, b) and a.device == b.device for a, b in zip(leaves, back_leaves)):
+        fail(f"{label} checkpoint: a restored state differs from the one saved")
+    start = resumed["start"]
+    if start != CKPT_CUT - 1:
+        fail(f"{label} checkpoint: resumed at step {start}, not {CKPT_CUT - 1}")
+    diffs = [max_err(a.detach(), b.detach()) for a, b in
+             zip(param_leaves(resumed["params"]), param_leaves(whole["params"]))]
+    if max(diffs) != 0.0 or resumed["losses"] != whole["losses"][start:]:
+        fail(f"{label} checkpoint: the run resumed at step {start} differs from the "
+             f"uninterrupted one: params by up to {max(diffs):.3e}, losses "
+             f"{resumed['losses']} against {whole['losses'][start:]}")
+    print(f"{label} checkpoint: save/restore of {len(leaves)} tensors bit for bit; a run of "
+          f"{CKPT_STEPS} steps stopped before step {CKPT_CUT} and resumed at step {start} from "
+          f"its checkpoint of step {start - 1}: params and losses bit for bit equal to the "
+          f"uninterrupted run on {card}", flush=True)
+    return {"t": counts}
+
+
 def phase_shapes(torch, log: ShapeLog, card):
     """Hold each kernel against its plain version at every shape a path
     called it with: random inputs (plans, lengths) at that shape, f32 and
@@ -1847,6 +2148,8 @@ def main() -> int:
     timing("chain (g1)-(g2s)")
     counts.update(phase_families(torch, card))
     timing("families (h1)-(h5)")
+    counts.update(phase_train(torch, card))
+    timing("train (t)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

@@ -28,3 +28,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current CUDA device,
+    so that ``cuda`` and ``cuda:0`` compare equal where they are one card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

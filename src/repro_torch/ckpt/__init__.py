@@ -1,0 +1,3 @@
+from repro_torch.ckpt.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

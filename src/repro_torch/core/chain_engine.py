@@ -46,7 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.engine import StreamPair, _to_device
+from repro_torch.core.engine import StreamPair, _to_device, check_frozen, engine_device
 from repro_torch.obs.clock import monotonic
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -78,15 +78,13 @@ def _has_state(model) -> bool:
 
 
 class ChainSpecEngine(StreamPair):
-    def __init__(self, target, draft, cfg: ChainConfig, S_max_t: int, S_max_d: int):
-        if target.device != draft.device:
-            raise ValueError(f"target ({target.device}) and draft ({draft.device}) share "
-                             "one device in this slice")
+    def __init__(self, target, draft, cfg: ChainConfig, S_max_t: int, S_max_d: int,
+                 target_devices=None, draft_devices=None):
+        self.device = engine_device(target, draft, target_devices, draft_devices)
         if cfg.mode not in ("parallel", "serial"):
             raise ValueError(f"mode must be 'parallel' or 'serial', got {cfg.mode!r}")
         self.target, self.draft, self.cfg = target, draft, cfg
         self.S_max_t, self.S_max_d = S_max_t, S_max_d
-        self.device = target.device
         # parallel mode on the card: the target's stream and the draft's
         self.streams = None
         if cfg.mode == "parallel" and self.device.type == "cuda":
@@ -123,6 +121,7 @@ class ChainSpecEngine(StreamPair):
     # ------------------------------------------------------------------
     def session(self, tparams, dparams, *, tracer=None, track="chain") -> "ChainSession":
         """Bind params (+ optional tracer) into a ChainSession."""
+        check_frozen(tparams, dparams)
         return ChainSession(self, tparams, dparams, tracer=tracer or NULL_TRACER, track=track)
 
 

@@ -38,6 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import indexed_device
 from repro_torch.core import kv as kvm
 from repro_torch.core import tree as T
 from repro_torch.core.scheduler import ProfileResult
@@ -164,6 +165,39 @@ def absorb_emitted(out: list, emitted_row, n_emitted: int, max_new: int, eos_id:
     return new, False
 
 
+def engine_device(target, draft, target_devices=None, draft_devices=None) -> torch.device:
+    """The one device an engine runs on.  ``target_devices`` and
+    ``draft_devices`` are the device groups the reference takes as
+    ``mesh_target``/``mesh_draft`` (``launch/mesh.make_serving_devices``),
+    by default each model's own device.  A shared pair — both groups the
+    same single device, where both models live — runs; a split pair raises:
+    target and draft on separate devices need cross-device transfers and a
+    group of several devices needs tensor parallelism (ROADMAP item 13b),
+    and the port has been tested on one device only."""
+    tdev, ddev = indexed_device(target.device), indexed_device(draft.device)
+    tg = (tdev,) if target_devices is None else tuple(map(indexed_device, target_devices))
+    dg = (ddev,) if draft_devices is None else tuple(map(indexed_device, draft_devices))
+    if tg != dg or len(tg) != 1 or tdev != ddev:
+        raise ValueError(
+            f"target on {list(tg)} (model on {target.device}) and draft on {list(dg)} (model on "
+            f"{draft.device}) are not one shared device: a split pair needs cross-device "
+            "transfers and tensor parallelism (ROADMAP item 13b), and the port has been tested "
+            "on one device only, so it does not run one")
+    if tdev != tg[0]:
+        raise ValueError(f"the models live on {target.device}, not on the engine's {tg[0]}")
+    return target.device
+
+
+def check_frozen(*params) -> None:
+    """Serving runs on frozen weights only: a parameter that requires a
+    gradient would make every round build an autograd graph.  Raises for
+    one (a trainer's weights; ``Model.init(seed, trainable=True)``)."""
+    for p in params:
+        if isinstance(p, torch.nn.Module) and any(t.requires_grad for t in p.parameters()):
+            raise ValueError("serving takes frozen weights: these parameters require a "
+                             "gradient (detach a copy with requires_grad_(False) to serve it)")
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -218,17 +252,15 @@ class SpecEngine(StreamPair):
     dispatch), the prediction (draft -> target, at the reconcile transfer)
     and the verify outcome (target -> draft, on rollback)."""
 
-    def __init__(self, target, draft, cfg: SpecConfig, S_max_t: int, S_max_d: int):
-        if target.device != draft.device:
-            raise ValueError(f"target ({target.device}) and draft ({draft.device}) share "
-                             "one device in this slice")
+    def __init__(self, target, draft, cfg: SpecConfig, S_max_t: int, S_max_d: int,
+                 target_devices=None, draft_devices=None):
+        self.device = engine_device(target, draft, target_devices, draft_devices)
         if cfg.async_rounds and cfg.mode != "parallel":
             raise ValueError(
                 f"async_rounds requires mode='parallel' (got mode={cfg.mode!r}): "
                 "the lookahead pipeline IS the parallel overlap")
         self.target, self.draft, self.cfg = target, draft, cfg
         self.S_max_t, self.S_max_d = S_max_t, S_max_d
-        self.device = target.device
         # async rounds on the card: the target's stream and the draft's
         self.streams = None
         if cfg.async_rounds and self.device.type == "cuda":
@@ -340,6 +372,7 @@ class SpecEngine(StreamPair):
                 track: str = "engine") -> "EngineSession":
         """Bind params (+ optional state and tracer) into an ``EngineSession``;
         ``n_slots`` starts it from an empty parked serving state."""
+        check_frozen(tparams, dparams)
         if state is None and n_slots is not None:
             state = self.init_state(n_slots)
         return EngineSession(engine=self, tparams=tparams, dparams=dparams, state=state,

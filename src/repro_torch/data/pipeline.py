@@ -1,5 +1,14 @@
-"""Deterministic serving prompts and Poisson arrival traces
-(``repro.data.pipeline``, numpy only)."""
+"""Deterministic synthetic data (``repro.data.pipeline``, numpy only).
+
+Training: a seeded Markov-chain token stream packed into fixed-length
+sequences — deterministic given (seed, step), so a restarted job resumes on
+exactly the bytes it would have seen; the same numpy generator calls as the
+reference, so the same tokens bit for bit.  The chain has low entropy
+(peaked transitions).  The reference's ``sharded_batches`` places batches
+over a device mesh and comes with tensor parallelism (ROADMAP item 13b).
+
+Serving: deterministic prompts and Poisson arrival traces.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +16,42 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    branch: int = 4  # Markov out-degree: lower = peakier = more predictable
+
+
+class SyntheticLMDataset:
+    """Seeded Markov LM stream; ``batch(step)`` is a pure function of step."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        V, B = cfg.vocab_size, cfg.branch
+        # per-state successor table + peaked probabilities
+        self._succ = rng.integers(0, V, size=(V, B), dtype=np.int32)
+        p = np.geomspace(1.0, 0.05, B)
+        self._probs = p / p.sum()
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        """-> {"tokens": [B, S+1] int32} (inputs = [:, :-1], labels = [:, 1:])."""
+        cfg = self.cfg
+        rng = np.random.default_rng((cfg.seed, step))
+        B, S = cfg.global_batch, cfg.seq_len
+        out = np.empty((B, S + 1), np.int32)
+        cur = rng.integers(0, cfg.vocab_size, size=B, dtype=np.int32)
+        out[:, 0] = cur
+        choices = rng.choice(cfg.branch, size=(B, S), p=self._probs)
+        for t in range(S):
+            cur = self._succ[cur, choices[:, t]]
+            out[:, t + 1] = cur
+        return {"tokens": out}
 
 
 def _draw_prompt_len(rng, prompt_len) -> int:

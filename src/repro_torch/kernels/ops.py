@@ -258,9 +258,55 @@ def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
 def fused_swiglu(x, wg, wu):
     """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype.
     The kernel takes float32 or bfloat16, N a multiple of 4 and weights
-    16-byte aligned; K is split by ``stream_plan``."""
+    16-byte aligned; K is split by ``stream_plan``.
+
+    Differentiable: on the CPU the plain version has its own autograd; on
+    CUDA, when an input requires a gradient (a training forward), the
+    kernel runs inside ``_FusedSwiGLU``, whose backward is
+    ``swiglu_backward``.  Without one (every serving path) the kernel is
+    called directly and no graph is built."""
     if not _on_cuda("fused_swiglu", x, wg, wu):
         return ref.fused_swiglu_ref(x, wg, wu)
+    if torch.is_grad_enabled() and (x.requires_grad or wg.requires_grad or wu.requires_grad):
+        return _FusedSwiGLU.apply(x, wg, wu)
+    return _fused_swiglu_kernel(x, wg, wu)
+
+
+def swiglu_backward(x, wg, wu, dh):
+    """Gradients (dx, dwg, dwu) of ``silu(x@wg) * (x@wu)`` for the output
+    gradient ``dh`` [M, N], in f32 and returned in the inputs' dtypes.
+    g = x@wg and u = x@wu are recomputed, not stored by the forward; the
+    products are PyTorch's (cuBLAS on the card) and the rest elementwise
+    ops: the TPU kernel has no backward kernel, so none is written here.
+    silu'(g) = s * (1 + g * (1 - s)), s = sigmoid(g), as torch's own."""
+    xf, wgf, wuf, dhf = x.float(), wg.float(), wu.float(), dh.float()
+    g = xf @ wgf
+    u = xf @ wuf
+    s = torch.sigmoid(g)
+    du = dhf * (g * s)
+    dg = dhf * u * (s * (1 + g * (1 - s)))
+    dx = dg @ wgf.T + du @ wuf.T
+    return dx.to(x.dtype), (xf.T @ dg).to(wg.dtype), (xf.T @ du).to(wu.dtype)
+
+
+class _FusedSwiGLU(torch.autograd.Function):
+    """The fused_swiglu kernel as an autograd op on CUDA tensors: the
+    forward is the kernel, the backward ``swiglu_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu):
+        ctx.save_for_backward(x, wg, wu)
+        return _fused_swiglu_kernel(x, wg, wu)
+
+    @staticmethod
+    def backward(ctx, dh):
+        dx, dwg, dwu = swiglu_backward(*ctx.saved_tensors, dh)
+        return tuple(g if need else None for g, need in zip((dx, dwg, dwu),
+                                                             ctx.needs_input_grad))
+
+
+def _fused_swiglu_kernel(x, wg, wu):
+    """One launch of the fused_swiglu kernel on CUDA tensors."""
     M, K = x.shape
     N = wg.shape[1]
     if x.dtype not in _DTYPE_CODE or wg.dtype != x.dtype or wu.dtype != x.dtype:

@@ -1,0 +1,61 @@
+"""Device carving for disaggregated serving (``repro.launch.mesh``'s
+``make_serving_mesh``, paper §3.1 GPU allocation).
+
+The reference carves a slice of accelerators into a target mesh and a draft
+mesh per replica.  The port carves CUDA devices the same way: a device
+group is a tuple of ``torch.device``; replica i owns the devices
+``[i*g, (i+1)*g)``, g = n_target + n_draft, the first ``n_target`` of them
+its target group and the rest its draft group, so no device is shared
+across replicas or across the two roles.  Carving is pure: it only reads
+the device list it is given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _visible_devices(device=None) -> list:
+    """The visible CUDA devices, or ``[device]`` for a run on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch: no CUDA device is available; pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_serving_devices(n_target: int, n_draft: int, *, replicas: int = 1, devices=None,
+                         device=None):
+    """Disjoint (target group, draft group) device tuples per replica.
+
+    ``devices`` defaults to the visible CUDA devices, or to ``[device]``
+    when ``device`` is the CPU.  Returns one pair for ``replicas == 1`` and a
+    list of ``replicas`` pairs otherwise.  With fewer than ``n_target +
+    n_draft`` devices EVERY pair falls back to the first device, shared by
+    both roles (one card, or the CPU).  A partial fit — enough devices for
+    some replicas but not all — raises instead of overlapping later
+    replicas onto the first device."""
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    devs = [torch.device(d) for d in devices] if devices is not None else _visible_devices(device)
+    group = n_target + n_draft
+
+    if len(devs) < group:  # all-or-nothing fallback: one shared device
+        shared = ((devs[0],), (devs[0],))
+        return shared if replicas == 1 else [shared for _ in range(replicas)]
+    if len(devs) < group * replicas:
+        raise ValueError(
+            f"{len(devs)} devices cannot host {replicas} disjoint replicas of "
+            f"{group} devices ({n_target} target + {n_draft} draft) — lower "
+            f"the replica count or the per-replica device split")
+
+    def carve(i: int):
+        base = i * group
+        return tuple(devs[base:base + n_target]), tuple(devs[base + n_target:base + group])
+
+    if replicas == 1:
+        return carve(0)
+    return [carve(i) for i in range(replicas)]

@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 3 --max-new 48
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --async-rounds
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --continuous --d 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous --replicas 2 --n-target 1 --n-draft 1
 
 Runs the profile pass (paper §5.5: expansion depth d) unless ``--d`` is
 given, then decodes a deterministic request stream through SpecEngine and
@@ -16,10 +17,13 @@ and draft on two CUDA streams of one card), ``--adaptive-depth`` and
 ``--deadline-s`` turn on the SLO-aware scheduler, ``--trace-out`` /
 ``--metrics-out`` record phase spans and metrics.  As in the reference CLI
 the models are the smoke configs; ``build_engine(..., smoke=False)`` builds
-the published widths.  Target and draft share one device (``--device``,
-default ``cuda``); replicas over several cards (``--replicas``,
-``--n-target``, ``--n-draft``) come with the router's slice and are not
-accepted yet.
+the published widths.  ``--replicas N`` serves the continuous trace over N
+engine replicas (one global queue, least-loaded routing, per-replica and
+fleet telemetry, ``ShardedServingRuntime``); ``--n-target``/``--n-draft``
+set the devices each replica asks for (``launch/mesh.py``).  With fewer
+devices than one replica asks for, every replica falls back to one shared
+device (``--device``, default ``cuda``) and all replicas share one engine
+object; a split target/draft pair is not run yet (ROADMAP item 13b).
 """
 
 from __future__ import annotations
@@ -35,19 +39,27 @@ from repro_torch.configs import get_config
 from repro_torch.core.engine import SpecConfig, SpecEngine
 from repro_torch.core.scheduler import candidate_depths
 from repro_torch.data import make_request_stream, make_request_trace
+from repro_torch.launch.mesh import make_serving_devices
 from repro_torch.models.api import make_model
 from repro_torch.obs.clock import monotonic
 
 
 def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="parallel",
-                 bs=8, w=4, c=2, d=2, max_new=48, S_max=512, peaked=True, device=None,
-                 async_rounds=False):
-    """Build the serving engine.  Returns (engine, tparams, dparams, cfgT).
+                 bs=8, w=4, c=2, d=2, max_new=48, S_max=512, n_target=6, n_draft=2,
+                 peaked=True, replicas=1, device=None, async_rounds=False):
+    """Build the serving engine(s).  Returns (engine | [engines], tparams,
+    dparams, cfgT).
 
     Weights are the port's own seeded random init, drawn on ``device``
     (target seed 0, draft seed 1); ``peaked`` scales both lm_heads by 4 so
-    greedy chains are peaked enough for realistic acceptance."""
+    greedy chains are peaked enough for realistic acceptance.  With
+    ``replicas > 1`` the devices are carved into that many (target, draft)
+    groups (``make_serving_devices``) and a list of engines is returned; a
+    replica whose groups are replica 0's (the shared-device fallback)
+    REUSES replica 0's engine object — states are per replica anyway."""
     device = resolve_device(device)
+    pairs = make_serving_devices(n_target, n_draft, replicas=replicas, device=device)
+    pairs = [pairs] if replicas == 1 else pairs
     cfgT = get_config(target_arch, smoke=smoke)
     cfgD = get_config(draft_arch, smoke=smoke)
     assert cfgT.vocab_size == cfgD.vocab_size, "draft/target must share a vocab"
@@ -61,7 +73,15 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
         dp.lm_head.mul_(4.0)
     cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new,
                      async_rounds=async_rounds)
-    return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max), tp, dp, cfgT
+
+    def mk(devs_t, devs_d):
+        return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max,
+                          target_devices=devs_t, draft_devices=devs_d)
+
+    engines = [mk(*pairs[0])]
+    for pair in pairs[1:]:
+        engines.append(engines[0] if pair == pairs[0] else mk(*pair))
+    return (engines[0] if replicas == 1 else engines), tp, dp, cfgT
 
 
 def profile_depth(eng: SpecEngine, tp, dp, prompt_len: int) -> str:
@@ -74,15 +94,17 @@ def profile_depth(eng: SpecEngine, tp, dp, prompt_len: int) -> str:
             f"-> d in {{{d_lo},{d_hi}}}, using d={d_lo}")
 
 
-def run_continuous(args, eng: SpecEngine, tp, dp, cfgT) -> dict:
+def run_continuous(args, engines, tp, dp, cfgT) -> dict:
     """Serve a Poisson trace through the continuous-batching runtime on a
-    wall clock, print the per-request report, and check every output
-    against a solo ``generate()`` (``--no-verify`` skips it; a mismatch
-    raises SystemExit).  With ``--trace-out``/``--metrics-out`` the run is
-    traced and the round breakdown printed.  Returns the results."""
+    wall clock — one engine, or a fleet (a list of engines, ``--replicas``)
+    through ``ShardedServingRuntime`` — print the per-request report (the
+    fleet report for a fleet), and check every output against a solo
+    ``generate()`` (``--no-verify`` skips it; a mismatch raises
+    SystemExit).  With ``--trace-out``/``--metrics-out`` the run is traced
+    and the round breakdown printed.  Returns the results."""
     from repro_torch.obs import MetricsRegistry, Tracer, breakdown_report, phase_breakdown
     from repro_torch.serving import (ContinuousBatchingRuntime, Request, RequestQueue,
-                                     SchedulerConfig, WallClock)
+                                     SchedulerConfig, ShardedServingRuntime, WallClock)
 
     observed = bool(args.trace_out or args.metrics_out)
     tracer = Tracer() if observed else None
@@ -92,14 +114,17 @@ def run_continuous(args, eng: SpecEngine, tp, dp, cfgT) -> dict:
         cfgT.vocab_size, args.requests, rate_rps=args.rate,
         prompt_len=(max(4, args.prompt_len // 2), args.prompt_len),
         max_new=args.max_new, seed=0)
-    rt = ContinuousBatchingRuntime(
-        eng, tp, dp, n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap),
-        clock=WallClock(), tracer=tracer, metrics=metrics, scheduler=scheduler)
+    fleet = isinstance(engines, list)
+    runtime = ShardedServingRuntime if fleet else ContinuousBatchingRuntime
+    rt = runtime(engines, tp, dp, n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap),
+                 clock=WallClock(), tracer=tracer, metrics=metrics, scheduler=scheduler)
+    eng = engines[0] if fleet else engines
+    label = f"{len(engines)} replicas x {args.slots} slots" if fleet else f"{args.slots} slots"
     accepted = rt.submit_trace(
         Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s, max_new=r.max_new,
                 deadline_s=(r.arrival_s + args.deadline_s) if args.deadline_s else None)
         for r in trace)
-    print(f"continuous: {accepted}/{len(trace)} requests accepted ({args.slots} slots, "
+    print(f"continuous: {accepted}/{len(trace)} requests accepted ({label}, "
           f"Poisson rate {args.rate}/s, queue cap {args.queue_cap}"
           + (f", deadline {args.deadline_s}s" if args.deadline_s else "")
           + (", adaptive depth" if scheduler else "")
@@ -107,11 +132,11 @@ def run_continuous(args, eng: SpecEngine, tp, dp, cfgT) -> dict:
     t0 = monotonic()
     results = rt.run()
     wall = monotonic() - t0
-    print(rt.stats.report())
+    print(rt.report() if fleet else rt.stats.report())
     total = sum(len(v) for v in results.values())
     print(f"wall: {total} tokens in {wall:.1f}s ({total / wall:.1f} tok/s); "
           f"{rt.queue.rejected} shed by admission control")
-    summary = rt.stats.summary()
+    summary = rt.summary() if fleet else rt.stats.summary()
     if summary["n_deadlined"]:
         print(f"SLO: {summary['slo_attainment']:.0%} of {summary['n_deadlined']} "
               f"deadlined requests met (slack p50 {summary['slack_p50_s']:+.3f}s "
@@ -135,8 +160,9 @@ def run_continuous(args, eng: SpecEngine, tp, dp, cfgT) -> dict:
             solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
             ok = results[r.rid] == solo[0]
             mismatches += 0 if ok else 1
+            where = f" (replica {rt.replica_of(r.rid)})" if fleet else ""
             print(f"verify req {r.rid}: "
-                  f"{'byte-identical to solo generate()' if ok else 'MISMATCH'}")
+                  f"{'byte-identical to solo generate()' if ok else 'MISMATCH'}{where}")
         if mismatches:
             raise SystemExit(f"{mismatches} request(s) diverged from solo generate()")
     return results
@@ -154,6 +180,13 @@ def main(argv=None):
     ap.add_argument("--w", type=int, default=4)
     ap.add_argument("--d", type=int, default=0, help="0 = profile-derived")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--n-target", type=int, default=6,
+                    help="devices per replica for the target (with too few devices every "
+                         "replica shares one)")
+    ap.add_argument("--n-draft", type=int, default=2, help="devices per replica for the draft")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="continuous: engine replicas behind one global queue (least-loaded "
+                         "routing, per-replica and fleet telemetry)")
     ap.add_argument("--continuous", action="store_true",
                     help="serve a Poisson trace through the continuous-batching runtime")
     ap.add_argument("--async-rounds", action="store_true",
@@ -181,14 +214,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    replicas = args.replicas if args.continuous else 1
     eng, tp, dp, cfgT = build_engine(
         args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
-        d=args.d or 2, max_new=args.max_new, device=args.device,
-        async_rounds=args.async_rounds)
+        d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
+        replicas=replicas, device=args.device, async_rounds=args.async_rounds)
+    engines = eng
+    eng = eng[0] if isinstance(eng, list) else eng
     if args.d == 0:
         print(profile_depth(eng, tp, dp, args.prompt_len))
+        for e in set(engines) if isinstance(engines, list) else ():
+            e.cfg = eng.cfg
     if args.continuous:
-        run_continuous(args, eng, tp, dp, cfgT)
+        run_continuous(args, engines, tp, dp, cfgT)
         return
 
     total_toks, total_s = 0, 0.0

@@ -1,5 +1,6 @@
-"""Model API (``repro.models.api``): init, caches, prefill, the tree-masked
-``spec_forward`` and the chain/decode forwards, on one device.
+"""Model API (``repro.models.api``): init, caches, the training forward
+``forward_train``, prefill, the tree-masked ``spec_forward`` and the
+chain/decode forwards, on one device.
 
 Token, embedding, encoder-state, position and row arguments may be tensors
 or numpy arrays; they are moved to the model's device.  A prefill takes
@@ -9,6 +10,10 @@ model with cross blocks, the stub encoder states; the cached forwards read
 the encoder K/V that the prefill cached.  The cached forwards write K/V rows into the
 cache in place and return new mamba2 and rwkv6 state tensors (the input
 cache keeps its state; ``models/transformer.py``).
+
+Weights are frozen (no parameter requires a gradient), so no serving
+forward builds an autograd graph; ``init(seed, trainable=True)`` gives a
+trainer weights that do, and the serving engines refuse them.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ class Model:
     device: torch.device
 
     # ---- construction ----------------------------------------------------
-    def init(self, seed: int) -> DecoderLM:
-        return init_model(self.cfg, seed, self.device)
+    def init(self, seed: int, trainable: bool = False) -> DecoderLM:
+        """Seeded weights; ``trainable`` makes every parameter require a
+        gradient (a trainer's copy — the serving engines refuse it)."""
+        return init_model(self.cfg, seed, self.device).requires_grad_(trainable)
 
     def init_cache(self, B, S_max, dtype=None):
         return init_cache(self.cfg, B, S_max, getattr(torch, dtype or self.cfg.dtype), self.device)
@@ -53,6 +60,19 @@ class Model:
         if embeds is not None:
             return self._dev(embeds, getattr(torch, self.cfg.dtype))
         return embed_tokens(self.cfg, params, self._dev(tokens))
+
+    # ---- training ----------------------------------------------------------
+    def forward_train(self, params, tokens=None, embeds=None, enc=None):
+        """Full causal forward -> logits [B, S, V]: no cache, differentiable
+        in ``params`` (and in ``embeds``/``enc`` when they require a
+        gradient)."""
+        h = self._embed(params, tokens, embeds)
+        B, S, _ = h.shape
+        positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
+        if enc is not None:
+            enc = self._dev(enc, h.dtype)
+        h, _ = apply_model(self.cfg, params, h, Ctx(mode="full", positions=positions, enc=enc))
+        return logits_from_hidden(self.cfg, params, h)
 
     # ---- serving -----------------------------------------------------------
     def prefill(self, params, tokens=None, embeds=None, enc=None, S_max=None):

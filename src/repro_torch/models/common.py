@@ -1,5 +1,5 @@
 """Shared model building blocks (``repro.models.common``): seeded init,
-RMSNorm and RoPE."""
+RMSNorm, RoPE and the training loss."""
 
 from __future__ import annotations
 
@@ -39,3 +39,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: log-sum-exp minus the gold logit,
+    averaged over every token or, with ``mask``, over the masked ones (a
+    denominator of at least 1).  logits [..., V], labels [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

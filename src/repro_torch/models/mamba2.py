@@ -11,7 +11,9 @@ Parameters, per block: ``w_in`` [d, d_in | d_in | 2GN | H] is the
 reference's four projections w_z, w_x, w_bc, w_dt side by side (one product
 instead of four: the x and BC columns are then the conv input as they
 stand), ``conv_w`` [K, conv_dim] its conv_wx and conv_wbc side by side, and
-``a`` = -exp(a_log) in float32, as the reference computes it on every call.
+``a_log``, from which every call takes a = -exp(a_log) in float32, as the
+reference does (so a trainer updates a_log, as the reference's).  Joined
+products train as the reference's separate ones: AdamW is elementwise.
 State per layer: the conv window [B, K-1, conv_dim] and the SSM state
 [B, H, hd, N] (float32).
 
@@ -52,7 +54,7 @@ def init_mamba2(cfg, gen: torch.Generator, device) -> dict:
     return {
         "w_in": w_in, "conv_w": conv_w,
         "conv_b": torch.zeros(conv_dim, dtype=dt, device=device),
-        "a": -torch.exp(a_log.to(dt).float()),
+        "a_log": a_log.to(dt),
         "dt_bias": torch.zeros(nheads, dtype=dt, device=device),
         "d_skip": torch.ones(nheads, dtype=dt, device=device),
         "norm_w": torch.ones(d_in, dtype=dt, device=device),
@@ -67,7 +69,7 @@ def params_from_reference(p: dict) -> dict:
         "w_in": torch.cat([p["w_z"], p["w_x"], p["w_bc"], p["w_dt"]], -1),
         "conv_w": torch.cat([p["conv_wx"], p["conv_wbc"]], -1),
         "conv_b": p["conv_b"],
-        "a": -torch.exp(p["a_log"].float()),
+        "a_log": p["a_log"],
         "dt_bias": p["dt_bias"], "d_skip": p["d_skip"], "norm_w": p["norm_w"],
         "out_proj": p["out_proj"],
     }
@@ -187,10 +189,11 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None):
     dt = F.softplus(proj[..., d_in + conv_dim:].float() + p["dt_bias"].float())
     state0 = (cache["ssm"] if cache is not None else
               xin.new_zeros((B, nheads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32))
+    a = -torch.exp(p["a_log"].float())  # [H]
     if n_commit is None:
-        y, state = _ssd_chunked(xc, bv, cv, dt, p["a"], p["d_skip"], state0)
+        y, state = _ssd_chunked(xc, bv, cv, dt, a, p["d_skip"], state0)
     else:
-        y, state = _ssd_stepwise(xc, bv, cv, dt, p["a"], p["d_skip"], state0, int(n_commit))
+        y, state = _ssd_stepwise(xc, bv, cv, dt, a, p["d_skip"], state0, int(n_commit))
     y = rms_norm(y.reshape(B, S, d_in) * F.silu(z), p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], {"conv": new_conv, "ssm": state}
 

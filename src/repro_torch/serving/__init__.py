@@ -3,8 +3,9 @@
 ``ContinuousBatchingRuntime`` serves a request queue through per-slot
 admit / decode / retire lifecycles over one ``SpecEngine`` state, lockstep
 or with async rounds; every output is byte-identical to a solo
-``generate()``.  The queue, scheduler and stats modules are copies of the
-reference's framework-neutral ones; the sharded router is not ported yet.
+``generate()``.  ``ShardedServingRuntime`` serves one global queue over N
+engine replicas with least-loaded routing.  The queue, scheduler and stats
+modules are copies of the reference's framework-neutral ones.
 
     rt = ContinuousBatchingRuntime(engine, tparams, dparams, n_slots=4)
     for i, prompt in enumerate(prompts):
@@ -20,6 +21,7 @@ from repro_torch.serving.runtime import (
     VirtualClock,
     WallClock,
 )
+from repro_torch.serving.router import ShardedServingRuntime
 from repro_torch.serving.scheduler import AdaptiveDepthController, SchedulerConfig
 from repro_torch.serving.stats import (
     RequestRecord,
@@ -38,6 +40,7 @@ __all__ = [
     "RequestRecord",
     "SchedulerConfig",
     "ServerStats",
+    "ShardedServingRuntime",
     "VirtualClock",
     "WallClock",
     "fleet_report",

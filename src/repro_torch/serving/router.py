@@ -1,0 +1,98 @@
+"""ShardedServingRuntime (``repro.serving.router``) — one global request
+queue dispatched over N SpecEngine replicas with depth-aware routing.
+
+Each replica is a (target group, draft group) pair carved by
+``repro_torch.launch.mesh.make_serving_devices(..., replicas=N)``, driven by
+its own ``EngineStepper`` — the same per-slot admit/absorb/retire lifecycle
+and the same fleet loop (``ServingRuntimeBase``) the single-engine runtime
+uses, so the byte-identical contract holds per request whichever replica
+served it, and the single-engine runtime is the N = 1 case.
+
+Routing (``ServingRuntimeBase._route``): a popped request lands on the
+replica with the lowest occupancy fraction among those with a free slot;
+equal load breaks on deadline slack, then FIFO — the replica that has gone
+longest since its last admission wins — so equal load spreads round-robin
+instead of piling onto replica 0.
+
+One global round of the fleet loop = every busy replica dispatches its
+round, the clock advances once, then every replica absorbs, retires and
+backfills.  With async rounds a replica's dispatch enqueues its verify and
+its lookahead without waiting for the card, so the host moves on to the
+next replica's dispatch, and each replica makes its one host sync per
+round in its absorb (a lockstep replica makes it inside its step).  When
+the carved pairs fall back to one shared device, the replicas share one
+engine object and one card: every round of every replica is state of its
+own session (its ``EngineState`` and its ``RoundInFlight``), and the
+engine holds only its models, its config and its two streams.
+Telemetry is one ``ServerStats`` per replica, merged by
+``stats.merge_summary`` / ``fleet_report`` into global TTFT and throughput
+plus the per-replica occupancy breakdown.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.serving.queue import RequestQueue
+from repro_torch.serving.runtime import EngineStepper, ServingRuntimeBase
+from repro_torch.serving.stats import ServerStats, fleet_report, merge_summary
+
+
+class ShardedServingRuntime(ServingRuntimeBase):
+    """N-replica continuous batching over one global ``RequestQueue``.
+
+    ``engines`` is a list of SpecEngine replicas (passing the same engine
+    object N times is valid — states are per replica — and is what the
+    shared-device fallback does).  ``tparams``/``dparams`` are either one
+    set shared by every replica or a list with one entry per replica
+    (weights resident on that replica's devices)."""
+
+    def __init__(self, engines, tparams, dparams, n_slots: int, *,
+                 queue: RequestQueue | None = None,
+                 clock=None,
+                 stream: Callable[[int, list, bool], None] | None = None,
+                 tracer=None,
+                 metrics=None,
+                 scheduler=None):
+        if not engines:
+            raise ValueError("need at least one engine replica")
+        self._init_admission(queue, clock, tracer, metrics)
+        tps = tparams if isinstance(tparams, list) else [tparams] * len(engines)
+        dps = dparams if isinstance(dparams, list) else [dparams] * len(engines)
+        if not (len(tps) == len(dps) == len(engines)):
+            raise ValueError("per-replica params must match the engine count")
+        self._init_fleet([
+            EngineStepper(eng, tp, dp, n_slots,
+                          stats=ServerStats(), stream=stream,
+                          results=self.results, replica=i,
+                          tracer=self.tracer, metrics=self.metrics,
+                          scheduler=scheduler)
+            for i, (eng, tp, dp) in enumerate(zip(engines, tps, dps))
+        ])
+
+    # ------------------------------------------------------------------
+    @property
+    def n_replicas(self) -> int:
+        return len(self.steppers)
+
+    @property
+    def stats(self) -> list[ServerStats]:
+        """Per-replica telemetry (merge with ``summary()``/``report()``)."""
+        return [s.stats for s in self.steppers]
+
+    def summary(self) -> dict:
+        # per-replica accept-depth histograms may have different bucket
+        # edges (replicas can run different draft depths) — merge_summary
+        # unions the edges instead of summing counts positionally
+        hists = [h for _, h in self.metrics.histogram_family("serving_accept_depth")]
+        return merge_summary(self.stats, accept_hists=hists or None)
+
+    def report(self) -> str:
+        return fleet_report(self.stats)
+
+    def replica_of(self, rid: int) -> int | None:
+        """Which replica served (or is serving) a request, None if unknown."""
+        for i, st in enumerate(self.steppers):
+            if rid in st.stats.records:
+                return i
+        return None

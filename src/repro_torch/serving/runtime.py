@@ -13,15 +13,16 @@ rows; ``EngineStepper`` gives each row (a *slot*) its own request lifecycle:
             parked, KV rows zeroed) and immediately backfilled from the
             queue on the next loop turn.
 
-``ContinuousBatchingRuntime`` drives ONE stepper over a ``RequestQueue``.
-The reference's fleet loop routes over N steppers for its
-``ShardedServingRuntime``; the port has no router yet (it waits for the
-slice that carves several GPUs into target and draft groups), so its loop
-serves the one stepper.  Because greedy verification makes each row's emitted stream
-equal target-only greedy decoding regardless of what the other rows are
-doing, a request's output is byte-identical to a solo ``generate()`` run no
-matter when it was admitted (tests/test_torch_serving.py asserts this
-against the port's solo run and the reference's runtime).
+``ContinuousBatchingRuntime`` drives ONE stepper over a ``RequestQueue``;
+``ShardedServingRuntime`` (``repro_torch.serving.router``) drives N of them
+over one global queue with depth-aware routing.  Both share the same
+stepper and the same fleet loop, so the slot lifecycle has exactly one
+implementation.  Because greedy verification makes each row's emitted
+stream equal target-only greedy decoding regardless of what the other rows
+are doing, a request's output is byte-identical to a solo ``generate()``
+run no matter when it was admitted or which replica served it
+(tests/test_torch_serving.py and tests/test_torch_router.py assert this
+against the port's solo run and the reference's runtimes).
 
 With ``async_rounds`` a round is dispatched by ``EngineStepper.step`` (the
 target's verify on one CUDA stream, the draft's lookahead on another) and
@@ -45,7 +46,11 @@ from repro_torch.obs.clock import monotonic
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NOOP_SPAN, NULL_TRACER
 from repro_torch.serving.queue import Request, RequestQueue
-from repro_torch.serving.scheduler import AdaptiveDepthController, SchedulerConfig
+from repro_torch.serving.scheduler import (
+    AdaptiveDepthController,
+    SchedulerConfig,
+    deadline_slack,
+)
 from repro_torch.serving.stats import ServerStats
 
 # accepted-depth histogram bucket for "replica admitted/finished" style
@@ -202,6 +207,17 @@ class EngineStepper:
     def has_free_slot(self) -> bool:
         return any(s is None for s in self.slots)
 
+    @property
+    def load(self) -> float:
+        """Occupancy fraction in [0, 1] — the routing signal."""
+        return self.occupied / self.n_slots
+
+    def deadline_slack(self, now: float) -> float:
+        """Tightest remaining deadline slack across this replica's occupied
+        slots (+inf when none is deadlined) — the router's SLO-pressure
+        tie-break (see ``ServingRuntimeBase._route``)."""
+        return deadline_slack(self.slots, now)
+
     # ------------------------------------------------------------------
     def admit(self, req: Request, now: float) -> int:
         """Install ``req`` into the first free slot; returns the slot.  The
@@ -342,11 +358,14 @@ class EngineStepper:
 
 
 class ServingRuntimeBase:
-    """The serve loop over one stepper: trace submission, arrival feeding,
-    admission into free slots, the round loop, and idle handling.
+    """The serve loop over a fleet of steppers: trace submission, arrival
+    feeding, routed admission, the round loop, and idle handling — shared by
+    the single-engine runtime (a 1-stepper fleet) and the sharded runtime
+    (N steppers), so both admission semantics and the round schedule have
+    exactly one implementation.
 
-    Subclasses call ``_init_admission`` then set ``self.stepper`` from
-    their constructors.
+    Subclasses call ``_init_admission`` then ``_init_fleet`` from their
+    constructors.
     """
 
     def _init_admission(self, queue: RequestQueue | None, clock,
@@ -390,7 +409,7 @@ class ServingRuntimeBase:
 
     def _arrive(self, req: Request) -> bool:
         """Run the arrival-time admission gates for one request."""
-        if req.prompt.size >= self.stepper.plen_limit:
+        if req.prompt.size >= self._plen_limit:
             return self.queue.reject(req)
         return self.queue.submit(req)
 
@@ -423,61 +442,111 @@ class ServingRuntimeBase:
         self.clock.reset()
         return True
 
-    # ---- the serve loop ------------------------------------------------
+    # ---- the fleet loop ----------------------------------------------
+    def _init_fleet(self, steppers: list[EngineStepper]) -> None:
+        self.steppers = steppers
+        # replicas could in principle differ; admission must fit the tightest
+        self._plen_limit = min(s.plen_limit for s in steppers)
+        self._seq = 0
+        self._last_dispatch = [-1] * len(steppers)
+
+    @property
+    def occupied(self) -> int:
+        return sum(s.occupied for s in self.steppers)
+
+    def _route(self, now: float) -> int | None:
+        """Pick the admission target: least-loaded stepper (occupancy
+        fraction) among those with a free slot.  Equal load breaks on
+        deadline slack — the replica whose in-flight work has the MOST
+        remaining slack wins, so a new admission (whose rounds every
+        co-resident request shares) is steered away from the replica that
+        must finish something soonest.  Replicas with no deadlined work
+        have infinite slack and tie, falling through to the FIFO tie-break
+        — the stepper whose last admission is oldest — so deadline-free
+        fleets keep the round-robin spread exactly.  None when the fleet is
+        full.  (With one stepper this degenerates to "is a slot free".)"""
+        best_key, best = None, None
+        for i, st in enumerate(self.steppers):
+            if not st.has_free_slot:
+                continue
+            key = (st.load, -st.deadline_slack(now), self._last_dispatch[i])
+            if best_key is None or key < best_key:
+                best_key, best = key, i
+        return best
+
     def _admit_ready(self) -> None:
-        """Drain arrived requests into free slots (the queue's deadline-aware
-        pop picks WHICH request); each admission reads the clock ONCE — the
-        same timestamp gates the pop and stamps ``on_admit``."""
-        while self.stepper.has_free_slot:
+        """Drain arrived requests into free slots fleet-wide, one routing
+        decision per request (the queue's deadline-aware pop picks WHICH
+        request, ``_route`` picks WHERE); each admission reads the clock
+        ONCE — the same timestamp keys the routing slack, gates the pop,
+        and stamps ``on_admit``."""
+        while True:
             now = self.clock.now()
             route_span = self.tracer.begin("route", "router")
+            target = self._route(now)
+            if target is None:
+                route_span.end()
+                return
             with self.tracer.span("queue_pop", "router"):
                 req = self.queue.pop_ready(now)
             if req is None:
                 route_span.end()
                 return
-            route_span.set("replica", self.stepper.replica)
+            route_span.set("replica", target)
             route_span.set("rid", req.rid)
             route_span.end()
-            self.stepper.admit(req, now)
+            self.steppers[target].admit(req, now)
+            self._seq += 1
+            self._last_dispatch[target] = self._seq
 
     def run(self) -> dict[int, list]:
-        """Serve until the queue drains and every slot retires.  Returns
-        {rid: emitted tokens}; telemetry accumulates in the stepper's
+        """Serve until the queue drains and every slot retires.  Returns the
+        merged {rid: emitted tokens}; telemetry accumulates in each stepper's
         ServerStats."""
-        st = self.stepper
         if self._start_run():
-            # later runs keep the original start so summary() throughput
-            # spans all serving
-            st.stats.started_s = self.clock.now()
-        while self._pending or self.queue.pending or st.occupied:
+            t0 = self.clock.now()
+            for st in self.steppers:
+                st.stats.started_s = t0  # later runs keep the original
+                # start so summary() throughput spans all serving
+        while self._pending or self.queue.pending or self.occupied:
             self._feed_arrived()
             self._admit_ready()
-            if not st.occupied:
+            busy = [st for st in self.steppers if st.occupied]
+            if not busy:
                 nxt = self._next_arrival()
                 if nxt is None:
                     break
                 with self.tracer.span("idle", "router"):
                     self.clock.wait_until(nxt)  # idle: jump to the next arrival
                 continue
-            # one round: dispatch, the clock ticks once, then absorb and
-            # retire.  If the absorb raises after a dispatch, the round is
+            # one global round: every busy stepper dispatches (with async
+            # rounds nothing waits for the card until the absorbs), the clock
+            # ticks once, then every stepper absorbs and retires.  If any
+            # dispatch or absorb raises, every other dispatched round is
             # aborted on the way out — no open round span, no orphaned
             # RoundInFlight.
-            res = st.step()
+            stepped: list = []
             try:
-                self.clock.on_round(st.last_round_depth)
+                for st in busy:
+                    stepped.append((st, st.step()))
+                # the global round costs what the deepest replica round cost
+                self.clock.on_round(max(st.last_round_depth for st in busy))
                 now = self.clock.now()
                 qdepth = self.queue.depth(now)
                 self._m_queue_depth.append(now, qdepth)
                 self.tracer.counter("queue_depth", qdepth)
-                self.tracer.counter("occupied", st.occupied)
-                st.stats.on_round(st.occupied, qdepth)
+                self.tracer.counter("occupied", self.occupied)
+                while stepped:
+                    st, res = stepped.pop(0)
+                    st.stats.on_round(st.occupied, qdepth)
+                    st.absorb_round(res, now)
             except BaseException:
-                st.abort_round(res)
+                for st, res in stepped:
+                    st.abort_round(res)
                 raise
-            st.absorb_round(res, now)
-        st.stats.finished_s = self.clock.now()
+        t1 = self.clock.now()
+        for st in self.steppers:
+            st.stats.finished_s = t1
         return self.results
 
 
@@ -500,6 +569,7 @@ class ContinuousBatchingRuntime(ServingRuntimeBase):
             engine, tparams, dparams, n_slots,
             stats=self.stats, stream=stream, results=self.results,
             tracer=self.tracer, metrics=self.metrics, scheduler=scheduler)
+        self._init_fleet([self.stepper])
         self.engine, self.n_slots = engine, n_slots
 
     @property

@@ -112,9 +112,15 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_serve_cli_profiles_depth_and_refuses_later_slices(capsys):
+    """The profile pass picks d; the fleet flags (once refused) now serve a
+    continuous trace over two replicas sharing the one CPU device, with the
+    fleet report and every output checked against its solo generate()."""
     serve.main(["--device", "cpu", "--requests", "1", "--max-new", "8", "--mode", "serial"])
     out = capsys.readouterr().out
     assert out.startswith("profile: t_draft=") and "(serial mode)" in out
-    for flag in ("--replicas", "--n-target", "--n-draft"):  # the router's slice
-        with pytest.raises(SystemExit):
-            serve.main(["--device", "cpu", flag, "2"])
+    serve.main(["--device", "cpu", "--continuous", "--replicas", "2", "--n-target", "1",
+                "--n-draft", "1", "--d", "1", "--requests", "4", "--max-new", "8"])
+    out = capsys.readouterr().out
+    assert "(2 replicas x 2 slots" in out
+    assert "replica 0:" in out and "replica 1:" in out and "fleet: 4 finished" in out
+    assert out.count("byte-identical to solo generate() (replica") == 4

@@ -143,24 +143,41 @@ def test_decode_attention_is_tree_attention_at_one_query():
 
 def _bf16_kernel_arithmetic(q, k, v, mask):
     """The bf16 kernel's arithmetic (csrc/attention.cuh) written out in torch:
-    q·kᵀ of bf16 values summed in f32, the f32 softmax, P split into
-    hi = bf16(p) and lo = bf16(p - hi), P·V of bf16 values summed in f32.
+    f32 scores of the bf16 values, the f32 softmax numerators P and their
+    f32 sum l, P split into hi = bf16(p) and lo = bf16(p - hi), and P·V of
+    the bf16 values over l.  The sums run in float64 and are rounded once
+    to f32, so the result is a function of the inputs alone — not of the
+    order in which a library sums in this process — and differs from the
+    kernel's only by the kernel's own f32 summation order.
     q [B, n, Hq, hd], k/v [B, S, Hkv, hd] bf16, mask bool [B, n, S].
     Returns the f32 result before the output's bf16 rounding."""
     B, n, hq, hd = q.shape
     hkv = k.shape[2]
-    qg = q.float().reshape(B, n, hkv, hq // hkv, hd)
-    s = torch.einsum("bnkgh,bskh->bkgns", qg, k.float()) * (1.0 / math.sqrt(hd))
+    qg = q.double().reshape(B, n, hkv, hq // hkv, hd)
+    s = (torch.einsum("bnkgh,bskh->bkgns", qg, k.double()) / math.sqrt(hd)).float()
     m = mask[:, None, None]
     s = torch.where(m, s, torch.full_like(s, -1e30))
     p = torch.where(m, torch.exp(s - s.amax(-1, keepdim=True)), torch.zeros_like(s))
-    l = p.sum(-1, keepdim=True)
+    l = p.double().sum(-1, keepdim=True).float()
     hi = p.to(torch.bfloat16).float()
     lo = (p - hi).to(torch.bfloat16).float()
-    o = torch.einsum("bkgns,bskh->bkgnh", hi, v.float()) + \
-        torch.einsum("bkgns,bskh->bkgnh", lo, v.float())
+    o = torch.einsum("bkgns,bskh->bkgnh", hi.double() + lo.double(), v.double()).float()
     o = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)), torch.zeros_like(o))
     return o.permute(0, 3, 1, 2, 4).reshape(B, n, hq, hd)
+
+
+def _exact_attention(q, k, v, mask):
+    """Tree-masked attention of the same values in float64 (the plain
+    version's function, without its f32 roundings); fully masked rows 0."""
+    B, n, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(B, n, hkv, hq // hkv, hd)
+    s = torch.einsum("bnkgh,bskh->bkgns", qg, k.double()) / math.sqrt(hd)
+    m = mask[:, None, None]
+    s = torch.where(m, s, torch.full_like(s, -math.inf))
+    p = torch.where(m.any(-1, keepdim=True), torch.softmax(s, -1), torch.zeros_like(s))
+    p = torch.nan_to_num(p)
+    return torch.einsum("bkgns,bskh->bnkgh", p, v.double()).reshape(B, n, hq, hd)
 
 
 def _bf16_cases():
@@ -188,16 +205,22 @@ def _bf16_cases():
 @pytest.mark.parametrize("case", list(_bf16_cases()), ids=lambda c: c[0])
 def test_bf16_kernel_arithmetic_matches_reference(case):
     """The bf16 kernel's split of P into hi + lo keeps the reference's f32 P:
-    before the output's rounding it is within 1e-5 of the f32 plain version
-    on the same bf16 values (one rounding of P would be ~1e-3 off), and
-    after it within bf16's 2e-2 of the JAX package's reference; a fully
-    masked row or a length 0 gives exact zeros."""
+    before the output's rounding it is within 1e-5 of the attention of the
+    same bf16 values computed exactly (float64; one rounding of P would be
+    ~1e-3 off), and after it within bf16's 2e-2 of the JAX package's
+    reference; a fully masked row or a length 0 gives exact zeros.  Both
+    sides sum in float64, so the verdict depends on the inputs alone: with
+    f32 sums a library's order of summation, which may differ from one
+    process to the next, moved P's last bits and, through the split, the
+    result by up to the tolerance."""
     _, q, k, v, m = case
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (q, k, v))
     mask = torch.tensor(m)
     got = _bf16_kernel_arithmetic(tq, tk, tv, mask)
-    want = ref.tree_attention_ref(tq.float(), tk.float(), tv.float(), mask)
+    want = _exact_attention(tq, tk, tv, mask)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+    plain = ref.tree_attention_ref(tq.float(), tk.float(), tv.float(), mask)
+    np.testing.assert_allclose(plain.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
     jwant = jref.tree_attention_ref(jq, jk, jv, jnp.asarray(m))
     np.testing.assert_allclose(_np32(got.to(torch.bfloat16)), _np32(jwant), atol=2e-2, rtol=2e-2)
     assert (got.numpy()[~m.any(-1)] == 0).all()

@@ -326,6 +326,13 @@ def test_serve_cli_continuous_async_checks_itself_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--replicas", "--n-target", "--n-draft"])
-def test_serve_cli_refuses_the_router_slice(flag):
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--continuous", flag, "2"])
+def test_serve_cli_refuses_the_router_slice(flag, capsys):
+    """The router's flags, once refused, now serve: on the one CPU device
+    every replica's target and draft share it (the fallback), ``--replicas
+    2`` serves through two replicas with the fleet report, and every output
+    is checked against its solo generate()."""
+    serve.main(["--device", "cpu", "--continuous", flag, "2", "--d", "1", "--requests", "2",
+                "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert out.count("byte-identical to solo generate()") == 2 and "MISMATCH" not in out
+    assert ("2 replicas x 2 slots" in out and "fleet: 2 finished" in out) == (flag == "--replicas")
