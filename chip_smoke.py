@@ -21,7 +21,13 @@ It takes no options and runs every phase, in order:
            decode_attention at mixtral's G 6 and musicgen's hd 64,
            fused_swiglu at every dense MLP, kv_move_leaves in place and
            copying through and slot_write_rows on deepseek-moe's two-group
-           cache and minicpm3's MLA latents), and time kernel, plain
+           cache and minicpm3's MLA latents) and of the tensor-parallel
+           ranks of phase (tp) and beyond (Hq 16 / Hkv 4 at hd 128 and 64,
+           G 5, llama3-70b's tp-3 layouts G 9 over 3 and 4 KV heads,
+           fused_swiglu at the per-rank widths 4784, 2736 and 9560 that the
+           ranks run and at the ragged shares 4779, 2731 and 9558 that
+           they pad to a multiple of 8),
+           and time kernel, plain
            version and the PyTorch call that computes the same function
            (for fused_swiglu a composite of cuBLAS and elementwise calls),
            with CUDA events; fused_swiglu's autograd op at phase (t)'s
@@ -49,8 +55,8 @@ It takes no options and runs every phase, in order:
   chain    chain-mode speculation, ``ChainSpecEngine.session().generate()``,
            k 4, f32, prompt 16, max_new 32, S_max 512: (d3) llama3-8b +
            llama3-1b on the weights above, parallel, 1 request; then
-           zamba2-2.7b at full width, reduced to 24 of its 54 mamba2 layers
-           (4 of its 9 units; the shared attention block every 6), weights
+           zamba2-2.7b at full width, reduced to 12 of its 54 mamba2 layers
+           (2 of its 9 units; the shared attention block every 6), weights
            seed 0 with the lm_head x4: (d1)
            self-draft, parallel, 2 requests (every chain commits and the
            next one is reused); (d2) an independent seed-7 draft of the same
@@ -76,7 +82,7 @@ It takes no options and runs every phase, in order:
            granite-20b reduced to 8 of its 52 layers drafting for itself at
            d 2, 1 request: lockstep, f32, max_new 32, each output equal to
            the greedy decode, one host sync per round
-  rwkv6    chain mode on rwkv6-7b at full width, reduced to 16 of its 32
+  rwkv6    chain mode on rwkv6-7b at full width, reduced to 8 of its 32
            layers (k 4, f32, max_new 32, 1 request): (g1) self-draft,
            parallel; (g2)/(g2s) an
            independent seed-7 draft reduced to 8 of its 32 layers, parallel
@@ -108,8 +114,26 @@ It takes no options and runs every phase, in order:
            smoke config (reduced), save/restore bit for bit and a run
            stopped as by a preemption and resumed from its checkpoint
            bit for bit equal to the uninterrupted run
+  tp       tensor parallelism, both models sharded over ranks that share
+           the one card through gloo (NCCL refuses two ranks on one
+           device), each rank a process of its own: (p1) llama3-8b cut to
+           16 of its 32 layers with llama3-1b cut to 8 of 16 at tp 2 (per
+           rank Hq 16, Hkv 4, fused_swiglu at N 7168 and 4096), lockstep
+           then async rounds; (p2) qwen2.5-14b cut to 8 of its 48 layers
+           drafting for itself at d 2, tp 3, padded by resolve_for_tp (per
+           rank Hq 15, Hkv 3: G 5), lockstep; 1 request, prompt 16, max_new
+           32 / 24, f32.  Each rank's output must equal the sharded model's
+           greedy decode and every other rank's, its prefill logits the
+           single-process model's of the same draws (computed before the
+           ranks start) within 2e-4, tree_attention, fused_swiglu and
+           kv_move_rows must launch on every rank, one host sync of the
+           port's per lockstep round (the collectives, staged through the
+           host by gloo, are reported apart); (p3) (p1)'s target on an NCCL
+           group of one rank in this process: its prefill bit for bit equal
+           to the model without a group
   shapes   every shape at which a path called a kernel, held against its
-           plain version again
+           plain version again, the tp ranks' shapes included (each rank
+           records its own and hands them back)
 
 Each path prints its launches and a kernel trace of two rounds
 (``build/traces/trace_<path>.json``).  The last two lines of standard output
@@ -233,8 +257,8 @@ DENSE_NEW_PATHS = {  # (f1)-(f3): target, its depth on the card (None: full), dr
 }
 DENSE_NEW_TOKENS = 32  # max_new per request of phase (f)
 RWKV_DRAFT_LAYERS = 8  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
-RWKV_LAYERS = 16  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
-ZAMBA_LAYERS = 24  # phase (d1)-(d2s)'s zamba2-2.7b: 4 of its 9 units (6 mamba2 + the shared block)
+RWKV_LAYERS = 8  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
+ZAMBA_LAYERS = 12  # phase (d1)-(d2s)'s zamba2-2.7b: 2 of its 9 units (6 mamba2 + the shared block)
 SERVE_C_LAYERS = (16, 8)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
 FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attention" holds
     # tree and decode attention at its heads, "kv" kv_move_leaves and slot_write_rows at its
@@ -248,6 +272,24 @@ FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the k
     "h3": ("minicpm3-4b", 31, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
     "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
 }
+TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer shapes
+    # ((p1)'s target and draft at tp 2, (p2)'s G 5, the ragged per-rank d_ff of llama3-8b
+    # and -1b at tp 3, the two rank layouts of llama3-70b at tp 3: G 9 over 3 or 4 KV heads)
+    ("8B-tp2", "llama3-8b", 2, 0, {"attention", "kv"}),
+    ("1B-tp2", "llama3-1b", 2, 0, {"attention", "kv"}),
+    ("qwen14B-tp3", "qwen2.5-14b", 3, 0, {"attention", "kv"}),
+    ("8B-tp3", "llama3-8b", 3, 0, set()), ("1B-tp3", "llama3-1b", 3, 0, set()),
+    ("70B-tp3-r0", "llama3-70b", 3, 0, {"attention"}),
+    ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}))
+TP_PATHS = {  # (p1)/(p2): (target, its depth), (draft, its depth) or None (self), tp, max_new, runs
+    "p1": (("llama3-8b", 16), ("llama3-1b", 8), 2, 32, ("lockstep", "async")),
+    "p2": (("qwen2.5-14b", 8), None, 3, 24, ("lockstep",)),
+}
+TP_BACKEND = "gloo"  # several ranks on one card: NCCL refuses two ranks on one device
+# the sharded prefill against the single-process one: the sums over heads and ff columns are
+# split over the ranks and added by the all-reduce, so they round in another order; the
+# reference's own tensor-parallel tolerance (tests/test_sharding.py:65)
+TP_LOGIT_TOL = 2e-4
 FAMILY_TOKENS = 24  # max_new of (h1)-(h4)
 VISION_LAYERS = 5  # (h5): one unit of llama-3.2-vision-90b, 4 dense blocks + 1 cross, of 100
 VISION_STEPS = 16  # (h5): prompt 16, then 16 greedy decode steps
@@ -255,7 +297,10 @@ VISION_STEPS = 16  # (h5): prompt 16, then 16 greedy decode steps
 
 def new_shapes() -> dict:
     """label -> the single-layer shapes of a DENSE_NEW or FAMILY_NEW config
-    at full width and S 512 where its paths call a kernel: tree_attention
+    at full width and S 512, or of a TP_NEW rank (its heads, its dense-MLP
+    width — its share of the padded d_ff rounded up to a multiple of 8 —
+    and, where that rounding widened it, the ragged share too), where its
+    paths call a kernel: tree_attention
     (B, n, Hq, Hkv, hd, S) at the verify (n 8) and a draft expansion (n 4)
     and decode_attention (B, Hq, Hkv, hd, S) — of the families only
     mixtral's (G 6) and musicgen's (hd 64), the new head shapes —,
@@ -264,20 +309,26 @@ def new_shapes() -> dict:
     deepseek-moe's two groups: k and v of each; minicpm3: the MLA latents),
     and for those two families the serving leaves [U, B 2, S, ...] for
     slot_write_rows."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.parallel.shard import Shard
 
     out = {}
     dense = [(label, name, {"attention", "kv"}) for label, name in DENSE_NEW]
-    for label, name, checks in dense + list(FAMILY_NEW):
-        c = get_config(name)
-        hq, hkv, hd = c.n_heads, c.n_kv_heads, c.head_dim
-        family = label not in dict(DENSE_NEW)
+    tp_new = {label: (tp, rank) for label, _, tp, rank, _ in TP_NEW}
+    for label, name, checks in dense + list(FAMILY_NEW) + [t[:2] + t[4:] for t in TP_NEW]:
+        c, ragged = get_config(name), None
+        if label in tp_new:  # the rank's heads and dense-MLP width (its share, padded to 8)
+            tp, rank = tp_new[label]
+            ragged = resolve_for_tp(c, tp).d_ff // tp  # the share before that padding
+            c = Shard(c, rank, tp).local_cfg
+        hq, hkv, hd, ff = c.n_heads, c.n_kv_heads, c.head_dim, c.d_ff
+        family = label in {f[0] for f in FAMILY_NEW}
         m = out[label] = {}
         if "attention" in checks:
             m.update(verify=(1, 8, hq, hkv, hd, 512), expand=(1, 4, hq, hkv, hd, 512),
                      decode=(1, hq, hkv, hd, 512))
         if "dense" in c.layer_kinds:
-            m["swiglu"] = [(1, c.d_model, c.d_ff), (8, c.d_model, c.d_ff)]
+            m["swiglu"] = [(M, c.d_model, N) for N in sorted({ff, ragged or ff}) for M in (1, 8)]
         if "kv" not in checks:
             continue
         if c.attn_kind == "mla":
@@ -1376,45 +1427,6 @@ def serve_fleet(torch, label, eng, tp, dp, trace, refs, card, replicas: int = 2)
     return counts
 
 
-class ShapeLog:
-    """The shapes at which the paths call each kernel wrapper: ``install``
-    wraps the wrappers in ``repro_torch.kernels.ops`` (the launch counts
-    stay the wrappers' own), ``uninstall`` puts them back."""
-
-    KEYS = {  # wrapper -> the shape of one call, from its arguments
-        "tree_attention": lambda q, k, v, mask, kv_bound=None: (
-            tuple(q.shape) + tuple(k.shape[1:3])),
-        "decode_attention": lambda q, k, v, length: tuple(q.shape) + tuple(k.shape[1:3]),
-        "fused_swiglu": lambda x, wg, wu: tuple(x.shape) + (wg.shape[1],),
-        "kv_move_rows": lambda arr, src, dst, mask, donate=False: (
-            tuple(arr.shape), src.shape[1], bool(donate)),
-        "kv_move_leaves": lambda leaves, src, dst, mask, donate=False: (
-            tuple(tuple(t.shape) for t in leaves), src.shape[1], bool(donate)),
-        "slot_write_rows": lambda leaves, donors, slot: (
-            tuple(tuple(t.shape) for t in leaves), donors is None),
-        "int4_matmul": lambda x, qweight, scales, zeros, group_size=128: (
-            tuple(x.shape) + (qweight.shape[1], group_size)),
-    }
-
-    def __init__(self, ops):
-        self.ops, self.seen, self.saved = ops, {name: set() for name in self.KEYS}, {}
-
-    def install(self):
-        for name, key in self.KEYS.items():
-            fn = self.saved[name] = getattr(self.ops, name)
-
-            def logged(*a, _fn=fn, _name=name, _key=key, **kw):
-                first = a[0][0] if _name in ("slot_write_rows", "kv_move_leaves") else a[0]
-                self.seen[_name].add(_key(*a, **kw) + (str(first.dtype),))
-                return _fn(*a, **kw)
-
-            setattr(self.ops, name, logged)
-
-    def uninstall(self):
-        for name, fn in self.saved.items():
-            setattr(self.ops, name, fn)
-
-
 class RoundTracer:
     """A ``Tracer`` for ``ChainSession.generate`` that profiles rounds
     [1, 1 + rounds): it starts torch.profiler when round 1 begins and stops
@@ -2023,7 +2035,144 @@ def phase_train(torch, card):
     return {"t": counts}
 
 
-def phase_shapes(torch, log: ShapeLog, card):
+def phase_tp(torch, card, log):
+    """(p1)/(p2): the tree engine with target and draft sharded over ranks
+    that share the card (gloo), each rank a process that ``run_ranks``
+    starts (``parallel.workers.spec_engine``), its weights drawn tensor by
+    tensor and sliced as drawn.  Before the ranks start, the single-process
+    model of the same draws gives the reference prefill logits (kept on the
+    host, the weights freed: the card holds every copy once); on (p1)'s it
+    also runs (p3), the sharded model on an NCCL group of one rank, whose
+    prefill must equal it bit for bit.  Every rank's output must equal the
+    sharded target's greedy decode and the other ranks', its prefill
+    logits the reference's within TP_LOGIT_TOL, its runs launch the main
+    path's kernels and make one host sync of the port's per lockstep
+    round; the collectives per round (each staged through the host by
+    gloo) are reported apart.  The shapes at which each rank launched a
+    kernel join ``log`` (a ``ShapeLog``), for phase_shapes to hold."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_request_stream
+    from repro_torch.models.api import make_model
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel import init_tp, shutdown_tp
+    from repro_torch.parallel.shard import shard_params
+    from repro_torch.parallel.spawn import run_ranks
+
+    counts = {}
+    work = os.path.join(HERE, "build", "tp")
+    print(f"tensor parallel: the ranks share the one card through {TP_BACKEND} (NCCL refuses two "
+          "ranks on one device), so a round here checks correctness and is no tensor-parallel "
+          "speed figure", flush=True)
+    for path, ((tname, tdepth), draft, tp, max_new, runs) in TP_PATHS.items():
+        tcfg = dataclasses.replace(get_config(tname), n_layers=tdepth)
+        dcfg = None if draft is None else dataclasses.replace(get_config(draft[0]),
+                                                              n_layers=draft[1])
+        prompt = next(make_request_stream(tcfg.vocab_size, 16, 1, 1, seed=11))
+        label = (f"({path}) {tname}/{tdepth}" + ("" if dcfg is None else
+                                                  f" + {draft[0]}/{draft[1]}") + f" tp {tp}")
+        print(f"{label}: reduced (depth: target {tdepth} of {get_config(tname).n_layers} layers"
+              + ("" if dcfg is None else f", draft {draft[1]} of "
+                 f"{get_config(draft[0]).n_layers}") + ")", flush=True)
+        T = make_model(tcfg, "cuda")
+        tparams = T.init(0)
+        tparams.lm_head.mul_(4.0)
+        ref = T.prefill(tparams, prompt, S_max=512)[0]
+        torch.cuda.synchronize()
+        if path == "p1":
+            store = os.path.join(work, "p3", "store")
+            os.makedirs(os.path.dirname(store), exist_ok=True)
+            if os.path.exists(store):
+                os.remove(store)
+            group = init_tp("cuda:0", "nccl", rank=0, world_size=1, store_path=store)
+            Tn = make_model(tcfg, "cuda", group)
+            got = Tn.prefill(shard_params(tcfg, tparams, group), prompt, S_max=512)[0]
+            torch.cuda.synchronize()
+            shutdown_tp()
+            if not torch.equal(got, ref):
+                fail(f"(p3) {tname}/{tdepth} on an NCCL group of one rank: the prefill differs "
+                     f"from the model without a group by {max_err(got, ref):.3e} (must be bit "
+                     "for bit)")
+            print(f"(p3) {tname}/{tdepth} on an NCCL group of one rank: prefill logits "
+                  f"{tuple(got.shape)} bit for bit equal to the model without a group on {card}",
+                  flush=True)
+            del Tn, got
+        ref = ref.cpu().numpy()
+        del T, tparams
+        torch.cuda.empty_cache()
+        kw = dict(bs=8, w=4, c=2, d=2, max_new=max_new)
+        job = {"tcfg": tcfg, "dcfg": dcfg, "weights": ("seed", 0, 1, 4.0), "prompts": [prompt],
+               "runs": [(run, dict(kw, async_rounds=run == "async")) for run in runs],
+               "S_max": 512, "greedy_n": max_new, "prefill_logits": True, "sync_rounds": 2,
+               "record_shapes": True,
+               "trace_rounds": 2, "trace_path": os.path.join(HERE, "build", "traces",
+                                                             f"trace_{path}")}
+        os.makedirs(os.path.dirname(job["trace_path"]), exist_ok=True)
+        t0 = monotonic()
+        ranks = run_ranks("repro_torch.parallel.workers:spec_engine", tp, (job,),
+                          workdir=os.path.join(work, path), device="cuda:0", backend=TP_BACKEND,
+                          timeout_s=420, threads=2)
+        print(f"{label}: {tp} ranks started, drew their shards and ran in "
+              f"{monotonic() - t0:.1f} s; heads / KV heads per rank: target "
+              f"{[r['heads']['target'] for r in ranks]}, draft "
+              f"{[r['heads']['draft'] for r in ranks]}", flush=True)
+        for r in ranks:
+            for name, keys in r["shapes"].items():
+                log.seen[name] |= keys
+            err = float(np.abs(r["prefill_logits"] - ref).max())
+            if not np.allclose(r["prefill_logits"], ref, atol=TP_LOGIT_TOL, rtol=TP_LOGIT_TOL):
+                fail(f"{label} rank {r['rank']}: prefill logits differ from the single-process "
+                     f"model's by {err:.3e} (tolerance {TP_LOGIT_TOL})")
+            if not np.array_equal(r["prefill_logits"], ranks[0]["prefill_logits"]) or \
+                    r["greedy"] != ranks[0]["greedy"]:
+                fail(f"{label} rank {r['rank']}: its logits or greedy decode differ from rank 0's")
+            print(f"{label} rank {r['rank']}: prefill logits max|err| {err:.3e} against the "
+                  f"single-process model (tolerance {TP_LOGIT_TOL}), bit for bit equal to rank "
+                  "0's", flush=True)
+        greedy = ranks[0]["greedy"][0]
+        for run in runs:
+            per = [r["runs"][run] for r in ranks]
+            for r, got in zip(ranks, per):
+                toks = got["tokens"][0]
+                if toks != greedy[:len(toks)] or len(toks) != max_new:
+                    j = next((i for i, (a, b) in enumerate(zip(toks, greedy)) if a != b),
+                             len(toks))
+                    fail(f"{label} {run} rank {r['rank']}: output diverges from the sharded "
+                         f"greedy decode at position {j}")
+                if toks != per[0]["tokens"][0]:
+                    fail(f"{label} {run} rank {r['rank']}: output differs from rank 0's")
+                missing = [k for k in MAIN_KERNELS if got["launches"][k] == 0]
+                if missing:
+                    fail(f"{label} {run} rank {r['rank']}: kernels never launched: {missing}")
+                if run == "lockstep" and got.get("syncs_per_round") != 1.0:
+                    fail(f"{label} {run} rank {r['rank']}: {got.get('syncs_per_round')} host "
+                         "syncs of the port per round, not one")
+            st, tr = per[0]["stats"][0], per[0].get("trace")
+            rounds = st["rounds"]
+            coll = sum(per[0]["collectives"].values())
+            counts[f"{path}-{run}"] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
+            print(f"{label} {run}: {rounds} rounds, compression "
+                  f"{sum(st['emitted_rows']) / max(rounds, 1):.3f}, mean round "
+                  f"{per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms ({TP_BACKEND}, {tp} ranks on "
+                  f"one card: no speed figure), {coll / max(rounds, 1):.1f} collectives per round "
+                  f"staged through the host by {TP_BACKEND} ({per[0]['collectives']}), "
+                  + (f"{per[0]['syncs_per_round']:.2f} host syncs of the port per round, "
+                     if "syncs_per_round" in per[0] else "")
+                  + f"every rank's output equals the sharded greedy decode, on {card}", flush=True)
+            if tr:
+                print(f"{label} {run}: rank 0 traced {tr['rounds']} rounds in {tr['wall_ms']:.2f} "
+                      f"ms wall, {tr['kernels'] / tr['rounds']:.1f} kernels per round, device busy "
+                      f"{tr['busy_ms']:.3f} ms, idle share {1 - tr['busy_ms'] / tr['wall_ms']:.4f} "
+                      "(its own kernels; the other ranks share the card)", flush=True)
+            print(f"{label} {run}: kernel launches summed over the ranks "
+                  f"{counts[f'{path}-{run}']}", flush=True)
+    return counts
+
+
+def phase_shapes(torch, log, card):
     """Hold each kernel against its plain version at every shape a path
     called it with: random inputs (plans, lengths) at that shape, f32 and
     bf16 to the stated tolerance, moves and slot writes exactly."""
@@ -2111,6 +2260,7 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.kernels import ops
+    from repro_torch.kernels.shapes import ShapeLog
     from repro_torch.obs.clock import monotonic
 
     _CLOCK.append(monotonic())
@@ -2150,6 +2300,8 @@ def main() -> int:
     timing("families (h1)-(h5)")
     counts.update(phase_train(torch, card))
     timing("train (t)")
+    counts.update(phase_tp(torch, card, log))
+    timing("tp (p1)-(p3)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import PORTED, ModelConfig, get_config
+from repro_torch.configs.base import PORTED, ModelConfig, get_config, resolve_for_tp
 
-__all__ = ["PORTED", "ModelConfig", "get_config"]
+__all__ = ["PORTED", "ModelConfig", "get_config", "resolve_for_tp"]

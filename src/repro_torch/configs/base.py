@@ -11,7 +11,8 @@ configs — dense (GQA and MLA), MoE, the zamba2 hybrid, rwkv6, audio
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, replace
 
 
 @dataclass(frozen=True)
@@ -159,6 +160,55 @@ class ModelConfig:
         if self.attn_kind == "none" or self.n_heads == 0:
             return 0
         return d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+
+
+# -----------------------------------------------------------------------------
+# Arbitrary-TP padding (paper §4 "Enabling arbitrary tensor parallelism").
+# -----------------------------------------------------------------------------
+
+
+def _pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m if m > 1 else x
+
+
+def resolve_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """Zero-pad head counts and ff widths so that every product splits over
+    ``tp`` ranks (``repro.configs.base.resolve_for_tp``, field for field).
+
+    Padded heads and ff columns are zero (``models/padding.py``), so the
+    padded model computes the unpadded one's function.  For GQA the padded
+    query-head count stays a multiple of the KV-head count: either each KV
+    group widens (heads -> a multiple of lcm(tp, kv)) or the KV heads widen
+    at a fixed group size; the one with fewer query heads is taken, and a
+    tie keeps the KV heads (and so the cache) as they are."""
+    if tp <= 1:
+        return cfg
+    changes = {}
+    if cfg.n_heads and cfg.n_heads % tp:
+        if cfg.attn_kind == "mla" or cfg.n_kv_heads in (0, cfg.n_heads):
+            # no grouping reshape (MLA / MHA): pad both together
+            hq = _pad_to(cfg.n_heads, tp)
+            changes["n_heads"] = hq
+            if cfg.n_kv_heads == cfg.n_heads:
+                changes["n_kv_heads"] = hq
+        else:
+            g = cfg.n_heads // cfg.n_kv_heads
+            cand_a = _pad_to(cfg.n_heads, math.lcm(tp, cfg.n_kv_heads))
+            hkv_b = _pad_to(cfg.n_kv_heads, tp)
+            cand_b = g * hkv_b
+            if cand_b < cand_a:
+                changes["n_heads"], changes["n_kv_heads"] = cand_b, hkv_b
+            else:
+                changes["n_heads"] = cand_a
+    if cfg.d_ff % tp:
+        changes["d_ff"] = _pad_to(cfg.d_ff, tp)
+    if cfg.moe_d_ff and cfg.moe_d_ff % tp:
+        changes["moe_d_ff"] = _pad_to(cfg.moe_d_ff, tp)
+    if not changes:
+        return cfg
+    if "n_heads" in changes and cfg.head_dim:
+        changes["head_dim"] = cfg.head_dim  # keep head_dim; widen the head count only
+    return replace(cfg, **changes)
 
 
 PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b", "zamba2-2.7b", "llama3-3b", "llama3-70b",

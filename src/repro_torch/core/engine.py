@@ -25,6 +25,12 @@ Every cache a round owns is written in place (``core/kv.py``), except the
 async lookahead's, which re-roots into a fresh cache so that the snapshot
 survives until ``reconcile``.
 
+Tensor parallelism: target and draft may both be sharded over the same
+ranks (``models.api.make_model(..., group=)``).  Every rank then runs this
+host loop on the same logits, so every host decision is the same on every
+rank; the async round gives each model a process group of its own, whose
+collectives run on that model's stream.
+
 Greedy-verification invariant: the emitted stream equals target-only greedy
 decoding token for token.
 """
@@ -166,23 +172,27 @@ def absorb_emitted(out: list, emitted_row, n_emitted: int, max_new: int, eos_id:
 
 
 def engine_device(target, draft, target_devices=None, draft_devices=None) -> torch.device:
-    """The one device an engine runs on.  ``target_devices`` and
-    ``draft_devices`` are the device groups the reference takes as
-    ``mesh_target``/``mesh_draft`` (``launch/mesh.make_serving_devices``),
-    by default each model's own device.  A shared pair — both groups the
-    same single device, where both models live — runs; a split pair raises:
-    target and draft on separate devices need cross-device transfers and a
-    group of several devices needs tensor parallelism (ROADMAP item 13b),
-    and the port has been tested on one device only."""
+    """The one device an engine runs on (this rank's, under tensor
+    parallelism).  ``target_devices`` and ``draft_devices`` are the device
+    groups the reference takes as ``mesh_target``/``mesh_draft``
+    (``launch/mesh.make_serving_devices``), by default each model's own
+    device.  A shared pair runs: both groups the same single device, where
+    both models live, or both models sharded over the same ranks (the
+    reference's ``SpecEngine(mesh_target=M, mesh_draft=M)``; every rank runs
+    this engine on the same logits).  A split pair raises: target and draft
+    on disjoint devices or groups need the transfers between them (ROADMAP
+    item 13c)."""
     tdev, ddev = indexed_device(target.device), indexed_device(draft.device)
     tg = (tdev,) if target_devices is None else tuple(map(indexed_device, target_devices))
     dg = (ddev,) if draft_devices is None else tuple(map(indexed_device, draft_devices))
-    if tg != dg or len(tg) != 1 or tdev != ddev:
+    t_ranks = None if target.group is None else target.group.ranks
+    d_ranks = None if draft.group is None else draft.group.ranks
+    if tg != dg or len(tg) != 1 or tdev != ddev or t_ranks != d_ranks:
         raise ValueError(
-            f"target on {list(tg)} (model on {target.device}) and draft on {list(dg)} (model on "
-            f"{draft.device}) are not one shared device: a split pair needs cross-device "
-            "transfers and tensor parallelism (ROADMAP item 13b), and the port has been tested "
-            "on one device only, so it does not run one")
+            f"target on {list(tg)} (model on {target.device}, ranks {t_ranks}) and draft on "
+            f"{list(dg)} (model on {draft.device}, ranks {d_ranks}) are not one shared device "
+            "or group: a split pair needs the transfers between disjoint groups (ROADMAP item "
+            "13c), so the port does not run one")
     if tdev != tg[0]:
         raise ValueError(f"the models live on {target.device}, not on the engine's {tg[0]}")
     return target.device
@@ -265,6 +275,12 @@ class SpecEngine(StreamPair):
         self.streams = None
         if cfg.async_rounds and self.device.type == "cuda":
             self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
+            if target.group is not None and target.group.world > 1 and \
+                    target.group.pg is draft.group.pg:
+                raise ValueError(
+                    "async rounds on the card issue the target's and the draft's collectives "
+                    "from two streams: give each model a process group of its own over the "
+                    "same ranks (TPGroup.new_group)")
 
     # ----- draft-side steps ---------------------------------------------------
     def _expand(self, dparams, tr, dcache):

@@ -4,8 +4,8 @@ Training: a seeded Markov-chain token stream packed into fixed-length
 sequences — deterministic given (seed, step), so a restarted job resumes on
 exactly the bytes it would have seen; the same numpy generator calls as the
 reference, so the same tokens bit for bit.  The chain has low entropy
-(peaked transitions).  The reference's ``sharded_batches`` places batches
-over a device mesh and comes with tensor parallelism (ROADMAP item 13b).
+(peaked transitions).  ``sharded_batches`` gives each rank of a
+data-parallel process group its rows of every batch.
 
 Serving: deterministic prompts and Poisson arrival traces.
 """
@@ -16,6 +16,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +53,23 @@ class SyntheticLMDataset:
             cur = self._succ[cur, choices[:, t]]
             out[:, t + 1] = cur
         return {"tokens": out}
+
+
+def sharded_batches(ds: SyntheticLMDataset, group, start_step: int = 0) -> Iterator[dict]:
+    """Rank ``group.rank``'s rows of ``ds.batch(step)`` for step =
+    start_step, start_step + 1, ...: {"step", "tokens" [B/p, S+1] int32 on
+    the group's device}, the rows [r·B/p, (r+1)·B/p) — the reference's batch
+    split over ("pod", "data"), one process per data shard."""
+    p, r = group.world, group.rank
+    B = ds.cfg.global_batch
+    if B % p:
+        raise ValueError(f"a global batch of {B} rows does not split over {p} ranks")
+    n = B // p
+    step = start_step
+    while True:
+        rows = ds.batch(step)["tokens"][r * n:(r + 1) * n]
+        yield {"step": step, "tokens": torch.as_tensor(rows, device=group.device)}
+        step += 1
 
 
 def _draw_prompt_len(rng, prompt_len) -> int:

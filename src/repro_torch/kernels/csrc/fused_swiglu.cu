@@ -22,7 +22,10 @@
 //   past M read row 0, and their sums are never stored) and two
 //   ldmatrix.trans per weight feed 4 + 4 mma.sync.m16n8k16 into the g and
 //   u accumulators.  A bf16 weight row of N % 8 != 0 values is copied 8
-//   bytes at a time.  On an H100 it streams at the rate of its loads alone.
+//   or 4 bytes at a time (N % 4, N % 2 == 0), byte by byte for an odd N
+//   (a tensor-parallel rank's share of a padded d_ff, e.g. 4779); nothing
+//   else depends on N, so the order of summation over K does not change.
+//   On an H100 it streams at the rate of its loads alone (N % 8 == 0).
 // * f32 (SwigluF32<MT>): lane l of warp w owns columns 64 (w / 2) + 2l and
 //   2l + 1, and warps w and w ^ 1 split K by rows (phase w mod 2 takes the
 //   rows k = w mod 2, in order); per row two 8-byte shared loads of the
@@ -36,6 +39,17 @@
 #include "weight_stream.cuh"
 
 namespace {
+
+// GR-byte cp.async, or plain byte loads for GR 1 (an odd bf16 row)
+template <int GR, int RB, class Z>
+__device__ __forceinline__ void copy_weight_rows(unsigned char* dst, int lds, const void* src,
+                                                 long long ld, int r0, int R, int r_end, int c0,
+                                                 int c_end) {
+  if constexpr (GR == 1)
+    copy_rows_bytes<RB, Z>(dst, lds, src, ld, r0, R, r_end, c0, c_end);
+  else
+    copy_rows<GR, RB, Z>(dst, lds, src, ld, r0, R, r_end, c0, c_end);
+}
 
 constexpr int kSwigluKQuantum = 32;  // K per split is a multiple (ops._SWIGLU_K_QUANTUM)
 
@@ -56,7 +70,9 @@ __device__ __forceinline__ float swiglu(const float (&v)[2]) {
 
 // ---- bf16 on tensor cores ------------------------------------------------------
 
-template <int GR>  // bytes per cp.async of a weight row: 16 (N % 8 == 0) or 8
+// bytes per cp.async of a weight row: the widest of 16, 8 and 4 that 2N
+// divides, or 1: plain byte loads (copy_rows_bytes) for an odd N
+template <int GR>
 struct SwigluMma {
   using T = __nv_bfloat16;
   using Args = SwigluArgs<T>;
@@ -93,9 +109,10 @@ struct SwigluMma {
   __device__ void load_stage(int step, int slot) {
     unsigned char* dst = smem + slot * kSlotBytes;
     const int k0 = b.kb0 + step * KT, N = a.sp.N;
-    copy_rows<GR, kTileN * 2, Z>(dst, LDW * 2, a.wg, 2LL * N, k0, KT, b.kb1, 2 * b.n0, 2 * N);
-    copy_rows<GR, kTileN * 2, Z>(dst + kMatBytes, LDW * 2, a.wu, 2LL * N, k0, KT, b.kb1,
-                                 2 * b.n0, 2 * N);
+    copy_weight_rows<GR, kTileN * 2, Z>(dst, LDW * 2, a.wg, 2LL * N, k0, KT, b.kb1, 2 * b.n0,
+                                        2 * N);
+    copy_weight_rows<GR, kTileN * 2, Z>(dst + kMatBytes, LDW * 2, a.wu, 2LL * N, k0, KT, b.kb1,
+                                        2 * b.n0, 2 * N);
   }
 
   __device__ void stage_x() {
@@ -146,7 +163,7 @@ struct SwigluMma {
 
 // ---- f32 on CUDA cores ---------------------------------------------------------
 
-template <int MT>  // rows of x per block
+template <int MT, int GR>  // rows of x per block; bytes per cp.async: 16 (N % 4 == 0) or 4
 struct SwigluF32 {
   using T = float;
   using Args = SwigluArgs<T>;
@@ -185,8 +202,8 @@ struct SwigluF32 {
   __device__ void load_stage(int step, int slot) {
     unsigned char* dst = smem + slot * kSlotBytes;
     const int k0 = b.kb0 + step * KT, N = a.sp.N;
-    copy_rows<16, kTileN * 4>(dst, kTileN * 4, a.wg, 4LL * N, k0, KT, b.kb1, 4 * b.n0, 4 * N);
-    copy_rows<16, kTileN * 4>(dst + kMatBytes, kTileN * 4, a.wu, 4LL * N, k0, KT, b.kb1,
+    copy_rows<GR, kTileN * 4>(dst, kTileN * 4, a.wg, 4LL * N, k0, KT, b.kb1, 4 * b.n0, 4 * N);
+    copy_rows<GR, kTileN * 4>(dst + kMatBytes, kTileN * 4, a.wu, 4LL * N, k0, KT, b.kb1,
                               4 * b.n0, 4 * N);
   }
 
@@ -255,19 +272,28 @@ struct SwigluF32 {
   static __device__ __forceinline__ float value(const float (&v)[2]) { return swiglu(v); }
 };
 
-cudaError_t launch_f32(const SwigluArgs<float>& a, int rows, cudaStream_t st) {
+template <int GR>
+cudaError_t launch_f32_rows(const SwigluArgs<float>& a, int rows, cudaStream_t st) {
   const int kps = a.sp.k_per_split;
-  if (rows == 1) return launch_op<SwigluF32<1>>(a, SwigluF32<1>::smem_bytes(kps), st);
-  if (rows == 2) return launch_op<SwigluF32<2>>(a, SwigluF32<2>::smem_bytes(kps), st);
-  if (rows <= 4) return launch_op<SwigluF32<4>>(a, SwigluF32<4>::smem_bytes(kps), st);
-  if (rows <= 8) return launch_op<SwigluF32<8>>(a, SwigluF32<8>::smem_bytes(kps), st);
-  return launch_op<SwigluF32<16>>(a, SwigluF32<16>::smem_bytes(kps), st);
+  if (rows == 1) return launch_op<SwigluF32<1, GR>>(a, SwigluF32<1, GR>::smem_bytes(kps), st);
+  if (rows == 2) return launch_op<SwigluF32<2, GR>>(a, SwigluF32<2, GR>::smem_bytes(kps), st);
+  if (rows <= 4) return launch_op<SwigluF32<4, GR>>(a, SwigluF32<4, GR>::smem_bytes(kps), st);
+  if (rows <= 8) return launch_op<SwigluF32<8, GR>>(a, SwigluF32<8, GR>::smem_bytes(kps), st);
+  return launch_op<SwigluF32<16, GR>>(a, SwigluF32<16, GR>::smem_bytes(kps), st);
+}
+
+// an f32 weight row of N % 4 != 0 values is copied 4 bytes at a time (its
+// rows start 4-byte aligned only)
+cudaError_t launch_f32(const SwigluArgs<float>& a, int rows, cudaStream_t st) {
+  return a.sp.N % 4 == 0 ? launch_f32_rows<16>(a, rows, st) : launch_f32_rows<4>(a, rows, st);
 }
 
 cudaError_t launch_bf16(const SwigluArgs<__nv_bfloat16>& a, cudaStream_t st) {
-  const int smem = SwigluMma<16>::smem_bytes(a.sp.k_per_split, a.xr);
-  return a.sp.N % 8 == 0 ? launch_op<SwigluMma<16>>(a, smem, st)
-                         : launch_op<SwigluMma<8>>(a, smem, st);
+  const int smem = SwigluMma<16>::smem_bytes(a.sp.k_per_split, a.xr), N = a.sp.N;
+  return N % 8 == 0   ? launch_op<SwigluMma<16>>(a, smem, st)
+         : N % 4 == 0 ? launch_op<SwigluMma<8>>(a, smem, st)
+         : N % 2 == 0 ? launch_op<SwigluMma<4>>(a, smem, st)
+                      : launch_op<SwigluMma<1>>(a, smem, st);
 }
 
 template <typename T>
@@ -283,7 +309,9 @@ cudaError_t launch_typed(const void* x, const void* wg, const void* wu, void* ou
     a.wg = static_cast<const T*>(wg);
     a.wu = static_cast<const T*>(wu);
     a.out = static_cast<T*>(out) + (long long)r0 * N;
-    a.sp = Split{rows, K, N, k_per_split, splits, part, counters, N};
+    // the partials' rows are N rounded up to 4 (ops._stream_scratch): a row of any N
+    // then starts 16-byte aligned for the float2 / float4 stores and loads
+    a.sp = Split{rows, K, N, k_per_split, splits, part, counters, round_up(N, 4)};
     a.xr = min(rows, kRowTile);
     a.x_vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
     cudaError_t e;
@@ -298,7 +326,7 @@ cudaError_t launch_typed(const void* x, const void* wg, const void* wu, void* ou
 
 }  // namespace
 
-// x [M, K], wg/wu [K, N], out [M, N]; contiguous, N % 4 == 0, weights 16-byte
+// x [M, K], wg/wu [K, N], out [M, N]; contiguous, any N, weights 16-byte
 // aligned.  K splits of k_per_split (a multiple of kSwigluKQuantum, from
 // ops.stream_plan); with splits > 1, part is an f32 [splits, 2,
 // min(M, rows_per_pass), N] and counters holds a zero per (row tile, column
@@ -307,7 +335,7 @@ REPRO_EXPORT int fused_swiglu_launch(const void* x, const void* wg, const void* 
                                      void* part, void* counters, int M, int K, int N,
                                      int k_per_split, int splits, int rows_per_pass, int dtype,
                                      void* stream) {
-  if (N % 4 != 0 || !plan_ok(M, K, N, k_per_split, splits, kSwigluKQuantum, rows_per_pass) ||
+  if (!plan_ok(M, K, N, k_per_split, splits, kSwigluKQuantum, rows_per_pass) ||
       (splits > 1 && (part == nullptr || counters == nullptr)) ||
       reinterpret_cast<uintptr_t>(wg) % 16 || reinterpret_cast<uintptr_t>(wu) % 16)
     return (int)cudaErrorInvalidValue;

@@ -257,8 +257,9 @@ def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
 
 def fused_swiglu(x, wg, wu):
     """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype.
-    The kernel takes float32 or bfloat16, N a multiple of 4 and weights
-    16-byte aligned; K is split by ``stream_plan``.
+    The kernel takes float32 or bfloat16, any N (a tensor-parallel rank's
+    share of a padded d_ff may be odd) and weights 16-byte aligned; K is
+    split by ``stream_plan``.
 
     Differentiable: on the CPU the plain version has its own autograd; on
     CUDA, when an input requires a gradient (a training forward), the
@@ -312,9 +313,9 @@ def _fused_swiglu_kernel(x, wg, wu):
     if x.dtype not in _DTYPE_CODE or wg.dtype != x.dtype or wu.dtype != x.dtype:
         raise TypeError(f"fused_swiglu: x/wg/wu must share f32 or bf16, got "
                         f"{x.dtype}/{wg.dtype}/{wu.dtype}")
-    if wg.shape != (K, N) or wu.shape != (K, N) or N % 4 or M == 0 or K == 0:
+    if wg.shape != (K, N) or wu.shape != (K, N) or M == 0 or K == 0 or N == 0:
         raise ValueError(f"fused_swiglu: bad shapes x{tuple(x.shape)} wg{tuple(wg.shape)} "
-                         f"wu{tuple(wu.shape)} (N must be a multiple of 4)")
+                         f"wu{tuple(wu.shape)}")
     x, wg, wu = (t.contiguous() for t in (x, wg, wu))
     if wg.data_ptr() % 16 or wu.data_ptr() % 16:
         raise ValueError("fused_swiglu: weights must be 16-byte aligned")

@@ -23,13 +23,24 @@ fleet telemetry, ``ShardedServingRuntime``); ``--n-target``/``--n-draft``
 set the devices each replica asks for (``launch/mesh.py``).  With fewer
 devices than one replica asks for, every replica falls back to one shared
 device (``--device``, default ``cuda``) and all replicas share one engine
-object; a split target/draft pair is not run yet (ROADMAP item 13b).
+object; a split target/draft pair is not run yet (ROADMAP item 13c).
+
+Tensor parallelism: launched under torchrun, both models are sharded over
+its ranks (its world size) and every rank runs the same engine; rank 0
+prints, after checking that every rank emitted the same tokens.  The
+process group is NCCL's on CUDA (one card per rank) and gloo's on the CPU.
+Continuous serving under a group runs on a virtual clock, so that every
+rank admits the same request at the same round.
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --device cpu --continuous --d 1 --requests 2
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -46,7 +57,7 @@ from repro_torch.obs.clock import monotonic
 
 def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="parallel",
                  bs=8, w=4, c=2, d=2, max_new=48, S_max=512, n_target=6, n_draft=2,
-                 peaked=True, replicas=1, device=None, async_rounds=False):
+                 peaked=True, replicas=1, device=None, async_rounds=False, group=None):
     """Build the serving engine(s).  Returns (engine | [engines], tparams,
     dparams, cfgT).
 
@@ -56,14 +67,26 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
     ``replicas > 1`` the devices are carved into that many (target, draft)
     groups (``make_serving_devices``) and a list of engines is returned; a
     replica whose groups are replica 0's (the shared-device fallback)
-    REUSES replica 0's engine object — states are per replica anyway."""
+    REUSES replica 0's engine object — states are per replica anyway.
+    With ``group`` (a ``parallel.TPGroup``) both models are sharded over its
+    ranks, the draft on a process group of its own, and the weights are
+    this rank's shards of the same draws; replicas on disjoint groups are
+    ROADMAP item 13c."""
+    if group is not None:
+        if replicas != 1:
+            raise ValueError("replicas of a tensor-parallel engine need disjoint groups "
+                             "(ROADMAP item 13c)")
+        device = group.device
     device = resolve_device(device)
     pairs = make_serving_devices(n_target, n_draft, replicas=replicas, device=device)
     pairs = [pairs] if replicas == 1 else pairs
+    if group is not None:
+        pairs = [(None, None)]  # each model on this rank's device
     cfgT = get_config(target_arch, smoke=smoke)
     cfgD = get_config(draft_arch, smoke=smoke)
     assert cfgT.vocab_size == cfgD.vocab_size, "draft/target must share a vocab"
-    T, D = make_model(cfgT, device), make_model(cfgD, device)
+    T = make_model(cfgT, device, group)
+    D = make_model(cfgD, device, None if group is None else group.new_group())
     tp = T.init(0)
     dp = D.init(1)
     if peaked:
@@ -94,17 +117,39 @@ def profile_depth(eng: SpecEngine, tp, dp, prompt_len: int) -> str:
             f"-> d in {{{d_lo},{d_hi}}}, using d={d_lo}")
 
 
-def run_continuous(args, engines, tp, dp, cfgT) -> dict:
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
+def same_on_every_rank(group, obj) -> bool:
+    """Whether every rank of ``group`` holds an equal ``obj`` (True without
+    a group)."""
+    if group is None:
+        return True
+    import torch.distributed as dist
+
+    every = [None] * group.world
+    dist.all_gather_object(every, obj, group=group.pg)
+    return all(o == every[0] for o in every)
+
+
+def run_continuous(args, engines, tp, dp, cfgT, group=None) -> dict:
     """Serve a Poisson trace through the continuous-batching runtime on a
     wall clock — one engine, or a fleet (a list of engines, ``--replicas``)
     through ``ShardedServingRuntime`` — print the per-request report (the
     fleet report for a fleet), and check every output against a solo
     ``generate()`` (``--no-verify`` skips it; a mismatch raises
     SystemExit).  With ``--trace-out``/``--metrics-out`` the run is traced
-    and the round breakdown printed.  Returns the results."""
+    and the round breakdown printed.  With ``group`` every rank serves the
+    trace on a virtual clock (the same admissions on every rank), rank 0
+    prints, and a rank that emitted other tokens than rank 0 raises
+    SystemExit.  Returns the results."""
     from repro_torch.obs import MetricsRegistry, Tracer, breakdown_report, phase_breakdown
     from repro_torch.serving import (ContinuousBatchingRuntime, Request, RequestQueue,
-                                     SchedulerConfig, ShardedServingRuntime, WallClock)
+                                     SchedulerConfig, ShardedServingRuntime, VirtualClock,
+                                     WallClock)
+
+    say = print if group is None or group.rank == 0 else _quiet
 
     observed = bool(args.trace_out or args.metrics_out)
     tracer = Tracer() if observed else None
@@ -116,15 +161,16 @@ def run_continuous(args, engines, tp, dp, cfgT) -> dict:
         max_new=args.max_new, seed=0)
     fleet = isinstance(engines, list)
     runtime = ShardedServingRuntime if fleet else ContinuousBatchingRuntime
+    clock = WallClock() if group is None else VirtualClock(round_dt=0.05)
     rt = runtime(engines, tp, dp, n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap),
-                 clock=WallClock(), tracer=tracer, metrics=metrics, scheduler=scheduler)
+                 clock=clock, tracer=tracer, metrics=metrics, scheduler=scheduler)
     eng = engines[0] if fleet else engines
     label = f"{len(engines)} replicas x {args.slots} slots" if fleet else f"{args.slots} slots"
     accepted = rt.submit_trace(
         Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s, max_new=r.max_new,
                 deadline_s=(r.arrival_s + args.deadline_s) if args.deadline_s else None)
         for r in trace)
-    print(f"continuous: {accepted}/{len(trace)} requests accepted ({label}, "
+    say(f"continuous: {accepted}/{len(trace)} requests accepted ({label}, "
           f"Poisson rate {args.rate}/s, queue cap {args.queue_cap}"
           + (f", deadline {args.deadline_s}s" if args.deadline_s else "")
           + (", adaptive depth" if scheduler else "")
@@ -132,25 +178,29 @@ def run_continuous(args, engines, tp, dp, cfgT) -> dict:
     t0 = monotonic()
     results = rt.run()
     wall = monotonic() - t0
-    print(rt.report() if fleet else rt.stats.report())
+    say(rt.report() if fleet else rt.stats.report())
     total = sum(len(v) for v in results.values())
-    print(f"wall: {total} tokens in {wall:.1f}s ({total / wall:.1f} tok/s); "
+    say(f"wall: {total} tokens in {wall:.1f}s ({total / wall:.1f} tok/s); "
           f"{rt.queue.rejected} shed by admission control")
     summary = rt.summary() if fleet else rt.stats.summary()
     if summary["n_deadlined"]:
-        print(f"SLO: {summary['slo_attainment']:.0%} of {summary['n_deadlined']} "
+        say(f"SLO: {summary['slo_attainment']:.0%} of {summary['n_deadlined']} "
               f"deadlined requests met (slack p50 {summary['slack_p50_s']:+.3f}s "
               f"p10 {summary['slack_p10_s']:+.3f}s)")
-    if observed:
+    if observed and (group is None or group.rank == 0):
         bd = phase_breakdown(tracer)
-        print(breakdown_report(bd))
+        say(breakdown_report(bd))
         if args.trace_out:
-            print(f"trace -> {tracer.write(args.trace_out)}")
+            say(f"trace -> {tracer.write(args.trace_out)}")
         if args.metrics_out:
             slo = {k: summary[k] for k in ("n_deadlined", "slo_attainment",
                                            "slack_p50_s", "slack_p10_s")}
             path = metrics.write(args.metrics_out, extra={"phase_breakdown": bd, "slo": slo})
-            print(f"metrics -> {path}")
+            say(f"metrics -> {path}")
+    if not same_on_every_rank(group, results):
+        raise SystemExit("the ranks emitted different tokens")
+    if group is not None:
+        say(f"ranks: all {group.world} emitted the same tokens")
     if args.verify:
         sess = eng.session(tp, dp)
         mismatches = 0
@@ -161,7 +211,7 @@ def run_continuous(args, engines, tp, dp, cfgT) -> dict:
             ok = results[r.rid] == solo[0]
             mismatches += 0 if ok else 1
             where = f" (replica {rt.replica_of(r.rid)})" if fleet else ""
-            print(f"verify req {r.rid}: "
+            say(f"verify req {r.rid}: "
                   f"{'byte-identical to solo generate()' if ok else 'MISMATCH'}{where}")
         if mismatches:
             raise SystemExit(f"{mismatches} request(s) diverged from solo generate()")
@@ -214,19 +264,31 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    group = None
+    if "RANK" in os.environ and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from repro_torch.parallel import init_tp
+
+        group = init_tp(args.device)
+    say = print if group is None or group.rank == 0 else _quiet
     replicas = args.replicas if args.continuous else 1
     eng, tp, dp, cfgT = build_engine(
         args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
         d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
-        replicas=replicas, device=args.device, async_rounds=args.async_rounds)
+        replicas=replicas, device=args.device, async_rounds=args.async_rounds, group=group)
     engines = eng
     eng = eng[0] if isinstance(eng, list) else eng
+    if group is not None:
+        say(f"tensor parallel: {group.world} ranks ({group.backend}), target heads / KV heads "
+            f"per rank {eng.target.run_cfg.n_heads}/{eng.target.run_cfg.n_kv_heads} on rank 0")
     if args.d == 0:
-        print(profile_depth(eng, tp, dp, args.prompt_len))
+        say(profile_depth(eng, tp, dp, args.prompt_len))
+        if group is not None:  # rank 0's depth on every rank: the ranks' timings differ
+            d = group.broadcast(torch.tensor([eng.cfg.d], device=group.device))
+            eng.cfg = dataclasses.replace(eng.cfg, d=int(d[0]))
         for e in set(engines) if isinstance(engines, list) else ():
             e.cfg = eng.cfg
     if args.continuous:
-        run_continuous(args, engines, tp, dp, cfgT)
+        run_continuous(args, engines, tp, dp, cfgT, group)
         return
 
     total_toks, total_s = 0, 0.0
@@ -235,11 +297,14 @@ def main(argv=None):
         t0 = monotonic()
         out, stats = sess.generate(prompt)
         dt = monotonic() - t0
+        if not same_on_every_rank(group, out):
+            raise SystemExit(f"req {i}: the ranks emitted different tokens")
         total_toks += len(out[0])
         total_s += dt
-        print(f"req {i}: {len(out[0])} tokens in {dt:.2f}s "
-              f"({len(out[0])/dt:.1f} tok/s), compression {stats.compression_ratio:.2f}")
-    print(f"aggregate: {total_toks/total_s:.1f} tokens/s ({args.mode} mode)")
+        say(f"req {i}: {len(out[0])} tokens in {dt:.2f}s "
+            f"({len(out[0])/dt:.1f} tok/s), compression {stats.compression_ratio:.2f}"
+            + ("" if group is None else f", the same on all {group.world} ranks"))
+    say(f"aggregate: {total_toks/total_s:.1f} tokens/s ({args.mode} mode)")
 
 
 if __name__ == "__main__":

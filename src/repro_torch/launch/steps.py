@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import cross_entropy_loss
-from repro_torch.optim import adamw_update, warmup_cosine
+from repro_torch.optim import adamw_update, pod_allreduce_compressed, warmup_cosine
 from repro_torch.optim.adamw import param_leaves
 
 
@@ -44,24 +44,43 @@ def loss_and_grads(model, params, batch) -> tuple[torch.Tensor, list]:
                            for p, g in zip(leaves, grads)]
 
 
+def _world_group(device):
+    """The default process group as a ``parallel.TPGroup`` of this rank."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.group import TPGroup
+
+    world = dist.get_world_size()
+    return TPGroup(pg=dist.group.WORLD, rank=dist.get_rank(), world=world, device=device,
+                   backend=dist.get_backend(), ranks=tuple(range(world)))
+
+
 def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=10_000,
                     grad_compress_pod: bool = False):
     """fwd + CE loss + bwd + AdamW at the ``warmup_cosine`` learning rate of
     the state's step.  ``train_step(params, opt_state, batch) -> (params,
     opt_state, loss)``; the batch as ``_feed`` takes it.
 
-    ``grad_compress_pod`` compresses the gradient exchange over a "pod"
-    group; a single-device run has none, so it changes nothing, as in the
-    reference without a "pod" mesh axis.  The int8 all-reduce over
-    processes comes with tensor parallelism (ROADMAP item 13b): a run with
-    a process group raises rather than skip it."""
+    ``grad_compress_pod`` averages the gradient over the "pod" group — the
+    process group, when one is initialized, its ranks data-parallel
+    replicas, each with its own rows — through
+    ``optim.pod_allreduce_compressed``, the int8 exchange.  A single-process
+    run has no such group, and the flag changes nothing, as in the reference
+    without a "pod" mesh axis.  A model sharded over a group of several
+    ranks does not train yet (ROADMAP item 13e)."""
+    group = getattr(model, "group", None)
+    if group is not None and group.world > 1:
+        raise NotImplementedError("tensor-parallel training (a gradient through the "
+                                  "collectives) is ROADMAP item 13e")
+    pod = None
     if grad_compress_pod and torch.distributed.is_available() and \
             torch.distributed.is_initialized():
-        raise NotImplementedError("grad_compress_pod over a process group: the int8 pod "
-                                  "all-reduce comes with ROADMAP item 13b")
+        pod = _world_group(model.device)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(model, params, batch)
+        if pod is not None:
+            grads = [pod_allreduce_compressed(g, pod) for g in grads]
         lr = warmup_cosine(opt_state.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
                            total_steps=total_steps)
         new_params, new_opt = adamw_update(grads, opt_state, params, lr)

@@ -19,8 +19,18 @@ add a row's k results in an order that changes from run to run.  Here the
 buffer is filled by a copy into distinct slots (only the sink row, which is
 never read, is shared) and each row's k results are summed by one
 reduction over the k axis, with no atomics, so a forward gives the same
-bits every time.  The tensor- and expert-parallel
-forms of the reference need a mesh; they are not ported.
+bits every time.
+
+Under tensor parallelism (``tp``, a ``parallel.TPGroup``) the reference's
+two forms (``repro/models/moe.py:108-163``), the rank's shards cut for
+the one named (``parallel.Shard``): "tp" — every expert's ff split
+over the ranks, the dispatch the same on every rank, one all-reduce of
+the partial outputs; "ep" — the experts split over the ranks (only where
+the ranks divide E, else the model takes "tp"), each rank routing every
+row and keeping the pairs of its own experts at the same capacity and the
+same places within each expert as the whole dispatch, then one all-reduce.
+The shared experts run replicated on every rank, after the all-reduce, as
+the reference computes them outside its ``shard_map``.
 """
 
 from __future__ import annotations
@@ -81,22 +91,33 @@ def _swiglu(x, wg, wu, wd):
     return (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
 
 
-def moe_apply(cfg, p: dict, shared: dict | None, x):
-    """x [B, n, d] -> [B, n, d]: the routed experts plus the shared ones."""
+def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
+    """x [B, n, d] -> [B, n, d]: the routed experts plus the shared ones.
+    With ``tp`` the routed experts are this rank's shards — of the "ep"
+    form with ``ep`` (E/world whole experts), else of the "tp" form — and
+    their outputs are summed over the ranks."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     T, E, k = x2d.shape[0], cfg.n_experts, cfg.moe_top_k
     cap = capacity(cfg, T)
     dest, w = route(x2d, p["router"], E, k, cap)
+    E_loc = E // tp.world if ep else E
+    if ep:  # keep the pairs of this rank's experts [lo, lo + E_loc)
+        lo = tp.rank * E_loc * cap
+        mine = (dest >= lo) & (dest < lo + E_loc * cap)
+        dest = torch.where(mine, dest - lo, E_loc * cap)
+        w = w * mine
     # every kept pair has a slot of its own; dropped pairs all land in the sink row
-    xbuf = x2d.new_zeros((E * cap + 1, d))
+    xbuf = x2d.new_zeros((E_loc * cap + 1, d))
     xbuf[dest.reshape(-1)] = x2d.repeat_interleave(k, dim=0)
-    xe = xbuf[:-1].reshape(E, cap, d)
+    xe = xbuf[:-1].reshape(E_loc, cap, d)
     h = torch.bmm(torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"]),
                   p["wd"])
-    hflat = torch.cat([h.reshape(E * cap, d), h.new_zeros((1, d))])
+    hflat = torch.cat([h.reshape(E_loc * cap, d), h.new_zeros((1, d))])
     contrib = hflat[dest] * w[..., None].to(h.dtype)  # [T, k, d]
     out = contrib.sum(1)
+    if tp is not None:
+        out = tp.all_reduce(out)
     if shared is not None:
         out = out + _swiglu(x2d, shared["wg"], shared["wu"], shared["wd"])
     return out.reshape(B, S, d)

@@ -33,6 +33,7 @@ engine does).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -112,6 +113,8 @@ class Ctx:
     row_start: Any = None  # int: rows are [start, start+n) for every batch row
     n_commit: Any = None  # int: chain mode, state blocks commit the first n_commit steps
     enc: Any = None  # [B, n_enc, d] stub encoder states (cross blocks, prefill)
+    tp: Any = None  # parallel.TPGroup: the weights are this rank's shards (cfg its shapes)
+    moe_ep: bool = False  # with tp: the MoE's shards are of the "ep" form (else "tp")
 
 
 # -----------------------------------------------------------------------------
@@ -199,38 +202,59 @@ class DecoderLM(nn.Module):
         self.shared_attn = shared_attn
 
 
-def init_model(cfg, seed: int, device) -> DecoderLM:
+def _keep(where, key, t):
+    return t
+
+
+def init_model(cfg, seed: int, device, place=None) -> DecoderLM:
     """Seeded truncated-normal weights drawn directly on ``device`` (the
     reference's init scales; torch's generator gives other numbers than
-    ``jax.random``, so parity tests convert JAX weights instead)."""
+    ``jax.random``, so parity tests convert JAX weights instead).
+
+    ``place(where, key, tensor)`` (``param_where``'s names) takes each
+    tensor as soon as it is drawn and returns what the model keeps — a
+    tensor-parallel rank's padded shard (``parallel.Shard.tensor``) — so a
+    rank never holds more than one whole tensor; the draws, and so the
+    values, are the same with or without it.  The MoE's, MLA's and the
+    recurrent blocks' dicts are placed once drawn whole."""
     plan = check_plan(cfg)
+    place = place or _keep
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
-    def init(shape, scale=None):
-        return dense_init(gen, shape, dt, device, scale)
+    def init(where, key, shape, scale=None):
+        return place(where, key, dense_init(gen, shape, dt, device, scale))
 
-    def const(shape, val):
-        return torch.full(shape, val, dtype=dt, device=device)
+    def const(where, key, shape, val):
+        return place(where, key, torch.full(shape, val, dtype=dt, device=device))
+
+    def placed(where, tensors):
+        return {k: place(where, k, v) for k, v in tensors.items()}
 
     def attention(kind):
         if _mla(cfg, kind):
-            return mla_mod.init_mla(cfg, gen, device, dt)
-        attn = {"wq": init((d, hq, hd)), "wk": init((d, hkv, hd)), "wv": init((d, hkv, hd)),
-                "wo": init((hq, hd, d), scale=(hq * hd) ** -0.5)}
+            return placed("attn", mla_mod.init_mla(cfg, gen, device, dt))
+        attn = {"wq": init("attn", "wq", (d, hq, hd)), "wk": init("attn", "wk", (d, hkv, hd)),
+                "wv": init("attn", "wv", (d, hkv, hd)),
+                "wo": init("attn", "wo", (hq, hd, d), scale=(hq * hd) ** -0.5)}
         if cfg.qkv_bias:
-            attn.update(bq=const((hq, hd), 0.0), bk=const((hkv, hd), 0.0),
-                        bv=const((hkv, hd), 0.0))
+            attn.update(bq=const("attn", "bq", (hq, hd), 0.0),
+                        bk=const("attn", "bk", (hkv, hd), 0.0),
+                        bv=const("attn", "bv", (hkv, hd), 0.0))
         return attn
 
     def block(kind):
         attn = attention(kind)
         if kind == "moe":
-            return MoEBlock(const((d,), 1.0), attn, const((d,), 1.0),
-                            *moe_mod.init_moe(cfg, gen, device, dt))
-        mlp = {"wg": init((d, ff)), "wu": init((d, ff)), "wd": init((ff, d))}
-        return DenseBlock(const((d,), 1.0), attn, const((d,), 1.0), mlp)
+            routed, shared = moe_mod.init_moe(cfg, gen, device, dt)
+            return MoEBlock(const("block", "ln1", (d,), 1.0), attn,
+                            const("block", "ln2", (d,), 1.0), placed("moe", routed),
+                            None if shared is None else placed("shared", shared))
+        mlp = {"wg": init("mlp", "wg", (d, ff)), "wu": init("mlp", "wu", (d, ff)),
+               "wd": init("mlp", "wd", (ff, d))}
+        return DenseBlock(const("block", "ln1", (d,), 1.0), attn,
+                          const("block", "ln2", (d,), 1.0), mlp)
 
     layers = []
     for unit_def, U in plan:
@@ -239,16 +263,48 @@ def init_model(cfg, seed: int, device) -> DecoderLM:
                 if kind in ("dense", "moe", "cross"):
                     layers.append(block(kind))
                 elif kind == "mamba2":
-                    layers.append(Mamba2Block(const((d,), 1.0), m2.init_mamba2(cfg, gen, device)))
+                    layers.append(Mamba2Block(const("block", "ln", (d,), 1.0),
+                                              placed("mamba", m2.init_mamba2(cfg, gen, device))))
                 elif kind == "rwkv6":
-                    layers.append(RWKV6Block(const((d,), 1.0), rk.init_rwkv6(cfg, gen, device),
-                                             const((d,), 1.0)))
+                    layers.append(RWKV6Block(const("block", "ln1", (d,), 1.0),
+                                             placed("tm", rk.init_rwkv6(cfg, gen, device)),
+                                             const("block", "ln2", (d,), 1.0)))
                 else:
-                    layers.append(SharedBlock(init((2 * d, d))))
+                    layers.append(SharedBlock(init("block", "in_w", (2 * d, d))))
     has_shared = any("shared" in unit for unit, _ in plan)
     shared = block("shared") if has_shared else None
-    return DecoderLM(init((cfg.vocab_size, d), scale=1.0), const((d,), 1.0),
-                     init((d, cfg.vocab_size)), layers, shared)
+    return DecoderLM(init("model", "embed", (cfg.vocab_size, d), scale=1.0),
+                     const("model", "final_norm", (d,), 1.0),
+                     init("model", "lm_head", (d, cfg.vocab_size)), layers, shared)
+
+
+_WHERE = ("attn", "mlp", "moe", "shared", "mamba", "tm")
+
+
+def param_where(name: str) -> tuple[str, str]:
+    """(where, key) of the parameter ``name`` of a ``DecoderLM``: where is
+    the ParameterDict that holds it (attn, mlp, moe, shared — a MoE block's
+    shared experts —, mamba, tm), "block" for a block's own tensors
+    (norms, zamba2's ``in_w``) and "model" for the model's."""
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[-2] in _WHERE:
+        return parts[-2], parts[-1]
+    return ("block" if parts[0] in ("layers", "shared_attn") else "model"), parts[-1]
+
+
+def map_named_params(params: DecoderLM, fn) -> DecoderLM:
+    """A ``DecoderLM`` of the same structure whose every parameter is
+    ``fn(name, tensor)`` of ``params``', with the same ``requires_grad``; no
+    tensor of ``params`` is copied as a whole."""
+    memo = {}
+    for name, p in params.named_parameters():
+        memo[id(p)] = nn.Parameter(fn(name, p.detach()), requires_grad=p.requires_grad)
+    return copy.deepcopy(params, memo)
+
+
+def map_params(params: DecoderLM, fn) -> DecoderLM:
+    """``map_named_params`` with ``fn(where, key, tensor)`` (``param_where``)."""
+    return map_named_params(params, lambda name, t: fn(*param_where(name), t))
 
 
 def _block_cache(cfg, kind, B, S_max, dtype, device) -> dict:
@@ -289,6 +345,12 @@ def _mlp_apply(cfg, p, x):
     B, S, d = x.shape
     h = ops.fused_swiglu(x.reshape(B * S, d), p["wg"], p["wu"])
     return (h @ p["wd"]).reshape(B, S, d)
+
+
+def _reduce(ctx: Ctx, partial):
+    """A row-split product's partial sum, summed over the tensor-parallel
+    ranks (the identity without a group)."""
+    return partial if ctx.tp is None else ctx.tp.all_reduce(partial)
 
 
 def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
@@ -333,11 +395,12 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
 def _attn_mlp(cfg, kind, p, h, ctx: Ctx, leaves, r: int):
     """A block with an attention sub-block and an MLP (SwiGLU, or the
     mixture of experts of a moe block), both with pre-norms."""
-    h = h + _attn_apply(cfg, kind, p.attn, rms_norm(h, p.ln1, cfg.norm_eps), ctx, leaves, r)
+    h = h + _reduce(ctx, _attn_apply(cfg, kind, p.attn, rms_norm(h, p.ln1, cfg.norm_eps), ctx,
+                                     leaves, r))
     hn = rms_norm(h, p.ln2, cfg.norm_eps)
     if kind == "moe":
-        return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn)
-    return h + _mlp_apply(cfg, p.mlp, hn)
+        return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn, tp=ctx.tp, ep=ctx.moe_ep)
+    return h + _reduce(ctx, _mlp_apply(cfg, p.mlp, hn))
 
 
 def _row_leaves_len(groups):
@@ -412,9 +475,25 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
     return h, {"len": None, "groups": new_groups}  # len managed by the caller
 
 
-def logits_from_hidden(cfg, params: DecoderLM, h):
-    return h @ params.lm_head
+def logits_from_hidden(cfg, params: DecoderLM, h, vocab_tp=None):
+    """h @ lm_head; with ``vocab_tp`` (the group lm_head's vocabulary is
+    split over) every rank's columns are gathered, so each rank holds the
+    whole [B, n, V]."""
+    logits = h @ params.lm_head
+    return logits if vocab_tp is None else vocab_tp.all_gather(logits, dim=-1)
 
 
-def embed_tokens(cfg, params: DecoderLM, tokens):
-    return params.embed[tokens.long()]
+def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None):
+    """The embedding rows of ``tokens``; with ``vocab_tp`` (the group the
+    table's vocabulary is split over; ``cfg`` the rank's, its
+    ``vocab_size`` the rank's rows) each rank looks up the ids in its
+    range, zeros elsewhere, and the sum over the ranks is the row (exactly:
+    one term is not zero)."""
+    ids = tokens.long()
+    if vocab_tp is None:
+        return params.embed[ids]
+    V_loc = cfg.vocab_size
+    local = ids - vocab_tp.rank * V_loc
+    mine = (local >= 0) & (local < V_loc)
+    rows = params.embed[local.clamp(0, V_loc - 1)]
+    return vocab_tp.all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))

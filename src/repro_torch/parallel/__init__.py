@@ -1,0 +1,29 @@
+"""Tensor parallelism over ``torch.distributed`` (``repro.sharding``,
+``repro.core.collective_matmul``).
+
+* ``group``: ``TPGroup`` (a process group with the collectives the sharded
+  forward uses) and ``init_tp``;
+* ``rules``: ``DEFAULT_RULES`` and ``spec_for``, over the weights' logical
+  axes (``models.axes``);
+* ``shard``: ``Shard`` (one rank's padded shards and per-rank config),
+  ``attn_layout``, ``shard_params``;
+* ``spawn``: ``run_ranks``, which runs a rank program on new processes
+  (the tests, ``chip_smoke.py``); ``workers``: those rank programs.
+
+A ``Model`` made with a group (``models.api.make_model(cfg, device,
+group=...)``) holds this rank's shards and sums, gathers and looks up over
+the group in its forward; the speculative engine runs the same host loop
+on every rank.
+"""
+
+from repro_torch.parallel.group import (
+    COLLECTIVES,
+    TPGroup,
+    init_tp,
+    reset_collective_counts,
+    shutdown_tp,
+)
+from repro_torch.parallel.rules import DEFAULT_RULES, spec_for
+
+__all__ = ["COLLECTIVES", "DEFAULT_RULES", "TPGroup", "init_tp", "reset_collective_counts",
+           "shutdown_tp", "spec_for"]

@@ -1,0 +1,134 @@
+"""The tensor-parallel group: the ranks that share one model's tensors.
+
+``TPGroup`` holds a ``torch.distributed`` process group with this rank's
+place in it and its device, and the three collectives the sharded forward
+uses — ``all_reduce`` (a sum), ``all_gather`` (the list form, joined along
+a dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
+so a run can report how many collectives a round issued (with gloo on
+CUDA tensors each of them is staged through the host).
+
+``init_tp`` joins the group: from torchrun's ``RANK``/``WORLD_SIZE``/
+``LOCAL_RANK``, or from explicit arguments and a ``FileStore`` path (the
+tests, ``parallel.spawn``).  The default backend is NCCL for a CUDA device
+and gloo for the CPU.  NCCL refuses two ranks on one device, so several
+ranks on one card raise unless the caller passes ``backend="gloo"``; gloo
+is never taken for CUDA tensors on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import socket
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import resolve_device
+
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+COLLECTIVE_TIMEOUT_S = 300  # a collective that waits longer for a rank raises
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+@dataclasses.dataclass(eq=False)
+class TPGroup:
+    """A process group of ``world`` ranks, this process being ``rank``, on
+    ``device``; ``ranks`` are the group's global ranks in group order."""
+
+    pg: Any
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    ranks: tuple
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks, in place."""
+        COLLECTIVES["all_reduce"] += 1
+        dist.all_reduce(t, group=self.pg)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in rank order."""
+        COLLECTIVES["all_gather"] += 1
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.pg)
+        return torch.cat(parts, dim)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank, in place."""
+        COLLECTIVES["broadcast"] += 1
+        dist.broadcast(t, src=self.ranks[src], group=self.pg)
+        return t
+
+    def new_group(self) -> "TPGroup":
+        """A second process group over the same ranks (a communicator of its
+        own: the async round gives the target and the draft one each).
+        Every rank must call it, in the same order."""
+        pg = dist.new_group(ranks=list(self.ranks), backend=self.backend)
+        return dataclasses.replace(self, pg=pg)
+
+
+def _device_key(device: torch.device) -> str:
+    if device.type == "cuda":
+        return f"{socket.gethostname()}/{torch.cuda.get_device_properties(device).uuid}"
+    return f"{socket.gethostname()}/cpu/{os.getpid()}"
+
+
+def check_backend(backend: str, devices: list) -> None:
+    """Raise when NCCL would put two of the ranks (``devices``: one key per
+    rank naming its card) on one device."""
+    if backend == "nccl" and len(set(devices)) < len(devices):
+        raise ValueError(
+            f"init_tp: {len(devices)} ranks on {len(set(devices))} CUDA device(s) — NCCL refuses "
+            "two ranks on one device; pass backend='gloo' to share a card between ranks")
+
+
+def init_tp(device=None, backend: str | None = None, *, rank: int | None = None,
+            world_size: int | None = None, store_path: str | None = None) -> TPGroup:
+    """Join the default process group and return it as a ``TPGroup``.
+
+    Without ``rank`` the rank, world size and local rank come from
+    torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, its
+    rendezvous store); with it, ``world_size`` and ``store_path`` (a
+    ``FileStore`` file that every rank names) must be given too.  A bare
+    ``cuda`` device becomes ``cuda:<LOCAL_RANK mod devices>``.  NCCL with
+    two ranks on one CUDA device raises; ``backend="gloo"`` shares a card."""
+    device = resolve_device(device)
+    if rank is None:
+        rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        store, _, _ = next(dist.rendezvous("env://"))
+    else:
+        if world_size is None or store_path is None:
+            raise ValueError("init_tp: an explicit rank needs world_size and store_path")
+        local = rank
+        store = dist.FileStore(store_path, world_size)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and world_size > 1:
+        # every rank learns every rank's card before any NCCL call
+        keys = dist.PrefixStore("repro_torch_tp_devices", store)
+        keys.set(str(rank), _device_key(device))
+        check_backend(backend, [keys.get(str(r)).decode() for r in range(world_size)])
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    return TPGroup(pg=dist.group.WORLD, rank=rank, world=world_size, device=device,
+                   backend=backend, ranks=tuple(range(world_size)))
+
+
+def shutdown_tp() -> None:
+    """Leave the default process group (and every group made from it)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -1,7 +1,7 @@
-"""Fault tolerance (``repro.runtime``): step retry and the straggler policy.
-The reference's ``runtime/elastic.py`` (resharding onto another mesh) comes
-with tensor parallelism (ROADMAP item 13b)."""
+"""Fault tolerance (``repro.runtime``): step retry, the straggler policy and
+re-sharding onto a tensor-parallel group of another degree (``elastic``)."""
 
+from repro_torch.runtime.elastic import reshard_params
 from repro_torch.runtime.fault import FaultConfig, StragglerPolicy, retry_step
 
-__all__ = ["FaultConfig", "StragglerPolicy", "retry_step"]
+__all__ = ["FaultConfig", "StragglerPolicy", "reshard_params", "retry_step"]
