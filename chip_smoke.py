@@ -48,7 +48,8 @@ It takes no options and runs every phase, in order:
            control of (c3)), (c5) the router: ``ShardedServingRuntime``
            over two replicas of (c2)'s async engine sharing the card (the
            shared-device fallback of ``make_serving_devices``), 1 slot
-           each, the fleet report printed.  Every output must equal the
+           each, the fleet report printed, its outputs held against (c2)'s
+           solo ``generate()`` (the same engine).  Every output must equal the
            port's own target-only greedy decode (and, in (c), its solo
            ``generate()``); each kernel of a path must have launched in its
            run; each run must make one host sync per round.
@@ -117,7 +118,7 @@ It takes no options and runs every phase, in order:
   tp       tensor parallelism, both models sharded over ranks that share
            the one card through gloo (NCCL refuses two ranks on one
            device), each rank a process of its own: (p1) llama3-8b cut to
-           16 of its 32 layers with llama3-1b cut to 8 of 16 at tp 2 (per
+           8 of its 32 layers with llama3-1b cut to 4 of 16 at tp 2 (per
            rank Hq 16, Hkv 4, fused_swiglu at N 7168 and 4096), lockstep
            then async rounds; (p2) qwen2.5-14b cut to 8 of its 48 layers
            drafting for itself at d 2, tp 3, padded by resolve_for_tp (per
@@ -131,9 +132,26 @@ It takes no options and runs every phase, in order:
            host by gloo, are reported apart); (p3) (p1)'s target on an NCCL
            group of one rank in this process: its prefill bit for bit equal
            to the model without a group
+  split    (s), the disaggregated engine, run in the ranks of (p1)'s and
+           (p2)'s spawns after them (``workers.split_engine``): target and
+           draft on disjoint rank groups that share the card through gloo,
+           each rank holding its own role's model only, the plan and the
+           verdict crossing as world broadcasts: (s1) llama3-8b on rank 0
+           and llama3-1b on rank 1 at full width and depth (seeded as
+           (a)'s, lm_head x4, S_max 512, bs 8, w 4, c 2, d 2, 1 request,
+           prompt 16, max_new 32): lockstep, async rounds and chain mode
+           (k 4); (s2) llama3-8b over ranks 0-1 (tp 2) and llama3-1b on
+           rank 2, lockstep.  Every rank's output must equal (s1) rank 0's
+           single-process greedy decode and rank 0's, with the same stats
+           on every rank, one host sync of the port per round (chain: +1
+           per request), each role's kernels launched on each of its ranks,
+           each rank's parameters its own role's shard alone and its peak
+           memory above what it held before, less them, below the other
+           role's weights;
+           the collectives per round are reported apart
   shapes   every shape at which a path called a kernel, held against its
-           plain version again, the tp ranks' shapes included (each rank
-           records its own and hands them back)
+           plain version again, the (p) and (s) ranks' shapes included (each
+           rank records its own and hands them back)
 
 Each path prints its launches and a kernel trace of two rounds
 (``build/traces/trace_<path>.json``).  The last two lines of standard output
@@ -282,8 +300,21 @@ TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer 
     ("70B-tp3-r0", "llama3-70b", 3, 0, {"attention"}),
     ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}))
 TP_PATHS = {  # (p1)/(p2): (target, its depth), (draft, its depth) or None (self), tp, max_new, runs
-    "p1": (("llama3-8b", 16), ("llama3-1b", 8), 2, 32, ("lockstep", "async")),
+    "p1": (("llama3-8b", 8), ("llama3-1b", 4), 2, 32, ("lockstep", "async")),
     "p2": (("qwen2.5-14b", 8), None, 3, 24, ("lockstep",)),
+}
+SPLIT_PATHS = {  # (s1)/(s2), each run in the spawn of the (p) path named first (one process
+    # start and CUDA init per rank serve both): (target, its ranks), (draft, its ranks), runs
+    "s1": ("p1", ("llama3-8b", 1), ("llama3-1b", 1), (("lockstep", "tree"), ("async", "tree"),
+                                                      ("chain", "chain"))),
+    "s2": ("p2", ("llama3-8b", 2), ("llama3-1b", 1), (("lockstep", "tree"),)),
+}
+SPLIT_NEW = 32  # max_new of (s)
+SPLIT_KERNELS = {  # (run kind, role) -> the kernels each rank of the role must launch
+    ("tree", "target"): MAIN_KERNELS, ("tree", "draft"): MAIN_KERNELS,  # verify + compaction;
+    # expansion, fill and re-root
+    ("chain", "target"): ("tree_attention", "fused_swiglu"),  # the chain's verify
+    ("chain", "draft"): CHAIN_KERNELS,  # decode steps, the commit's chain forward
 }
 TP_BACKEND = "gloo"  # several ranks on one card: NCCL refuses two ranks on one device
 # the sharded prefill against the single-process one: the sums over heads and ff columns are
@@ -1276,7 +1307,8 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
     engine's solo ``generate()``, the slot_write_rows launches (4 per
     request), one host sync per round and the traced draft/verify overlap
     (0 lockstep, > 0 async).  Returns the launch counts of the run, its
-    SpecStats, and its mean round (ms), tok/s over the wall and TTFT p50 (ms)."""
+    SpecStats, its mean round (ms), tok/s over the wall and TTFT p50 (ms),
+    and the solo generate() of every request."""
     from repro_torch.kernels import ops
     from repro_torch.obs import Tracer, phase_breakdown
     from repro_torch.obs.clock import monotonic
@@ -1317,6 +1349,7 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
     if sorted(results) != [r.rid for r in trace]:
         fail(f"{label}: served {sorted(results)}, not every request of the trace")
     sess = eng.session(tp, dp)
+    solos = {}
     for r in trace:
         out = results[r.rid]
         ref_toks, margins = refs[r.rid]
@@ -1325,8 +1358,8 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
             fail(f"{label} request {r.rid}: served output diverges from the greedy decode at "
                  f"position {j} (served {out[j:j + 3]}, greedy {ref_toks[j:j + 3]}); the "
                  f"target's top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
-        solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
-        if solo[0] != out:
+        solos[r.rid] = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)[0][0]
+        if solos[r.rid] != out:
             fail(f"{label} request {r.rid}: served output differs from the solo generate()")
     print(f"{label}: every output equals the solo generate() and the greedy decode", flush=True)
     missing = [k for k in SERVE_KERNELS if counts[k] == 0]
@@ -1355,14 +1388,15 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
             se.admit_slot(slot, trace[slot].prompt)
 
     trace_rounds(torch, eng.session(tp, dp), two_live_rows, label, tag=tag)
-    return counts, st, (round_ms, toks / wall, summ["ttft_p50_s"] * 1e3)
+    return counts, st, (round_ms, toks / wall, summ["ttft_p50_s"] * 1e3), solos
 
 
-def serve_fleet(torch, label, eng, tp, dp, trace, refs, card, replicas: int = 2):
+def serve_fleet(torch, label, eng, tp, dp, trace, refs, solos, card, replicas: int = 2):
     """Serve ``trace`` through ShardedServingRuntime: ``replicas`` replicas of
     ONE engine (the shared-device fallback of ``make_serving_devices`` on one
     card), 1 slot each, on a wall clock.  Every output must equal the greedy
-    decode and the engine's solo ``generate()``; every replica must serve;
+    decode and the engine's solo ``generate()`` (``solos``: that engine's,
+    made by ``serve_continuous``); every replica must serve;
     each replica's round makes one host sync; kv_move_rows and
     slot_write_rows launch as a single engine's would, summed over the
     replicas.  Prints the fleet report.  Returns the launch counts."""
@@ -1404,15 +1438,14 @@ def serve_fleet(torch, label, eng, tp, dp, trace, refs, card, replicas: int = 2)
         fail(f"{label}: served {sorted(results)}, not every request of the trace")
     if set(where.values()) != set(range(replicas)):
         fail(f"{label}: requests went to replicas {sorted(set(where.values()))} only")
-    sess = eng.session(tp, dp)
     for r in trace:
         out = results[r.rid]
         if out != refs[r.rid][0][:r.max_new] or len(out) != r.max_new:
             fail(f"{label} request {r.rid}: served output differs from the greedy decode")
-        solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
-        if solo[0] != out:
+        if solos[r.rid] != out:
             fail(f"{label} request {r.rid}: served output differs from the solo generate()")
-    print(f"{label}: every output equals the solo generate() and the greedy decode", flush=True)
+    print(f"{label}: every output equals the solo generate() and the greedy decode (reduced: "
+          "the solo runs (c2) made on the same engine, not a second set)", flush=True)
     missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         fail(f"{label}: kernels never launched on the router's path: {missing}")
@@ -1594,18 +1627,19 @@ def phase_serve(torch, card):
          engine_c(Tc, Tc, dataclasses.replace(cfg_b, async_rounds=True)), tpc),
         ("c4", "continuous (c4) lockstep 8B self-draft", engine_c(Tc, Tc, cfg_b), tpc),
     ]
-    perf = {}
+    perf, solos = {}, {}
     for tag, label, e, draft_params in runs:
-        counts[tag], st, perf[tag] = serve_continuous(torch, label, tag, e, tpc, draft_params,
-                                                      trace, refs_c, card)
+        counts[tag], st, perf[tag], solos[tag] = serve_continuous(
+            torch, label, tag, e, tpc, draft_params, trace, refs_c, card)
         if tag == "c2" and st.spec_rounds == st.spec_commits:
             fail(f"{label}: no lookahead rolled back")
         if tag == "c3" and st.spec_commits == 0:
             fail(f"{label}: no lookahead committed")
     # (c5) the router: two replicas of (c2)'s async engine share the card (the shared-device
-    # fallback), 1 slot each, on the same trace
+    # fallback), 1 slot each, on the same trace; reduced: held against the solo generate()
+    # that (c2) made on the same engine, not a second one
     counts["c5"] = serve_fleet(torch, "continuous (c5) router, 2 replicas of (c2)", runs[1][2],
-                               tpc, dpc, trace, refs_c, card)
+                               tpc, dpc, trace, refs_c, solos["c2"], card)
     for asyn, lock in (("c2", "c1"), ("c3", "c4")):  # async against its lockstep twin
         (ra, ta, fa), (rl, tl, fl) = perf[asyn], perf[lock]
         print(f"serve ({asyn}) async against ({lock}) lockstep: mean round {ra:.2f} / {rl:.2f} ms "
@@ -2048,8 +2082,10 @@ def phase_tp(torch, card, log):
     logits the reference's within TP_LOGIT_TOL, its runs launch the main
     path's kernels and make one host sync of the port's per lockstep
     round; the collectives per round (each staged through the host by
-    gloo) are reported apart.  The shapes at which each rank launched a
-    kernel join ``log`` (a ``ShapeLog``), for phase_shapes to hold."""
+    gloo) are reported apart.  The (s) paths of SPLIT_PATHS run in the
+    same ranks after their (p) path (``workers.several``), checked by
+    ``report_split``.  The shapes at which each rank launched a kernel join
+    ``log`` (a ``ShapeLog``), for phase_shapes to hold."""
     import dataclasses
 
     import numpy as np
@@ -2067,6 +2103,7 @@ def phase_tp(torch, card, log):
     print(f"tensor parallel: the ranks share the one card through {TP_BACKEND} (NCCL refuses two "
           "ranks on one device), so a round here checks correctness and is no tensor-parallel "
           "speed figure", flush=True)
+    split_greedy = {}
     for path, ((tname, tdepth), draft, tp, max_new, runs) in TP_PATHS.items():
         tcfg = dataclasses.replace(get_config(tname), n_layers=tdepth)
         dcfg = None if draft is None else dataclasses.replace(get_config(draft[0]),
@@ -2111,12 +2148,17 @@ def phase_tp(torch, card, log):
                "trace_rounds": 2, "trace_path": os.path.join(HERE, "build", "traces",
                                                              f"trace_{path}")}
         os.makedirs(os.path.dirname(job["trace_path"]), exist_ok=True)
+        calls = [("spec_engine", (job,))]
+        splits = [name for name, sp in SPLIT_PATHS.items() if sp[0] == path]
+        calls += [("split_engine", (split_job(name),)) for name in splits]
         t0 = monotonic()
-        ranks = run_ranks("repro_torch.parallel.workers:spec_engine", tp, (job,),
-                          workdir=os.path.join(work, path), device="cuda:0", backend=TP_BACKEND,
-                          timeout_s=420, threads=2)
-        print(f"{label}: {tp} ranks started, drew their shards and ran in "
-              f"{monotonic() - t0:.1f} s; heads / KV heads per rank: target "
+        out = run_ranks("repro_torch.parallel.workers:several", tp, (calls,),
+                        workdir=os.path.join(work, path), device="cuda:0", backend=TP_BACKEND,
+                        timeout_s=420, threads=2)
+        ranks = [r[0] for r in out]
+        print(f"{label}: {tp} ranks started, drew their shards and ran"
+              + (f" (and {', '.join(f'({n})' for n in splits)} after it)" if splits else "")
+              + f" in {monotonic() - t0:.1f} s; heads / KV heads per rank: target "
               f"{[r['heads']['target'] for r in ranks]}, draft "
               f"{[r['heads']['draft'] for r in ranks]}", flush=True)
         for r in ranks:
@@ -2169,6 +2211,128 @@ def phase_tp(torch, card, log):
                       "(its own kernels; the other ranks share the card)", flush=True)
             print(f"{label} {run}: kernel launches summed over the ranks "
                   f"{counts[f'{path}-{run}']}", flush=True)
+        for i, name in enumerate(splits, start=1):
+            counts.update(report_split(name, [r[i] for r in out], split_greedy, card, log))
+    return counts
+
+
+def split_job(name: str) -> dict:
+    """The ``workers.split_engine`` job of a SPLIT_PATHS path: both models at
+    full width and depth, drawn as ``build_engine`` draws them (target seed
+    0, draft seed 1, lm_head x4), one request of the serve CLI's prompt
+    length."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_request_stream
+
+    _, (tname, n_t), (dname, _), runs = SPLIT_PATHS[name]
+    tcfg, dcfg = get_config(tname), get_config(dname)
+    tree = dict(bs=8, w=4, c=2, d=2, max_new=SPLIT_NEW)
+    kw = {"lockstep": tree, "async": dict(tree, async_rounds=True),
+          "chain": dict(k=CHAIN_K, mode="parallel", max_new=SPLIT_NEW)}
+    return {"n_target": n_t, "tcfg": tcfg, "dcfg": dcfg, "weights": ("seed", 0, 1, 4.0),
+            "prompts": [next(make_request_stream(tcfg.vocab_size, 16, 1, 1, seed=11))],
+            "runs": [(run, kind, kw[run]) for run, kind in runs], "S_max": 512,
+            "greedy_n": SPLIT_NEW if n_t == 1 else 0, "sync_rounds": 2, "record_shapes": True}
+
+
+def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
+    """Check and print one (s) path's ranks (``workers.split_engine``): every
+    rank's output equal to the target's single-process greedy decode
+    (``greedy``: each path's, from the first path whose target has one
+    rank) and to rank 0's, the same stats on every rank, one host sync of
+    the port per round (+1 per chain request), each role's kernels
+    launched on each of its ranks, each rank's parameters its own role's
+    model's alone (``param_count`` of its shard), and its peak memory above
+    what it held before, less those parameters, below the other role's
+    weights.  ``backend``: the ranks' process group, gloo's on one card here
+    (no speed figure) or NCCL's, one card per rank (``tools/split_nccl.py``).
+    Returns the launches per run, summed over the ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.shard import Shard
+
+    _, (tname, n_t), (dname, n_d), runs = SPLIT_PATHS[name]
+    cfgs = {"target": get_config(tname), "draft": get_config(dname)}
+    label = f"({name}) split {tname} on {n_t} rank{'s' * (n_t > 1)} + {dname} on {n_d}"
+    where = (f"{backend}, one card per rank" if backend == "nccl" else
+             f"{backend}, {n_t + n_d} ranks on one card: no speed figure")
+
+    def role_bytes(role, i, n):  # rank i of n's shard of the role's model
+        c = Shard(cfgs[role], i, n).local_cfg
+        return c.param_count() * getattr(torch, c.param_dtype).itemsize
+
+    whole = {role: sum(role_bytes(role, i, n) for i in range(n))
+             for role, n in (("target", n_t), ("draft", n_d))}
+    if [r["role"] for r in ranks] != ["target"] * n_t + ["draft"] * n_d:
+        fail(f"{label}: the ranks' roles are {[r['role'] for r in ranks]}")
+    for r in ranks:
+        for kname, keys in r["shapes"].items():
+            log.seen[kname] |= keys
+        role = r["role"]
+        other = "draft" if role == "target" else "target"
+        want = role_bytes(role, r["ranks"].index(r["rank"]), len(r["ranks"]))
+        above = r["peak_allocated"] - r["allocated_before"]
+        if r["param_bytes"] != want or r["standin"] != {"is_standin": True, "tensors": 0}:
+            fail(f"{label} rank {r['rank']}: {r['param_bytes']} bytes of parameters, its "
+                 f"{role}'s shard takes {want}; the {other}'s stand-in {r['standin']}")
+        if above - r["param_bytes"] >= whole[other]:
+            fail(f"{label} rank {r['rank']}: its peak is {above / 2**30:.2f} GiB above what it "
+                 f"held before: beside its {r['param_bytes'] / 2**30:.2f} GiB of weights, room for the "
+                 f"{other}'s {whole[other] / 2**30:.2f} GiB")
+        print(f"{label} rank {r['rank']} ({role}, ranks {list(r['ranks'])}): parameters "
+              f"{r['param_bytes'] / 2**30:.3f} GiB (its {role}'s shard: {want / 2**30:.3f} GiB), "
+              f"allocated after the build {r['allocated_after_build'] / 2**30:.3f} GiB, peak "
+              f"{r['peak_allocated'] / 2**30:.3f} GiB ({above / 2**30:.3f} GiB above the "
+              f"{r['allocated_before'] / 2**30:.3f} GiB held before it; the {other}'s weights: "
+              f"{whole[other] / 2**30:.3f} GiB, none here) on {card}", flush=True)
+    print(f"{label}: seconds on rank 0: build (the split's groups, the weights drawn) "
+          f"{ranks[0]['build_s']:.1f}" + (f", greedy decode {ranks[0]['greedy_s']:.1f}"
+                                          if "greedy_s" in ranks[0] else "")
+          + "".join(f", {run} {g['wall_s']:.1f} + {g['after_s']:.1f} (its syncs' rounds)"
+                    for run, g in ranks[0]["runs"].items()), flush=True)
+    if "greedy" in ranks[0]:
+        greedy[tname] = ranks[0]["greedy"][0]
+    want_toks = greedy[tname]
+    counts = {}
+    for run, kind in runs:
+        per = [r["runs"][run] for r in ranks]
+        for r, got in zip(ranks, per):
+            toks = got["tokens"][0]
+            if toks != want_toks[:len(toks)] or len(toks) != SPLIT_NEW:
+                j = next((i for i, (a, b) in enumerate(zip(toks, want_toks)) if a != b),
+                         len(toks))
+                fail(f"{label} {run} rank {r['rank']}: output diverges from the single-process "
+                     f"greedy decode at position {j}")
+            if toks != per[0]["tokens"][0] or got["stats"] != per[0]["stats"]:
+                fail(f"{label} {run} rank {r['rank']}: tokens or stats differ from rank 0's")
+            sy = got["syncs"]
+            if sy["syncs"] != sy["rounds"] + sy["requests"]:
+                fail(f"{label} {run} rank {r['rank']}: {sy['syncs']} host syncs of the port in "
+                     f"{sy['rounds']} rounds of {max(sy['requests'], 1)} request(s), not one per "
+                     "round" + (" and one per request" if kind == "chain" else ""))
+            missing = [k for k in SPLIT_KERNELS[kind, r["role"]] if got["launches"][k] == 0]
+            if missing:
+                fail(f"{label} {run} rank {r['rank']} ({r['role']}): kernels never launched: "
+                     f"{missing}")
+        st, rounds = per[0]["stats"][0], per[0]["rounds"]
+        emitted = st["emitted"] if kind == "chain" else sum(st["emitted_rows"])
+        sy = per[0]["syncs"]
+        counts[f"{name}-{run}"] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
+        coll = per[0]["collectives"]
+        print(f"{label} {run}: {rounds} rounds, compression {emitted / max(rounds, 1):.3f}, mean "
+              f"round {per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms ({where}), "
+              f"{(sy['syncs'] - sy['requests']) / sy['rounds']:.2f} host syncs of the port per "
+              "round"
+              + (f" (+{sy['requests']} for the request's first token)" if kind == "chain" else "")
+              + f" on every rank, {sum(coll.values()) / max(rounds, 1):.2f} collectives per round "
+              f"on rank 0 ({coll}; {coll['broadcast'] / max(rounds, 1):.2f} of them the world's "
+              f"exchanges), every rank's output equals the single-process greedy decode, on {card}",
+              flush=True)
+        for role in ("target", "draft"):
+            mine = [(r["rank"], g["launches"]) for r, g in zip(ranks, per) if r["role"] == role]
+            print(f"{label} {run}: {role} ranks' kernel launches "
+                  f"{[(rk, {k: v for k, v in ln.items() if v}) for rk, ln in mine]}", flush=True)
     return counts
 
 
@@ -2301,7 +2465,7 @@ def main() -> int:
     counts.update(phase_train(torch, card))
     timing("train (t)")
     counts.update(phase_tp(torch, card, log))
-    timing("tp (p1)-(p3)")
+    timing("tp (p1)-(p3) and split (s1)-(s2)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

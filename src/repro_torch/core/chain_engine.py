@@ -34,6 +34,16 @@ verified argmax and the draft chain in one transfer.  The next round's
 first token, like the prompt, reaches the card by a non-blocking copy from
 pinned memory, so a request adds one sync of its own: its first token.
 
+Disaggregated (``split=``, ``parallel/split.py``): target and draft on
+disjoint rank groups, one process per rank, each rank its own role's
+forwards and caches.  Three tensors cross, each one world broadcast: the
+request's first token (target -> every rank), then each round the chain
+(``pending`` and the k drafts, draft -> target) and the target's argmax
+(target -> every rank).  In parallel mode the draft enqueues its lookahead
+before it waits for the argmax.  Every rank makes the round's one host
+transfer of the argmax and the drafts and takes the same ``n_acc``,
+``full`` and commit from it.
+
 Greedy-equality invariant: the emitted tokens equal target-only greedy
 decoding.  One request at a time (B = 1), the paper's latency regime.
 """
@@ -79,15 +89,17 @@ def _has_state(model) -> bool:
 
 class ChainSpecEngine(StreamPair):
     def __init__(self, target, draft, cfg: ChainConfig, S_max_t: int, S_max_d: int,
-                 target_devices=None, draft_devices=None):
-        self.device = engine_device(target, draft, target_devices, draft_devices)
+                 target_devices=None, draft_devices=None, split=None):
+        self.device = engine_device(target, draft, target_devices, draft_devices, split)
         if cfg.mode not in ("parallel", "serial"):
             raise ValueError(f"mode must be 'parallel' or 'serial', got {cfg.mode!r}")
         self.target, self.draft, self.cfg = target, draft, cfg
         self.S_max_t, self.S_max_d = S_max_t, S_max_d
-        # parallel mode on the card: the target's stream and the draft's
+        self.split = split
+        # parallel mode on the card: the target's stream and the draft's (a
+        # split rank runs one role)
         self.streams = None
-        if cfg.mode == "parallel" and self.device.type == "cuda":
+        if cfg.mode == "parallel" and self.device.type == "cuda" and split is None:
             self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
 
     # ----- the round's programs (the reference's jitted functions) ----------
@@ -152,16 +164,22 @@ class ChainSession:
         t0 = monotonic()
 
         eng._fork()
+        tcache = dcache = first_t = None
         with eng._target():
-            tlogits, tcache = eng._tprefill(tparams, _to_device(prompt, eng.device))
-            first = int(tlogits[0, -1].argmax())  # the request's first token: its one extra sync
-        with eng._draft():
-            _, dcache = eng._dprefill(dparams, _to_device(prompt, eng.device))
-            pending = _to_device([[first]], eng.device)  # [1, 1]
+            if eng.runs_target:
+                tlogits, tcache = eng._tprefill(tparams, _to_device(prompt, eng.device))
+                first_t = tlogits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            first_t = eng._share(first_t, "target", (1, 1))
+            first = int(first_t[0, 0])  # the request's first token: its one extra sync
+        if eng.runs_draft:
+            with eng._draft():
+                _, dcache = eng._dprefill(dparams, _to_device(prompt, eng.device))
+                pending = _to_device([[first]], eng.device)  # [1, 1]
         out = [first]
         stats = ChainStats(emitted=1)
         t_state = _has_state(eng.target)
-        pre_drafts = None  # speculated next chain (parallel reuse)
+        reuse = False  # the speculated next chain (parallel) is drafted and held
+        pre_drafts = None  # that chain, on the draft's ranks
         done = (c.eos_id >= 0 and first == c.eos_id) or len(out) >= max_new
 
         while not done:
@@ -171,37 +189,46 @@ class ChainSession:
             dsnap = dcache  # pre-round draft cache: the forwards below keep it
 
             # --- draft chain ------------------------------------------------
+            chain = u_ready = None
             with obs.span("draft_expand", track), eng._draft():
-                if pre_drafts is not None:
+                if reuse:
                     drafts = pre_drafts
                     stats.reused_chains += 1
                 else:
-                    drafts = eng._draft_chain(dparams, dcache, pending)
+                    drafts = eng._draft_chain(dparams, dcache, pending) if eng.runs_draft \
+                        else None
                     stats.draft_chains += 1
-                u = torch.cat([pending, drafts[:, :k - 1]], dim=1)  # [1, k]
-                u_ready = torch.cuda.Event() if eng.streams else None
-                if u_ready is not None:
-                    u_ready.record()
+                if eng.runs_draft:
+                    chain = torch.cat([pending, drafts], dim=1)  # [1, 1 + k]
+                    if eng.streams:
+                        u_ready = torch.cuda.Event()
+                        u_ready.record()
+            chain = eng._share(chain, "draft", (1, 1 + k))  # a split's chain: draft -> target
+            u, drafts = chain[:, :k], chain[:, 1:]
 
             # --- target verification: the span stays open until the verified
             # tokens reach the host (the verify window)
             vspan = obs.begin("verify_dispatch", track)
-            with eng._target():
-                if u_ready is not None:
-                    torch.cuda.current_stream().wait_event(u_ready)
-                    for t in (u, drafts):  # read on this stream too, for the allocator
-                        t.record_stream(torch.cuda.current_stream())
-                argmax, tcache_rows = eng._verify(tparams, tcache, u)
+            argmax = None
+            if eng.runs_target:
+                with eng._target():
+                    if u_ready is not None:
+                        torch.cuda.current_stream().wait_event(u_ready)
+                        # read on this stream too (u and drafts are its views), for the allocator
+                        chain.record_stream(torch.cuda.current_stream())
+                    argmax, tcache_rows = eng._verify(tparams, tcache, u)
 
             # --- meanwhile: draft the next chain on the all-accepted guess -----
             if c.mode == "parallel":
                 with obs.span("draft_lookahead", track), eng._draft():
-                    dfull = eng._dcommit(dparams, dsnap, u, k)
-                    nxt_drafts = eng._draft_chain(dparams, dfull, drafts[:, k - 1:])
+                    if eng.runs_draft:
+                        dfull = eng._dcommit(dparams, dsnap, u, k)
+                        nxt_drafts = eng._draft_chain(dparams, dfull, drafts[:, k - 1:])
                     stats.draft_chains += 1
 
             # --- the round's one host sync ---------------------------------------
             with obs.span("sync_emitted", track), eng._target():
+                argmax = eng._share(argmax, "target", (1, k))  # a split's verdict: to every rank
                 host = torch.cat([argmax, drafts], dim=1).cpu().numpy()[0]
             vspan.end()
             argmax_h, drafts_h = host[:k], host[k:]
@@ -219,22 +246,25 @@ class ChainSession:
             stats.accepted += n_acc
             stats.emitted += n_emit
             full = n_acc == k - 1 and argmax_h[k - 1] == drafts_h[k - 1]
+            reuse = full and c.mode == "parallel"
 
             # --- commit the emitted prefix --------------------------------------
             with obs.span("reroot_grow", track):
-                with eng._target():
-                    if t_state:
-                        tcache = eng._tcommit(tparams, tcache, u, n_emit)
-                    else:  # attention-only: the rows are written, move len
-                        tcache = {**tcache_rows, "len": tcache_rows["len"] + n_emit}
-                with eng._draft():
-                    pending = _to_device([[argmax_h[n_emit - 1]]], eng.device)
-                    if full and c.mode == "parallel":
-                        dcache = dfull  # the chain held: snapshot + u is the truth
-                        pre_drafts = nxt_drafts
-                    else:
-                        dcache = eng._dcommit(dparams, dsnap, u, n_emit)
-                        pre_drafts = None
+                if eng.runs_target:
+                    with eng._target():
+                        if t_state:
+                            tcache = eng._tcommit(tparams, tcache, u, n_emit)
+                        else:  # attention-only: the rows are written, move len
+                            tcache = {**tcache_rows, "len": tcache_rows["len"] + n_emit}
+                if eng.runs_draft:
+                    with eng._draft():
+                        pending = _to_device([[argmax_h[n_emit - 1]]], eng.device)
+                        if reuse:
+                            dcache = dfull  # the chain held: snapshot + u is the truth
+                            pre_drafts = nxt_drafts
+                        else:
+                            dcache = eng._dcommit(dparams, dsnap, u, n_emit)
+                            pre_drafts = None
             rspan.end()
 
         eng._join()

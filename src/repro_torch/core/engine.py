@@ -31,6 +31,22 @@ host loop on the same logits, so every host decision is the same on every
 rank; the async round gives each model a process group of its own, whose
 collectives run on that model's stream.
 
+Disaggregated (``split=``, ``parallel/split.py``): target and draft on
+disjoint rank groups, one process per rank.  A rank runs its own role's
+part of every method — the target's ranks verify and compact, the draft's
+expand, re-root, fill and grow — and holds nothing of the other role: its
+model is a ``StandIn``, and its ``EngineState`` has None for the other
+role's caches, tree and plan.  The roles meet in one order of world
+collectives a round: the plan (draft -> target) at the start, the verdict
+(target -> every rank) and, in the async round, the prediction (draft ->
+every rank) at its end.  The draft sends its plan before its expansions
+and enqueues its lookahead before it waits for the verdict, so its work
+runs beside the verify.  Every rank then makes the round's one host sync,
+one transfer of the verdict (and the prediction), and takes the same
+host decisions from it: the emitted tokens, the async ``ok``, every
+``SpecStats`` field.  A split rank runs one role, so it needs no second
+stream.
+
 Greedy-verification invariant: the emitted stream equals target-only greedy
 decoding token for token.
 """
@@ -48,6 +64,7 @@ from repro_torch import indexed_device
 from repro_torch.core import kv as kvm
 from repro_torch.core import tree as T
 from repro_torch.core.scheduler import ProfileResult
+from repro_torch.models.api import StandIn
 from repro_torch.obs.clock import monotonic
 from repro_torch.obs.trace import NOOP_SPAN, NULL_TRACER
 
@@ -171,17 +188,20 @@ def absorb_emitted(out: list, emitted_row, n_emitted: int, max_new: int, eos_id:
     return new, False
 
 
-def engine_device(target, draft, target_devices=None, draft_devices=None) -> torch.device:
+def engine_device(target, draft, target_devices=None, draft_devices=None,
+                  split=None) -> torch.device:
     """The one device an engine runs on (this rank's, under tensor
-    parallelism).  ``target_devices`` and ``draft_devices`` are the device
-    groups the reference takes as ``mesh_target``/``mesh_draft``
+    parallelism or a split).  ``target_devices`` and ``draft_devices`` are
+    the device groups the reference takes as ``mesh_target``/``mesh_draft``
     (``launch/mesh.make_serving_devices``), by default each model's own
     device.  A shared pair runs: both groups the same single device, where
     both models live, or both models sharded over the same ranks (the
     reference's ``SpecEngine(mesh_target=M, mesh_draft=M)``; every rank runs
-    this engine on the same logits).  A split pair raises: target and draft
-    on disjoint devices or groups need the transfers between them (ROADMAP
-    item 13c)."""
+    this engine on the same logits).  A pair on disjoint devices or groups
+    runs only as a ``split`` (``parallel.split``): one process per rank, this
+    rank's role's model and a ``StandIn`` for the other's."""
+    if split is not None:
+        return _split_device(target, draft, split, target_devices, draft_devices)
     tdev, ddev = indexed_device(target.device), indexed_device(draft.device)
     tg = (tdev,) if target_devices is None else tuple(map(indexed_device, target_devices))
     dg = (ddev,) if draft_devices is None else tuple(map(indexed_device, draft_devices))
@@ -191,11 +211,35 @@ def engine_device(target, draft, target_devices=None, draft_devices=None) -> tor
         raise ValueError(
             f"target on {list(tg)} (model on {target.device}, ranks {t_ranks}) and draft on "
             f"{list(dg)} (model on {draft.device}, ranks {d_ranks}) are not one shared device "
-            "or group: a split pair needs the transfers between disjoint groups (ROADMAP item "
-            "13c), so the port does not run one")
+            "or group: a split pair runs with one process per rank — launch its ranks "
+            "(torchrun, or parallel.spawn.run_ranks) and pass "
+            "split=parallel.split.init_split(n_target, n_draft)")
     if tdev != tg[0]:
         raise ValueError(f"the models live on {target.device}, not on the engine's {tg[0]}")
     return target.device
+
+
+def _split_device(target, draft, split, target_devices, draft_devices) -> torch.device:
+    """``engine_device`` on a split: this rank's role's model on the split's
+    device and group, the other role a ``StandIn``."""
+    if target_devices is not None or draft_devices is not None:
+        raise ValueError("a split engine's groups are its split's ranks: pass no "
+                         "target_devices / draft_devices")
+    own, other = (target, draft) if split.role == "target" else (draft, target)
+    other_role = "draft" if split.role == "target" else "target"
+    if isinstance(own, StandIn) or not isinstance(other, StandIn):
+        raise ValueError(f"on a {split.role} rank of a split the {split.role} is a model and the "
+                         f"{other_role} a models.api.StandIn (Split.models): a rank holds its "
+                         "own role's weights only")
+    if indexed_device(own.device) != indexed_device(split.device):
+        raise ValueError(f"the {split.role} model lives on {own.device}, not on this rank's "
+                         f"{split.device}")
+    ranks = None if own.group is None else own.group.ranks
+    want = None if split.model_group is None else split.group.ranks
+    if ranks != want:
+        raise ValueError(f"the {split.role} model's group (ranks {ranks}) is not its role's "
+                         f"({want}): make it with Split.models")
+    return split.device
 
 
 def check_frozen(*params) -> None:
@@ -223,8 +267,10 @@ def _to_device(a, device):
 
 
 class StreamPair:
-    """The target's and the draft's CUDA streams of an engine on the card
-    (``self.streams``, None when the engine runs on the caller's stream).
+    """What the tree and the chain engine share: the target's and the
+    draft's CUDA streams of an engine on the card (``self.streams``, None
+    when the engine runs on the caller's stream), and on a split this
+    rank's role (``self.split``).
 
     With streams, all of the engine's device work runs on them: target work
     on the first, draft work on the second.  Tensors cross between them only
@@ -233,6 +279,30 @@ class StreamPair:
 
     streams: tuple | None = None
     device: torch.device
+    split: Any = None
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether several processes run this engine (a split, or models
+        sharded over several ranks): they must take the same host decisions
+        at the same round."""
+        group = getattr(self.target, "group", None)
+        return self.split is not None or (group is not None and group.world > 1)
+
+    @property
+    def runs_target(self) -> bool:
+        """Whether this process runs the target's part (not a draft rank)."""
+        return self.split is None or self.split.role == "target"
+
+    @property
+    def runs_draft(self) -> bool:
+        """Whether this process runs the draft's part (not a target rank)."""
+        return self.split is None or self.split.role == "draft"
+
+    def _share(self, buf, src: str, shape):
+        """Role ``src``'s int32 ``buf`` on every rank: a broadcast on a
+        split (``Split.share``), ``buf`` itself without one."""
+        return buf if self.split is None else self.split.share(buf, src, shape)
 
     def _target(self):
         return torch.cuda.stream(self.streams[0]) if self.streams else contextlib.nullcontext()
@@ -256,24 +326,51 @@ class StreamPair:
                 cur.wait_stream(st)
 
 
+def verdict_widths(bs: int) -> tuple:
+    """Columns of a packed verdict: acc_pos, n_acc, bonus, emitted, n_emitted."""
+    return (bs, 1, 1, bs + 1, 1)
+
+
+def pred_widths(bs: int) -> tuple:
+    """Columns of a packed prediction: pred_acc, pred_n, pred_bonus."""
+    return (bs, 1, 1)
+
+
+def pack(parts) -> torch.Tensor:
+    """int32 [B, ...] of the verdict's or the prediction's tensors ([B] ones
+    as a column), in order."""
+    return torch.cat([p[:, None] if p.dim() == 1 else p for p in parts], dim=1).to(torch.int32)
+
+
+def unpack(x, widths) -> list:
+    """``pack``'s inverse on host or device: ``x`` [B, sum(widths)] cut into
+    its column blocks in order, [B] for a width-1 column."""
+    edges = np.cumsum([0, *widths])
+    return [x[:, a] if b == a + 1 else x[:, a:b] for a, b in zip(edges[:-1], edges[1:])]
+
+
 class SpecEngine(StreamPair):
     """Tree-based speculative decoding for dense attention models.  In the
     async round the three crossings are the plan (draft -> target, at
     dispatch), the prediction (draft -> target, at the reconcile transfer)
-    and the verify outcome (target -> draft, on rollback)."""
+    and the verify outcome (target -> draft, on rollback).  On a ``split``
+    they are world collectives (``parallel/split.py``): the plan, the
+    verdict and the prediction, one packed buffer each."""
 
     def __init__(self, target, draft, cfg: SpecConfig, S_max_t: int, S_max_d: int,
-                 target_devices=None, draft_devices=None):
-        self.device = engine_device(target, draft, target_devices, draft_devices)
+                 target_devices=None, draft_devices=None, split=None):
+        self.device = engine_device(target, draft, target_devices, draft_devices, split)
         if cfg.async_rounds and cfg.mode != "parallel":
             raise ValueError(
                 f"async_rounds requires mode='parallel' (got mode={cfg.mode!r}): "
                 "the lookahead pipeline IS the parallel overlap")
         self.target, self.draft, self.cfg = target, draft, cfg
         self.S_max_t, self.S_max_d = S_max_t, S_max_d
-        # async rounds on the card: the target's stream and the draft's
+        self.split = split
+        # async rounds on the card: the target's stream and the draft's (a
+        # split rank runs one role: its rounds overlap across processes)
         self.streams = None
-        if cfg.async_rounds and self.device.type == "cuda":
+        if cfg.async_rounds and self.device.type == "cuda" and split is None:
             self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
             if target.group is not None and target.group.world > 1 and \
                     target.group.pg is draft.group.pg:
@@ -337,6 +434,34 @@ class SpecEngine(StreamPair):
     def _compact(self, tcache, src, dst, mask):
         return kvm.apply_moves(tcache, src, dst, mask, donate=True)
 
+    # ----- the crossings between the roles ------------------------------------
+    def _plan_to_target(self, plan, B: int):
+        """The verify batch on the target's ranks: the plan itself, or on a
+        split the draft's, broadcast (``Split.plan``)."""
+        if self.split is None:
+            return plan
+        return self.split.plan(plan, B, self.cfg.bs, self.S_max_t)
+
+    def _verdict(self, verify, B: int):
+        """(packed verdict [B, 2 bs + 4] on every rank of a split, broadcast
+        from the target, else None; its device tensors (acc_pos, n_acc,
+        bonus, emitted, n_emitted))."""
+        if self.split is None:
+            return None, tuple(verify)
+        widths = verdict_widths(self.cfg.bs)
+        buf = self.split.share(None if verify is None else pack(verify), "target",
+                               (B, sum(widths)))
+        return buf, (tuple(verify) if verify is not None else
+                     tuple(x.contiguous() for x in unpack(buf, widths)))
+
+    def _prediction(self, pred, B: int):
+        """The draft's packed prediction [B, bs + 2] on every rank of a
+        split, else None."""
+        if self.split is None:
+            return None
+        return self.split.share(None if pred is None else pack(pred), "draft",
+                                (B, sum(pred_widths(self.cfg.bs))))
+
     # ------------------------------------------------------------------
     @property
     def grow_per_round(self) -> int:
@@ -352,21 +477,25 @@ class SpecEngine(StreamPair):
         return min(self.S_max_t, self.S_max_d) - 2 * self.cfg.bs
 
     def _prefill_state(self, tparams, dparams, prompt) -> EngineState:
-        """Whole-batch prefill + tree seed + initial growth."""
+        """Whole-batch prefill + tree seed + initial growth (each role its
+        part on a split)."""
         c = self.cfg
         B, P = prompt.shape
         self._fork()
-        with self._draft():
-            tokens = _to_device(prompt, self.device)
-            dlogits, dcache = self.draft.prefill(dparams, tokens, S_max=self.S_max_d)
-            tr = T.init_tree(c.n_cap, B, self.device)
-            tr = T.seed_root(tr, tokens[:, -1], P, dlogits[:, -1, :], c.c)
-            for _ in range(self.grow_per_round):
-                tr, dcache = self._expand(dparams, tr, dcache)
-            plan = self._select_plan(tr)
-        with self._target():
-            _, tcache = self.target.prefill(tparams, _to_device(prompt, self.device),
-                                            S_max=self.S_max_t)
+        tcache = dcache = tr = plan = None
+        if self.runs_draft:
+            with self._draft():
+                tokens = _to_device(prompt, self.device)
+                dlogits, dcache = self.draft.prefill(dparams, tokens, S_max=self.S_max_d)
+                tr = T.init_tree(c.n_cap, B, self.device)
+                tr = T.seed_root(tr, tokens[:, -1], P, dlogits[:, -1, :], c.c)
+                for _ in range(self.grow_per_round):
+                    tr, dcache = self._expand(dparams, tr, dcache)
+                plan = self._select_plan(tr)
+        if self.runs_target:
+            with self._target():
+                _, tcache = self.target.prefill(tparams, _to_device(prompt, self.device),
+                                                S_max=self.S_max_t)
         return EngineState(tcache, dcache, tr, plan)
 
     def init_state(self, B: int) -> EngineState:
@@ -375,12 +504,15 @@ class SpecEngine(StreamPair):
         writes nothing for them and expansion skips them; the runtime
         discards whatever they "emit"."""
         self._fork()
-        with self._target():
-            tcache = self.target.init_cache(B, self.S_max_t)
-        with self._draft():
-            dcache = self.draft.init_cache(B, self.S_max_d)
-            tr = T.init_tree(self.cfg.n_cap, B, self.device)
-            plan = self._select_plan(tr)
+        tcache = dcache = tr = plan = None
+        if self.runs_target:
+            with self._target():
+                tcache = self.target.init_cache(B, self.S_max_t)
+        if self.runs_draft:
+            with self._draft():
+                dcache = self.draft.init_cache(B, self.S_max_d)
+                tr = T.init_tree(self.cfg.n_cap, B, self.device)
+                plan = self._select_plan(tr)
         return EngineState(tcache, dcache, tr, plan)
 
     def session(self, tparams, dparams, *, state: EngineState | None = None,
@@ -396,10 +528,13 @@ class SpecEngine(StreamPair):
 
     def profile(self, tparams, dparams, prompt, iters: int = 3) -> ProfileResult:
         """Paper §5.5 profile pass: wall-time one draft expansion and one
-        target verification (+ compaction), each warmed first."""
+        target verification (+ compaction), each warmed first.  On a split
+        each role times its own on its ranks, and the two leaders' times are
+        exchanged once, so that every rank picks the same depth."""
         state = self._prefill_state(tparams, dparams, prompt)
         self._join()  # the passes below run on the caller's stream
-        tr, dcache, tcache, plan = state.tr, state.dcache, state.tcache, state.plan
+        tr, dcache, tcache = state.tr, state.dcache, state.tcache
+        plan = self._plan_to_target(state.plan, prompt.shape[0])
 
         def draft_once():
             nonlocal tr, dcache
@@ -412,15 +547,21 @@ class SpecEngine(StreamPair):
             tcache = self._compact(out[5], *out[6])
             _sync(self.device)
 
-        target_once()  # warm
-        t0 = monotonic()
-        for _ in range(iters):
-            draft_once()
-        t_d = (monotonic() - t0) / iters
-        t0 = monotonic()
-        for _ in range(iters):
-            target_once()
-        t_t = (monotonic() - t0) / iters
+        t_d = t_t = 0.0
+        if self.runs_target:
+            target_once()  # warm
+        if self.runs_draft:
+            t0 = monotonic()
+            for _ in range(iters):
+                draft_once()
+            t_d = (monotonic() - t0) / iters
+        if self.runs_target:
+            t0 = monotonic()
+            for _ in range(iters):
+                target_once()
+            t_t = (monotonic() - t0) / iters
+        if self.split is not None:
+            t_d, t_t = self.split.agree_times(t_d, t_t)
         return ProfileResult(t_draft_s=t_d, t_target_s=t_t)
 
     def _bypass(self, plan):
@@ -473,25 +614,30 @@ class EngineSession:
         and grow and re-plan the batch.  Other rows keep their caches and
         trees (they may gain draft expansions, which never changes emitted
         tokens).  ``slot`` and ``P`` are host ints: nothing waits for the
-        card."""
+        card.  On a split each role admits into its own cache (and the
+        draft its tree); nothing crosses."""
         self._check_quiescent("admit_slot")
         eng, state, c = self.engine, self.state, self.engine.cfg
         prompt = np.asarray(prompt, np.int32).reshape(1, -1)
         P = prompt.shape[1]
+        tcache, dcache, tr, plan = state.tcache, state.dcache, state.tr, state.plan
         eng._fork()
-        with eng._draft():
-            dlogits, dcache1 = eng.draft.prefill(self.dparams, _to_device(prompt, eng.device),
-                                                 S_max=eng.S_max_d)
-        with eng._target():
-            _, tcache1 = eng.target.prefill(self.tparams, _to_device(prompt, eng.device),
-                                            S_max=eng.S_max_t)
-            tcache = kvm.install_slot(state.tcache, tcache1, slot)
-        with eng._draft():
-            dcache = kvm.install_slot(state.dcache, dcache1, slot)
-            tr = T.seed_slot(state.tr, slot, int(prompt[0, -1]), P, dlogits[0, -1, :], c.c)
-            for _ in range(eng.grow_per_round):
-                tr, dcache = eng._expand(self.dparams, tr, dcache)
-            plan = eng._select_plan(tr)
+        if eng.runs_draft:
+            with eng._draft():
+                dlogits, dcache1 = eng.draft.prefill(self.dparams, _to_device(prompt, eng.device),
+                                                     S_max=eng.S_max_d)
+        if eng.runs_target:
+            with eng._target():
+                _, tcache1 = eng.target.prefill(self.tparams, _to_device(prompt, eng.device),
+                                                S_max=eng.S_max_t)
+                tcache = kvm.install_slot(tcache, tcache1, slot)
+        if eng.runs_draft:
+            with eng._draft():
+                dcache = kvm.install_slot(dcache, dcache1, slot)
+                tr = T.seed_slot(tr, slot, int(prompt[0, -1]), P, dlogits[0, -1, :], c.c)
+                for _ in range(eng.grow_per_round):
+                    tr, dcache = eng._expand(self.dparams, tr, dcache)
+                plan = eng._select_plan(tr)
         self.state = EngineState(tcache, dcache, tr, plan)
 
     def release_slot(self, slot: int) -> None:
@@ -499,14 +645,22 @@ class EngineSession:
         in both caches, so nothing leaks into the next occupant."""
         self._check_quiescent("release_slot")
         eng, state = self.engine, self.state
+        tcache, dcache, tr, plan = state.tcache, state.dcache, state.tr, state.plan
         eng._fork()
-        with eng._target():
-            tcache = kvm.zero_slot(state.tcache, slot)
-        with eng._draft():
-            dcache = kvm.zero_slot(state.dcache, slot)
-            tr = T.reset_slot(state.tr, slot)
-            plan = eng._select_plan(tr)
+        if eng.runs_target:
+            with eng._target():
+                tcache = kvm.zero_slot(tcache, slot)
+        if eng.runs_draft:
+            with eng._draft():
+                dcache = kvm.zero_slot(dcache, slot)
+                tr = T.reset_slot(tr, slot)
+                plan = eng._select_plan(tr)
         self.state = EngineState(tcache, dcache, tr, plan)
+
+    def _batch(self) -> int:
+        """The state's batch rows (from the tree, or a target rank's cache)."""
+        st = self.state
+        return st.tr.tokens.shape[0] if st.tr is not None else kvm.batch_size(st.tcache)
 
     # ------------------------------------------------------------------
     # the round, lockstep
@@ -521,45 +675,57 @@ class EngineSession:
         Records the reference's phase spans (verify_dispatch / kv_move /
         draft_expand / sync_emitted / reroot_grow) on ``track``.  The span
         times are host enqueue times except ``sync_emitted``, which waits
-        for the card."""
+        for the card.  On a split the plan crosses first and the verdict
+        in ``sync_emitted``; a rank's spans time its own role's work."""
         if self.engine.cfg.async_rounds:
             return self.reconcile(self.begin_round(depth=depth), stats=stats)
         self._check_quiescent("step")
         eng, obs, track = self.engine, self.tracer, self.track
         c, state = eng.cfg, self.state
         d_eff = _effective_depth(depth, c.d)
-        plan = eng._bypass(state.plan) if c.draft_bypass else state.plan
-        tr, dcache = state.tr, state.dcache
-        draft_steps = 0
+        B = self._batch()
+        plan = eng._bypass(state.plan) if c.draft_bypass and eng.runs_draft else state.plan
+        plan = eng._plan_to_target(plan, B)  # a split's plan: before the draft's expansions
+        tr, dcache, tcache = state.tr, state.dcache, state.tcache
+        draft_steps, verify = 0, None
         # --- verification on the target -------------------------------------
         with obs.span("verify_dispatch", track):
-            acc_pos, n_acc, bonus, emitted, n_emitted, tcache, mv = eng._verify(
-                self.tparams, state.tcache, plan)
-            with obs.span("kv_move", track):
-                tcache = eng._compact(tcache, *mv)
+            if eng.runs_target:
+                *verify, tcache, mv = eng._verify(self.tparams, tcache, plan)
+                with obs.span("kv_move", track):
+                    tcache = eng._compact(tcache, *mv)
         # --- d tree expansions on the draft (queued behind verify) -----------
         if c.mode == "parallel":
             with obs.span("draft_expand", track):
-                for _ in range(d_eff):
-                    tr, dcache = eng._expand(self.dparams, tr, dcache)
-                draft_steps += d_eff
+                if eng.runs_draft:
+                    for _ in range(d_eff):
+                        tr, dcache = eng._expand(self.dparams, tr, dcache)
+            draft_steps += d_eff
         # --- sync point: the verified tokens reach the host -----------------
         with obs.span("sync_emitted", track):
-            # the round's ONE designated host sync: one fused transfer
-            host = torch.cat([emitted, n_emitted[:, None], n_acc[:, None]], dim=1).cpu().numpy()
-        bs1 = emitted.shape[1]
-        emitted_h, n_emitted_h, n_acc_h = host[:, :bs1], host[:, bs1], host[:, bs1 + 1]
+            buf, verify = eng._verdict(verify, B)
+            # the round's ONE designated host sync: one fused transfer (on a
+            # split, of the broadcast verdict)
+            if buf is None:
+                host = pack((verify[1], *verify[3:])).cpu().numpy()  # n_acc, emitted, n_emitted
+                n_acc_h, emitted_h, n_emitted_h = unpack(host, (1, c.bs + 1, 1))
+            else:
+                _, n_acc_h, _, emitted_h, n_emitted_h = unpack(buf.cpu().numpy(),
+                                                               verdict_widths(c.bs))
         # --- re-root, fill, grow, select next batch (draft) -------------------
+        new_plan = None
+        n_grow = d_eff if c.mode == "serial" else eng.grow_per_round
         with obs.span("reroot_grow", track):
-            tr, move, fillp = T.reroot(tr, plan.node_ids, acc_pos, n_acc, bonus)
-            with obs.span("kv_move", track):
-                dcache = eng._kv_move(dcache, move.src, move.dst, move.mask)
-            dcache = eng._fill(self.dparams, dcache, fillp)
-            n_grow = d_eff if c.mode == "serial" else eng.grow_per_round
-            for _ in range(n_grow):
-                tr, dcache = eng._expand(self.dparams, tr, dcache)
+            if eng.runs_draft:
+                acc_pos, n_acc, bonus = verify[:3]
+                tr, move, fillp = T.reroot(tr, plan.node_ids, acc_pos, n_acc, bonus)
+                with obs.span("kv_move", track):
+                    dcache = eng._kv_move(dcache, move.src, move.dst, move.mask)
+                dcache = eng._fill(self.dparams, dcache, fillp)
+                for _ in range(n_grow):
+                    tr, dcache = eng._expand(self.dparams, tr, dcache)
+                new_plan = eng._select_plan(tr)
             draft_steps += n_grow
-            new_plan = eng._select_plan(tr)
         self.state = EngineState(tcache, dcache, tr, new_plan)
         if stats is not None:
             stats.add_round(n_emitted_h, n_acc_h)
@@ -579,23 +745,28 @@ class EngineSession:
         """Enqueue this round's verification and compaction.  The
         ``verify_dispatch`` span stays open until the reconcile sync, so on
         the trace it is the verify window and its overlap with
-        ``draft_lookahead`` can be read off."""
+        ``draft_lookahead`` can be read off.  On a split the plan crosses
+        here, draft -> target."""
         self._check_quiescent("dispatch_verify")
         eng, state = self.engine, self.state
+        B = self._batch()
         eng._fork()
+        plan = state.plan
         with eng._draft():  # plan preparation is draft-side work
-            plan = eng._bypass(state.plan) if eng.cfg.draft_bypass else state.plan
+            if eng.cfg.draft_bypass and eng.runs_draft:
+                plan = eng._bypass(plan)
         if eng.streams:  # the plan was built on the draft stream
             eng.streams[0].wait_stream(eng.streams[1])
+        plan = eng._plan_to_target(plan, B)
         span = self.tracer.begin("verify_dispatch", self.track)
-        with eng._target():
-            acc_pos, n_acc, bonus, emitted, n_emitted, tcache, mv = eng._verify(
-                self.tparams, state.tcache, plan)
-            with self.tracer.span("kv_move", self.track):
-                tcache = eng._compact(tcache, *mv)
+        tcache, verify = state.tcache, None
+        if eng.runs_target:
+            with eng._target():
+                *verify, tcache, mv = eng._verify(self.tparams, tcache, plan)
+                with self.tracer.span("kv_move", self.track):
+                    tcache = eng._compact(tcache, *mv)
         rif = RoundInFlight(plan=plan, tcache=tcache,
-                            verify=(acc_pos, n_acc, bonus, emitted, n_emitted),
-                            verify_span=span)
+                            verify=None if verify is None else tuple(verify), verify_span=span)
         self._inflight = rif
         return rif
 
@@ -604,14 +775,17 @@ class EngineSession:
         predict the accept path (``tree.predict_accept``) and draft round
         N+1's tree on the predicted seed.  The post-expansion (tr, dcache)
         is kept as the rollback snapshot: the speculative re-root moves rows
-        into a fresh cache, and the fill and regrowth write only that one."""
+        into a fresh cache, and the fill and regrowth write only that one.
+        A target rank of a split only counts the draft's steps."""
         eng, c = self.engine, self.engine.cfg
         d_eff = _effective_depth(depth, c.d)
+        rif.draft_steps += d_eff + eng.grow_per_round
+        if not eng.runs_draft:
+            return rif
         tr, dcache = self.state.tr, self.state.dcache
         with self.tracer.span("draft_lookahead", self.track), eng._draft():
             for _ in range(d_eff):
                 tr, dcache = eng._expand(self.dparams, tr, dcache)
-            rif.draft_steps += d_eff
             rif.snapshot = (tr, dcache)  # post-expansion, pre-reroot: the rollback point
             rif.pred = eng._predict(tr, rif.plan.node_ids, rif.plan.parent_pos, rif.plan.valid)
             if eng.streams:
@@ -623,7 +797,6 @@ class EngineSession:
             la_dcache = eng._fill(self.dparams, la_dcache, fillp)
             for _ in range(eng.grow_per_round):
                 la_tr, la_dcache = eng._expand(self.dparams, la_tr, la_dcache)
-            rif.draft_steps += eng.grow_per_round
             rif.lookahead = (la_tr, la_dcache, eng._select_plan(la_tr))
         return rif
 
@@ -635,51 +808,53 @@ class EngineSession:
         (the lockstep tail, one round late).  ``live``: optional bool[B]
         occupancy — mismatches on parked rows are ignored.  Emitted tokens
         always come from the actual verify, so both branches emit the
-        lockstep bytes."""
+        lockstep bytes.  On a split the verdict and the prediction cross
+        here, and every rank takes the same ``ok`` from the one transfer."""
         eng, obs, track = self.engine, self.tracer, self.track
-        acc_pos, n_acc, bonus, emitted, n_emitted = rif.verify
-        pred_acc, pred_n, pred_bonus = rif.pred
-        B, bs1 = emitted.shape
-        bs = bs1 - 1
+        bs = eng.cfg.bs
+        B = rif.plan.tokens.shape[0]
         with obs.span("sync_emitted", track), eng._target():
             if rif.pred_ready is not None:
                 eng.streams[0].wait_event(rif.pred_ready)
+            vbuf, verify = eng._verdict(rif.verify, B)
+            pbuf = eng._prediction(rif.pred, B)
             # the round's ONE designated host sync: verified tokens and the
             # prediction cross in a single fused transfer
-            host = torch.cat([emitted, n_emitted[:, None], n_acc[:, None], acc_pos,
-                              bonus[:, None], pred_acc, pred_n[:, None], pred_bonus[:, None]],
-                             dim=1).cpu().numpy()
+            fused = (pack(verify + rif.pred) if vbuf is None else
+                     torch.cat([vbuf, pbuf], dim=1))
+            host = fused.cpu().numpy()
         rif.verify_span.end()
-        cols = np.cumsum([0, bs1, 1, 1, bs, 1, bs, 1, 1])
-        (emitted_h, n_emitted_h, n_acc_h, acc_h, bonus_h, pred_acc_h, pred_n_h,
-         pred_bonus_h) = (host[:, a:b] for a, b in zip(cols[:-1], cols[1:]))
-        n_emitted_h, n_acc_h = n_emitted_h[:, 0], n_acc_h[:, 0]
-        ok = ((pred_n_h[:, 0] == n_acc_h) & (pred_bonus_h[:, 0] == bonus_h[:, 0])
-              & (pred_acc_h == acc_h).all(axis=1))
+        (acc_h, n_acc_h, bonus_h, emitted_h, n_emitted_h, pred_acc_h, pred_n_h,
+         pred_bonus_h) = unpack(host, verdict_widths(bs) + pred_widths(bs))
+        ok = (pred_n_h == n_acc_h) & (pred_bonus_h == bonus_h) & (pred_acc_h == acc_h).all(axis=1)
         if live is not None:
             ok = ok | ~np.asarray(live, bool)
         draft_steps = rif.draft_steps
+        tr = dcache = new_plan = None
         if ok.all():
             # the seed held for every live row: round N+1's tree is drafted
-            tr, dcache, new_plan = rif.lookahead
+            if eng.runs_draft:
+                tr, dcache, new_plan = rif.lookahead
             if stats is not None:
                 stats.spec_commits += 1
         else:
+            acc_pos, n_acc, bonus = verify[:3]
             if eng.streams:  # the draft stream reads the verify outcome
                 eng.streams[1].wait_stream(eng.streams[0])
                 for t in (acc_pos, n_acc, bonus):
                     t.record_stream(eng.streams[1])
             with obs.span("reconcile", track), eng._draft():
-                tr, dcache = rif.snapshot
-                tr, move, fillp = T.reroot(tr, rif.plan.node_ids, acc_pos, n_acc, bonus)
-                with obs.span("kv_move", track):
-                    # the actual-path move consumes the snapshot, in place
-                    dcache = eng._kv_move(dcache, move.src, move.dst, move.mask)
-                dcache = eng._fill(self.dparams, dcache, fillp)
-                for _ in range(eng.grow_per_round):
-                    tr, dcache = eng._expand(self.dparams, tr, dcache)
-                draft_steps += eng.grow_per_round
-                new_plan = eng._select_plan(tr)
+                if eng.runs_draft:
+                    tr, dcache = rif.snapshot
+                    tr, move, fillp = T.reroot(tr, rif.plan.node_ids, acc_pos, n_acc, bonus)
+                    with obs.span("kv_move", track):
+                        # the actual-path move consumes the snapshot, in place
+                        dcache = eng._kv_move(dcache, move.src, move.dst, move.mask)
+                    dcache = eng._fill(self.dparams, dcache, fillp)
+                    for _ in range(eng.grow_per_round):
+                        tr, dcache = eng._expand(self.dparams, tr, dcache)
+                    new_plan = eng._select_plan(tr)
+            draft_steps += eng.grow_per_round
         self.state = EngineState(rif.tcache, dcache, tr, new_plan)
         self._inflight = None
         if stats is not None:

@@ -67,6 +67,11 @@ def set_length(cache, new_len):
     return {**cache, "len": int(new_len)}
 
 
+def batch_size(cache) -> int:
+    """The batch rows of a cache (its first leaf's axis 1: [U, B, ...])."""
+    return _flatten(cache["groups"])[0].shape[1]
+
+
 def _flatten(groups) -> list:
     """The tensor leaves of a cache's ``groups`` in a fixed order."""
     if isinstance(groups, dict):

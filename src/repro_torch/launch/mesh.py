@@ -1,4 +1,4 @@
-"""Device carving for disaggregated serving (``repro.launch.mesh``'s
+"""Device and rank carving for disaggregated serving (``repro.launch.mesh``'s
 ``make_serving_mesh``, paper §3.1 GPU allocation).
 
 The reference carves a slice of accelerators into a target mesh and a draft
@@ -6,8 +6,9 @@ mesh per replica.  The port carves CUDA devices the same way: a device
 group is a tuple of ``torch.device``; replica i owns the devices
 ``[i*g, (i+1)*g)``, g = n_target + n_draft, the first ``n_target`` of them
 its target group and the rest its draft group, so no device is shared
-across replicas or across the two roles.  Carving is pure: it only reads
-the device list it is given.
+across replicas or across the two roles.  The ranks of a split engine, one
+process per card, are carved the same way (``make_serving_ranks``).
+Carving is pure: it only reads the devices it is given.
 """
 
 from __future__ import annotations
@@ -59,3 +60,15 @@ def make_serving_devices(n_target: int, n_draft: int, *, replicas: int = 1, devi
     if replicas == 1:
         return carve(0)
     return [carve(i) for i in range(replicas)]
+
+
+
+def make_serving_ranks(ranks, n_target: int) -> tuple[tuple, tuple]:
+    """(target ranks, draft ranks) of a split engine (``parallel/split.py``):
+    the world's ``ranks`` split target-first at ``n_target``, as
+    ``make_serving_devices`` splits the devices of one replica."""
+    ranks = tuple(ranks)
+    if not 1 <= n_target < len(ranks):
+        raise ValueError(f"a split of {len(ranks)} ranks needs 1 <= n_target < {len(ranks)}, "
+                         f"got {n_target}")
+    return ranks[:n_target], ranks[n_target:]

@@ -23,17 +23,28 @@ fleet telemetry, ``ShardedServingRuntime``); ``--n-target``/``--n-draft``
 set the devices each replica asks for (``launch/mesh.py``).  With fewer
 devices than one replica asks for, every replica falls back to one shared
 device (``--device``, default ``cuda``) and all replicas share one engine
-object; a split target/draft pair is not run yet (ROADMAP item 13c).
+object.
 
-Tensor parallelism: launched under torchrun, both models are sharded over
-its ranks (its world size) and every rank runs the same engine; rank 0
-prints, after checking that every rank emitted the same tokens.  The
-process group is NCCL's on CUDA (one card per rank) and gloo's on the CPU.
-Continuous serving under a group runs on a virtual clock, so that every
-rank admits the same request at the same round.
+Launched under torchrun, one process per rank (``launch/mesh.py``'s
+``make_serving_ranks`` carves a split):
+
+* with ``WORLD_SIZE == n_target + n_draft`` the engine is split
+  (``parallel/split.py``, the paper's disaggregated layout): the target on
+  ranks ``[0, n_target)``, sharded over them, the draft on the rest, and
+  the plan and the verdict cross between them each round;
+* with fewer ranks both models are sharded over all of them and every rank
+  runs the same engine (tensor parallelism on one shared group).
+
+Rank 0 prints, after checking that every rank emitted the same tokens.
+The process group is NCCL's on CUDA (one card per rank) and gloo's on the
+CPU.  Continuous serving under a group runs on a virtual clock, so that
+every rank admits the same request at the same round.  Replicas of an
+engine on disjoint groups are not run (ROADMAP item 13f).
 
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m repro_torch.launch.serve --device cpu --continuous --d 1 --requests 2
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --device cpu --n-target 1 --n-draft 1 --d 1
 """
 
 from __future__ import annotations
@@ -57,7 +68,8 @@ from repro_torch.obs.clock import monotonic
 
 def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="parallel",
                  bs=8, w=4, c=2, d=2, max_new=48, S_max=512, n_target=6, n_draft=2,
-                 peaked=True, replicas=1, device=None, async_rounds=False, group=None):
+                 peaked=True, replicas=1, device=None, async_rounds=False, group=None,
+                 split=None):
     """Build the serving engine(s).  Returns (engine | [engines], tparams,
     dparams, cfgT).
 
@@ -70,21 +82,33 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
     REUSES replica 0's engine object — states are per replica anyway.
     With ``group`` (a ``parallel.TPGroup``) both models are sharded over its
     ranks, the draft on a process group of its own, and the weights are
-    this rank's shards of the same draws; replicas on disjoint groups are
-    ROADMAP item 13c."""
-    if group is not None:
+    this rank's shards of the same draws.  With ``split`` (a
+    ``parallel.split.Split``) this rank builds its own role's model and its
+    weights only (the other role's params are None): the engine is
+    disaggregated.  Replicas on disjoint groups are ROADMAP item 13f."""
+    if group is not None or split is not None:
         if replicas != 1:
-            raise ValueError("replicas of a tensor-parallel engine need disjoint groups "
-                             "(ROADMAP item 13c)")
-        device = group.device
+            raise ValueError("router replicas of an engine on disjoint rank groups are not "
+                             "ported (ROADMAP item 13f)")
+        device = (split.world if split is not None else group).device
     device = resolve_device(device)
+    cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new,
+                     async_rounds=async_rounds)
+    cfgT = get_config(target_arch, smoke=smoke)
+    cfgD = get_config(draft_arch, smoke=smoke)
+    assert cfgT.vocab_size == cfgD.vocab_size, "draft/target must share a vocab"
+    if split is not None:
+        T, D = split.models(cfgT, cfgD)
+        own = T if split.role == "target" else D
+        params = own.init(0 if split.role == "target" else 1)
+        if peaked:
+            params.lm_head.mul_(4.0)
+        tp, dp = (params, None) if split.role == "target" else (None, params)
+        return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max, split=split), tp, dp, cfgT
     pairs = make_serving_devices(n_target, n_draft, replicas=replicas, device=device)
     pairs = [pairs] if replicas == 1 else pairs
     if group is not None:
         pairs = [(None, None)]  # each model on this rank's device
-    cfgT = get_config(target_arch, smoke=smoke)
-    cfgD = get_config(draft_arch, smoke=smoke)
-    assert cfgT.vocab_size == cfgD.vocab_size, "draft/target must share a vocab"
     T = make_model(cfgT, device, group)
     D = make_model(cfgD, device, None if group is None else group.new_group())
     tp = T.init(0)
@@ -94,8 +118,6 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
         # chains are peaked enough for realistic acceptance behaviour
         tp.lm_head.mul_(4.0)
         dp.lm_head.mul_(4.0)
-    cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new,
-                     async_rounds=async_rounds)
 
     def mk(devs_t, devs_d):
         return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max,
@@ -228,7 +250,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=48)
     ap.add_argument("--bs", type=int, default=8)
     ap.add_argument("--w", type=int, default=4)
-    ap.add_argument("--d", type=int, default=0, help="0 = profile-derived")
+    ap.add_argument("--d", "--depth", dest="d", type=int, default=0,
+                    help="0 = profile-derived (under torchrun spell it --depth: its own "
+                         "options make --d ambiguous)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--n-target", type=int, default=6,
                     help="devices per replica for the target (with too few devices every "
@@ -264,25 +288,41 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    group = None
-    if "RANK" in os.environ and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        from repro_torch.parallel import init_tp
+    group = split = None
+    world = int(os.environ.get("WORLD_SIZE", "1")) if "RANK" in os.environ else 1
+    if world > 1:
+        if world > args.n_target + args.n_draft:
+            raise SystemExit(f"{world} ranks are more than one split of {args.n_target} target + "
+                             f"{args.n_draft} draft: router replicas on disjoint groups are not "
+                             "ported (ROADMAP item 13f)")
+        if world == args.n_target + args.n_draft:
+            from repro_torch.parallel.split import init_split
 
-        group = init_tp(args.device)
+            split = init_split(args.n_target, args.n_draft, args.device)
+            group = split.world
+        else:
+            from repro_torch.parallel import init_tp
+
+            group = init_tp(args.device)
     say = print if group is None or group.rank == 0 else _quiet
     replicas = args.replicas if args.continuous else 1
     eng, tp, dp, cfgT = build_engine(
         args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
         d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
-        replicas=replicas, device=args.device, async_rounds=args.async_rounds, group=group)
+        replicas=replicas, device=args.device, async_rounds=args.async_rounds,
+        group=None if split is not None else group, split=split)
     engines = eng
     eng = eng[0] if isinstance(eng, list) else eng
-    if group is not None:
+    if split is not None:
+        say(f"split: target on ranks {list(split.target_ranks)}, draft on ranks "
+            f"{list(split.draft_ranks)} ({group.backend}); the plan and the verdict cross "
+            "between them each round")
+    elif group is not None:
         say(f"tensor parallel: {group.world} ranks ({group.backend}), target heads / KV heads "
             f"per rank {eng.target.run_cfg.n_heads}/{eng.target.run_cfg.n_kv_heads} on rank 0")
     if args.d == 0:
         say(profile_depth(eng, tp, dp, args.prompt_len))
-        if group is not None:  # rank 0's depth on every rank: the ranks' timings differ
+        if group is not None and split is None:  # rank 0's depth: the ranks' timings differ
             d = group.broadcast(torch.tensor([eng.cfg.d], device=group.device))
             eng.cfg = dataclasses.replace(eng.cfg, d=int(d[0]))
         for e in set(engines) if isinstance(engines, list) else ():

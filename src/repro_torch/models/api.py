@@ -183,6 +183,17 @@ class Model:
         return any("cross" in unit for unit, _ in build_plan(self.cfg))
 
 
+@dataclasses.dataclass(frozen=True)
+class StandIn:
+    """The other role's model on a rank of a split engine
+    (``parallel/split.py``): its config only.  It holds no weights, cache or
+    tree, and has no forward to call."""
+
+    cfg: object
+    group = None
+    device = None
+
+
 def make_model(cfg: ModelConfig, device=None, group=None, moe_form: str = "tp") -> Model:
     """``device`` None means CUDA; without a CUDA device that raises.  With
     ``group`` (a ``parallel.TPGroup``) the model is this rank's part of a

@@ -151,10 +151,10 @@ def train(group, cfg, tree, data_cfg, steps: int, lr: dict) -> dict:
 
 class _SyncCount:
     """Host syncs inside the ``with`` block, as torch's sync debug mode
-    reports them (a CUDA device only)."""
+    reports them (a CUDA device only; none counted with ``on`` False)."""
 
-    def __init__(self, device):
-        self.on, self.n = device.type == "cuda", 0
+    def __init__(self, device, on: bool = True):
+        self.on, self.n = on and device.type == "cuda", 0
 
     def __enter__(self):
         if self.on:
@@ -248,10 +248,7 @@ def _spec_engine(group, job: dict) -> dict:
         for p in prompts:
             out, st = sess.generate(p)
             outs.append(out[0])
-            stats.append({"rounds": st.rounds, "draft_steps": st.draft_steps,
-                          "emitted_rows": st.emitted_rows.tolist(),
-                          "accepted_rows": st.accepted_rows.tolist(),
-                          "spec_rounds": st.spec_rounds, "spec_commits": st.spec_commits})
+            stats.append(_spec_stats(st))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         run = {"tokens": outs, "stats": stats, "wall_s": monotonic() - t0,
@@ -298,6 +295,207 @@ def _trace_rounds(eng, sess, tp, dp, prompt, rounds: int, path: str) -> dict:
         json.dump({"traceEvents": kernels}, f)
     return {"rounds": rounds, "wall_ms": wall_ms, "kernels": len(kernels),
             "busy_ms": sum(e["dur"] for e in kernels) / 1e3}
+
+
+def _role_params(split, own, w, self_draft: bool):
+    """This rank's weights of its role's model ``own``: ``w`` is ("numpy",
+    ttree, dtree) — the reference's unboxed trees of the whole models — or
+    ("seed", tseed, dseed, lm_head_scale); a self-drafting draft takes the
+    target's."""
+    from repro_torch.parallel.shard import shard_params
+
+    target = split.role == "target" or self_draft
+    if w[0] == "numpy":
+        params = params_from_numpy(own.cfg, w[1] if target else w[2], split.device)
+        return params if split.model_group is None else \
+            shard_params(own.cfg, params, split.model_group)
+    params = own.init(w[1] if target else w[2])
+    if w[3] != 1.0:
+        params.lm_head.mul_(w[3])
+    return params
+
+
+def _nbytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def _spec_stats(st) -> dict:
+    return {"rounds": st.rounds, "draft_steps": st.draft_steps,
+            "emitted_rows": st.emitted_rows.tolist(), "accepted_rows": st.accepted_rows.tolist(),
+            "spec_rounds": st.spec_rounds, "spec_commits": st.spec_commits}
+
+
+def _chain_stats(st) -> dict:
+    return {k: v for k, v in dataclasses.asdict(st).items() if k != "wall_s"}
+
+
+def split_engine(group, job: dict) -> dict:
+    """The disaggregated engine: this world split target-first at
+    ``job["n_target"]`` (``parallel.split.make_split``), each rank its own
+    role's model and a ``StandIn`` for the other's.  Job {"n_target",
+    "tcfg", "dcfg" (None: the target drafts for itself, a copy on the draft's
+    ranks), "weights": ("numpy", ttree, dtree) or ("seed", tseed, dseed,
+    scale), "prompts": [[1, P] int32 ...], "runs": [(label, kind, kwargs)],
+    "S_max", "greedy_n" (0: none), "sync_rounds", "record_shapes"}.  A
+    run's kind is "tree" (``SpecConfig`` kwargs, every prompt through
+    ``generate``),
+    "chain" (``ChainConfig`` kwargs) or "continuous" ({"spec": SpecConfig
+    kwargs, "slots", "requests": [(rid, prompt, arrival_s, max_new)],
+    "round_dt", "solo"}: ``ContinuousBatchingRuntime`` on a ``VirtualClock``,
+    with "solo" each request's solo ``generate()`` after it).
+
+    Returns this rank's world rank and role; its parameter bytes, the
+    stand-in's tensors (none), on CUDA its memory before and after the
+    build and its peak; the target's greedy decode of every prompt on the
+    target's ranks (with a target of one rank the single-process model's);
+    per run the tokens and every ``SpecStats``/``ChainStats`` field, the
+    kernel launches, the collectives, the rounds, which of the session's
+    state this rank holds, the wall time and, on CUDA, the host syncs of
+    the port (torch's sync debug mode): over a chain or continuous run, or
+    over ``sync_rounds`` tree rounds from a fresh prefill; with
+    "record_shapes" the shapes at which this rank launched each kernel.
+    On a card shared by the ranks through gloo these runs check
+    correctness: no speed figure."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.shapes import ShapeLog
+
+    log = ShapeLog(ops) if job.get("record_shapes") else None
+    if log is not None:
+        log.install()
+    try:
+        res = _split_engine(group, job)
+    finally:
+        if log is not None:
+            log.uninstall()
+    if log is not None:
+        res["shapes"] = log.seen
+    return res
+
+
+def _split_engine(group, job: dict) -> dict:
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
+    from repro_torch.models.api import StandIn
+    from repro_torch.parallel.split import make_split
+    from repro_torch.serving import ContinuousBatchingRuntime, Request, VirtualClock
+
+    dev = group.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = monotonic()
+    split = make_split(group, job["n_target"])
+    self_draft = job["dcfg"] is None
+    T, D = split.models(job["tcfg"], job["tcfg"] if self_draft else job["dcfg"])
+    own, other = (T, D) if split.role == "target" else (D, T)
+    params = _role_params(split, own, job["weights"], self_draft)
+    tp, dp = (params, None) if split.role == "target" else (None, params)
+    S_max = job["S_max"]
+    prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+    res = {"rank": group.rank, "role": split.role, "ranks": split.group.ranks,
+           "heads": (own.run_cfg.n_heads, own.run_cfg.n_kv_heads), "param_bytes": _nbytes(params),
+           "standin": {"is_standin": isinstance(other, StandIn),
+                       "tensors": sum(isinstance(v, torch.Tensor) for v in vars(other).values())},
+           "runs": {}}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        res["allocated_before"] = before
+        res["allocated_after_build"] = torch.cuda.memory_allocated(dev)
+    res["build_s"] = monotonic() - t0
+    if job.get("greedy_n") and split.role == "target":
+        t0 = monotonic()
+        res["greedy"] = [greedy_decode(T, tp, p, job["greedy_n"], S_max)[0] for p in prompts]
+        res["greedy_s"] = monotonic() - t0
+    for label, kind, kw in job["runs"]:
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        run = {"kind": kind}
+        t0 = monotonic()
+        with _SyncCount(dev, on=kind != "tree") as sc:
+            if kind == "continuous":
+                eng = SpecEngine(T, D, SpecConfig(**kw["spec"]), S_max, S_max, split=split)
+                rt = ContinuousBatchingRuntime(eng, tp, dp, n_slots=kw["slots"],
+                                               clock=VirtualClock(round_dt=kw["round_dt"]))
+                rt.submit_trace(Request(rid=rid, prompt=np.asarray(p, np.int32), arrival_s=a,
+                                        max_new=n) for rid, p, a, n in kw["requests"])
+                out = rt.run()
+                run["tokens"] = {rid: out[rid] for rid in sorted(out)}
+                run["stats"] = _spec_stats(rt.stepper.spec_stats)
+                run["rounds"] = rt.stepper.spec_stats.rounds
+                sess = rt.stepper.session
+            else:
+                if kind == "chain":
+                    eng = ChainSpecEngine(T, D, ChainConfig(**kw), S_max, S_max, split=split)
+                else:
+                    eng = SpecEngine(T, D, SpecConfig(**kw), S_max, S_max, split=split)
+                sess = eng.session(tp, dp)
+                run["tokens"], run["stats"] = [], []
+                for p in prompts:
+                    out, st = sess.generate(p)
+                    run["tokens"].append(out[0])
+                    run["stats"].append(_chain_stats(st) if kind == "chain"
+                                        else _spec_stats(st))
+                run["rounds"] = sum(st["rounds"] for st in run["stats"])
+            if cuda:
+                torch.cuda.synchronize(dev)
+        run["wall_s"] = monotonic() - t0
+        t0 = monotonic()
+        run["launches"] = ops.launch_counts()
+        run["collectives"] = dict(COLLECTIVES)
+        if cuda and kind != "tree":  # the whole run: a chain request's first token adds one
+            run["syncs"] = {"syncs": sc.n, "rounds": run["rounds"],
+                            "requests": len(prompts) if kind == "chain" else 0}
+        elif cuda and job.get("sync_rounds"):  # the rounds alone, from a fresh prefill
+            sess.state = eng._prefill_state(tp, dp, prompts[0])
+            torch.cuda.synchronize(dev)
+            with _SyncCount(dev) as sc:
+                for _ in range(job["sync_rounds"]):
+                    sess.step()
+            run["syncs"] = {"syncs": sc.n, "rounds": job["sync_rounds"], "requests": 0}
+        if kind != "chain":
+            st = sess.state
+            run["holds"] = {f: getattr(st, f) is not None
+                            for f in ("tcache", "dcache", "tr", "plan")}
+        if kind == "continuous" and kw.get("solo"):
+            sess = eng.session(tp, dp)
+            run["solo"] = {rid: sess.generate(np.asarray(p, np.int32).reshape(1, -1),
+                                              max_new=n)[0][0]
+                           for rid, p, _, n in kw["requests"]}
+        run["after_s"] = monotonic() - t0  # the sync count's rounds or the solo runs
+        res["runs"][label] = run
+    if cuda:
+        res["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def resplit(group, job: dict) -> list:
+    """``runtime.elastic.reshard_engine`` across splits: job {"splits":
+    [n_target, ...], "tcfg", "dcfg", "ttree", "dtree" (the whole models'
+    numpy trees), "prompts", "spec" (SpecConfig kwargs), "S_max"}.  The
+    engine starts on the first split, cut from the whole weights, and is
+    re-split to each next one; per split, this rank's role and the tokens
+    of every prompt."""
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.parallel.split import make_split
+    from repro_torch.runtime.elastic import reshard_engine
+
+    host = torch.device("cpu")
+    whole_t = params_from_numpy(job["tcfg"], job["ttree"], host)
+    whole_d = params_from_numpy(job["dcfg"], job["dtree"], host)
+    first = make_split(group, job["splits"][0])
+    T, D = first.models(job["tcfg"], job["dcfg"])
+    eng = SpecEngine(T, D, SpecConfig(**job["spec"]), job["S_max"], job["S_max"], split=first)
+    out = []
+    for n_target in job["splits"]:
+        eng, tp, dp = reshard_engine(eng, whole_t, whole_d, group, n_target)
+        sess = eng.session(tp, dp)
+        out.append({"role": eng.split.role, "ranks": eng.split.group.ranks,
+                    "tokens": [sess.generate(p)[0][0] for p in job["prompts"]]})
+    return out
 
 
 def several(group, calls: list) -> list:

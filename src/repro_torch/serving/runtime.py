@@ -28,6 +28,13 @@ With ``async_rounds`` a round is dispatched by ``EngineStepper.step`` (the
 target's verify on one CUDA stream, the draft's lookahead on another) and
 reconciled by ``absorb_round``, which makes the round's one host sync.
 
+An engine that several processes run — models sharded over a group of
+ranks, or target and draft split over disjoint ones (``parallel/split.py``)
+— is served by the same loop on every rank.  Each round's ``StepResult`` is
+the same on every rank (the verdict crosses to every rank before the
+sync), so with a ``VirtualClock`` every rank admits, steps, absorbs and
+retires alike; a ``WallClock`` is refused there.
+
 The clock is injectable: ``WallClock`` replays a trace against real time
 (sleeping until the next arrival when idle); ``VirtualClock`` advances a
 deterministic amount per engine round, so tests and benchmarks get
@@ -444,6 +451,10 @@ class ServingRuntimeBase:
 
     # ---- the fleet loop ----------------------------------------------
     def _init_fleet(self, steppers: list[EngineStepper]) -> None:
+        if isinstance(self.clock, WallClock) and any(st.engine.multi_process for st in steppers):
+            raise ValueError("an engine that several processes run (a split, or a group of "
+                             "ranks) serves on a VirtualClock: on a wall clock the ranks would "
+                             "admit at different rounds")
         self.steppers = steppers
         # replicas could in principle differ; admission must fit the tightest
         self._plen_limit = min(s.plen_limit for s in steppers)
