@@ -123,7 +123,7 @@ It takes no options and runs every phase, in order:
            then async rounds; (p2) qwen2.5-14b cut to 8 of its 48 layers
            drafting for itself at d 2, tp 3, padded by resolve_for_tp (per
            rank Hq 15, Hkv 3: G 5), lockstep; 1 request, prompt 16, max_new
-           32 / 24, f32.  Each rank's output must equal the sharded model's
+           16 / 24, f32.  Each rank's output must equal the sharded model's
            greedy decode and every other rank's, its prefill logits the
            single-process model's of the same draws (computed before the
            ranks start) within 2e-4, tree_attention, fused_swiglu and
@@ -139,7 +139,7 @@ It takes no options and runs every phase, in order:
            verdict crossing as world broadcasts: (s1) llama3-8b on rank 0
            and llama3-1b on rank 1 at full width and depth (seeded as
            (a)'s, lm_head x4, S_max 512, bs 8, w 4, c 2, d 2, 1 request,
-           prompt 16, max_new 32): lockstep, async rounds and chain mode
+           prompt 16, max_new 16): lockstep, async rounds and chain mode
            (k 4); (s2) llama3-8b over ranks 0-1 (tp 2) and llama3-1b on
            rank 2, lockstep.  Every rank's output must equal (s1) rank 0's
            single-process greedy decode and rank 0's, with the same stats
@@ -149,9 +149,24 @@ It takes no options and runs every phase, in order:
            memory above what it held before, less them, below the other
            role's weights;
            the collectives per round are reported apart
+  fleet    (r), router replicas on disjoint rank groups
+           (``workers.fleet``): two replicas, each llama3-8b cut to 8 of
+           its 32 layers on one rank + llama3-1b cut to 4 of 16 on one rank
+           (seeded as (a)'s), four ranks sharing the card through gloo;
+           one global queue (``ShardedServingRuntime(fleet=)``), 2 slots
+           per replica, 6 requests (prompts of 8-16, max_new 24, one
+           arrival every 2 rounds) on a virtual clock, lockstep then async
+           rounds.  Every request must equal the target's single-process
+           greedy decode (made before the ranks start), every rank hold
+           the same results, replicas, stats and merged summary, both
+           replicas serve, 1.00 host sync of the port per replica round,
+           2.00 / 3.00 split exchanges per replica round on the replica's
+           group, 1 fleet exchange per fleet round on the world's gloo
+           group, each rank launch its role's kernels and slot_write_rows,
+           and no rank hold the other role's weights or another replica's
   shapes   every shape at which a path called a kernel, held against its
-           plain version again, the (p) and (s) ranks' shapes included (each
-           rank records its own and hands them back)
+           plain version again, the (p), (s) and (r) ranks' shapes included
+           (each rank records its own and hands them back)
 
 Each path prints its launches and a kernel trace of two rounds
 (``build/traces/trace_<path>.json``).  The last two lines of standard output
@@ -162,6 +177,7 @@ JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -300,7 +316,8 @@ TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer 
     ("70B-tp3-r0", "llama3-70b", 3, 0, {"attention"}),
     ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}))
 TP_PATHS = {  # (p1)/(p2): (target, its depth), (draft, its depth) or None (self), tp, max_new, runs
-    "p1": (("llama3-8b", 8), ("llama3-1b", 4), 2, 32, ("lockstep", "async")),
+    "p1": (("llama3-8b", 8), ("llama3-1b", 4), 2, 16, ("lockstep", "async")),  # max_new 32
+    # until PR 24, cut with SPLIT_NEW to pay for phase (r)
     "p2": (("qwen2.5-14b", 8), None, 3, 24, ("lockstep",)),
 }
 SPLIT_PATHS = {  # (s1)/(s2), each run in the spawn of the (p) path named first (one process
@@ -309,13 +326,18 @@ SPLIT_PATHS = {  # (s1)/(s2), each run in the spawn of the (p) path named first 
                                                       ("chain", "chain"))),
     "s2": ("p2", ("llama3-8b", 2), ("llama3-1b", 1), (("lockstep", "tree"),)),
 }
-SPLIT_NEW = 32  # max_new of (s)
+SPLIT_NEW = 16  # max_new of (s); 32 until PR 24, cut to pay for phase (r)
 SPLIT_KERNELS = {  # (run kind, role) -> the kernels each rank of the role must launch
     ("tree", "target"): MAIN_KERNELS, ("tree", "draft"): MAIN_KERNELS,  # verify + compaction;
     # expansion, fill and re-root
     ("chain", "target"): ("tree_attention", "fused_swiglu"),  # the chain's verify
     ("chain", "draft"): CHAIN_KERNELS,  # decode steps, the commit's chain forward
 }
+FLEET = (("llama3-8b", 8), ("llama3-1b", 4), 2)  # (r): (target, its depth), (draft, its depth),
+# replicas; each replica one target rank + one draft rank: 2 x (1 + 1) ranks
+FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_GAP = 2, 6, 24, 2.0  # (r)'s trace: slots per
+# replica, requests (prompts of 8-16), max_new, virtual seconds between arrivals (1 a round)
+FLEET_RUNS = ("lockstep", "async")
 TP_BACKEND = "gloo"  # several ranks on one card: NCCL refuses two ranks on one device
 # the sharded prefill against the single-process one: the sums over heads and ff columns are
 # split over the ranks and added by the all-reduce, so they round in another order; the
@@ -2336,6 +2358,192 @@ def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
     return counts
 
 
+def fleet_requests(vocab: int) -> list:
+    """(r)'s trace: FLEET_REQUESTS prompts of 8-16 seeded tokens, one
+    arrival every FLEET_GAP virtual seconds (a round is one), so that both
+    replicas serve and admissions land beside requests in flight."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    return [(i, rng.integers(0, vocab, 8 + (3 * i) % 9).astype(np.int32), FLEET_GAP * i,
+             FLEET_NEW) for i in range(FLEET_REQUESTS)]
+
+
+def fleet_job(full_depth: bool = False) -> dict:
+    """The ``workers.fleet`` job of (r): FLEET's replicas of its target on
+    one rank + its draft on one rank, at full width and FLEET's depths (or
+    at full depth), drawn as ``build_engine`` draws them (target seed 0,
+    draft seed 1, lm_head x4), lockstep then async rounds on a
+    ``VirtualClock``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    (tname, t_depth), (dname, d_depth), replicas = FLEET
+    tcfg, dcfg = get_config(tname), get_config(dname)
+    if not full_depth:
+        tcfg = dataclasses.replace(tcfg, n_layers=t_depth)
+        dcfg = dataclasses.replace(dcfg, n_layers=d_depth)
+    tree = dict(bs=8, w=4, c=2, d=2, max_new=FLEET_NEW)
+    runs = [(run, {"spec": dict(tree, async_rounds=run == "async"), "slots": FLEET_SLOTS,
+                   "requests": fleet_requests(tcfg.vocab_size), "round_dt": 1.0})
+            for run in FLEET_RUNS]
+    return {"n_target": 1, "n_draft": 1, "replicas": replicas, "tcfg": tcfg, "dcfg": dcfg,
+            "weights": ("seed", 0, 1, 4.0), "S_max": 512, "runs": runs, "record_shapes": True}
+
+
+def fleet_greedy(torch, job) -> dict:
+    """rid -> the target's single-process greedy decode of each (r) request
+    (the same draws as the ranks'), made on the card before they start."""
+    from repro_torch.models.api import make_model
+
+    T = make_model(job["tcfg"], "cuda")
+    params = T.init(0)
+    params.lm_head.mul_(4.0)
+    reqs = job["runs"][0][1]["requests"]
+    out = {rid: greedy_decode(torch, T, params, p.reshape(1, -1), n, job["S_max"])[0]
+           for rid, p, _, n in reqs}
+    del T, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_fleet(label, job, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
+    """Check and print (r)'s ranks (``workers.fleet``): every request's
+    tokens equal to the target's single-process greedy decode (``greedy``),
+    every rank's results, replicas and merged summary the same, both
+    replicas serving, one host sync of the port per replica round on every
+    rank, the split's 2 exchanges per replica round (3 async) on its
+    replica's group, one fleet exchange per fleet round, each rank's role
+    kernels and slot_write_rows launched, and each rank's parameters its
+    own role's model's alone with its peak memory, less them, below the
+    other role's weights.  Prints the mean fleet round, each replica's mean
+    round and fleet exchange (its ranks' spans), each rank's parameter
+    bytes and peak.  Returns the launches per run, summed over the ranks."""
+    import math
+
+    import torch
+
+    cfgs = {role: c.param_count() * getattr(torch, c.param_dtype).itemsize
+            for role, c in (("target", job["tcfg"]), ("draft", job["dcfg"]))}
+    replicas = job["replicas"]
+    where = (f"{backend}, one card per rank" if backend == "nccl" else
+             f"{backend}, {len(ranks)} ranks on one card: no speed figure")
+    if [(r["replica"], r["role"]) for r in ranks] != [(i // 2, ("target", "draft")[i % 2])
+                                                      for i in range(2 * replicas)]:
+        fail(f"{label}: the ranks' replicas and roles are "
+             f"{[(r['replica'], r['role']) for r in ranks]}")
+    for r in ranks:
+        for kname, keys in r["shapes"].items():
+            log.seen[kname] |= keys
+        other = "draft" if r["role"] == "target" else "target"
+        above = r["peak_allocated"] - r["allocated_before"]
+        if r["param_bytes"] != cfgs[r["role"]] or r["standin"] != {"is_standin": True,
+                                                                   "tensors": 0}:
+            fail(f"{label} rank {r['rank']}: {r['param_bytes']} bytes of parameters, its "
+                 f"replica's {r['role']} takes {cfgs[r['role']]}; the stand-in {r['standin']}")
+        if above - r["param_bytes"] >= cfgs[other]:
+            fail(f"{label} rank {r['rank']}: its peak is {above / 2**30:.2f} GiB above what it "
+                 f"held before: room for the {other}'s {cfgs[other] / 2**30:.2f} GiB")
+        print(f"{label} rank {r['rank']} (replica {r['replica']} {r['role']}, ranks "
+              f"{list(r['replica_ranks'])}): parameters {r['param_bytes'] / 2**30:.3f} GiB (its "
+              f"{r['role']} alone; the {other}'s {cfgs[other] / 2**30:.3f} GiB and the other "
+              f"replica's are not here), peak {r['peak_allocated'] / 2**30:.3f} GiB "
+              f"({above / 2**30:.3f} GiB above the {r['allocated_before'] / 2**30:.3f} GiB held "
+              f"before it) on {card}", flush=True)
+    counts = {}
+    for run in FLEET_RUNS:
+        per = [r["runs"][run] for r in ranks]
+        first = per[0]
+        served = set(first["replica_of"].values())
+        if served != set(range(replicas)):
+            fail(f"{label} {run}: replicas {sorted(served)} served, not all {replicas}")
+        for rid, toks in first["tokens"].items():
+            if toks != greedy[rid]:
+                j = next((i for i, (a, b) in enumerate(zip(toks, greedy[rid])) if a != b),
+                         len(toks))
+                fail(f"{label} {run} request {rid}: output diverges from the single-process "
+                     f"greedy decode at position {j}")
+        if sorted(first["tokens"]) != sorted(greedy):
+            fail(f"{label} {run}: requests {sorted(first['tokens'])} finished, not all")
+
+        def same(a, b):
+            return a == b or (isinstance(a, float) and math.isnan(a) and math.isnan(b))
+
+        for r, got in zip(ranks, per):
+            if (got["tokens"], got["replica_of"], got["spec_stats"]) != (
+                    first["tokens"], first["replica_of"], first["spec_stats"]) or not all(
+                    same(v, first["summary"][k]) for k, v in got["summary"].items()):
+                fail(f"{label} {run} rank {r['rank']}: its results, replicas, stats or summary "
+                     "differ from rank 0's")
+            sy, own = got["syncs"], got["own_rounds"]
+            if sy["syncs"] != own:
+                fail(f"{label} {run} rank {r['rank']}: {sy['syncs']} host syncs of the port in "
+                     f"its replica's {own} rounds, not one per round")
+            per_round = 3 if run == "async" else 2
+            if got["collectives"]["broadcast"] != per_round * own:
+                fail(f"{label} {run} rank {r['rank']}: {got['collectives']['broadcast']} split "
+                     f"exchanges in {own} replica rounds, not {per_round} per round")
+            if got["exchanges"] != got["fleet_rounds"]:
+                fail(f"{label} {run} rank {r['rank']}: {got['exchanges']} fleet exchanges in "
+                     f"{got['fleet_rounds']} fleet rounds, not one per round")
+            missing = [k for k in SPLIT_KERNELS["tree", r["role"]] + ("slot_write_rows",)
+                       if got["launches"][k] == 0]
+            if missing:
+                fail(f"{label} {run} rank {r['rank']} ({r['role']}): kernels never launched: "
+                     f"{missing}")
+        counts[f"r-{run}"] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
+        reps = collections.defaultdict(list)  # replica -> its ranks' (round, exchange) ms
+        for r, g in zip(ranks, per):
+            reps[r["replica"]].append((g["round_ms"], g["exchange_ms"], g["own_rounds"]))
+        print(f"{label} {run}: {first['fleet_rounds']} fleet rounds, mean fleet round "
+              f"{first['wall_s'] / first['fleet_rounds'] * 1e3:.2f} ms (the run's wall on rank 0 "
+              "over its fleet rounds, admissions included; "
+              + "; ".join(f"replica {i}: {v[0][2]} rounds, mean round to the exchange "
+                          f"{max(ms - ex for ms, ex, _ in v):.2f} ms (its slower rank's), its "
+                          "ranks' mean wait in the fleet exchange "
+                          + " / ".join(f"{ex:.2f}" for _, ex, _ in v) + " ms"
+                          for i, v in sorted(reps.items()))
+              + f"; {where}), 1.00 host syncs of the port per replica round on every rank, "
+              f"{2 + (run == 'async')}.00 split exchanges per replica round on its group, 1 "
+              f"fleet exchange per fleet round on the world's gloo group, replicas "
+              f"{first['replica_of']}, every request equal to the single-process greedy decode "
+              f"and every rank's results, stats and summary equal, on {card}", flush=True)
+        print(f"{label} {run}: {first['report'].splitlines()[-1]}", flush=True)
+        print(f"{label} {run}: kernel launches summed over the ranks {counts[f'r-{run}']}",
+              flush=True)
+    return counts
+
+
+def phase_fleet(torch, card, log) -> dict:
+    """(r): router replicas on disjoint rank groups (``workers.fleet``):
+    FLEET's two replicas of a split, each a target rank and a draft rank,
+    on four ranks that share the card through gloo, serving (r)'s trace
+    lockstep then async; checked by ``report_fleet`` against the target's
+    single-process greedy decode, made before the ranks start."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel.spawn import run_ranks
+
+    (tname, t_depth), (dname, d_depth), replicas = FLEET
+    label = f"(r) fleet of {replicas} x ({tname}/{t_depth} + {dname}/{d_depth})"
+    job = fleet_job()
+    print(f"{label}: reduced (depth: target {t_depth} of {get_config(tname).n_layers} layers, "
+          f"draft {d_depth} of {get_config(dname).n_layers}, so that two replicas fit the one "
+          "card)", flush=True)
+    t0 = monotonic()
+    greedy = fleet_greedy(torch, job)
+    t1 = monotonic()
+    ranks = run_ranks("repro_torch.parallel.workers:fleet", 2 * replicas, (job,),
+                      workdir=os.path.join(HERE, "build", "fleet"), device="cuda:0",
+                      backend=TP_BACKEND, timeout_s=420, threads=2)
+    print(f"{label}: greedy reference {t1 - t0:.1f} s; {2 * replicas} ranks started, drew their "
+          f"weights and served in {monotonic() - t1:.1f} s (rank 0: build {ranks[0]['build_s']:.1f} "
+          "s, " + ", ".join(f"{run} {g['wall_s']:.1f} s" for run, g in ranks[0]["runs"].items())
+          + ")", flush=True)
+    return report_fleet(label, job, ranks, greedy, card, log)
+
+
 def phase_shapes(torch, log, card):
     """Hold each kernel against its plain version at every shape a path
     called it with: random inputs (plans, lengths) at that shape, f32 and
@@ -2466,6 +2674,8 @@ def main() -> int:
     timing("train (t)")
     counts.update(phase_tp(torch, card, log))
     timing("tp (p1)-(p3) and split (s1)-(s2)")
+    counts.update(phase_fleet(torch, card, log))
+    timing("fleet (r)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

@@ -6,8 +6,9 @@ mesh per replica.  The port carves CUDA devices the same way: a device
 group is a tuple of ``torch.device``; replica i owns the devices
 ``[i*g, (i+1)*g)``, g = n_target + n_draft, the first ``n_target`` of them
 its target group and the rest its draft group, so no device is shared
-across replicas or across the two roles.  The ranks of a split engine, one
-process per card, are carved the same way (``make_serving_ranks``).
+across replicas or across the two roles.  The ranks of split engines, one
+process per card, are carved the same way (``make_serving_ranks``): one
+split, or R replicas of one, each its own (target ranks, draft ranks).
 Carving is pure: it only reads the devices it is given.
 """
 
@@ -62,13 +63,32 @@ def make_serving_devices(n_target: int, n_draft: int, *, replicas: int = 1, devi
     return [carve(i) for i in range(replicas)]
 
 
-
-def make_serving_ranks(ranks, n_target: int) -> tuple[tuple, tuple]:
-    """(target ranks, draft ranks) of a split engine (``parallel/split.py``):
-    the world's ``ranks`` split target-first at ``n_target``, as
-    ``make_serving_devices`` splits the devices of one replica."""
+def make_serving_ranks(ranks, n_target: int, n_draft: int | None = None, *,
+                       replicas: int = 1):
+    """(target ranks, draft ranks) pairs of split engines
+    (``parallel/split.py``), carved from the world's ``ranks`` as
+    ``make_serving_devices`` carves devices: replica i owns the ranks
+    ``[i*g, (i+1)*g)``, g = n_target + n_draft, split target-first.
+    ``n_draft`` defaults to the rest of one replica's share of the ranks.
+    Returns one pair for ``replicas == 1`` and a list of ``replicas`` pairs
+    otherwise.  A world of other than ``replicas * g`` ranks raises: there
+    is no shared fallback, since each rank is a process of its own."""
     ranks = tuple(ranks)
-    if not 1 <= n_target < len(ranks):
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if n_draft is None:
+        n_draft = len(ranks) // replicas - n_target
+    group = n_target + n_draft
+    if replicas == 1 and not 1 <= n_target < len(ranks):
         raise ValueError(f"a split of {len(ranks)} ranks needs 1 <= n_target < {len(ranks)}, "
                          f"got {n_target}")
-    return ranks[:n_target], ranks[n_target:]
+    if n_target < 1 or n_draft < 1 or len(ranks) != group * replicas:
+        raise ValueError(f"{len(ranks)} ranks are not {replicas} whole split(s) of {n_target} "
+                         f"target + {n_draft} draft rank(s): a world of R * (n_target + "
+                         "n_draft) ranks runs R replicas, each role at least one rank")
+
+    def carve(i: int):
+        base = i * group
+        return ranks[base:base + n_target], ranks[base + n_target:base + group]
+
+    return carve(0) if replicas == 1 else [carve(i) for i in range(replicas)]

@@ -20,7 +20,8 @@ the models are the smoke configs; ``build_engine(..., smoke=False)`` builds
 the published widths.  ``--replicas N`` serves the continuous trace over N
 engine replicas (one global queue, least-loaded routing, per-replica and
 fleet telemetry, ``ShardedServingRuntime``); ``--n-target``/``--n-draft``
-set the devices each replica asks for (``launch/mesh.py``).  With fewer
+set the devices (or, under torchrun, the ranks) each replica asks for
+(``launch/mesh.py``).  With fewer
 devices than one replica asks for, every replica falls back to one shared
 device (``--device``, default ``cuda``) and all replicas share one engine
 object.
@@ -33,18 +34,29 @@ Launched under torchrun, one process per rank (``launch/mesh.py``'s
   ranks ``[0, n_target)``, sharded over them, the draft on the rest, and
   the plan and the verdict cross between them each round;
 * with fewer ranks both models are sharded over all of them and every rank
-  runs the same engine (tensor parallelism on one shared group).
+  runs the same engine (tensor parallelism on one shared group);
+* with ``--continuous --replicas R`` and ``WORLD_SIZE == R * (n_target +
+  n_draft)`` the world is carved into R such splits, replica i on the ranks
+  ``[i*g, (i+1)*g)`` (``parallel.split.init_fleet``), and the router serves
+  one global queue over them (``ShardedServingRuntime(fleet=)``): every
+  rank runs the fleet loop and mirrors every replica's verdict, one
+  exchange on the host per fleet round.
 
-Rank 0 prints, after checking that every rank emitted the same tokens.
-The process group is NCCL's on CUDA (one card per rank) and gloo's on the
-CPU.  Continuous serving under a group runs on a virtual clock, so that
-every rank admits the same request at the same round.  Replicas of an
-engine on disjoint groups are not run (ROADMAP item 13f).
+Any other world raises.  Rank 0 prints, after checking that every rank
+emitted the same tokens.  The process group is NCCL's on CUDA (one card per
+rank) and gloo's on the CPU.  Continuous serving under a group runs on a
+virtual clock, so that every rank admits the same request at the same
+round.  In a fleet each replica checks the requests it served against its
+own solo ``generate()``, and with ``--trace-out`` each rank writes its own
+replica's spans and the router's to a file that names the rank.
 
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
-      -m repro_torch.launch.serve --device cpu --continuous --d 1 --requests 2
+      -m repro_torch.launch.serve --device cpu --continuous --depth 1 --requests 2
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
-      -m repro_torch.launch.serve --device cpu --n-target 1 --n-draft 1 --d 1
+      -m repro_torch.launch.serve --device cpu --n-target 1 --n-draft 1 --depth 1
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --device cpu --continuous --replicas 2 --n-target 1 \
+      --n-draft 1 --depth 1 --requests 4
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ from repro_torch.obs.clock import monotonic
 def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="parallel",
                  bs=8, w=4, c=2, d=2, max_new=48, S_max=512, n_target=6, n_draft=2,
                  peaked=True, replicas=1, device=None, async_rounds=False, group=None,
-                 split=None):
+                 split=None, fleet=None):
     """Build the serving engine(s).  Returns (engine | [engines], tparams,
     dparams, cfgT).
 
@@ -85,11 +97,19 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
     this rank's shards of the same draws.  With ``split`` (a
     ``parallel.split.Split``) this rank builds its own role's model and its
     weights only (the other role's params are None): the engine is
-    disaggregated.  Replicas on disjoint groups are ROADMAP item 13f."""
+    disaggregated.  With ``fleet`` (a ``parallel.split.Fleet`` of
+    ``replicas`` splits) this rank builds its own replica's split engine so,
+    and returns it at its replica's index of a list whose other entries
+    mirror it (``serving.fleet_engines``)."""
+    if fleet is not None:
+        if replicas != fleet.replicas:
+            raise ValueError(f"a fleet of {fleet.replicas} replicas, not {replicas}")
+        split = fleet.split
+    elif (group is not None or split is not None) and replicas != 1:
+        raise ValueError("router replicas on rank groups run as a fleet of whole splits "
+                         "(fleet=, parallel.split.init_fleet); one split or one "
+                         "tensor-parallel group serves one replica")
     if group is not None or split is not None:
-        if replicas != 1:
-            raise ValueError("router replicas of an engine on disjoint rank groups are not "
-                             "ported (ROADMAP item 13f)")
         device = (split.world if split is not None else group).device
     device = resolve_device(device)
     cfg = SpecConfig(bs=bs, w=w, c=c, d=d, mode=mode, max_new=max_new,
@@ -104,7 +124,12 @@ def build_engine(target_arch: str, draft_arch: str, *, smoke=True, mode="paralle
         if peaked:
             params.lm_head.mul_(4.0)
         tp, dp = (params, None) if split.role == "target" else (None, params)
-        return SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max, split=split), tp, dp, cfgT
+        eng = SpecEngine(T, D, cfg, S_max_t=S_max, S_max_d=S_max, split=split)
+        if fleet is not None:
+            from repro_torch.serving import fleet_engines
+
+            eng = fleet_engines(fleet, eng)
+        return eng, tp, dp, cfgT
     pairs = make_serving_devices(n_target, n_draft, replicas=replicas, device=device)
     pairs = [pairs] if replicas == 1 else pairs
     if group is not None:
@@ -143,19 +168,31 @@ def _quiet(*args, **kwargs) -> None:
     pass
 
 
+def every_rank(group, obj) -> list:
+    """Every rank of ``group``'s ``obj``, in rank order."""
+    import torch.distributed as dist
+
+    every = [None] * group.world
+    dist.all_gather_object(every, obj, group=group.pg)
+    return every
+
+
 def same_on_every_rank(group, obj) -> bool:
     """Whether every rank of ``group`` holds an equal ``obj`` (True without
     a group)."""
     if group is None:
         return True
-    import torch.distributed as dist
-
-    every = [None] * group.world
-    dist.all_gather_object(every, obj, group=group.pg)
+    every = every_rank(group, obj)
     return all(o == every[0] for o in every)
 
 
-def run_continuous(args, engines, tp, dp, cfgT, group=None) -> dict:
+def rank_path(path: str, rank: int) -> str:
+    """``path`` with ``.rank<rank>`` before its suffix."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{rank}{ext}"
+
+
+def run_continuous(args, engines, tp, dp, cfgT, group=None, fleet=None) -> dict:
     """Serve a Poisson trace through the continuous-batching runtime on a
     wall clock — one engine, or a fleet (a list of engines, ``--replicas``)
     through ``ShardedServingRuntime`` — print the per-request report (the
@@ -165,7 +202,10 @@ def run_continuous(args, engines, tp, dp, cfgT, group=None) -> dict:
     and the round breakdown printed.  With ``group`` every rank serves the
     trace on a virtual clock (the same admissions on every rank), rank 0
     prints, and a rank that emitted other tokens than rank 0 raises
-    SystemExit.  Returns the results."""
+    SystemExit.  With ``fleet`` (``group`` its world) ``engines`` are the
+    fleet's (this rank's own replica's and mirrors), each replica checks
+    the requests it served against its own solo ``generate()``, and each
+    rank writes its own trace.  Returns the results."""
     from repro_torch.obs import MetricsRegistry, Tracer, breakdown_report, phase_breakdown
     from repro_torch.serving import (ContinuousBatchingRuntime, Request, RequestQueue,
                                      SchedulerConfig, ShardedServingRuntime, VirtualClock,
@@ -181,13 +221,16 @@ def run_continuous(args, engines, tp, dp, cfgT, group=None) -> dict:
         cfgT.vocab_size, args.requests, rate_rps=args.rate,
         prompt_len=(max(4, args.prompt_len // 2), args.prompt_len),
         max_new=args.max_new, seed=0)
-    fleet = isinstance(engines, list)
-    runtime = ShardedServingRuntime if fleet else ContinuousBatchingRuntime
+    routed = isinstance(engines, list)
     clock = WallClock() if group is None else VirtualClock(round_dt=0.05)
-    rt = runtime(engines, tp, dp, n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap),
-                 clock=clock, tracer=tracer, metrics=metrics, scheduler=scheduler)
-    eng = engines[0] if fleet else engines
-    label = f"{len(engines)} replicas x {args.slots} slots" if fleet else f"{args.slots} slots"
+    kw = dict(n_slots=args.slots, queue=RequestQueue(cap=args.queue_cap), clock=clock,
+              tracer=tracer, metrics=metrics, scheduler=scheduler)
+    if routed:
+        rt = ShardedServingRuntime(engines, tp, dp, fleet=fleet, **kw)
+    else:
+        rt = ContinuousBatchingRuntime(engines, tp, dp, **kw)
+    eng = engines[0 if fleet is None else fleet.replica] if routed else engines
+    label = f"{len(engines)} replicas x {args.slots} slots" if routed else f"{args.slots} slots"
     accepted = rt.submit_trace(
         Request(rid=r.rid, prompt=r.prompt, arrival_s=r.arrival_s, max_new=r.max_new,
                 deadline_s=(r.arrival_s + args.deadline_s) if args.deadline_s else None)
@@ -200,39 +243,50 @@ def run_continuous(args, engines, tp, dp, cfgT, group=None) -> dict:
     t0 = monotonic()
     results = rt.run()
     wall = monotonic() - t0
-    say(rt.report() if fleet else rt.stats.report())
+    say(rt.report() if routed else rt.stats.report())
     total = sum(len(v) for v in results.values())
     say(f"wall: {total} tokens in {wall:.1f}s ({total / wall:.1f} tok/s); "
           f"{rt.queue.rejected} shed by admission control")
-    summary = rt.summary() if fleet else rt.stats.summary()
+    summary = rt.summary() if routed else rt.stats.summary()
     if summary["n_deadlined"]:
         say(f"SLO: {summary['slo_attainment']:.0%} of {summary['n_deadlined']} "
               f"deadlined requests met (slack p50 {summary['slack_p50_s']:+.3f}s "
               f"p10 {summary['slack_p10_s']:+.3f}s)")
+    if observed and fleet is not None and args.trace_out:  # each rank its replica's spans
+        path = tracer.write(rank_path(args.trace_out, group.rank))
+        say(f"trace -> {path} (and one per rank beside it)")
     if observed and (group is None or group.rank == 0):
         bd = phase_breakdown(tracer)
         say(breakdown_report(bd))
-        if args.trace_out:
+        if args.trace_out and fleet is None:
             say(f"trace -> {tracer.write(args.trace_out)}")
         if args.metrics_out:
             slo = {k: summary[k] for k in ("n_deadlined", "slo_attainment",
                                            "slack_p50_s", "slack_p10_s")}
             path = metrics.write(args.metrics_out, extra={"phase_breakdown": bd, "slo": slo})
             say(f"metrics -> {path}")
-    if not same_on_every_rank(group, results):
+    served = {r.rid: rt.replica_of(r.rid) for r in trace} if routed else {}
+    if not same_on_every_rank(group, (results, served)):
         raise SystemExit("the ranks emitted different tokens")
     if group is not None:
         say(f"ranks: all {group.world} emitted the same tokens")
     if args.verify:
         sess = eng.session(tp, dp)
+        oks = {}
+        for r in trace:  # in a fleet each replica checks the requests it served
+            if r.rid in results and (fleet is None or served[r.rid] == fleet.replica):
+                solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
+                oks[r.rid] = results[r.rid] == solo[0]
+        if fleet is not None:
+            every = every_rank(group, oks)
+            oks = {rid: all(o[rid] for o in every if rid in o) for rid in results}
         mismatches = 0
         for r in trace:
             if r.rid not in results:
                 continue
-            solo, _ = sess.generate(r.prompt.reshape(1, -1), max_new=r.max_new)
-            ok = results[r.rid] == solo[0]
+            ok = oks[r.rid]
             mismatches += 0 if ok else 1
-            where = f" (replica {rt.replica_of(r.rid)})" if fleet else ""
+            where = f" (replica {served[r.rid]})" if routed else ""
             say(f"verify req {r.rid}: "
                   f"{'byte-identical to solo generate()' if ok else 'MISMATCH'}{where}")
         if mismatches:
@@ -288,32 +342,43 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    group = split = None
+    group = split = fleet = None
+    replicas = args.replicas if args.continuous else 1
     world = int(os.environ.get("WORLD_SIZE", "1")) if "RANK" in os.environ else 1
     if world > 1:
-        if world > args.n_target + args.n_draft:
-            raise SystemExit(f"{world} ranks are more than one split of {args.n_target} target + "
-                             f"{args.n_draft} draft: router replicas on disjoint groups are not "
-                             "ported (ROADMAP item 13f)")
-        if world == args.n_target + args.n_draft:
+        g = args.n_target + args.n_draft
+        if replicas > 1 and world == replicas * g:
+            from repro_torch.parallel.split import init_fleet
+
+            fleet = init_fleet(args.n_target, args.n_draft, replicas, args.device)
+            split, group = fleet.split, fleet.exchange
+        elif replicas == 1 and world == g:
             from repro_torch.parallel.split import init_split
 
             split = init_split(args.n_target, args.n_draft, args.device)
             group = split.world
-        else:
+        elif replicas == 1 and world < g:
             from repro_torch.parallel import init_tp
 
             group = init_tp(args.device)
+        else:
+            raise SystemExit(
+                f"{world} ranks with --replicas {replicas}: the layouts that run are one split "
+                f"({g} ranks: --n-target + --n-draft), one tensor-parallel group (fewer "
+                f"ranks), or R splits (--continuous --replicas R on R x {g} ranks)")
     say = print if group is None or group.rank == 0 else _quiet
-    replicas = args.replicas if args.continuous else 1
     eng, tp, dp, cfgT = build_engine(
         args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
         d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
         replicas=replicas, device=args.device, async_rounds=args.async_rounds,
-        group=None if split is not None else group, split=split)
+        group=None if split is not None else group, split=split, fleet=fleet)
     engines = eng
-    eng = eng[0] if isinstance(eng, list) else eng
-    if split is not None:
+    eng = eng[0 if fleet is None else fleet.replica] if isinstance(eng, list) else eng
+    if fleet is not None:
+        say(f"fleet: {fleet.replicas} replicas on disjoint rank groups, target / draft ranks "
+            + ", ".join(f"{list(t)} / {list(d)}" for t, d in fleet.pairs)
+            + f" ({split.world.backend}); one exchange on the host (gloo) per fleet round")
+    elif split is not None:
         say(f"split: target on ranks {list(split.target_ranks)}, draft on ranks "
             f"{list(split.draft_ranks)} ({group.backend}); the plan and the verdict cross "
             "between them each round")
@@ -321,14 +386,16 @@ def main(argv=None):
         say(f"tensor parallel: {group.world} ranks ({group.backend}), target heads / KV heads "
             f"per rank {eng.target.run_cfg.n_heads}/{eng.target.run_cfg.n_kv_heads} on rank 0")
     if args.d == 0:
-        say(profile_depth(eng, tp, dp, args.prompt_len))
-        if group is not None and split is None:  # rank 0's depth: the ranks' timings differ
+        if fleet is None or fleet.replica == 0:  # a fleet profiles replica 0's split
+            say(profile_depth(eng, tp, dp, args.prompt_len))
+        if fleet is not None or (group is not None and split is None):
+            # rank 0's depth: the ranks' timings differ (a fleet's mirrors read it from eng)
             d = group.broadcast(torch.tensor([eng.cfg.d], device=group.device))
             eng.cfg = dataclasses.replace(eng.cfg, d=int(d[0]))
-        for e in set(engines) if isinstance(engines, list) else ():
+        for e in set(engines) if isinstance(engines, list) and fleet is None else ():
             e.cfg = eng.cfg
     if args.continuous:
-        run_continuous(args, engines, tp, dp, cfgT, group)
+        run_continuous(args, engines, tp, dp, cfgT, group, fleet)
         return
 
     total_toks, total_s = 0, 0.0

@@ -32,14 +32,25 @@ or the CPU) each is staged through the host.  Each adds one to
 ``COLLECTIVES["broadcast"]``.  A failed collective raises: nothing
 carries on past it.
 
+A fleet (``make_fleet``, ``init_fleet``: the router's replicas on disjoint
+rank groups) carves a world of R x (n_target + n_draft) ranks into R such
+splits, replica i on the ranks ``[i*g, (i+1)*g)``.  A replica's exchanges
+run on its own ranks' group, so that no replica's round waits on another's
+ranks, and a gloo group over the whole world carries the fleet's one
+exchange per fleet round on the host (``Fleet.exchange_rows``; the serving
+loop packs each replica's verdict into it, ``serving/runtime.py``).
+
   split = init_split(1, 1)                  # under torchrun, 2 ranks
   T, D = split.models(tcfg, dcfg)           # this role's model, the other's stand-in
+  fleet = init_fleet(1, 1, replicas=2)      # under torchrun, 4 ranks: fleet.split is this
+                                            # rank's replica's split
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,7 +66,8 @@ ROLES = ("target", "draft")
 class Split:
     """This rank's place in a split world: its ``role``, its role's group
     (``group``: the ranks its model is sharded over), the ``world`` group
-    the exchanges run on, and each role's global ranks."""
+    the exchanges run on (the split's own ranks: the whole world, or one
+    replica's share of it in a ``Fleet``), and each role's global ranks."""
 
     role: str
     group: TPGroup
@@ -83,8 +95,8 @@ class Split:
         return (own, StandIn(dcfg)) if self.role == "target" else (StandIn(tcfg), own)
 
     def share(self, buf, src: str, shape) -> torch.Tensor:
-        """Role ``src``'s int32 ``buf`` of ``shape`` on every rank: one
-        broadcast over the world from that role's leader.  The ranks of
+        """Role ``src``'s int32 ``buf`` of ``shape`` on every rank of the
+        split: one broadcast over its ``world`` from that role's leader.  The ranks of
         ``src`` pass their buffer (the same bits on each of them), the
         others None."""
         if src == self.role:
@@ -116,26 +128,49 @@ class Split:
                          valid=valid.bool())
 
     def agree_times(self, t_draft: float, t_target: float) -> tuple[float, float]:
-        """Each role's leader's time on every rank: one all-reduce over the
-        world (the profile pass, so that every rank picks the same depth)."""
+        """Each role's leader's time on every rank of the split: one
+        all-reduce over its ``world`` (the profile pass, so that every rank
+        picks the same depth)."""
         mine = [t_draft, 0.0] if self.role == "draft" else [0.0, t_target]
         lead = self.group.rank == 0
         t = torch.tensor(mine if lead else [0.0, 0.0], dtype=torch.float64, device=self.device)
         return tuple(float(x) for x in self.world.all_reduce(t).cpu())
 
 
+def _role_groups(world: TPGroup, pairs: list, own_pg=None) -> list:
+    """Each pair's (replica pg, target pg, draft pg), made in one order on
+    every rank (``dist.new_group`` is collective: another order hangs).
+    With ``own_pg`` (one pair) the pair's ranks are ``world``'s, whose pg it
+    is."""
+    made = []
+    for t, d in pairs:
+        pg = own_pg if own_pg is not None else dist.new_group(ranks=list(t + d),
+                                                              backend=world.backend)
+        made.append((pg,) + tuple(dist.new_group(ranks=list(r), backend=world.backend)
+                                  for r in (t, d)))
+    return made
+
+
+def _split(world: TPGroup, pair: tuple, pgs: tuple) -> Split:
+    """This rank's ``Split`` of ``pair`` (its (target, draft) global ranks),
+    which holds it, on the pair's groups ``pgs``."""
+    target_ranks, draft_ranks = pair
+    me = world.ranks[world.rank]
+    ranks = target_ranks + draft_ranks
+    own = TPGroup(pg=pgs[0], rank=ranks.index(me), world=len(ranks), device=world.device,
+                  backend=world.backend, ranks=ranks)
+    role = "target" if me in target_ranks else "draft"
+    mine = target_ranks if role == "target" else draft_ranks
+    group = TPGroup(pg=pgs[1 + ROLES.index(role)], rank=mine.index(me), world=len(mine),
+                    device=world.device, backend=world.backend, ranks=mine)
+    return Split(role, group, own, target_ranks, draft_ranks)
+
+
 def make_split(world: TPGroup, n_target: int) -> Split:
     """Split ``world`` target-first at ``n_target``: a process group for
     each role.  Every rank must call it, with the same ``n_target``."""
-    target_ranks, draft_ranks = make_serving_ranks(world.ranks, n_target)
-    pgs = [dist.new_group(ranks=list(r), backend=world.backend)  # both, in order, on every rank
-           for r in (target_ranks, draft_ranks)]
-    me = world.ranks[world.rank]
-    role = "target" if me in target_ranks else "draft"
-    mine = target_ranks if role == "target" else draft_ranks
-    group = TPGroup(pg=pgs[ROLES.index(role)], rank=mine.index(me), world=len(mine),
-                    device=world.device, backend=world.backend, ranks=mine)
-    return Split(role, group, world, target_ranks, draft_ranks)
+    pair = make_serving_ranks(world.ranks, n_target)
+    return _split(world, pair, _role_groups(world, [pair], world.pg)[0])
 
 
 def init_split(n_target: int, n_draft: int, device=None, backend=None) -> Split:
@@ -148,3 +183,63 @@ def init_split(n_target: int, n_draft: int, device=None, backend=None) -> Split:
         raise ValueError(f"a split of {n_target} target + {n_draft} draft ranks needs a world of "
                          f"{n_target + n_draft}, got {world.world}")
     return make_split(world, n_target)
+
+
+@dataclasses.dataclass(eq=False)
+class Fleet:
+    """This rank's place in a fleet of R split replicas (the router's
+    replicas on disjoint rank groups, ``serving.router``): its ``replica``,
+    that replica's ``split`` (whose exchanges run on the replica's ranks
+    alone), each replica's (target ranks, draft ranks) ``pairs``, and
+    ``exchange``, a gloo group over the whole world on the host
+    for the one exchange of each fleet round (``exchange_rows``)."""
+
+    replica: int
+    split: Split
+    pairs: tuple
+    exchange: TPGroup
+    exchanges: int = 0  # fleet exchanges made, counted apart from COLLECTIVES
+
+    @property
+    def replicas(self) -> int:
+        return len(self.pairs)
+
+    def row_of(self, replica: int) -> int:
+        """The row of an exchange that stands for ``replica``: its target
+        leader's (every rank of a replica holds the same verdict)."""
+        return self.exchange.ranks.index(self.pairs[replica][0][0])
+
+    def exchange_rows(self, row: np.ndarray) -> np.ndarray:
+        """Every rank's int32 ``row`` (of one length on every rank) as
+        [world, n] on every rank: one gloo all-gather on the host, which
+        makes no CUDA sync under either backend."""
+        self.exchanges += 1
+        mine = torch.from_numpy(np.ascontiguousarray(row, np.int32))
+        parts = [torch.empty_like(mine) for _ in range(self.exchange.world)]
+        dist.all_gather(parts, mine, group=self.exchange.pg)
+        return torch.stack(parts).numpy()
+
+
+def make_fleet(world: TPGroup, n_target: int, n_draft: int, replicas: int) -> Fleet:
+    """Carve ``world`` into ``replicas`` splits of ``n_target`` target +
+    ``n_draft`` draft ranks (``make_serving_ranks``) and join this rank's.
+    Every rank makes every replica's groups (the replica's, then its two
+    roles'), replica by replica, then the fleet's gloo group: the same
+    order on every rank.  A world of other than ``replicas * (n_target +
+    n_draft)`` ranks raises."""
+    pairs = make_serving_ranks(world.ranks, n_target, n_draft, replicas=replicas)
+    pairs = [pairs] if replicas == 1 else pairs
+    pgs = _role_groups(world, pairs, world.pg if replicas == 1 else None)
+    exchange = TPGroup(pg=dist.new_group(ranks=list(world.ranks), backend="gloo"),
+                       rank=world.rank, world=world.world, device=torch.device("cpu"),
+                       backend="gloo", ranks=world.ranks)
+    me = world.ranks[world.rank]
+    i = next(i for i, (t, d) in enumerate(pairs) if me in t + d)
+    return Fleet(i, _split(world, pairs[i], pgs[i]), tuple(pairs), exchange)
+
+
+def init_fleet(n_target: int, n_draft: int, replicas: int, device=None, backend=None) -> Fleet:
+    """Join a world of ``replicas * (n_target + n_draft)`` ranks (``init_tp``
+    from torchrun's environment) and carve it into the fleet's splits."""
+    world = init_tp(device, backend)
+    return make_fleet(world, n_target, n_draft, replicas)

@@ -472,6 +472,147 @@ def _split_engine(group, job: dict) -> dict:
     return res
 
 
+def fleet(group, job: dict) -> dict:
+    """Router replicas on disjoint rank groups: this world carved into
+    ``job["replicas"]`` splits of ``job["n_target"]`` + ``job["n_draft"]``
+    ranks (``parallel.split.make_fleet``), each rank its own replica's role
+    model, serving one trace through ``ShardedServingRuntime(fleet=)`` on a
+    ``VirtualClock``.  Job {"n_target", "n_draft", "replicas", "tcfg",
+    "dcfg" (None: the target drafts for itself), "weights" (as
+    ``split_engine``'s), "S_max", "record_shapes", "runs": [(label,
+    {"spec": SpecConfig kwargs, "slots", "requests": [(rid, prompt,
+    arrival_s, max_new)], "round_dt", "scheduler": SchedulerConfig kwargs
+    or None, "solo", "fail": (replica, fleet round) or None})]}.  With
+    "fail" the replica's dispatch raises in that fleet round on each of its
+    ranks (the run's "error" holds what each rank raised); with "solo" each
+    replica's ranks run the solo ``generate()`` of every request it served.
+
+    Returns this rank's world rank, replica, role and role ranks, its
+    parameter bytes and the stand-in's tensors, on CUDA its memory before
+    the build and its peak; per run the tokens, ``replica_of``,
+    the merged summary and fleet report, every replica's ``SpecStats``
+    (the mirrors' included), the fleet rounds, the fleet exchanges, the
+    own replica's rounds, the collectives (the split's, on the replica's
+    group), the kernel launches, the wall time, the mean own round and
+    fleet exchange (tracer spans), and on CUDA the host syncs of the port
+    over the run.  On a card shared by the ranks through gloo these runs
+    check correctness: no speed figure."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.shapes import ShapeLog
+
+    log = ShapeLog(ops) if job.get("record_shapes") else None
+    if log is not None:
+        log.install()
+    try:
+        res = _fleet(group, job)
+    finally:
+        if log is not None:
+            log.uninstall()
+    if log is not None:
+        res["shapes"] = log.seen
+    return res
+
+
+def _fleet(group, job: dict) -> dict:
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import StandIn
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
+    from repro_torch.parallel.split import make_fleet
+    from repro_torch.serving import (Request, SchedulerConfig, ShardedServingRuntime,
+                                     VirtualClock, fleet_engines)
+
+    dev = group.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = monotonic()
+    fl = make_fleet(group, job["n_target"], job["n_draft"], job["replicas"])
+    split = fl.split
+    self_draft = job["dcfg"] is None
+    T, D = split.models(job["tcfg"], job["tcfg"] if self_draft else job["dcfg"])
+    own, other = (T, D) if split.role == "target" else (D, T)
+    params = _role_params(split, own, job["weights"], self_draft)
+    tp, dp = (params, None) if split.role == "target" else (None, params)
+    S_max = job["S_max"]
+    res = {"rank": group.rank, "replica": fl.replica, "role": split.role,
+           "ranks": split.group.ranks, "replica_ranks": split.world.ranks,
+           "param_bytes": _nbytes(params),
+           "standin": {"is_standin": isinstance(other, StandIn),
+                       "tensors": sum(isinstance(v, torch.Tensor) for v in vars(other).values())},
+           "runs": {}}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        res["allocated_before"] = before
+    res["build_s"] = monotonic() - t0
+    for label, kw in job["runs"]:
+        eng = SpecEngine(T, D, SpecConfig(**kw["spec"]), S_max, S_max, split=split)
+        tracer = Tracer()
+        sched = kw.get("scheduler")
+        rt = ShardedServingRuntime(fleet_engines(fl, eng), tp, dp, n_slots=kw["slots"],
+                                   clock=VirtualClock(round_dt=kw["round_dt"]), tracer=tracer,
+                                   metrics=MetricsRegistry(),
+                                   scheduler=None if sched is None else SchedulerConfig(**sched),
+                                   fleet=fl)
+        rt.submit_trace(Request(rid=rid, prompt=np.asarray(p, np.int32), arrival_s=a,
+                                max_new=n) for rid, p, a, n in kw["requests"])
+        mine = rt.steppers[fl.replica]
+        fail = kw.get("fail")
+        if fail is not None and fail[0] == fl.replica:
+            step = mine.step
+
+            def failing(step=step, at=fail[1], rt=rt):
+                if rt.rounds >= at:
+                    raise RuntimeError(f"a failure in replica {fl.replica}'s round {rt.rounds}")
+                return step()
+
+            mine.step = failing
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        fl.exchanges = 0
+        run = {"error": None}
+        t0 = monotonic()
+        with _SyncCount(dev) as sc:
+            try:
+                rt.run()
+            except RuntimeError as e:
+                if fail is None:
+                    raise
+                run["error"] = str(e)
+            if cuda:
+                torch.cuda.synchronize(dev)
+        run["wall_s"] = monotonic() - t0
+        out = rt.results
+        run.update(
+            tokens={rid: out[rid] for rid in sorted(out)},
+            replica_of={rid: rt.replica_of(rid) for rid, *_ in kw["requests"]},
+            summary=rt.summary(), report=rt.report(),
+            spec_stats=[_spec_stats(st.spec_stats) for st in rt.steppers],
+            fleet_rounds=rt.rounds, exchanges=fl.exchanges, own_rounds=mine.spec_stats.rounds,
+            collectives=dict(COLLECTIVES), launches=ops.launch_counts(),
+            round_ms=_mean_ms(tracer.spans("round")),
+            exchange_ms=_mean_ms(tracer.spans("fleet_exchange")))
+        if cuda:
+            run["syncs"] = {"syncs": sc.n, "rounds": mine.spec_stats.rounds}
+        if kw.get("solo") and run["error"] is None:
+            sess = eng.session(tp, dp)
+            run["solo"] = {rid: sess.generate(np.asarray(p, np.int32).reshape(1, -1),
+                                              max_new=n)[0][0]
+                           for rid, p, _, n in kw["requests"]
+                           if run["replica_of"][rid] == fl.replica}
+        res["runs"][label] = run
+    if cuda:
+        res["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def _mean_ms(spans) -> float:
+    return sum(s.dur for s in spans) / len(spans) * 1e3 if spans else 0.0
+
+
 def resplit(group, job: dict) -> list:
     """``runtime.elastic.reshard_engine`` across splits: job {"splits":
     [n_target, ...], "tcfg", "dcfg", "ttree", "dtree" (the whole models'

@@ -4,7 +4,8 @@
 admit / decode / retire lifecycles over one ``SpecEngine`` state, lockstep
 or with async rounds; every output is byte-identical to a solo
 ``generate()``.  ``ShardedServingRuntime`` serves one global queue over N
-engine replicas with least-loaded routing.  The queue, scheduler and stats
+engine replicas with least-loaded routing, in one process or, with
+``fleet=``, over replicas on disjoint rank groups (one process per rank).  The queue, scheduler and stats
 modules are copies of the reference's framework-neutral ones.
 
     rt = ContinuousBatchingRuntime(engine, tparams, dparams, n_slots=4)
@@ -17,11 +18,12 @@ modules are copies of the reference's framework-neutral ones.
 from repro_torch.serving.queue import Request, RequestQueue
 from repro_torch.serving.runtime import (
     ContinuousBatchingRuntime,
+    EngineMirror,
     EngineStepper,
     VirtualClock,
     WallClock,
 )
-from repro_torch.serving.router import ShardedServingRuntime
+from repro_torch.serving.router import ShardedServingRuntime, fleet_engines
 from repro_torch.serving.scheduler import AdaptiveDepthController, SchedulerConfig
 from repro_torch.serving.stats import (
     RequestRecord,
@@ -34,6 +36,7 @@ from repro_torch.serving.stats import (
 __all__ = [
     "AdaptiveDepthController",
     "ContinuousBatchingRuntime",
+    "EngineMirror",
     "EngineStepper",
     "Request",
     "RequestQueue",
@@ -43,6 +46,7 @@ __all__ = [
     "ShardedServingRuntime",
     "VirtualClock",
     "WallClock",
+    "fleet_engines",
     "fleet_report",
     "merge_summary",
     "percentile",

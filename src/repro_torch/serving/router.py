@@ -27,6 +27,19 @@ engine holds only its models, its config and its two streams.
 Telemetry is one ``ServerStats`` per replica, merged by
 ``stats.merge_summary`` / ``fleet_report`` into global TTFT and throughput
 plus the per-replica occupancy breakdown.
+
+Replicas on disjoint rank groups (``fleet=``, a ``parallel.split.Fleet``
+of R splits, one process per rank; the serving-side half of SwiftSpec's
+scaling) run this same loop on every rank: a rank's own replica is its
+split engine, every other one an ``EngineMirror`` (``fleet_engines``) kept
+by the fleet's one exchange per round (``ServingRuntimeBase._process_round``).
+Routing, admission and retirement read only host state that every rank
+holds alike, so ``stats``, ``summary()``, ``report()`` and ``replica_of()``
+are the same on every rank, and the single controller's.
+
+  engines = fleet_engines(fleet, engine)    # engine: this rank's replica's split engine
+  rt = ShardedServingRuntime(engines, tparams, dparams, n_slots=2,
+                             clock=VirtualClock(), fleet=fleet)
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ from __future__ import annotations
 from typing import Callable
 
 from repro_torch.serving.queue import RequestQueue
-from repro_torch.serving.runtime import EngineStepper, ServingRuntimeBase
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.runtime import EngineMirror, EngineStepper, ServingRuntimeBase
 from repro_torch.serving.stats import ServerStats, fleet_report, merge_summary
 
 
@@ -45,7 +59,14 @@ class ShardedServingRuntime(ServingRuntimeBase):
     object N times is valid — states are per replica — and is what the
     shared-device fallback does).  ``tparams``/``dparams`` are either one
     set shared by every replica or a list with one entry per replica
-    (weights resident on that replica's devices)."""
+    (weights resident on that replica's devices).
+
+    With ``fleet`` (a ``parallel.split.Fleet``) the replicas run on
+    disjoint rank groups: ``engines[fleet.replica]`` is this rank's own
+    replica's split engine and every other entry an ``EngineMirror``
+    (``fleet_engines``); the params are this rank's own.  ``tracer``
+    records the own replica's spans and the router's, ``metrics`` every
+    replica's (the mirrors update theirs)."""
 
     def __init__(self, engines, tparams, dparams, n_slots: int, *,
                  queue: RequestQueue | None = None,
@@ -53,7 +74,8 @@ class ShardedServingRuntime(ServingRuntimeBase):
                  stream: Callable[[int, list, bool], None] | None = None,
                  tracer=None,
                  metrics=None,
-                 scheduler=None):
+                 scheduler=None,
+                 fleet=None):
         if not engines:
             raise ValueError("need at least one engine replica")
         self._init_admission(queue, clock, tracer, metrics)
@@ -61,14 +83,21 @@ class ShardedServingRuntime(ServingRuntimeBase):
         dps = dparams if isinstance(dparams, list) else [dparams] * len(engines)
         if not (len(tps) == len(dps) == len(engines)):
             raise ValueError("per-replica params must match the engine count")
+        if fleet is not None and (len(engines) != fleet.replicas or any(
+                isinstance(e, EngineMirror) == (i == fleet.replica)
+                for i, e in enumerate(engines))):
+            raise ValueError(f"a fleet of {fleet.replicas} replicas serves this rank's engine "
+                             f"at index {fleet.replica} and a mirror at every other "
+                             "(fleet_engines)")
         self._init_fleet([
             EngineStepper(eng, tp, dp, n_slots,
                           stats=ServerStats(), stream=stream,
                           results=self.results, replica=i,
-                          tracer=self.tracer, metrics=self.metrics,
+                          tracer=NULL_TRACER if isinstance(eng, EngineMirror) else self.tracer,
+                          metrics=self.metrics,
                           scheduler=scheduler)
             for i, (eng, tp, dp) in enumerate(zip(engines, tps, dps))
-        ])
+        ], fleet)
 
     # ------------------------------------------------------------------
     @property
@@ -96,3 +125,11 @@ class ShardedServingRuntime(ServingRuntimeBase):
             if rid in st.stats.records:
                 return i
         return None
+
+
+def fleet_engines(fleet, engine) -> list:
+    """The ``engines`` of a fleet's ``ShardedServingRuntime`` on this rank:
+    ``engine`` (its own replica's) at ``fleet.replica``, a mirror of it at
+    every other index."""
+    return [engine if i == fleet.replica else EngineMirror(engine)
+            for i in range(fleet.replicas)]

@@ -35,6 +35,20 @@ the same on every rank (the verdict crosses to every rank before the
 sync), so with a ``VirtualClock`` every rank admits, steps, absorbs and
 retires alike; a ``WallClock`` is refused there.
 
+Replicas on disjoint rank groups (a ``parallel.split.Fleet``: R splits of
+one world, one process per rank) run the same fleet loop on every rank.
+A rank runs its own replica's engine; every other replica is an
+``EngineMirror``, whose stepper holds the same slots, ``ServerStats``,
+metric handles and depth controller but no session.  A fleet round is:
+the own replica dispatches, the clock ticks once (by the deepest replica's
+depth, the mirrors' included), the own replica reconciles (its one host
+sync), then ONE exchange on the host carries every replica's packed
+``StepResult`` (and its round counts and an error flag) to every rank, and
+every rank absorbs every replica's result in replica order.  So every rank
+routes, admits and retires alike, and holds every replica's stats.  A
+failure in a replica's round sets its flag, and every rank raises in that
+fleet round.
+
 The clock is injectable: ``WallClock`` replays a trace against real time
 (sleeping until the next arrival when idle); ``VirtualClock`` advances a
 deterministic amount per engine round, so tests and benchmarks get
@@ -48,7 +62,9 @@ import dataclasses
 import time
 from typing import Callable
 
-from repro_torch.core.engine import RoundInFlight, SpecStats, absorb_emitted
+import numpy as np
+
+from repro_torch.core.engine import RoundInFlight, SpecStats, StepResult, absorb_emitted
 from repro_torch.obs.clock import monotonic
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NOOP_SPAN, NULL_TRACER
@@ -114,6 +130,53 @@ class VirtualClock:
         self._t = max(self._t, t)
 
 
+class EngineMirror:
+    """Another replica's engine, as a rank of a fleet of processes sees it
+    (``parallel.split.Fleet``): the config and KV budget of ``like``, this
+    rank's own replica's engine (every replica is built alike), and nothing
+    to run.  Its ``EngineStepper`` keeps the replica's host-side state from
+    the fleet's exchange."""
+
+    multi_process = True
+
+    def __init__(self, like):
+        self._like = like
+
+    @property
+    def cfg(self):
+        return self._like.cfg
+
+    @property
+    def plen_budget(self) -> int:
+        return self._like.plen_budget
+
+
+ROUND_COUNTS = ("draft_steps", "spec_rounds", "spec_commits")  # a round's SpecStats beside
+# add_round's, carried by the fleet exchange for the mirrors
+
+
+def pack_round(res, counts, n_slots: int, bs: int, failed: bool) -> np.ndarray:
+    """One rank's row of a fleet exchange, int32: [failed, present, the
+    ROUND_COUNTS deltas, emitted [n_slots, bs + 1], n_emitted, n_accepted]
+    (``res`` None: this rank's replica did not step)."""
+    row = np.zeros(5 + n_slots * (bs + 3), np.int32)
+    row[0] = failed
+    if res is not None:
+        row[1] = 1
+        row[2:5] = counts
+        row[5:] = np.concatenate([np.asarray(res.emitted).reshape(-1), res.n_emitted,
+                                  res.n_accepted])
+    return row
+
+
+def unpack_round(row: np.ndarray, n_slots: int, bs: int):
+    """(StepResult, ROUND_COUNTS deltas) of a replica's exchanged row."""
+    e = n_slots * (bs + 1)
+    body = row[5:]
+    return (StepResult(body[:e].reshape(n_slots, bs + 1), body[e:e + n_slots],
+                       body[e + n_slots:]), tuple(int(x) for x in row[2:5]))
+
+
 @dataclasses.dataclass
 class _Active:
     """Host-side bookkeeping for one occupied slot."""
@@ -134,6 +197,11 @@ class EngineStepper:
     device work (``admit`` prefills, ``step`` rounds) is enqueued without a
     host sync (on the engine's two streams when it runs async rounds); the
     host waits only in the round's verified-token transfer.
+
+    Over an ``EngineMirror`` (another replica of a fleet of processes) it
+    is a mirror: no session; ``admit`` and ``_retire`` keep the books only,
+    ``step`` only takes the round's depth, and ``mirror_round`` then
+    ``absorb_round`` fold in the replica's exchanged result.
     """
 
     def __init__(self, engine, tparams, dparams, n_slots: int, *,
@@ -163,7 +231,9 @@ class EngineStepper:
         self.track = f"replica{replica}"
         self._round_span = NOOP_SPAN
         # the bound round API: params + EngineState + tracer, one per replica
-        self.session = engine.session(
+        # (none for a mirror: another rank group runs that replica)
+        self.mirror = isinstance(engine, EngineMirror)
+        self.session = None if self.mirror else engine.session(
             tparams, dparams, n_slots=n_slots, tracer=self.tracer,
             track=self.track)
         self.spec_stats = SpecStats()  # engine-level round accounting
@@ -199,8 +269,8 @@ class EngineStepper:
     # ------------------------------------------------------------------
     @property
     def state(self):
-        """The session's EngineState."""
-        return self.session.state
+        """The session's EngineState (None for a mirror)."""
+        return None if self.session is None else self.session.state
 
     @state.setter
     def state(self, s):
@@ -232,10 +302,11 @@ class EngineStepper:
         ``on_admit`` stamp, so ``queue_s``/TTFT cannot be skewed by clock
         reads straddling the prefill dispatch."""
         slot = self.slots.index(None)
-        with self.tracer.span("admit_prefill", self.track,
-                              args={"rid": req.rid, "slot": slot,
-                                    "plen": int(req.prompt.size)}):
-            self.session.admit_slot(slot, req.prompt)
+        if not self.mirror:  # a mirror's replica prefills on its own ranks
+            with self.tracer.span("admit_prefill", self.track,
+                                  args={"rid": req.rid, "slot": slot,
+                                        "plen": int(req.prompt.size)}):
+                self.session.admit_slot(slot, req.prompt)
         self.slots[slot] = _Active(req=req, plen=int(req.prompt.size))
         self.stats.on_admit(req.rid, slot, req.arrival_s, now, replica=self.replica,
                             deadline_s=req.deadline_s, priority=req.priority)
@@ -270,6 +341,8 @@ class EngineStepper:
                     [s is not None for s in self.slots])
             self.last_round_depth = self.engine.cfg.d if depth is None else depth
             self._round_span.set("depth", self.last_round_depth)
+            if self.mirror:  # the replica's own ranks dispatch it
+                return None
             if self.engine.cfg.async_rounds:
                 return self.session.begin_round(depth=depth)
             return self.session.step(stats=self.spec_stats, depth=depth)
@@ -290,13 +363,7 @@ class EngineStepper:
         failing stream callback, a poisoned record) must leave the tracer
         balanced, not with this replica's round span open forever."""
         try:
-            if isinstance(res, RoundInFlight):
-                pre = self.spec_stats.spec_commits
-                res = self.session.reconcile(
-                    res, stats=self.spec_stats,
-                    live=[s is not None for s in self.slots])
-                if self.spec_stats.spec_commits > pre:
-                    self._m_spec_commits.inc()
+            res = self.resolve(res)
             self._m_occupancy.append(now, self.occupied)  # pre-retire, as stats does
             self._m_depth.append(now, self.last_round_depth)
             with self.tracer.span("absorb", self.track):
@@ -310,6 +377,34 @@ class EngineStepper:
         finally:
             self._round_span.end()
             self._round_span = NOOP_SPAN
+
+    def resolve(self, res):
+        """The round's ``StepResult``: an in-flight async round is
+        reconciled here (its one host sync; prediction mismatches on
+        unoccupied rows are ignored)."""
+        if isinstance(res, RoundInFlight):
+            pre = self.spec_stats.spec_commits
+            res = self.session.reconcile(
+                res, stats=self.spec_stats,
+                live=[s is not None for s in self.slots])
+            if self.spec_stats.spec_commits > pre:
+                self._m_spec_commits.inc()
+        return res
+
+    def round_counts(self) -> np.ndarray:
+        """The ROUND_COUNTS fields of ``spec_stats`` (their difference over
+        a round is what the fleet exchange carries for the mirrors)."""
+        return np.array([getattr(self.spec_stats, k) for k in ROUND_COUNTS], np.int64)
+
+    def mirror_round(self, res, counts) -> None:
+        """Fold another replica's round into this mirror's ``spec_stats``:
+        its rows' emitted and accepted counts and its ROUND_COUNTS deltas,
+        as its own ranks counted them."""
+        self.spec_stats.add_round(res.n_emitted, res.n_accepted)
+        for k, n in zip(ROUND_COUNTS, counts):
+            setattr(self.spec_stats, k, getattr(self.spec_stats, k) + n)
+        if counts[ROUND_COUNTS.index("spec_commits")]:
+            self._m_spec_commits.inc()
 
     def abort_round(self, res) -> None:
         """Abandon a dispatched round whose ``absorb_round`` will never run
@@ -352,9 +447,10 @@ class EngineStepper:
 
     def _retire(self, slot: int, act: _Active, now: float) -> None:
         self.results[act.req.rid] = act.out
-        with self.tracer.span("retire", self.track, args={"rid": act.req.rid,
-                                                          "slot": slot}):
-            self.session.release_slot(slot)
+        if not self.mirror:
+            with self.tracer.span("retire", self.track, args={"rid": act.req.rid,
+                                                              "slot": slot}):
+                self.session.release_slot(slot)
         self.slots[slot] = None
         if self.depth_ctl is not None:  # acceptance history dies with the request
             self.depth_ctl.clear_slot(slot)
@@ -450,12 +546,20 @@ class ServingRuntimeBase:
         return True
 
     # ---- the fleet loop ----------------------------------------------
-    def _init_fleet(self, steppers: list[EngineStepper]) -> None:
+    def _init_fleet(self, steppers: list[EngineStepper], fleet=None) -> None:
+        """``fleet``: a ``parallel.split.Fleet`` when the steppers are
+        replicas on disjoint rank groups (this rank's own replica's stepper
+        at ``fleet.replica``, mirrors elsewhere)."""
         if isinstance(self.clock, WallClock) and any(st.engine.multi_process for st in steppers):
-            raise ValueError("an engine that several processes run (a split, or a group of "
-                             "ranks) serves on a VirtualClock: on a wall clock the ranks would "
-                             "admit at different rounds")
+            raise ValueError("an engine that several processes run (a split, a group of "
+                             "ranks, or a fleet of them) serves on a VirtualClock: on a wall "
+                             "clock the ranks would admit at different rounds")
+        if fleet is None and any(st.mirror for st in steppers):
+            raise ValueError("a mirror of another replica steps only in a fleet of processes "
+                             "(fleet=)")
         self.steppers = steppers
+        self.fleet = fleet
+        self.rounds = 0  # global rounds run (fleet rounds)
         # replicas could in principle differ; admission must fit the tightest
         self._plen_limit = min(s.plen_limit for s in steppers)
         self._seq = 0
@@ -530,6 +634,10 @@ class ServingRuntimeBase:
                 with self.tracer.span("idle", "router"):
                     self.clock.wait_until(nxt)  # idle: jump to the next arrival
                 continue
+            self.rounds += 1
+            if self.fleet is not None:
+                self._process_round(busy)
+                continue
             # one global round: every busy stepper dispatches (with async
             # rounds nothing waits for the card until the absorbs), the clock
             # ticks once, then every stepper absorbs and retires.  If any
@@ -541,12 +649,7 @@ class ServingRuntimeBase:
                 for st in busy:
                     stepped.append((st, st.step()))
                 # the global round costs what the deepest replica round cost
-                self.clock.on_round(max(st.last_round_depth for st in busy))
-                now = self.clock.now()
-                qdepth = self.queue.depth(now)
-                self._m_queue_depth.append(now, qdepth)
-                self.tracer.counter("queue_depth", qdepth)
-                self.tracer.counter("occupied", self.occupied)
+                now, qdepth = self._tick(busy)
                 while stepped:
                     st, res = stepped.pop(0)
                     st.stats.on_round(st.occupied, qdepth)
@@ -559,6 +662,67 @@ class ServingRuntimeBase:
         for st in self.steppers:
             st.stats.finished_s = t1
         return self.results
+
+    def _tick(self, busy) -> tuple[float, int]:
+        """The clock's one tick for a global round, by the deepest busy
+        replica's depth; the round's time and queue depth (recorded)."""
+        self.clock.on_round(max(st.last_round_depth for st in busy))
+        now = self.clock.now()
+        qdepth = self.queue.depth(now)
+        self._m_queue_depth.append(now, qdepth)
+        self.tracer.counter("queue_depth", qdepth)
+        self.tracer.counter("occupied", self.occupied)
+        return now, qdepth
+
+    def _process_round(self, busy) -> None:
+        """One fleet round on a fleet of processes: the own replica
+        dispatches (the mirrors take their round's depth), the clock ticks,
+        the own replica reconciles, one exchange on the host brings every
+        replica's result to every rank, and every busy replica absorbs it,
+        in replica order.  A failure in the own replica's dispatch or
+        reconcile is held until the exchange, which carries its flag: every
+        rank raises in this fleet round (the failed ranks their error, the
+        others a RuntimeError naming the ranks), none waits at the next."""
+        fleet = self.fleet
+        own = self.steppers[fleet.replica]
+        bs = own.engine.cfg.bs
+        for st in busy:
+            if st is not own:
+                st.step()
+        mine, failure, res = None, None, None
+        counts = own.round_counts()
+        try:
+            if own.occupied:
+                res = own.step()
+        except Exception as e:  # raised after the exchange, on every rank
+            failure = e
+        now, qdepth = self._tick(busy)
+        try:
+            if own.occupied and failure is None:
+                mine = own.resolve(res)
+        except Exception as e:
+            failure = e
+        row = pack_round(mine, own.round_counts() - counts, own.n_slots, bs, failure is not None)
+        with self.tracer.span("fleet_exchange", "router"):
+            rows = fleet.exchange_rows(row)
+        failed = [r for r in range(len(rows)) if rows[r, 0]]
+        if failed:
+            if own.occupied:
+                own.abort_round(None)  # close the open round span
+            if failure is not None:
+                raise failure
+            raise RuntimeError(f"fleet round {self.rounds}: rank(s) {failed} failed in their "
+                               f"replica's round; replica {fleet.replica} stops with them")
+        for st in busy:
+            row = rows[fleet.row_of(st.replica)]
+            if not row[1]:
+                raise RuntimeError(f"fleet round {self.rounds}: replica {st.replica}'s ranks did "
+                                   "not step it: the ranks' fleet states diverged")
+            got, delta = unpack_round(row, st.n_slots, bs)
+            if st.mirror:
+                st.mirror_round(got, delta)
+            st.stats.on_round(st.occupied, qdepth)
+            st.absorb_round(got, now)
 
 
 class ContinuousBatchingRuntime(ServingRuntimeBase):

@@ -8,7 +8,9 @@ request its solo ``generate()``.  The serve CLI runs split under torchrun
 at 2 ranks.  ``submeshes`` and ``replan_split`` equal the reference's on
 the same inputs, ``make_serving_ranks`` carves as ``make_serving_devices``
 does, and ``reshard_engine`` re-splits a world of 3 from 1:2 to 2:1 with the
-tokens unchanged.
+tokens unchanged.  A world of no whole number of replicas raises, and so do
+replicas on one split or group (``tests/test_torch_fleet.py`` runs whole
+fleets).
 """
 
 import dataclasses
@@ -197,11 +199,30 @@ def test_reshard_engine_resplits_a_world_of_three(dense_pair, tmp_path):
             assert step["tokens"] == want
 
 
-def test_router_replicas_on_disjoint_groups_raise_naming_13f():
+@pytest.mark.parametrize("n,n_t,n_d,replicas", [(4, 1, 1, 3), (5, 1, 1, 2), (6, 2, 1, 3),
+                                                  (4, 1, 0, 4), (4, 0, 2, 2), (4, 1, 1, 0)])
+def test_a_world_of_no_whole_number_of_replicas_raises(n, n_t, n_d, replicas):
+    """Replicas on disjoint rank groups need R x (n_target + n_draft) ranks,
+    each role at least one: any other world raises before a group is made,
+    and no layout runs in its place."""
+    from repro_torch.parallel.group import TPGroup
+    from repro_torch.parallel.split import make_fleet
+
+    with pytest.raises(ValueError, match="whole split|replicas must be"):
+        make_serving_ranks(range(n), n_t, n_d, replicas=replicas)
+    grp = TPGroup(pg=None, rank=0, world=n, device=torch.device("cpu"), backend="gloo",
+                  ranks=tuple(range(n)))
+    with pytest.raises(ValueError, match="whole split|replicas must be"):
+        make_fleet(grp, n_t, n_d, replicas)
+
+
+def test_router_replicas_on_one_group_raise_naming_the_fleet():
+    """One split or one tensor-parallel group serves one replica: more
+    replicas there raise and name the fleet of whole splits."""
     from repro_torch.launch.serve import build_engine
     from repro_torch.parallel.group import TPGroup
 
     grp = TPGroup(pg=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo",
                   ranks=(0, 1))
-    with pytest.raises(ValueError, match="13f"):
+    with pytest.raises(ValueError, match="init_fleet"):
         build_engine("llama3-1b", "llama3-1b", replicas=2, group=grp)
