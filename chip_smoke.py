@@ -41,8 +41,8 @@ It takes no options and runs every phase, in order:
            profile pass; (b) self-draft on the same 8B weights, 2 requests —
            then continuous batching through ``ContinuousBatchingRuntime``
            on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
-           (prompts 8-16, max_new 32), reduced to the first 16 of the 8B's
-           layers and 8 of the 1B's: (c1) lockstep 8B+1B, (c2) async
+           (prompts 8-16, max_new 32), reduced to the first 8 of the 8B's
+           layers and 4 of the 1B's: (c1) lockstep 8B+1B, (c2) async
            rounds 8B+1B (nearly every lookahead rolls back), (c3) async 8B
            self-draft (lookaheads commit), (c4) lockstep 8B self-draft (the
            control of (c3)), (c5) the router: ``ShardedServingRuntime``
@@ -54,7 +54,7 @@ It takes no options and runs every phase, in order:
            ``generate()``); each kernel of a path must have launched in its
            run; each run must make one host sync per round.
   chain    chain-mode speculation, ``ChainSpecEngine.session().generate()``,
-           k 4, f32, prompt 16, max_new 32, S_max 512: (d3) llama3-8b +
+           k 4, f32, prompt 16, max_new 16, S_max 512: (d3) llama3-8b +
            llama3-1b on the weights above, parallel, 1 request; then
            zamba2-2.7b at full width, reduced to 12 of its 54 mamba2 layers
            (2 of its 9 units; the shared attention block every 6), weights
@@ -81,23 +81,23 @@ It takes no options and runs every phase, in order:
            the profile pass), 2 requests; (f2) deepseek-coder-33b reduced to
            8 of its 62 layers + deepseek-coder-1.3b, 1 request; (f3)
            granite-20b reduced to 8 of its 52 layers drafting for itself at
-           d 2, 1 request: lockstep, f32, max_new 32, each output equal to
+           d 2, 1 request: lockstep, f32, max_new 16, each output equal to
            the greedy decode, one host sync per round
-  rwkv6    chain mode on rwkv6-7b at full width, reduced to 8 of its 32
-           layers (k 4, f32, max_new 32, 1 request): (g1) self-draft,
+  rwkv6    chain mode on rwkv6-7b at full width, reduced to 4 of its 32
+           layers (k 4, f32, max_new 16, 1 request): (g1) self-draft,
            parallel; (g2)/(g2s) an
-           independent seed-7 draft reduced to 8 of its 32 layers, parallel
+           independent seed-7 draft reduced to 4 of its 32 layers, parallel
            and serial.  rwkv6 calls none of the port's kernels; each output
            must equal the greedy decode with one host sync per round and
            one per request
   families (h1) deepseek-moe-16b at full depth (a dense layer, then 27 moe
            layers of 64 experts, top 6, 2 shared), (h2) mixtral-8x22b cut
            to 4 of its 56 layers (8 experts, top 2, G 6, sliding window),
-           (h3) minicpm3-4b cut to 31 of its 62 layers (MLA), (h4)
+           (h3) minicpm3-4b cut to 16 of its 62 layers (MLA), (h4)
            musicgen-large at full depth (hd 64; a prefill of the table's embeddings must
            equal the token prefill bit for bit): each drafting for itself
            at d 2 through the tree engine, lockstep, f32, 1 request,
-           max_new 24, the MoE paths drop-free (capacity_factor E / k),
+           max_new 16, the MoE paths drop-free (capacity_factor E / k),
            each output equal to the greedy decode with one host sync per
            round, the greedy decode's launches counted with the run's;
            (h5) llama-3.2-vision-90b cut to one unit (4 dense blocks and a
@@ -123,7 +123,7 @@ It takes no options and runs every phase, in order:
            then async rounds; (p2) qwen2.5-14b cut to 8 of its 48 layers
            drafting for itself at d 2, tp 3, padded by resolve_for_tp (per
            rank Hq 15, Hkv 3: G 5), lockstep; 1 request, prompt 16, max_new
-           16 / 24, f32.  Each rank's output must equal the sharded model's
+           16, f32.  Each rank's output must equal the sharded model's
            greedy decode and every other rank's, its prefill logits the
            single-process model's of the same draws (computed before the
            ranks start) within 2e-4, tree_attention, fused_swiglu and
@@ -149,6 +149,26 @@ It takes no options and runs every phase, in order:
            memory above what it held before, less them, below the other
            role's weights;
            the collectives per round are reported apart
+  families (q), tensor parallelism of the other families, run in the same
+           spawns after (s): in (p1)'s two ranks (q1) zamba2-2.7b at full
+           width cut to 12 of its 54 layers (as (d1); per rank 40 of the
+           80 mamba2 heads, the shared block's 16 heads, its MLP N 5120)
+           and (q2) rwkv6-7b cut to 4 of its 32 layers (32 of 64 time-mix
+           heads, the channel-mix ff 7168), each ``ChainSpecEngine``
+           drafting for itself, k 4, parallel, the draft on a process group
+           of its own, then (q4) llama-3.2-vision-90b at one unit through
+           the Model API as (h5) (Hq 32 / Hkv 4 per rank); in (p2)'s three
+           ranks (q3) minicpm3-4b cut to 4 of its 62 layers (MLA, padded to
+           42 heads, 14 a rank, d_ff 6402: N 2136) drafting for itself at
+           d 2, lockstep; seed 0, lm_head x4, prompt 16, max_new 16 (16
+           decode steps).  Every rank's prefill logits within 2e-4 of the
+           single-process model's (drawn before the ranks start) and bit
+           for bit rank 0's, its output the sharded greedy decode (for (q4)
+           its spec_forward's argmax its decode), the chain engine's (q1)
+           and (q3)'s kernels launched on every rank ((q2) launches none:
+           rwkv6 calls none of the port's kernels), one host sync of the
+           port per round (+1 per chain request), each rank's heads, state
+           or latent shapes and peak printed
   fleet    (r), router replicas on disjoint rank groups
            (``workers.fleet``): two replicas, each llama3-8b cut to 8 of
            its 32 layers on one rank + llama3-1b cut to 4 of 16 on one rank
@@ -280,7 +300,7 @@ SERVE_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
 CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu")  # by the chain engine
 ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
                "slot_write_rows", "int4_matmul")
-CHAIN_K, CHAIN_NEW = 4, 32  # chain length and new tokens per request of phase (d)
+CHAIN_K, CHAIN_NEW = 4, 16  # chain length and new tokens per request of phases (d) and (g)
 DENSE_NEW = (  # (label, config) of the dense configs of phase (f) and their kernel checks
     ("3B", "llama3-3b"), ("70B", "llama3-70b"), ("ds1.3B", "deepseek-coder-1.3b"),
     ("ds33B", "deepseek-coder-33b"), ("granite", "granite-20b"))
@@ -289,11 +309,11 @@ DENSE_NEW_PATHS = {  # (f1)-(f3): target, its depth on the card (None: full), dr
     "f2": ("deepseek-coder-33b", 8, "deepseek-coder-1.3b"),
     "f3": ("granite-20b", 8, None),
 }
-DENSE_NEW_TOKENS = 32  # max_new per request of phase (f)
-RWKV_DRAFT_LAYERS = 8  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
-RWKV_LAYERS = 8  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
+DENSE_NEW_TOKENS = 16  # max_new per request of phase (f)
+RWKV_DRAFT_LAYERS = 4  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
+RWKV_LAYERS = 4  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
 ZAMBA_LAYERS = 12  # phase (d1)-(d2s)'s zamba2-2.7b: 2 of its 9 units (6 mamba2 + the shared block)
-SERVE_C_LAYERS = (16, 8)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
+SERVE_C_LAYERS = (8, 4)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
 FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attention" holds
     # tree and decode attention at its heads, "kv" kv_move_leaves and slot_write_rows at its
     # cache; fused_swiglu is held at every dense MLP
@@ -303,7 +323,7 @@ FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attenti
 FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the kernels it launches
     "h1": ("deepseek-moe-16b", None, MAIN_KERNELS + ("decode_attention",)),
     "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")),  # no dense MLP; decode by tree
-    "h3": ("minicpm3-4b", 31, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
+    "h3": ("minicpm3-4b", 16, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
     "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
 }
 TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer shapes
@@ -314,11 +334,17 @@ TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer 
     ("qwen14B-tp3", "qwen2.5-14b", 3, 0, {"attention", "kv"}),
     ("8B-tp3", "llama3-8b", 3, 0, set()), ("1B-tp3", "llama3-1b", 3, 0, set()),
     ("70B-tp3-r0", "llama3-70b", 3, 0, {"attention"}),
-    ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}))
+    ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}),
+    # the families' ranks of (q): zamba2's shared block at tp 2 (16 heads, hd 80, G 1; its MLP
+    # N 5120), minicpm3 at tp 3 (MLA: no attention kernel; N 2136, the share 2134 padded to
+    # 8), llama-3.2-vision at tp 2 (Hq 32 / Hkv 4; N 14336)
+    ("zamba2-tp2", "zamba2-2.7b", 2, 0, {"attention"}),
+    ("minicpm3-tp3", "minicpm3-4b", 3, 0, set()),
+    ("vision-tp2", "llama-3.2-vision-90b", 2, 0, {"attention"}))
 TP_PATHS = {  # (p1)/(p2): (target, its depth), (draft, its depth) or None (self), tp, max_new, runs
     "p1": (("llama3-8b", 8), ("llama3-1b", 4), 2, 16, ("lockstep", "async")),  # max_new 32
     # until PR 24, cut with SPLIT_NEW to pay for phase (r)
-    "p2": (("qwen2.5-14b", 8), None, 3, 24, ("lockstep",)),
+    "p2": (("qwen2.5-14b", 8), None, 3, 16, ("lockstep",)),
 }
 SPLIT_PATHS = {  # (s1)/(s2), each run in the spawn of the (p) path named first (one process
     # start and CUDA init per rank serve both): (target, its ranks), (draft, its ranks), runs
@@ -343,9 +369,22 @@ TP_BACKEND = "gloo"  # several ranks on one card: NCCL refuses two ranks on one 
 # split over the ranks and added by the all-reduce, so they round in another order; the
 # reference's own tensor-parallel tolerance (tests/test_sharding.py:65)
 TP_LOGIT_TOL = 2e-4
-FAMILY_TOKENS = 24  # max_new of (h1)-(h4)
+FAMILY_TOKENS = 16  # max_new of (h1)-(h4)
 VISION_LAYERS = 5  # (h5): one unit of llama-3.2-vision-90b, 4 dense blocks + 1 cross, of 100
 VISION_STEPS = 16  # (h5): prompt 16, then 16 greedy decode steps
+FAMILY_TP_PATHS = {  # (q1)-(q4), each run in the spawn of the (p) path named first, after its
+    # (s) paths: (that path, engine, config, its depth on the card); the (p) path's tp
+    "q1": ("p1", "chain", "zamba2-2.7b", ZAMBA_LAYERS),  # as (d1): 2 of its 9 units
+    "q2": ("p1", "chain", "rwkv6-7b", 4),
+    "q4": ("p1", "model", "llama-3.2-vision-90b", VISION_LAYERS),  # as (h5): one unit
+    "q3": ("p2", "tree", "minicpm3-4b", 4),
+}
+FAMILY_TP_NEW = 16  # max_new of (q1)-(q3), and (q4)'s decode steps
+FAMILY_TP_KERNELS = {  # the kernels each rank of a (q) path must launch
+    "q1": CHAIN_KERNELS, "q2": (),  # rwkv6 calls none of the port's kernels
+    "q3": ("fused_swiglu", "kv_move_rows"),  # MLA: no attention kernel
+    "q4": ("tree_attention", "decode_attention", "fused_swiglu"),
+}
 
 
 def new_shapes() -> dict:
@@ -380,7 +419,7 @@ def new_shapes() -> dict:
         if "attention" in checks:
             m.update(verify=(1, 8, hq, hkv, hd, 512), expand=(1, 4, hq, hkv, hd, 512),
                      decode=(1, hq, hkv, hd, 512))
-        if "dense" in c.layer_kinds:
+        if "dense" in c.layer_kinds or c.shared_attn_every:  # zamba2's shared block: an MLP
             m["swiglu"] = [(M, c.d_model, N) for N in sorted({ff, ragged or ff}) for M in (1, 8)]
         if "kv" not in checks:
             continue
@@ -2173,13 +2212,22 @@ def phase_tp(torch, card, log):
         calls = [("spec_engine", (job,))]
         splits = [name for name, sp in SPLIT_PATHS.items() if sp[0] == path]
         calls += [("split_engine", (split_job(name),)) for name in splits]
+        families = [name for name, fp in FAMILY_TP_PATHS.items() if fp[0] == path]
+        t0 = monotonic()
+        family_refs = {name: family_tp_job(torch, name, tp) for name in families}
+        if families:
+            print(f"{label}: the single-process prefill logits of "
+                  f"{', '.join(f'({n})' for n in families)} in {monotonic() - t0:.1f} s, each "
+                  "model freed before the next", flush=True)
+        calls += [family_refs[name][0] for name in families]
         t0 = monotonic()
         out = run_ranks("repro_torch.parallel.workers:several", tp, (calls,),
                         workdir=os.path.join(work, path), device="cuda:0", backend=TP_BACKEND,
-                        timeout_s=420, threads=2)
+                        timeout_s=540, threads=2)
         ranks = [r[0] for r in out]
+        after = splits + families
         print(f"{label}: {tp} ranks started, drew their shards and ran"
-              + (f" (and {', '.join(f'({n})' for n in splits)} after it)" if splits else "")
+              + (f" (and {', '.join(f'({n})' for n in after)} after it)" if after else "")
               + f" in {monotonic() - t0:.1f} s; heads / KV heads per rank: target "
               f"{[r['heads']['target'] for r in ranks]}, draft "
               f"{[r['heads']['draft'] for r in ranks]}", flush=True)
@@ -2235,6 +2283,135 @@ def phase_tp(torch, card, log):
                   f"{counts[f'{path}-{run}']}", flush=True)
         for i, name in enumerate(splits, start=1):
             counts.update(report_split(name, [r[i] for r in out], split_greedy, card, log))
+        for i, name in enumerate(families, start=1 + len(splits)):
+            counts[name] = report_family_tp(name, tp, [r[i] for r in out], family_refs[name][1],
+                                            card, log)
+    return counts
+
+
+def family_tp_job(torch, name: str, tp: int):
+    """((rank program, args), reference prefill logits) of a FAMILY_TP_PATHS
+    path at ``tp``: the config at its depth, seed 0, lm_head x4, one prompt
+    of 16 (and, for the model of cross blocks, seeded stub encoder states);
+    the reference is the single-process model of the same draws on the
+    card, freed before the next is drawn."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_request_stream
+    from repro_torch.models.api import make_model
+    from repro_torch.parallel.workers import encoder_states
+
+    _, kind, arch, depth = FAMILY_TP_PATHS[name]
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    prompt = next(make_request_stream(cfg.vocab_size, 16, 1, 1, seed=11))
+    model = make_model(cfg, "cuda")
+    params = peaked(model.init(0))
+    enc = encoder_states(cfg, 0).cuda() if kind == "model" else None
+    ref = model.prefill(params, prompt, enc=enc, S_max=512)[0].cpu().numpy()
+    del model, params, enc
+    torch.cuda.empty_cache()
+    if kind == "model":
+        return ("model_api", ({"cfg": cfg, "weights": ("seed", 0, 4.0), "prompt": prompt,
+                               "enc_seed": 0, "steps": FAMILY_TP_NEW, "S_max": 512,
+                               "record_shapes": True},)), ref
+    job = {"tcfg": cfg, "dcfg": None, "weights": ("seed", 0, 0, 4.0), "prompts": [prompt],
+           "S_max": 512, "greedy_n": FAMILY_TP_NEW, "prefill_logits": True, "record_shapes": True}
+    if kind == "chain":
+        job["runs"] = [("parallel", dict(k=CHAIN_K, mode="parallel", max_new=FAMILY_TP_NEW))]
+        return ("chain_engine", (job,)), ref
+    job.update(runs=[("lockstep", dict(bs=8, w=4, c=2, d=2, max_new=FAMILY_TP_NEW))],
+               sync_rounds=2)
+    return ("spec_engine", (job,)), ref
+
+
+def report_family_tp(name: str, tp: int, ranks, ref, card, log) -> dict:
+    """Check and print one (q) path's ranks: every rank's prefill logits
+    within TP_LOGIT_TOL of the single-process model's (``ref``) and bit for
+    bit rank 0's, its output equal to the sharded target's greedy decode
+    (the chain and tree engines) or its spec_forward's argmax to its decode
+    (the Model API) and to rank 0's, the path's kernels launched on every
+    rank, one host sync of the port per round (+1 per chain request; the
+    collectives apart), and each rank's heads, state or latent shapes and
+    peak memory.  Returns the launches summed over the ranks."""
+    import numpy as np
+
+    _, kind, arch, depth = FAMILY_TP_PATHS[name]
+    label = f"({name}) {arch}/{depth} tp {tp}"
+    where = f"{TP_BACKEND}, {tp} ranks on one card: no speed figure"
+    for r in ranks:
+        for kname, keys in r["shapes"].items():
+            log.seen[kname] |= keys
+        err = float(np.abs(r["prefill_logits"] - ref).max())
+        if not np.allclose(r["prefill_logits"], ref, atol=TP_LOGIT_TOL, rtol=TP_LOGIT_TOL):
+            fail(f"{label} rank {r['rank']}: prefill logits differ from the single-process "
+                 f"model's by {err:.3e} (tolerance {TP_LOGIT_TOL})")
+        if not np.array_equal(r["prefill_logits"], ranks[0]["prefill_logits"]):
+            fail(f"{label} rank {r['rank']}: its prefill logits differ from rank 0's")
+        if kind == "chain":
+            lay = r["layout"]["target"]
+            heads = f"heads {lay['heads']}, recurrent heads {lay['ssm_heads']}"
+        else:
+            heads = f"heads {r['heads']['target'] if kind == 'tree' else r['heads']}"
+        shapes = {}  # the first unit's leaves, one of each shape
+        for k, v in r["leaves"].items():
+            if k.startswith("0.") and v not in shapes.values():
+                shapes[k] = v
+        print(f"{label} rank {r['rank']}: prefill logits max|err| {err:.3e} against the "
+              f"single-process model (tolerance {TP_LOGIT_TOL}), bit for bit equal to rank 0's; "
+              f"{heads}; cache leaves [U, B, ...] {shapes}"
+              + (f"; peak {r['peak_allocated'] / 2**30:.2f} GiB" if "peak_allocated" in r else "")
+              + f" on {card}", flush=True)
+    if kind == "model":
+        runs = {"model": ranks}
+    else:
+        runs = {run: [r["runs"][run] for r in ranks] for run in ranks[0]["runs"]}
+    for run, per in runs.items():
+        for r, got in zip(ranks, per):
+            if kind == "model":
+                toks, want = got["spec_argmax"], got["decode"][1:]
+                if toks != want or got["decode"] != ranks[0]["decode"]:
+                    fail(f"{label} rank {r['rank']}: spec_forward's argmax {toks} differs from "
+                         f"the decode's tokens {want} or the decode from rank 0's")
+            else:
+                toks, want = got["tokens"][0], r["greedy"][0]
+                if toks != want[:len(toks)] or len(toks) != FAMILY_TP_NEW:
+                    j = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b), len(toks))
+                    fail(f"{label} {run} rank {r['rank']}: output diverges from the sharded "
+                         f"greedy decode at position {j}")
+                if toks != per[0]["tokens"][0] or got["stats"] != per[0]["stats"]:
+                    fail(f"{label} {run} rank {r['rank']}: tokens or stats differ from rank 0's")
+            missing = [k for k in FAMILY_TP_KERNELS[name] if got["launches"][k] == 0]
+            if missing:
+                fail(f"{label} {run} rank {r['rank']}: kernels never launched: {missing}")
+            if kind == "chain" and got["syncs"]["syncs"] != got["rounds"] + 1:
+                fail(f"{label} {run} rank {r['rank']}: {got['syncs']['syncs']} host syncs of "
+                     f"the port in {got['rounds']} rounds of one request, not one per round and "
+                     "one for the request")
+            if kind == "tree" and got.get("syncs_per_round") != 1.0:
+                fail(f"{label} {run} rank {r['rank']}: {got.get('syncs_per_round')} host syncs "
+                     "of the port per round, not one")
+        counts = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
+        if kind == "model":
+            print(f"{label}: prefill with stub encoder states, {FAMILY_TP_NEW} greedy decode "
+                  f"steps and one spec_forward of the same tokens under a causal chain mask: "
+                  f"argmax equal at all {FAMILY_TP_NEW} positions on every rank ({where}) on "
+                  f"{card}", flush=True)
+        else:
+            st, rounds = per[0]["stats"][0], per[0]["stats"][0]["rounds"]
+            emitted = st["emitted"] if kind == "chain" else sum(st["emitted_rows"])
+            coll = per[0]["collectives"]
+            print(f"{label} {run}: {rounds} rounds, compression {emitted / max(rounds, 1):.3f}, "
+                  f"mean round {per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms ({where}), "
+                  + ("1.00 host syncs of the port per round (+1 for the request's first token)"
+                     if kind == "chain" else
+                     f"{per[0]['syncs_per_round']:.2f} host syncs of the port per round")
+                  + f" on every rank, {sum(coll.values()) / max(rounds, 1):.1f} collectives per "
+                  f"round staged through the host by {TP_BACKEND} ({coll}), every rank's output "
+                  f"equals the sharded greedy decode, on {card}", flush=True)
+        print(f"{label} {run}: kernel launches summed over the ranks {counts}"
+              + ("" if FAMILY_TP_KERNELS[name] else " (rwkv6 calls none of the port's kernels)"),
+              flush=True)
     return counts
 
 
@@ -2673,7 +2850,7 @@ def main() -> int:
     counts.update(phase_train(torch, card))
     timing("train (t)")
     counts.update(phase_tp(torch, card, log))
-    timing("tp (p1)-(p3) and split (s1)-(s2)")
+    timing("tp (p1)-(p3), split (s1)-(s2) and families (q1)-(q4)")
     counts.update(phase_fleet(torch, card, log))
     timing("fleet (r)")
     log.uninstall()

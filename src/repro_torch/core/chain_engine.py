@@ -44,6 +44,14 @@ before it waits for the argmax.  Every rank makes the round's one host
 transfer of the argmax and the drafts and takes the same ``n_acc``,
 ``full`` and commit from it.
 
+Tensor parallel (both models sharded over the same ranks, ``group=`` of
+``models.api.make_model``): every rank runs the whole round on its shards,
+and every host decision (``n_acc``, ``full``, the commit) comes from the
+argmax of logits that the group gathered, so it is the same on every rank.
+Parallel mode refuses a draft that shares the target's process group, on
+any device: on the card its collectives would be issued from the draft's
+stream beside the target's on one communicator.
+
 Greedy-equality invariant: the emitted tokens equal target-only greedy
 decoding.  One request at a time (B = 1), the paper's latency regime.
 """
@@ -99,6 +107,12 @@ class ChainSpecEngine(StreamPair):
         # parallel mode on the card: the target's stream and the draft's (a
         # split rank runs one role)
         self.streams = None
+        if cfg.mode == "parallel" and split is None and target.group is not None and \
+                target.group.world > 1 and target.group.pg is draft.group.pg:
+            raise ValueError(
+                "parallel mode on the card issues the target's and the draft's collectives "
+                "from two streams: give each model a process group of its own over the same "
+                "ranks (TPGroup.new_group)")
         if cfg.mode == "parallel" and self.device.type == "cuda" and split is None:
             self.streams = (torch.cuda.Stream(self.device), torch.cuda.Stream(self.device))
 

@@ -52,10 +52,6 @@ class Model:
     group: Any = None
     moe_form: str = "tp"
 
-    def __post_init__(self):
-        if self.shard is not None:
-            self.shard.check()
-
     @functools.cached_property
     def shard(self):
         """This rank's ``parallel.shard.Shard`` (None without a group)."""
@@ -197,8 +193,8 @@ class StandIn:
 def make_model(cfg: ModelConfig, device=None, group=None, moe_form: str = "tp") -> Model:
     """``device`` None means CUDA; without a CUDA device that raises.  With
     ``group`` (a ``parallel.TPGroup``) the model is this rank's part of a
-    tensor-parallel model on the group's device; a model the group cannot
-    shard yet (MLA, the recurrent and cross blocks: ROADMAP 13d) raises."""
+    tensor-parallel model on the group's device, of any family
+    (``parallel/shard.py``)."""
     if group is not None:
         device = group.device if device is None else device
         if indexed_device(resolve_device(device)) != indexed_device(group.device):

@@ -20,6 +20,20 @@ State per layer: the conv window [B, K-1, conv_dim] and the SSM state
 The block never writes its input state: it returns new state tensors, so a
 cache that a caller keeps (the chain engine's pre-round snapshot) keeps its
 state whatever forwards run from it.
+
+Tensor parallel (``parallel/shard.py``), as the reference's rules split
+"inner" over "model": a rank keeps the z, x and dt columns and the conv
+channels of its contiguous share of the heads, all of the BC columns and
+channels (the heads of the one group read them), its rows of ``out_proj``
+and its heads' ``a_log``/``dt_bias``/``d_skip``/``norm_w``; its config's
+``ssm_heads`` is its head count, from which every width here follows, and
+its conv window and SSM state hold its x channels with all BC channels and
+its heads.  The gated RMSNorm normalises over the whole d_in: each rank
+sums the squares of its channels, one all-reduce per layer adds them, and
+the mean divides by the global d_in (a local mean would be silently
+wrong); ``out_proj``'s partial products are then summed by a second.
+Where the ranks do not divide the heads, every rank holds the whole block
+and runs it alone (the reference's ``spec_for`` replicates too).
 """
 
 from __future__ import annotations
@@ -31,10 +45,21 @@ from repro_torch.models.common import dense_init, rms_norm
 
 
 def _dims(cfg):
-    d_in = cfg.ssm_expand * cfg.d_model
-    nheads = d_in // cfg.ssm_head_dim
+    """(d_in, heads, conv_dim) of this rank: its ``ssm_heads`` where the
+    heads are split over a group, else the whole block's."""
+    nheads = getattr(cfg, "ssm_heads", 0) or cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    d_in = nheads * cfg.ssm_head_dim
     conv_dim = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
     return d_in, nheads, conv_dim
+
+
+def segments(cfg) -> dict:
+    """The widths of the segments that ``w_in``, ``conv_w`` and ``conv_b``
+    join along their last dimension (``models.axes``), of the whole block:
+    z | x | BC | dt and x | BC."""
+    d_in, nheads, _ = _dims(cfg)
+    GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"w_in": (d_in, d_in, GN2, nheads), "conv_w": (d_in, GN2), "conv_b": (d_in, GN2)}
 
 
 def init_mamba2(cfg, gen: torch.Generator, device) -> dict:
@@ -161,7 +186,7 @@ def _ssd_stepwise(x, b, c, dt, a, d_skip, state0, n_commit: int):
     return torch.addcmul(y, x, d_skip.to(x.dtype)[None, None, :, None]), committed
 
 
-def mamba2_apply(cfg, p, xin, cache=None, n_commit=None):
+def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
     """Mamba2 block on xin [B, S, d] (a prompt, a decode step or a chain).
 
     cache: {"conv": [B, K-1, conv_dim], "ssm": [B, H, hd, N]} or None
@@ -171,7 +196,10 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None):
     steps, the outputs still teacher-forced over all S.  The reference
     passes a mask ``arange(S) < n_commit`` for every batch row; the port
     passes the count, so the commit is an index, not a select per step.
-    Returns (out [B, S, d], new cache); the input cache is never written."""
+    tp: the group this rank's heads are split over (None: the whole block
+    is here); the gated norm's sum of squares and ``out_proj``'s product
+    are then summed over it.  Returns (out [B, S, d], new cache); the input
+    cache is never written."""
     B, S, _ = xin.shape
     d_in, nheads, conv_dim = _dims(cfg)
     GN = cfg.ssm_groups * cfg.ssm_state
@@ -194,8 +222,14 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None):
         y, state = _ssd_chunked(xc, bv, cv, dt, a, p["d_skip"], state0)
     else:
         y, state = _ssd_stepwise(xc, bv, cv, dt, a, p["d_skip"], state0, int(n_commit))
-    y = rms_norm(y.reshape(B, S, d_in) * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": new_conv, "ssm": state}
+    y = y.reshape(B, S, d_in) * F.silu(z)
+    if tp is None:
+        y = rms_norm(y, p["norm_w"], cfg.norm_eps)
+        return y @ p["out_proj"], {"conv": new_conv, "ssm": state}
+    y32 = y.float()  # rms_norm over the whole d_in: the squares summed over the ranks
+    var = tp.all_reduce((y32 * y32).sum(-1, keepdim=True)) / (cfg.ssm_expand * cfg.d_model)
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps) * p["norm_w"].float()).to(y.dtype)
+    return tp.all_reduce(y @ p["out_proj"]), {"conv": new_conv, "ssm": state}
 
 
 def init_mamba_cache(cfg, B, dtype, device):

@@ -7,8 +7,12 @@ model's weights into the widened shapes with zeros, tensor by tensor
 it draws, before it keeps its shard).
 
 Zero padding computes the same function: a padded ff column gives
-silu(0)·0 = 0 through a zero row of the down projection, and a padded
+silu(0)·0 = 0 through a zero row of the down projection (rwkv6's
+channel-mix: relu(0)² = 0 through a zero row of ``cm_v``), and a padded
 attention head reaches the output only through its zero rows of ``wo``.
+``resolve_for_tp`` changes no dimension of the mamba2 and rwkv6 time-mix
+tensors, so they keep their shapes; zamba2's shared block pads as a dense
+block does.
 
 GQA: query heads are grouped per KV head (g = Hq/Hkv), so a widened group
 takes its new heads at its end — old head k·g + j lands at k·g' + j — or
@@ -20,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.axes import weight_axes
-from repro_torch.models.transformer import DecoderLM, check_plan, map_params
+from repro_torch.models.transformer import DecoderLM, map_params
 
 
 def head_map(hq_old: int, hq_new: int, hkv_old: int, hkv_new: int) -> torch.Tensor:
@@ -37,7 +41,8 @@ def head_map(hq_old: int, hq_new: int, hkv_old: int, hkv_new: int) -> torch.Tens
 
 def _ff(cfg, where: str) -> int:
     dff = cfg.moe_d_ff or cfg.d_ff
-    return {"mlp": cfg.d_ff, "moe": dff, "shared": cfg.n_shared_experts * dff}[where]
+    return {"mlp": cfg.d_ff, "moe": dff, "shared": cfg.n_shared_experts * dff,
+            "tm": cfg.d_ff}[where]
 
 
 def _padded_size(small, big, where: str, ax, size: int) -> int:
@@ -45,7 +50,7 @@ def _padded_size(small, big, where: str, ax, size: int) -> int:
         return big.n_heads
     if ax == "kv_heads" and size == small.n_kv_heads:
         return big.n_kv_heads
-    if ax == "ff" and where in ("mlp", "moe", "shared") and size == _ff(small, where):
+    if ax == "ff" and where in ("mlp", "moe", "shared", "tm") and size == _ff(small, where):
         return _ff(big, where)
     return size
 
@@ -79,13 +84,7 @@ def pad_tensor(cfg_small, cfg_big, where: str, key: str, t: torch.Tensor) -> tor
 def pad_params(cfg_small, cfg_big, params: DecoderLM) -> DecoderLM:
     """The zero-padded ``DecoderLM`` of ``cfg_big`` holding ``params`` (a
     model of ``cfg_small``).  The reference takes an init of the big config
-    for the shapes; here they follow from the configs.  The recurrent
-    blocks (mamba2, rwkv6) are not padded (ROADMAP item 13d): a config
-    whose padding would reach them raises."""
-    if cfg_small != cfg_big and any(kind in ("mamba2", "rwkv6")
-                                    for unit, _ in check_plan(cfg_small) for kind in unit):
-        raise NotImplementedError(f"{cfg_small.name}: padding the recurrent blocks for tensor "
-                                  "parallelism is ROADMAP item 13d")
+    for the shapes; here they follow from the configs."""
     return map_params(params, lambda where, key, t: pad_tensor(cfg_small, cfg_big, where, key, t))
 
 

@@ -20,6 +20,19 @@ of the shifted sequence), while the outputs are teacher-forced over all S
 steps.  The reference passes a mask ``arange(S) < n_commit``.  The block
 never writes its input state: it returns new state tensors, so a cache
 that a caller keeps (the chain engine's snapshots) keeps its state.
+
+Tensor parallel (``parallel/shard.py``): where the ranks divide the heads,
+a rank's time-mix runs on its contiguous share of them — its columns of
+``w_rkvg`` and ``decay_b``, its channels of ``decay_base`` and ``ln_x``
+(per head, so the norm stays local), its rows of ``bonus_u`` and of
+``w_o``, whose partial products are summed over the group — and its WKV
+state holds its heads; elsewhere every rank runs the whole time-mix alone
+(the reference's ``spec_for`` replicates too).  The channel-mix splits its
+ff over the ranks (``cm_k`` columns, ``cm_v`` rows), and ``k @ cm_v`` is
+summed before the gate: ``cm_r`` stays whole on every rank, since
+sigmoid(xr @ cm_r) multiplies the whole sum (the reference's layout splits
+``cm_r`` and lets GSPMD gather; the function is the same).  The
+token-shift vectors are whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,8 +46,10 @@ DECAY_LORA = 64
 
 
 def _dims(cfg):
+    """(heads, head width) of this rank's time-mix: its ``ssm_heads`` where
+    the heads are split over a group, else all d_model // hd."""
     hd = cfg.ssm_head_dim
-    return cfg.d_model // hd, hd
+    return getattr(cfg, "ssm_heads", 0) or cfg.d_model // hd, hd
 
 
 def init_rwkv6(cfg, gen: torch.Generator, device) -> dict:
@@ -148,9 +163,10 @@ def _wkv_scan(r, k, v, w, u, state0, n_commit=None):
     return torch.stack(ys, dim=1), (full if n_commit is None else committed)
 
 
-def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None):
+def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     """Time-mix on x [B, S, d] with state ``cache`` ({"sx_tm", "wkv"}, or
-    None: zeros).  Returns (out [B, S, d], {"sx_tm", "wkv"})."""
+    None: zeros).  tp: the group this rank's heads are split over (None:
+    all heads here).  Returns (out [B, S, d], {"sx_tm", "wkv"})."""
     B, S, d = x.shape
     H, hd = _dims(cfg)
     ext = _shifted(x, None if cache is None else cache["sx_tm"])
@@ -158,7 +174,7 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None):
     mix = x + (prev - x) * p["mu_tm"][:, None, None, :]  # [5, B, S, d]: r, k, v, g, w
     rkvg = torch.bmm(mix[:4].reshape(4, B * S, d), p["w_rkvg"]).reshape(4, B, S, H, hd)
     r, k, v = rkvg[0], rkvg[1], rkvg[2]
-    g = F.silu(rkvg[3].reshape(B, S, d))
+    g = F.silu(rkvg[3].reshape(B, S, H * hd))
     # data-dependent decay (the Finch feature): w = exp(-exp(base + lora(x)))
     dec = p["decay_base"].float() + (torch.tanh(mix[4] @ p["decay_a"]) @ p["decay_b"]).float()
     logw = -torch.exp(dec).reshape(B, S, H, hd)  # log-decay, always <= 0
@@ -173,14 +189,17 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None):
     # group-norm substitute: per-head rms, then a learned scale
     yh = y.to(x.dtype).float()
     yh = yh * torch.rsqrt((yh * yh).mean(-1, keepdim=True) + 1e-5)
-    y = (yh.reshape(B, S, d) * p["ln_x"].float()).to(x.dtype)
+    y = (yh.reshape(B, S, H * hd) * p["ln_x"].float()).to(x.dtype)
     out = (y * g) @ p["w_o"]
+    if tp is not None:
+        out = tp.all_reduce(out)
     return out, {"sx_tm": ext[:, S if n_commit is None else int(n_commit)], "wkv": state}
 
 
-def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None):
+def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     """Channel-mix on x [B, S, d] with state ``cache`` ({"sx_cm"}, or None).
-    Returns (out [B, S, d], {"sx_cm"})."""
+    tp: the group the ff is split over (None: whole here); ``k @ cm_v`` is
+    summed over it before the gate.  Returns (out [B, S, d], {"sx_cm"})."""
     S = x.shape[1]
     ext = _shifted(x, None if cache is None else cache["sx_cm"])
     prev = ext[:, :S]
@@ -188,7 +207,8 @@ def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None):
     xk = x + (prev - x) * mu[0]
     xr = x + (prev - x) * mu[1]
     k = torch.square(F.relu(xk @ p["cm_k"]))
-    out = torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"])
+    kv = k @ p["cm_v"]
+    out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.all_reduce(kv))
     return out, {"sx_cm": ext[:, S if n_commit is None else int(n_commit)]}
 
 

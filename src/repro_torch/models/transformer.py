@@ -431,6 +431,8 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
     elif ctx.make_cache:
         groups = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"]
     new_groups = []
+    # the group the recurrent blocks' heads are split over (None: whole on this rank)
+    heads_tp = ctx.tp if getattr(cfg, "ssm_heads", 0) else None
     li = 0  # index of the next layer in params.layers
     for gi, (unit_def, U) in enumerate(plan):
         unit = None if groups is None else groups[gi]
@@ -447,14 +449,14 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
                     c = {key: leaves[key][r] for key in STATE_LEAVES[kind]}
                 if kind == "mamba2":
                     out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
-                                              ctx.n_commit)
+                                              ctx.n_commit, tp=heads_tp)
                     h = h + out
                 elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
                     out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
-                                                ctx.n_commit)
+                                                ctx.n_commit, tp=heads_tp)
                     h = h + out
                     out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps),
-                                                      c, ctx.n_commit)
+                                                      c, ctx.n_commit, tp=ctx.tp)
                     h = h + out
                     nc = {**nc, **nc_cm}
                 elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w

@@ -26,7 +26,19 @@ What a rank keeps, by ``rules.spec_for`` over the mesh {"model": world}:
   wk/wv; here a rank keeps only the KV heads its query heads read, and pads
   its query heads to whole groups with zero heads (zero ``wq`` columns and
   ``wo`` rows), so that every rank runs the kernels' uniform grouping G =
-  Hq/Hkv, and its cache holds those KV heads only.
+  Hq/Hkv, and its cache holds those KV heads only.  A cross block's
+  encoder K/V hold the rank's KV heads the same way, and zamba2's shared
+  block splits as a dense block does (its per-invocation ``in_w`` whole).
+* MLA by heads: ``w_uq``/``w_uk``/``w_uv`` and ``wo``; the down
+  projections and their norms whole, and every rank keeps the whole
+  latent cache (``ckv``/``krope`` have no heads; the reference splits its
+  sequence axis instead, an accepted difference).
+* The recurrent blocks by heads where the ranks divide them
+  (``ssm_heads``; ``models/mamba2.py`` and ``models/rwkv6.py`` say what a
+  rank keeps, and sum what spans its heads), else whole on every rank, as
+  the reference's ``spec_for`` falls back; rwkv6's channel-mix ff by
+  columns of ``cm_k`` and rows of ``cm_v`` (its share padded as the dense
+  MLP's), ``cm_r`` whole.
 """
 
 from __future__ import annotations
@@ -37,23 +49,29 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import resolve_for_tp
+from repro_torch.configs.base import ModelConfig, resolve_for_tp
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.axes import weight_axes
 from repro_torch.models.padding import pad_tensor
-from repro_torch.models.transformer import (
-    DecoderLM,
-    check_plan,
-    map_named_params,
-    map_params,
-    param_where,
-)
+from repro_torch.models.transformer import DecoderLM, map_named_params, map_params, param_where
 from repro_torch.parallel.rules import model_dim
 
 _Q_KEYS = ("wq", "bq", "wo")
 _KV_KEYS = ("wk", "wv", "bk", "bv")
-TP_KINDS = ("dense", "moe")  # the blocks a group of several ranks runs (ROADMAP 13d: the rest)
 FF_ALIGN = 8  # a rank's dense-MLP width is a multiple of this: 16-byte rows in bf16
-_MLP_KEYS = ("wg", "wu", "wd")
+# the ff-split tensors whose share is padded to FF_ALIGN: the dense MLP's (zamba2's shared
+# block's too) and rwkv6's channel-mix
+_FF_PADDED = {("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"), ("tm", "cm_k"), ("tm", "cm_v")}
+_RECURRENT = ("mamba", "tm")  # where the recurrent blocks' tensors sit (param_where)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One rank's config (``Shard.local_cfg``): the padded config at the
+    rank's shapes, and ``ssm_heads``, the rank's heads of the recurrent
+    blocks (0: all of them), from which their widths follow."""
+
+    ssm_heads: int = 0
 
 
 def attn_layout(n_heads: int, n_kv_heads: int, rank: int, world: int) -> tuple[tuple, tuple]:
@@ -114,6 +132,25 @@ class Shard:
         return share if self.world == 1 else -(-share // FF_ALIGN) * FF_ALIGN
 
     @functools.cached_property
+    def ssm_heads(self) -> int:
+        """This rank's heads of the recurrent blocks, its contiguous share
+        [rank·h, (rank+1)·h) of their H heads (zamba2-2.7b's 80 mamba2
+        heads: 40 at tp 2; rwkv6-7b's 64: 32 at tp 2); 0 where every rank
+        holds all of them: one rank, no recurrent block, ranks that do not
+        divide H (the reference's ``spec_for`` replicates "inner" then), or
+        a mamba2 block of several BC groups."""
+        c, kinds = self.padded, set(self.padded.layer_kinds)
+        if self.world == 1 or "mamba2" in kinds and c.ssm_groups != 1:
+            return 0
+        if "mamba2" in kinds:
+            H = c.ssm_expand * c.d_model // c.ssm_head_dim
+        elif "rwkv6" in kinds:
+            H = c.d_model // c.ssm_head_dim
+        else:
+            return 0
+        return H // self.world if H % self.world == 0 else 0
+
+    @functools.cached_property
     def vocab_split(self) -> bool:
         """Whether embed and lm_head are split by vocabulary (where the ranks
         divide it; else whole on every rank)."""
@@ -122,31 +159,25 @@ class Shard:
                                             (c.d_model, c.vocab_size)) is not None
 
     @functools.cached_property
-    def local_cfg(self):
+    def local_cfg(self) -> RankConfig:
         """The padded config at this rank's shapes, which its forward and its
-        cache run at: its head counts, its dense-MLP width ``ff``, its
-        experts' width (the "tp" MoE form's share; the "ep" form keeps
-        whole experts, E/world of them, and ``n_experts`` stays E: the
-        capacity is the whole dispatch's) and its vocabulary."""
+        cache run at: its head counts, its dense-MLP (and rwkv6 channel-mix)
+        width ``ff``, its experts' width (the "tp" MoE form's share; the
+        "ep" form keeps whole experts, E/world of them, and ``n_experts``
+        stays E: the capacity is the whole dispatch's), its vocabulary and
+        its recurrent heads ``ssm_heads``.  ``d_model`` stays whole: the
+        residual stream is whole on every rank."""
         c = self.padded
         kw = dict(d_ff=self.ff, vocab_size=c.vocab_size // self.world if self.vocab_split
-                  else c.vocab_size)
+                  else c.vocab_size, ssm_heads=self.ssm_heads)
         if c.n_experts:
             dff = c.moe_d_ff or c.d_ff
             kw["moe_d_ff"] = dff if self.ep else dff // self.world
         if c.n_heads:
             q_src, kv_src = self.attn
             kw.update(n_heads=len(q_src), n_kv_heads=len(kv_src), head_dim=c.head_dim)
-        return dataclasses.replace(c, **kw)
-
-    def check(self) -> None:
-        """Raise for a model a group of several ranks does not run yet."""
-        kinds = {kind for unit, _ in check_plan(self.cfg) for kind in unit}
-        if self.world > 1 and (self.cfg.attn_kind != "gqa" or not kinds <= set(TP_KINDS)):
-            raise NotImplementedError(
-                f"{self.cfg.name}: tensor parallelism over {self.world} ranks runs the dense "
-                f"GQA and MoE blocks; {sorted(kinds - set(TP_KINDS)) or [self.cfg.attn_kind]} "
-                "come with ROADMAP item 13d")
+        fields = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+        return RankConfig(**{**fields, **kw})
 
     def tensor(self, where: str, key: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's part of ``t``, a tensor of the unpadded model."""
@@ -166,18 +197,52 @@ class Shard:
                     out.select(dim, slot).zero_()
             return out
         axes = weight_axes(where, key, "ep" if self.ep else "tp")
-        if axes is None:
-            raise NotImplementedError(f"no tensor-parallel split of {where}.{key} (ROADMAP 13d)")
+        if where in _RECURRENT and "ff" not in axes:
+            return self._heads_part(where, key, t)
         d = model_dim({"model": self.world}, axes, t.shape)
         if d is None:
             return t.clone(**fresh)
         n = t.shape[d] // self.world
         part = t.narrow(d, self.rank * n, n)
-        if where == "mlp" and key in _MLP_KEYS and self.ff != n:
+        if (where, key) in _FF_PADDED and self.ff != n:
             out = t.new_zeros(part.shape[:d] + (self.ff,) + part.shape[d + 1:])
             out.narrow(d, 0, n).copy_(part)
             return out
         return part.clone(**fresh)
+
+    def _segments(self, where: str, key: str) -> tuple | None:
+        """(dim, ((axis, width), ...)) of a recurrent tensor of the padded
+        model where the heads are split: the dimension that they split and
+        its segments in order, each with its whole width (None for a plain
+        "inner" dimension: all of it); None for a tensor kept whole (``cm_r``
+        among them: the channel-mix gate multiplies the reduced sum)."""
+        if not self.ssm_heads or (where, key) == ("tm", "cm_r"):
+            return None
+        for d, ax in enumerate(weight_axes(where, key)):
+            if ax == "inner":
+                return d, (("inner", None),)
+            if isinstance(ax, tuple):  # mamba2's joined segments
+                return d, tuple(zip(ax, m2.segments(self.padded)[key]))
+        return None
+
+    def _heads_part(self, where: str, key: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a recurrent tensor ``t`` of the padded model:
+        each "inner" segment of its split dimension cut to the rank's heads,
+        the other segments whole (mamba2's BC columns); the whole tensor
+        where the heads are not split."""
+        seg = self._segments(where, key)
+        if seg is None:
+            return t.clone(memory_format=torch.contiguous_format)
+        d, parts, off = seg[0], [], 0
+        for ax, width in seg[1]:
+            width = t.shape[d] if width is None else width
+            piece = t.narrow(d, off, width)
+            off += width
+            if ax == "inner":
+                n = width // self.world
+                piece = piece.narrow(d, self.rank * n, n)
+            parts.append(piece)
+        return torch.cat(parts, d)
 
     def params(self, params: DecoderLM) -> DecoderLM:
         """This rank's ``DecoderLM`` of a whole, unpadded one."""
@@ -202,18 +267,35 @@ class Shard:
                         out.select(dim, s).copy_(piece.select(dim, slot))
             return out
         c = self.padded
+        if where in _RECURRENT and (where, key) not in _FF_PADDED:
+            seg = self._segments(where, key)
+            if seg is None:
+                return pieces[0]
+            d, parts, off = seg[0], [], 0
+            for ax, width in seg[1]:  # each rank's part of a segment, or rank 0's whole one
+                n = pieces[0].shape[d] if width is None else \
+                    width // self.world if ax == "inner" else width
+                parts += [t.narrow(d, off, n) for t in (pieces if ax == "inner" else pieces[:1])]
+                off += n
+            return torch.cat(parts, d)
         dff = c.moe_d_ff or c.d_ff
+        qk, kvl = c.nope_head_dim + c.rope_head_dim, c.kv_lora_rank
         full = {("mlp", "wg"): (c.d_model, c.d_ff), ("mlp", "wu"): (c.d_model, c.d_ff),
                 ("mlp", "wd"): (c.d_ff, c.d_model), ("moe", "wg"): (c.n_experts, c.d_model, dff),
                 ("moe", "wu"): (c.n_experts, c.d_model, dff),
                 ("moe", "wd"): (c.n_experts, dff, c.d_model),
                 ("model", "embed"): (c.vocab_size, c.d_model),
-                ("model", "lm_head"): (c.d_model, c.vocab_size)}.get((where, key))
+                ("model", "lm_head"): (c.d_model, c.vocab_size),
+                ("attn", "w_uq"): (c.q_lora_rank, c.n_heads, qk),
+                ("attn", "w_uk"): (kvl, c.n_heads, c.nope_head_dim),
+                ("attn", "w_uv"): (kvl, c.n_heads, c.v_head_dim),
+                ("tm", "cm_k"): (c.d_model, c.d_ff), ("tm", "cm_v"): (c.d_ff, c.d_model)
+                }.get((where, key))
         axes = weight_axes(where, key, "ep" if self.ep else "tp")
         d = None if full is None else model_dim({"model": self.world}, axes, full)
         if d is None:
             return pieces[0]
-        if where == "mlp" and key in _MLP_KEYS:  # each rank's share without its padding
+        if (where, key) in _FF_PADDED:  # each rank's share without its padding
             pieces = [t.narrow(d, 0, full[d] // self.world) for t in pieces]
         return torch.cat(pieces, d)
 

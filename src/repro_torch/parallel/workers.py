@@ -57,26 +57,36 @@ def greedy_decode(model, params, prompt, n: int, S_max: int) -> list:
 
 
 def forward(group, cases: list) -> list:
-    """Per case {"cfg", "tree", "prompt" [B, P], "spec": (tokens, positions,
-    rows, mask), "decode": [tokens [B, 1], ...], "S_max", "moe_form"}: the
-    sharded model's prefill, ``spec_forward`` (after the prefill) and
-    ``decode_step`` logits (after the spec forward), with this rank's head
-    counts and cache leaf shape."""
+    """Per case {"cfg", "tree", "prompt" [B, P], "enc" (a model with cross
+    blocks: the stub encoder states), "spec": (tokens, positions, rows,
+    mask) or "chain": (tokens [B, n], n_commit), "decode": [tokens [B, 1],
+    ...], "S_max", "moe_form"}: the sharded model's prefill, ``spec_forward``
+    or ``chain_forward`` (after the prefill) and ``decode_step`` logits
+    (after it), with this rank's head counts, its recurrent heads, and the
+    shape of every leaf of its cache after the prefill ("group.block.key")
+    — the K/V, MLA latent, encoder K/V or recurrent state leaves of the
+    family — and of the first ("cache")."""
     out = []
     for case in cases:
         model, params = build(group, case["cfg"], ("numpy", case["tree"]),
                               case.get("moe_form", "tp"))
         S_max = case["S_max"]
-        lp, cache = model.prefill(params, case["prompt"], S_max=S_max)
-        ls, cache = model.spec_forward(params, cache, *case["spec"])
+        lp, cache = model.prefill(params, case["prompt"], enc=case.get("enc"), S_max=S_max)
+        leaves = _leaf_shapes(cache)
+        if "chain" in case:
+            toks, n_commit = case["chain"]
+            what, (ls, cache) = "chain", model.chain_forward(params, cache, toks, n_commit, S_max)
+        else:
+            what, (ls, cache) = "spec", model.spec_forward(params, cache, *case["spec"])
         dec = []
         for tok in case["decode"]:
             ld, cache = model.decode_step(params, cache, tok, S_max)
             dec.append(_np(ld))
-        leaf = cache["groups"][0][0]["k"]
-        out.append({"prefill": _np(lp), "spec": _np(ls), "decode": dec,
-                    "heads": (model.run_cfg.n_heads, model.run_cfg.n_kv_heads),
-                    "cache": tuple(leaf.shape)})
+        c = model.run_cfg
+        out.append({"prefill": _np(lp), what: _np(ls), "decode": dec,
+                    "heads": (c.n_heads, c.n_kv_heads), "ssm_heads": c.ssm_heads,
+                    "cache": next(iter(leaves.values())), "leaves": leaves})
+        del model, params, cache
     return out
 
 
@@ -187,12 +197,20 @@ def spec_engine(group, job: dict) -> dict:
     time, the kernel launches and collectives of the run and, on a CUDA
     device, the host syncs of ``sync_rounds`` lockstep rounds; the target's
     own greedy decode of every prompt; the prefill logits of the first
-    prompt when asked; this rank's head counts; with "record_shapes" the
+    prompt and its cache's leaf shapes when asked; this rank's head counts
+    and, on CUDA, its peak memory; with "record_shapes" the
     shapes at which this rank called each kernel wrapper (a
     ``kernels.shapes.ShapeLog``'s ``seen``), so that the caller can hold
     the kernels at them.  No run is warmed first:
     on a card these rounds check correctness (ranks sharing it through
     gloo), they are no speed figure."""
+    return _with_shapes(_spec_engine, group, job)
+
+
+def _with_shapes(fn, group, job: dict) -> dict:
+    """``fn(group, job)``, with "shapes", the shapes at which this rank
+    called each kernel wrapper (a ``kernels.shapes.ShapeLog``'s ``seen``),
+    where the job asks for "record_shapes"."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.shapes import ShapeLog
 
@@ -200,13 +218,39 @@ def spec_engine(group, job: dict) -> dict:
     if log is not None:
         log.install()
     try:
-        res = _spec_engine(group, job)
+        res = fn(group, job)
     finally:
         if log is not None:
             log.uninstall()
     if log is not None:
         res["shapes"] = log.seen
     return res
+
+
+def _shared_pair(group, job: dict) -> tuple:
+    """(T, tparams, D, dparams) of an engine job whose target and draft are
+    sharded over this group: the draft on a process group of its own over
+    the same ranks (each model's collectives on its own stream), the
+    target's weights when it drafts for itself ("dcfg" None)."""
+    dev = group.device
+    dgroup = group.new_group()
+    w = job["weights"]
+    if w[0] == "numpy":
+        T, tp = build(group, job["tcfg"], ("numpy", w[1]))
+        dsrc = ("numpy", w[2])
+    else:
+        T, tp = build(group, job["tcfg"], ("seed", w[1], w[3]))
+        dsrc = ("seed", w[2], w[3])
+    if job["dcfg"] is None:
+        return T, tp, make_model(job["tcfg"], dev, dgroup), tp
+    return (T, tp) + build(dgroup, job["dcfg"], dsrc)
+
+
+def _leaf_shapes(cache) -> dict:
+    """"group.block.key" -> shape of every leaf of a cache: the K/V, MLA
+    latent, encoder K/V and recurrent state leaves at this rank's shapes."""
+    return {f"{gi}.{bi}.{key}": tuple(x.shape) for gi, unit in enumerate(cache["groups"])
+            for bi, blk in enumerate(unit) for key, x in blk.items()}
 
 
 def _spec_engine(group, job: dict) -> dict:
@@ -216,26 +260,18 @@ def _spec_engine(group, job: dict) -> dict:
     from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
 
     dev = group.device
-    dgroup = group.new_group()
-    w = job["weights"]
-    self_draft = job["dcfg"] is None
-    if w[0] == "numpy":
-        T, tp = build(group, job["tcfg"], ("numpy", w[1]))
-        dsrc = ("numpy", w[2])
-    else:
-        T, tp = build(group, job["tcfg"], ("seed", w[1], w[3]))
-        dsrc = ("seed", w[2], w[3])
-    if self_draft:
-        D, dp = make_model(job["tcfg"], dev, dgroup), tp
-    else:
-        D, dp = build(dgroup, job["dcfg"], dsrc)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    T, tp, D, dp = _shared_pair(group, job)
     S_max = job["S_max"]
     prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
     res = {"rank": group.rank, "heads": {"target": (T.run_cfg.n_heads, T.run_cfg.n_kv_heads),
                                           "draft": (D.run_cfg.n_heads, D.run_cfg.n_kv_heads)},
            "runs": {}}
     if job.get("prefill_logits"):
-        res["prefill_logits"] = _np(T.prefill(tp, prompts[0], S_max=S_max)[0])
+        lg, cache = T.prefill(tp, prompts[0], S_max=S_max)
+        res["prefill_logits"], res["leaves"] = _np(lg), _leaf_shapes(cache)
+        del lg, cache
     if job.get("greedy_n"):
         res["greedy"] = [greedy_decode(T, tp, p, job["greedy_n"], S_max)[0] for p in prompts]
     for label, kw in job["runs"]:
@@ -264,7 +300,130 @@ def _spec_engine(group, job: dict) -> dict:
             run["trace"] = _trace_rounds(eng, sess, tp, dp, prompts[0], job["trace_rounds"],
                                          f"{job['trace_path']}.{label}.rank{group.rank}.json")
         res["runs"][label] = run
+    if dev.type == "cuda":
+        res["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
     return res
+
+
+def chain_engine(group, job: dict) -> dict:
+    """``ChainSpecEngine`` with target and draft sharded over this group:
+    job {"tcfg", "dcfg" (None: the target drafts for itself), "weights" (as
+    ``spec_engine``'s), "prompts": [[1, P] int32 ...], "runs": [(label,
+    ChainConfig kwargs)], "S_max", "greedy_n" (0: none), "prefill_logits",
+    "record_shapes"}.  The draft gets a process group of its own over the
+    same ranks (parallel mode runs it on a stream of its own).
+
+    Returns this rank's layout (heads, recurrent heads) of both models; per
+    run the tokens and ``ChainStats`` of every prompt, the kernel
+    launches, the collectives, the wall time and, on a CUDA device, the
+    host syncs of the port over the run (one a round and one a request:
+    its first token); the target's greedy decode of every prompt; with
+    "prefill_logits" the first prompt's prefill logits and the shape of
+    every leaf of that cache; on CUDA the rank's peak memory; with
+    "record_shapes" the shapes at which it launched each kernel.  On a
+    card shared by the ranks through gloo these runs check correctness,
+    they are no speed figure."""
+    return _with_shapes(_chain_engine, group, job)
+
+
+def _chain_engine(group, job: dict) -> dict:
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
+
+    dev = group.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    T, tp, D, dp = _shared_pair(group, job)
+    S_max = job["S_max"]
+    prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+    res = {"rank": group.rank, "runs": {},
+           "layout": {role: {"heads": (m.run_cfg.n_heads, m.run_cfg.n_kv_heads),
+                             "ssm_heads": m.run_cfg.ssm_heads} for role, m in (("target", T),
+                                                                               ("draft", D))}}
+    if job.get("prefill_logits"):
+        lg, cache = T.prefill(tp, prompts[0], S_max=S_max)
+        res["prefill_logits"], res["leaves"] = _np(lg), _leaf_shapes(cache)
+        del lg, cache
+    if job.get("greedy_n"):
+        res["greedy"] = [greedy_decode(T, tp, p, job["greedy_n"], S_max)[0] for p in prompts]
+    for label, kw in job["runs"]:
+        sess = ChainSpecEngine(T, D, ChainConfig(**kw), S_max, S_max).session(tp, dp)
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        outs, stats = [], []
+        t0 = monotonic()
+        with _SyncCount(dev) as sc:
+            for p in prompts:
+                out, st = sess.generate(p)
+                outs.append(out[0])
+                stats.append(_chain_stats(st))
+            if cuda:
+                torch.cuda.synchronize(dev)
+        run = {"tokens": outs, "stats": stats, "wall_s": monotonic() - t0,
+               "launches": ops.launch_counts(), "collectives": dict(COLLECTIVES),
+               "rounds": sum(st["rounds"] for st in stats)}
+        if cuda:
+            run["syncs"] = {"syncs": sc.n, "rounds": run["rounds"], "requests": len(prompts)}
+        res["runs"][label] = run
+    if cuda:
+        res["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def model_api(group, job: dict) -> dict:
+    """A model of cross blocks through the Model API, sharded over this
+    group: job {"cfg", "weights": ("seed", seed, lm_head_scale), "prompt" [1,
+    P], "enc_seed" (stub encoder states [1, n_enc, d], drawn on the host
+    from it), "steps", "S_max", "record_shapes"}.  Prefill with the encoder
+    states, ``steps`` greedy ``decode_step``s, then one ``spec_forward`` of
+    the tokens those steps took, from a copy of the prompt's cache, under a
+    causal chain mask.  Returns the prefill logits, the decode's tokens, the
+    spec_forward's argmax at every position, the kernel launches of the
+    three, this rank's heads and cache leaf shapes and, on CUDA, its peak
+    memory."""
+    return _with_shapes(_model_api, group, job)
+
+
+def _model_api(group, job: dict) -> dict:
+    from repro_torch.kernels import ops
+
+    dev = group.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg, S = job["cfg"], job["S_max"]
+    model, params = build(group, cfg, job["weights"])
+    enc = encoder_states(cfg, job["enc_seed"]).to(dev)
+    prompt = np.asarray(job["prompt"], np.int32)
+    P, n = prompt.shape[1], job["steps"]
+    ops.reset_launch_counts()
+    lg, cache = model.prefill(params, prompt, enc=enc, S_max=S)
+    res = {"rank": group.rank, "prefill_logits": _np(lg), "leaves": _leaf_shapes(cache),
+           "heads": (model.run_cfg.n_heads, model.run_cfg.n_kv_heads)}
+    snap = {"len": cache["len"], "groups": [tuple({k: v.clone() for k, v in blk.items()}
+                                                  for blk in unit) for unit in cache["groups"]]}
+    toks = [lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+    for _ in range(n):
+        lg, cache = model.decode_step(params, cache, toks[-1], S)
+        toks.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    pos = (P + torch.arange(n, device=dev, dtype=torch.int32))[None]
+    mask = torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None]
+    sl, _ = model.spec_forward(params, snap, torch.cat(toks[:-1], 1), pos, pos, mask)
+    res.update(decode=torch.cat(toks, 1)[0].tolist(), spec_argmax=sl[0].argmax(-1).tolist(),
+               launches=ops.launch_counts())
+    if dev.type == "cuda":
+        res["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return res
+
+
+def encoder_states(cfg, seed: int) -> torch.Tensor:
+    """Seeded stub encoder states [1, n_enc, d] (float32, on the host): the
+    same on every rank and in the caller that holds them against the
+    single-process model."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((1, cfg.n_enc_tokens, cfg.d_model), generator=gen)
 
 
 def _trace_rounds(eng, sess, tp, dp, prompt, rounds: int, path: str) -> dict:
@@ -356,20 +515,7 @@ def split_engine(group, job: dict) -> dict:
     "record_shapes" the shapes at which this rank launched each kernel.
     On a card shared by the ranks through gloo these runs check
     correctness: no speed figure."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.shapes import ShapeLog
-
-    log = ShapeLog(ops) if job.get("record_shapes") else None
-    if log is not None:
-        log.install()
-    try:
-        res = _split_engine(group, job)
-    finally:
-        if log is not None:
-            log.uninstall()
-    if log is not None:
-        res["shapes"] = log.seen
-    return res
+    return _with_shapes(_split_engine, group, job)
 
 
 def _split_engine(group, job: dict) -> dict:
@@ -497,20 +643,7 @@ def fleet(group, job: dict) -> dict:
     fleet exchange (tracer spans), and on CUDA the host syncs of the port
     over the run.  On a card shared by the ranks through gloo these runs
     check correctness: no speed figure."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.shapes import ShapeLog
-
-    log = ShapeLog(ops) if job.get("record_shapes") else None
-    if log is not None:
-        log.install()
-    try:
-        res = _fleet(group, job)
-    finally:
-        if log is not None:
-            log.uninstall()
-    if log is not None:
-        res["shapes"] = log.seen
-    return res
+    return _with_shapes(_fleet, group, job)
 
 
 def _fleet(group, job: dict) -> dict:
@@ -642,8 +775,17 @@ def resplit(group, job: dict) -> list:
 def several(group, calls: list) -> list:
     """Every (name, args) of ``calls``: the rank program ``name`` of this
     module on ``args``, in order on one group (one spawn for several
-    checks)."""
-    return [globals()[name](group, *args) for name, args in calls]
+    checks).  What a call built is freed before the next starts (on a
+    card, handed back to the device: the ranks share it)."""
+    import gc
+
+    out = []
+    for name, args in calls:
+        out.append(globals()[name](group, *args))
+        gc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def foreign_modules(group) -> list:
