@@ -115,6 +115,22 @@ It takes no options and runs every phase, in order:
            smoke config (reduced), save/restore bit for bit and a run
            stopped as by a preemption and resumed from its checkpoint
            bit for bit equal to the uninterrupted run
+  train2   (t2a) tensor-parallel training: llama3-1b at full width (d 2048,
+           d_ff 8192, V 128256, 32/8 heads) cut to 4 of its 16 layers,
+           f32, B 2 x S 256, over 2 gloo ranks sharing the card
+           (``workers.tp_train``; per rank 16/4 heads, half the
+           vocabulary, fused_swiglu at M 512, K 2048, N 4096 inside its
+           autograd op), 2 steps against the single-process step on the
+           same draws on the card: the losses within 1e-5 relative, the
+           joined parameters within 1e-5 of each tensor's scale plus 1e-3 of
+           step 1's learning rate, every whole tensor's gradient bit equal on
+           both ranks, fused_swiglu in every layer of every step; each
+           rank's step time, collectives per step and peak memory printed;
+           (t2b) ``launch.train.train`` with mesh_model 2 on 4 gloo ranks
+           (2 data x 2 model) on the smoke config: its losses the
+           single-process run's on the same global batches, and a run
+           stopped before step 6 and resumed from its per-rank checkpoints
+           bit for bit equal to the uninterrupted run on every rank
   tp       tensor parallelism, both models sharded over ranks that share
            the one card through gloo (NCCL refuses two ranks on one
            device), each rank a process of its own: (p1) llama3-8b cut to
@@ -279,6 +295,17 @@ SWIGLU_TRAIN = ("1B-train", (TRAIN_B * TRAIN_S, 2048, 8192))  # llama3-1b's MLP 
 SWIGLU_GRAD_TOL = 2e-5
 TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 6, 3e-4, 1  # phase (t): steps on one repeated batch
 TRAIN_MARGIN = 1.0  # the repeated batch's loss must fall by at least this (nats) in TRAIN_STEPS
+TP_TRAIN = ("llama3-1b", 4, 2)  # (t2a): config at full width, its depth (of 16 layers), tp
+TP_TRAIN_STEPS = 2  # (t2a): steps on phase (t)'s first two batches, at TRAIN_LR
+SWIGLU_TRAIN_TP = ("1B-train-tp2", (TRAIN_B * TRAIN_S, 2048, 8192 // TP_TRAIN[2]))  # a rank's MLP
+MESH_TRAIN = (4, 2)  # (t2b): the world and --mesh-model of launch.train.train (2 data x 2 model)
+TRAIN_LOSS_RTOL = 1e-5  # (t2): the sharded losses against the single-process ones
+# (t2a): the joined gradient against the single-process one, of each tensor's scale (and the
+# clip's norm, relative): tests/test_torch_train_steps.py's tolerance for the gradient
+TRAIN_GRAD_TOL = 1e-4
+# (t2a): the share of the joined parameters that may lie beyond the smoke tests' tolerance
+# (elements whose gradient sits at its tensor's rounding floor), each within one AdamW step
+TRAIN_PARAM_SHARE = 1e-6
 CKPT_STEPS, CKPT_CUT = 8, 6  # phase (t)'s resume check: 8 steps whole, or stopped before step 6
 # (checkpoints every 2 steps: the last at step 4) and resumed at step 5
 KV_TIMED = [  # (U, M, F) of the main path's kv_move_leaves calls, timed at B 1 and 2
@@ -1014,6 +1041,17 @@ def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
           lambda: torch.nn.functional.silu(x @ wg) * (x @ wu),
           (M * K + 2 * K * N + M * N) * 4, 4 * M * K * N,
           "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
+    label_tp, (M, K, N) = SWIGLU_TRAIN_TP  # a tensor-parallel rank's share in (t2a)
+    xt, wgt, wut = randn(M, K), randn(K, N, scale=K ** -0.5), randn(K, N, scale=K ** -0.5)
+    err = check_close(f"fused_swiglu {label_tp} {(M, K, N)}", ops.fused_swiglu(xt, wgt, wut),
+                      ref.fused_swiglu_ref(xt, wgt, wut), torch.float32)
+    timed("fused_swiglu", f"{label_tp} M{M} K{K} N{N} forward", torch.float32, err,
+          lambda: ops.fused_swiglu(xt, wgt, wut), lambda: ref.fused_swiglu_ref(xt, wgt, wut),
+          lambda: torch.nn.functional.silu(xt @ wgt) * (xt @ wut),
+          (M * K + 2 * K * N + M * N) * 4, 4 * M * K * N,
+          "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
+    del xt, wgt, wut
+    label, (M, K, N) = SWIGLU_TRAIN
     comp = [t.clone().requires_grad_(True) for t in (x, wg, wu)]
     out_c = torch.nn.functional.silu(comp[0] @ comp[1]) * (comp[0] @ comp[2])
     t_bwd = timer(lambda: ops.swiglu_backward(x, wg, wu, dh))
@@ -1659,13 +1697,14 @@ def phase_serve(torch, card):
     counts["b"] = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts[:2],
                            refs[:2], card)
 
-    # (c) continuous batching: a Poisson trace at about one request per second,
-    # so that arrivals land mid-round and queue while both slots are busy.  The
-    # engines run the first SERVE_C_LAYERS layers of build_engine's weights: (c2)
-    # is what build_engine(..., async_rounds=True) builds, at that depth, without
-    # drawing them again.  4 requests and the cut depth keep the whole script
-    # inside its time limit
-    trace = make_request_trace(cfgT.vocab_size, 4, rate_rps=1.0, prompt_len=(8, 16),
+    # (c) continuous batching: a Poisson trace at the serve CLI's default two
+    # requests per second, so that arrivals land mid-round and queue while both
+    # slots are busy.  The engines run the first SERVE_C_LAYERS layers of
+    # build_engine's weights: (c2) is what build_engine(..., async_rounds=True)
+    # builds, at that depth, without drawing them again.  4 requests, the cut
+    # depth and the rate (each run waits for the last arrival) keep the whole
+    # script inside its time limit
+    trace = make_request_trace(cfgT.vocab_size, 4, rate_rps=2.0, prompt_len=(8, 16),
                                max_new=32, seed=0)
     Tc, tpc = cut_depth(eng.target, tp, SERVE_C_LAYERS[0])
     Dc, dpc = cut_depth(eng.draft, dp, SERVE_C_LAYERS[1])
@@ -2128,6 +2167,190 @@ def phase_train(torch, card):
           f"its checkpoint of step {start - 1}: params and losses bit for bit equal to the "
           f"uninterrupted run on {card}", flush=True)
     return {"t": counts}
+
+
+def phase_train_tp(torch, card, log):
+    """(t2a): tensor-parallel training — TP_TRAIN's llama3-1b at full width
+    cut to its first layers, f32, B·S = TRAIN_B x TRAIN_S, over TP_TRAIN[2]
+    gloo ranks that share the card (``workers.tp_train``), TP_TRAIN_STEPS
+    steps on the dataset's first batches at TRAIN_LR, against the
+    single-process step on the card on the same draws (made before the
+    ranks start, kept on the card): the losses within TRAIN_LOSS_RTOL, the
+    joined first-batch gradient within TRAIN_GRAD_TOL of each tensor's
+    scale, the joined parameters within 1e-5 of each tensor's scale plus
+    1e-3 of step 1's learning rate (``tests/test_torch_train_steps.py``'s
+    tolerance) but for at most TRAIN_PARAM_SHARE of them, which lie within
+    what the gradient's tolerance carries through AdamW and within one
+    step, the gradient of every tensor the ranks hold whole bit equal on every
+    rank, and fused_swiglu launched in every layer of every step on every
+    rank at the rank's width.  Prints each rank's step time, collectives
+    per step and peak memory.
+
+    (t2b): ``launch.train.train`` with ``mesh_model`` 2 on MESH_TRAIN's four
+    gloo ranks (2 data x 2 model) on the smoke config
+    (``workers.mesh_train``): its losses the single-process run's on the
+    same global batches, and a run stopped before step CKPT_CUT and resumed
+    from its per-rank checkpoints bit for bit equal to the uninterrupted
+    run on every rank.  Returns the launch counts of both."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import make_model
+    from repro_torch.models.transformer import param_where
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.parallel.shard import Shard
+    from repro_torch.parallel.spawn import run_ranks
+
+    name, depth, tp = TP_TRAIN
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    label = f"(t2a) train {name}/{depth} tp {tp}"
+    print(f"{label}: reduced (depth: {depth} of {full.n_layers} layers; d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, V {cfg.vocab_size}, {cfg.n_heads}/{cfg.n_kv_heads} heads at full width), "
+          f"f32, batch {TRAIN_B} x {TRAIN_S}, {TP_TRAIN_STEPS} steps at peak lr {TRAIN_LR}; the "
+          f"ranks share the card through {TP_BACKEND}: correctness, no tensor-parallel speed "
+          "figure", flush=True)
+    lr = dict(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TP_TRAIN_STEPS)
+    ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batches = [ds.batch(k) for k in range(TP_TRAIN_STEPS)]
+    t0 = monotonic()
+    torch.cuda.empty_cache()
+    model = make_model(cfg, "cuda")
+    params = model.init(0, trainable=True)
+    names = [n for n, _ in params.named_parameters()]
+    _, grads = loss_and_grads(model, params, batches[0])
+    want_gnorm = float(global_norm([g.float() for g in grads]))
+    # kept on the card beside the ranks (9.2 GB), which the comparisons below run on
+    want_grads = {n: g.detach() for n, g in zip(names, grads)}
+    del grads
+    step, opt, want_losses = make_train_step(cfg, model, **lr), adamw_init(params), []
+    for b in batches:
+        params, opt, loss = step(params, opt, b)
+        want_losses.append(float(loss))
+    want = {n: p.detach() for n, p in params.named_parameters()}
+    # the second moment, bias-corrected: how far each element's update moves per unit of gradient
+    vhat = {n: (v / (1 - 0.95 ** TP_TRAIN_STEPS)).sqrt() for n, v in zip(names, opt.nu)}
+    del model, params, opt, step, loss
+    torch.cuda.empty_cache()
+    t1 = monotonic()
+    job = {"cfg": cfg, "weights": ("seed", 0, 1.0), "batches": batches, "lr": lr,
+           "record_shapes": True, "all_grads": True}
+    ranks = run_ranks("repro_torch.parallel.workers:tp_train", tp, (job,),
+                      workdir=os.path.join(HERE, "build", "tp_train"), device="cuda:0",
+                      backend=TP_BACKEND, timeout_s=300, threads=2)
+    print(f"{label}: single-process reference {t1 - t0:.1f} s; {tp} ranks started, drew their "
+          f"shards, trained and handed back their gradients and parameters in "
+          f"{monotonic() - t1:.1f} s", flush=True)
+    lr1 = float(warmup_cosine(1, **lr))
+    shard = Shard(cfg, 0, tp)
+    worst_g = worst_p = 0.0
+    plain_over, n_el = {}, 0
+    for pname in names:
+        where = param_where(pname)
+        g = shard.join(*where, [torch.from_numpy(r["grads"][pname]).cuda() for r in ranks])
+        wg = want_grads.pop(pname)
+        g_tol = TRAIN_GRAD_TOL * float(wg.abs().max())
+        err = max_err(g, wg)
+        if g.shape != wg.shape or not torch.allclose(g, wg, rtol=TRAIN_GRAD_TOL, atol=g_tol):
+            fail(f"{label}: the joined gradient of {pname} differs from the single-process "
+                 f"one by {err:.3e} (tolerance {g_tol:.3e})")
+        worst_g = max(worst_g, err / g_tol)
+        got = shard.join(*where, [torch.from_numpy(r["params"][pname]).cuda() for r in ranks])
+        w = want.pop(pname)
+        tol = 1e-5 * float(w.abs().max()) + 1e-3 * lr1
+        # what the gradient's tolerance admits through AdamW: a gradient error g_tol moves an
+        # element by up to lr1 * g_tol / sqrt(v-hat) (an element whose gradient sits at its
+        # tensor's rounding floor takes a whole step whatever that floor's bits), and never by
+        # more than one step, lr1 (|m-hat| / sqrt(v-hat) <= 1.0003 after two steps): a step
+        # taken the other way, 2 x lr1, fails
+        adam_tol = tol + torch.clamp(lr1 * g_tol / (vhat.pop(pname) + 1e-8), max=lr1)
+        d = (got - w).abs()
+        if got.shape != w.shape or bool((d > adam_tol + 1e-5 * w.abs()).any()):
+            fail(f"{label}: the joined {pname} differs from the single-process step's by "
+                 f"{float(d.max()):.3e} beyond the tolerance AdamW carries from the gradient's")
+        over, n_el = int((d > tol + 1e-5 * w.abs()).sum()), n_el + w.numel()
+        if over:
+            plain_over[pname] = over
+        worst_p = max(worst_p, float(d.max()) / tol)
+    torch.cuda.empty_cache()  # the single-process state, popped above, back to the card
+    if sum(plain_over.values()) > TRAIN_PARAM_SHARE * n_el:
+        fail(f"{label}: {sum(plain_over.values())} of {n_el} joined parameters lie beyond the "
+             f"smoke tests' tolerance, more than {TRAIN_PARAM_SHARE:g} of them: {plain_over}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ALL_KERNELS}
+    whole = ranks[0]["whole_grads"]
+    for r in ranks:
+        if not np.allclose(r["losses"], want_losses, rtol=TRAIN_LOSS_RTOL, atol=0.0) or \
+                r["losses"] != ranks[0]["losses"]:
+            fail(f"{label} rank {r['rank']}: losses {r['losses']} against the single-process "
+                 f"{want_losses} (rtol {TRAIN_LOSS_RTOL}) and rank 0's {ranks[0]['losses']}")
+        if r["whole_grads"].keys() != whole.keys() or not all(
+                np.array_equal(g, whole[n]) for n, g in r["whole_grads"].items()):
+            fail(f"{label} rank {r['rank']}: a whole tensor's gradient differs from rank 0's")
+        n_mlp = r["launches"]["fused_swiglu"]
+        seen = {k[:3] for k in r["shapes"]["fused_swiglu"]}
+        if n_mlp < depth * TP_TRAIN_STEPS or SWIGLU_TRAIN_TP[1] not in seen:
+            fail(f"{label} rank {r['rank']}: fused_swiglu launched {n_mlp} times at {seen}, not "
+                 f"in every one of {depth} layers x {TP_TRAIN_STEPS} steps at "
+                 f"{SWIGLU_TRAIN_TP[1]}")
+        for kname, keys in r["shapes"].items():
+            log.seen[kname] |= keys
+        if r["gnorm"] != ranks[0]["gnorm"] or not math.isclose(r["gnorm"], want_gnorm,
+                                                                rel_tol=TRAIN_GRAD_TOL):
+            fail(f"{label} rank {r['rank']}: the clip's norm over the group {r['gnorm']} against "
+                 f"one process's {want_gnorm} (rtol {TRAIN_GRAD_TOL}) and rank 0's")
+        coll = {k: v // TP_TRAIN_STEPS for k, v in r["collectives"].items() if v}
+        print(f"{label} rank {r['rank']}: losses {r['losses']} (single process {want_losses}), "
+              f"step {np.median(r['step_s']) * 1e3:.2f} ms (median, host clock, {TP_BACKEND} "
+              f"ranks sharing the card), {coll} collectives per step, peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, fused_swiglu {n_mlp} launches at (M, K, N) "
+              f"{sorted(seen)}, gradients of the {len(whole)} whole tensors bit equal to rank "
+              f"0's on {card}", flush=True)
+    print(f"{label}: the clip's norm {ranks[0]['gnorm']:.7g} (one process {want_gnorm:.7g}); the "
+          f"joined first-batch gradient within {worst_g:.4f} of its tolerance ({TRAIN_GRAD_TOL:g} "
+          f"of each tensor's scale); the joined parameters after {TP_TRAIN_STEPS} steps within "
+          f"the tolerance AdamW carries from it, and at most {worst_p:.3f} x the smoke tests' "
+          f"(1e-5 of each tensor's scale + 1e-3 x lr {lr1:g}), which "
+          f"{sum(plain_over.values())} of {n_el} elements exceed ({plain_over}); kernel launches "
+          f"summed over the ranks {launches}", flush=True)
+
+    small = get_config(name, smoke=True)
+    world, mesh_model = MESH_TRAIN
+    label = f"(t2b) launch.train.train {name} smoke, world {world}, mesh_model {mesh_model}"
+    kw = dict(steps=CKPT_STEPS, batch=4, seq=32, lr=1e-3, warmup_steps=2, ckpt_every=2)
+    t0 = monotonic()
+    want = train(small, device="cuda", log=lambda *_: None,
+                 **{k: v for k, v in kw.items() if k != "ckpt_every"})["losses"]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        job = {"cfg": small, "kw": kw, "mesh_model": mesh_model, "ckpt": d, "cut": CKPT_CUT}
+        mesh = run_ranks("repro_torch.parallel.workers:mesh_train", world, (job,),
+                         workdir=os.path.join(HERE, "build", "mesh_train"), device="cuda:0",
+                         backend=TP_BACKEND, timeout_s=300, threads=2)
+    for r in mesh:
+        if not np.allclose(r["losses"], want, rtol=TRAIN_LOSS_RTOL, atol=0.0):
+            fail(f"{label} rank {r['rank']}: losses {r['losses']} against the single-process "
+                 f"run's {want} on the same global batches (rtol {TRAIN_LOSS_RTOL})")
+        if r["start"] != CKPT_CUT - 1 or not r["bit_equal"] or \
+                r["resumed_losses"] != r["losses"][r["start"]:]:
+            fail(f"{label} rank {r['rank']}: the run resumed at step {r['start']} differs from "
+                 "the uninterrupted one (parameters, moments, masters and losses must be bit "
+                 "for bit)")
+    print(f"{label}: 2 data x 2 model ranks on the card through {TP_BACKEND}, {CKPT_STEPS} "
+          f"steps of {kw['batch']} x {kw['seq']} in {monotonic() - t0:.1f} s with the "
+          f"single-process run; losses {mesh[0]['losses']} within {TRAIN_LOSS_RTOL} of the "
+          f"single-process run's; a run stopped before step {CKPT_CUT} and resumed at step "
+          f"{CKPT_CUT - 1} from its per-rank checkpoints: parameters, moments, masters and losses "
+          f"bit for bit equal to the uninterrupted run on all {world} ranks on {card}", flush=True)
+    return {"t2a": launches,
+            "t2b": {k: sum(r["launches"][k] for r in mesh) for k in ALL_KERNELS}}
 
 
 def phase_tp(torch, card, log):
@@ -2849,6 +3072,8 @@ def main() -> int:
     timing("families (h1)-(h5)")
     counts.update(phase_train(torch, card))
     timing("train (t)")
+    counts.update(phase_train_tp(torch, card, log))
+    timing("train tp (t2a)-(t2b)")
     counts.update(phase_tp(torch, card, log))
     timing("tp (p1)-(p3), split (s1)-(s2) and families (q1)-(q4)")
     counts.update(phase_fleet(torch, card, log))

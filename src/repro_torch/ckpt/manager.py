@@ -15,6 +15,14 @@ Fault-tolerance contract:
   * retention — the ``keep`` most recent checkpoints are kept, older ones
     removed.
 
+A tensor-parallel run (``launch/train.py --mesh-model``) checkpoints per
+rank: each model rank's state (its shards, moments and masters) goes to a
+directory of its own, written by data rank 0 only (every rank of a data
+group holds the same state).  ``layout`` = (world, mesh_model) is recorded
+in ``LAYOUT.json`` beside the checkpoints, and a manager opened under
+another layout raises and names both; a directory without one holds a
+single process's checkpoints, layout (1, 1).
+
 A state is a tree of modules (their parameters, in order), tuples (named
 or not), lists, dicts, tensors and Python scalars.  Leaves are stored as
 raw ``.npy`` files (bf16 as its bit pattern), so a restore is bit-exact;
@@ -79,6 +87,38 @@ def _to_host(x) -> np.ndarray:
             t = t.view(_BITS[t.dtype])
         return t.numpy()
     return np.asarray(x)
+
+
+def rank_dir(directory: str, layout: tuple, model_rank: int) -> str:
+    """Where model rank ``model_rank`` of a run of ``layout`` = (world,
+    mesh_model) keeps its checkpoints under ``directory``: the directory
+    itself for a single process, ``model<r>`` in it otherwise."""
+    return directory if tuple(layout) == (1, 1) else os.path.join(directory, f"model{model_rank}")
+
+
+def check_layout(directory: str, layout: tuple, write: bool = False) -> None:
+    """Raise unless the checkpoints under ``directory`` were made by a run
+    of ``layout`` = (world, mesh_model) (or there are none); ``write``
+    records the layout when none is recorded yet."""
+    layout = tuple(int(x) for x in layout)
+    path = os.path.join(directory, "LAYOUT.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            saved = json.load(f)
+        saved = (saved["world"], saved["mesh_model"])
+    elif any(name.startswith("step_") for name in os.listdir(directory)):
+        saved = (1, 1)  # a single process's checkpoints, from before layouts were recorded
+    else:
+        saved = None
+    if saved is not None and saved != layout:
+        raise ValueError(f"the checkpoints in {directory} are of world {saved[0]} with "
+                         f"--mesh-model {saved[1]}; this run is world {layout[0]} with "
+                         f"--mesh-model {layout[1]}: restore them under their own layout")
+    if write and saved is None:
+        tmp = f"{path}.tmp-{secrets.token_hex(4)}"
+        with open(tmp, "w") as f:
+            json.dump({"world": layout[0], "mesh_model": layout[1]}, f)
+        os.replace(tmp, path)
 
 
 class CheckpointManager:

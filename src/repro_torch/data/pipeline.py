@@ -59,7 +59,9 @@ def sharded_batches(ds: SyntheticLMDataset, group, start_step: int = 0) -> Itera
     """Rank ``group.rank``'s rows of ``ds.batch(step)`` for step =
     start_step, start_step + 1, ...: {"step", "tokens" [B/p, S+1] int32 on
     the group's device}, the rows [r·B/p, (r+1)·B/p) — the reference's batch
-    split over ("pod", "data"), one process per data shard."""
+    split over ("pod", "data"), one process per data shard.  ``group`` is
+    the data-parallel group (``parallel.group.make_train_groups``'s second):
+    the model ranks of one data rank get the same rows."""
     p, r = group.world, group.rank
     B = ds.cfg.global_batch
     if B % p:

@@ -9,7 +9,9 @@ its target group and the rest its draft group, so no device is shared
 across replicas or across the two roles.  The ranks of split engines, one
 process per card, are carved the same way (``make_serving_ranks``): one
 split, or R replicas of one, each its own (target ranks, draft ranks).
-Carving is pure: it only reads the devices it is given.
+A training world is carved into model and data ranks (``make_train_ranks``,
+the reference's ("data", "model") mesh of ``launch/train.py
+--mesh-model``).  Carving is pure: it only reads the devices it is given.
 """
 
 from __future__ import annotations
@@ -92,3 +94,19 @@ def make_serving_ranks(ranks, n_target: int, n_draft: int | None = None, *,
         return ranks[base:base + n_target], ranks[base + n_target:base + group]
 
     return carve(0) if replicas == 1 else [carve(i) for i in range(replicas)]
+
+
+def make_train_ranks(world: int, mesh_model: int) -> tuple[tuple, tuple]:
+    """(model groups, data groups) of a training world of ``world`` ranks
+    (the reference's ("data", "model") mesh, ``--mesh-model``): ``world /
+    mesh_model`` model groups of ``mesh_model`` consecutive ranks, each
+    holding one copy of the model sharded over it, and ``mesh_model`` data
+    groups, the ranks that share a model index (each holding the same
+    shard, with its own rows of the global batch).  Each group is a tuple
+    of global ranks, in group order; ``mesh_model`` must divide the world."""
+    if mesh_model < 1 or world < 1 or world % mesh_model:
+        raise ValueError(f"--mesh-model {mesh_model} does not divide a world of {world} ranks")
+    n_data = world // mesh_model
+    model = tuple(tuple(range(i * mesh_model, (i + 1) * mesh_model)) for i in range(n_data))
+    data = tuple(tuple(range(j, world, mesh_model)) for j in range(mesh_model))
+    return model, data

@@ -366,53 +366,60 @@ def main(argv=None):
                 f"{world} ranks with --replicas {replicas}: the layouts that run are one split "
                 f"({g} ranks: --n-target + --n-draft), one tensor-parallel group (fewer "
                 f"ranks), or R splits (--continuous --replicas R on R x {g} ranks)")
-    say = print if group is None or group.rank == 0 else _quiet
-    eng, tp, dp, cfgT = build_engine(
-        args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
-        d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
-        replicas=replicas, device=args.device, async_rounds=args.async_rounds,
-        group=None if split is not None else group, split=split, fleet=fleet)
-    engines = eng
-    eng = eng[0 if fleet is None else fleet.replica] if isinstance(eng, list) else eng
-    if fleet is not None:
-        say(f"fleet: {fleet.replicas} replicas on disjoint rank groups, target / draft ranks "
-            + ", ".join(f"{list(t)} / {list(d)}" for t, d in fleet.pairs)
-            + f" ({split.world.backend}); one exchange on the host (gloo) per fleet round")
-    elif split is not None:
-        say(f"split: target on ranks {list(split.target_ranks)}, draft on ranks "
-            f"{list(split.draft_ranks)} ({group.backend}); the plan and the verdict cross "
-            "between them each round")
-    elif group is not None:
-        say(f"tensor parallel: {group.world} ranks ({group.backend}), target heads / KV heads "
-            f"per rank {eng.target.run_cfg.n_heads}/{eng.target.run_cfg.n_kv_heads} on rank 0")
-    if args.d == 0:
-        if fleet is None or fleet.replica == 0:  # a fleet profiles replica 0's split
-            say(profile_depth(eng, tp, dp, args.prompt_len))
-        if fleet is not None or (group is not None and split is None):
-            # rank 0's depth: the ranks' timings differ (a fleet's mirrors read it from eng)
-            d = group.broadcast(torch.tensor([eng.cfg.d], device=group.device))
-            eng.cfg = dataclasses.replace(eng.cfg, d=int(d[0]))
-        for e in set(engines) if isinstance(engines, list) and fleet is None else ():
-            e.cfg = eng.cfg
-    if args.continuous:
-        run_continuous(args, engines, tp, dp, cfgT, group, fleet)
-        return
+    try:
+        say = print if group is None or group.rank == 0 else _quiet
+        eng, tp, dp, cfgT = build_engine(
+            args.target_arch, args.draft_arch, mode=args.mode, bs=args.bs, w=args.w,
+            d=args.d or 2, max_new=args.max_new, n_target=args.n_target, n_draft=args.n_draft,
+            replicas=replicas, device=args.device, async_rounds=args.async_rounds,
+            group=None if split is not None else group, split=split, fleet=fleet)
+        engines = eng
+        eng = eng[0 if fleet is None else fleet.replica] if isinstance(eng, list) else eng
+        if fleet is not None:
+            say(f"fleet: {fleet.replicas} replicas on disjoint rank groups, target / draft ranks "
+                + ", ".join(f"{list(t)} / {list(d)}" for t, d in fleet.pairs)
+                + f" ({split.world.backend}); one exchange on the host (gloo) per fleet round")
+        elif split is not None:
+            say(f"split: target on ranks {list(split.target_ranks)}, draft on ranks "
+                f"{list(split.draft_ranks)} ({group.backend}); the plan and the verdict cross "
+                "between them each round")
+        elif group is not None:
+            say(f"tensor parallel: {group.world} ranks ({group.backend}), target heads / KV heads "
+                f"per rank {eng.target.run_cfg.n_heads}/{eng.target.run_cfg.n_kv_heads} on rank 0")
+        if args.d == 0:
+            if fleet is None or fleet.replica == 0:  # a fleet profiles replica 0's split
+                say(profile_depth(eng, tp, dp, args.prompt_len))
+            if fleet is not None or (group is not None and split is None):
+                # rank 0's depth: the ranks' timings differ (a fleet's mirrors read it from eng)
+                d = group.broadcast(torch.tensor([eng.cfg.d], device=group.device))
+                eng.cfg = dataclasses.replace(eng.cfg, d=int(d[0]))
+            for e in set(engines) if isinstance(engines, list) and fleet is None else ():
+                e.cfg = eng.cfg
+        if args.continuous:
+            run_continuous(args, engines, tp, dp, cfgT, group, fleet)
+            return
 
-    total_toks, total_s = 0, 0.0
-    sess = eng.session(tp, dp)
-    for i, prompt in enumerate(make_request_stream(cfgT.vocab_size, args.prompt_len, 1, args.requests)):
-        t0 = monotonic()
-        out, stats = sess.generate(prompt)
-        dt = monotonic() - t0
-        if not same_on_every_rank(group, out):
-            raise SystemExit(f"req {i}: the ranks emitted different tokens")
-        total_toks += len(out[0])
-        total_s += dt
-        say(f"req {i}: {len(out[0])} tokens in {dt:.2f}s "
-            f"({len(out[0])/dt:.1f} tok/s), compression {stats.compression_ratio:.2f}"
-            + ("" if group is None else f", the same on all {group.world} ranks"))
-    say(f"aggregate: {total_toks/total_s:.1f} tokens/s ({args.mode} mode)")
+        total_toks, total_s = 0, 0.0
+        sess = eng.session(tp, dp)
+        prompts = make_request_stream(cfgT.vocab_size, args.prompt_len, 1, args.requests)
+        for i, prompt in enumerate(prompts):
+            t0 = monotonic()
+            out, stats = sess.generate(prompt)
+            dt = monotonic() - t0
+            if not same_on_every_rank(group, out):
+                raise SystemExit(f"req {i}: the ranks emitted different tokens")
+            total_toks += len(out[0])
+            total_s += dt
+            say(f"req {i}: {len(out[0])} tokens in {dt:.2f}s "
+                f"({len(out[0])/dt:.1f} tok/s), compression {stats.compression_ratio:.2f}"
+                + ("" if group is None else f", the same on all {group.world} ranks"))
+        say(f"aggregate: {total_toks/total_s:.1f} tokens/s ({args.mode} mode)")
 
+    finally:
+        if world > 1:  # every torchrun path leaves its process group
+            from repro_torch.parallel import shutdown_tp
+
+            shutdown_tp()
 
 if __name__ == "__main__":
     main()

@@ -198,9 +198,14 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
     passes the count, so the commit is an index, not a select per step.
     tp: the group this rank's heads are split over (None: the whole block
     is here); the gated norm's sum of squares and ``out_proj``'s product
-    are then summed over it.  Returns (out [B, S, d], new cache); the input
-    cache is never written."""
+    are then summed over it, and ``xin`` enters the rank's heads through
+    ``TPGroup.copy`` (the gradients of ``w_in``'s, ``conv_w``'s and
+    ``conv_b``'s whole BC segments, which only the rank's heads read, are
+    summed by ``parallel.shard.Shard.reduce_grads``).  Returns (out [B, S,
+    d], new cache); the input cache is never written."""
     B, S, _ = xin.shape
+    if tp is not None:
+        xin = tp.copy(xin)
     d_in, nheads, conv_dim = _dims(cfg)
     GN = cfg.ssm_groups * cfg.ssm_state
     K = cfg.ssm_conv
@@ -227,9 +232,9 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
         y = rms_norm(y, p["norm_w"], cfg.norm_eps)
         return y @ p["out_proj"], {"conv": new_conv, "ssm": state}
     y32 = y.float()  # rms_norm over the whole d_in: the squares summed over the ranks
-    var = tp.all_reduce((y32 * y32).sum(-1, keepdim=True)) / (cfg.ssm_expand * cfg.d_model)
+    var = tp.sum_both((y32 * y32).sum(-1, keepdim=True)) / (cfg.ssm_expand * cfg.d_model)
     y = (y32 * torch.rsqrt(var + cfg.norm_eps) * p["norm_w"].float()).to(y.dtype)
-    return tp.all_reduce(y @ p["out_proj"]), {"conv": new_conv, "ssm": state}
+    return tp.reduce(y @ p["out_proj"]), {"conv": new_conv, "ssm": state}
 
 
 def init_mamba_cache(cfg, B, dtype, device):

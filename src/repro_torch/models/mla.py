@@ -37,32 +37,42 @@ def init_mla(cfg, gen, device, dtype) -> dict:
     }
 
 
-def _queries(cfg, p, x, positions):
+def _copy(tp, x):
+    """Under a group: a latent of the whole down projections entering the
+    rank's heads, its gradient summed over the ranks (``TPGroup.copy``)."""
+    return x if tp is None else tp.copy(x)
+
+
+def _queries(cfg, p, x, positions, tp=None):
     nd = cfg.nope_head_dim
-    q_lat = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q_lat = _copy(tp, rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps))
     q = torch.einsum("bsl,lhk->bshk", q_lat, p["w_uq"])  # [B, S, H, nd + rd]
     return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
 
 
-def _latents(cfg, p, x, positions):
+def _latents(cfg, p, x, positions, tp=None):
     kvl = cfg.kv_lora_rank
     lat = x @ p["w_dkv"]  # [B, S, kvl + rd]
     c_kv = rms_norm(lat[..., :kvl], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(lat[..., None, kvl:], positions, cfg.rope_theta)[..., 0, :]
-    return c_kv, k_rope
+    return _copy(tp, c_kv), _copy(tp, k_rope)
 
 
 def _out(p, o):
     return torch.einsum("bnhk,hkd->bnd", o, p["wo"])
 
 
-def mla_full(cfg, p, x, positions):
+def mla_full(cfg, p, x, positions, tp=None):
     """Causal MLA over the whole sequence (prefill), with per-head K/V built
     from the latent.  Returns (out [B, S, d], (c_kv, k_rope)) for the cache.
-    The reference computes it in query chunks, which change no value."""
+    The reference computes it in query chunks, which change no value.
+    ``tp``: the group the heads are split over (None: all here); the down
+    projections and their norms are whole on every rank, and their outputs
+    (``q_lat``, ``c_kv``, ``k_rope``) enter the rank's heads through
+    ``TPGroup.copy``, so their gradient is the whole one on every rank."""
     scale = 1.0 / math.sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
-    q_nope, q_rope = _queries(cfg, p, x, positions)
-    c_kv, k_rope = _latents(cfg, p, x, positions)
+    q_nope, q_rope = _queries(cfg, p, x, positions, tp)
+    c_kv, k_rope = _latents(cfg, p, x, positions, tp)
     k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
     v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
     scores = (torch.einsum("bnhk,bshk->bhns", q_nope, k_nope)
@@ -73,14 +83,14 @@ def mla_full(cfg, p, x, positions):
 
 
 def mla_cached(cfg, p, x, cache_ckv, cache_krope, row_idx, positions, attn_mask, *,
-               row_start=None, row_plan=None):
+               row_start=None, row_plan=None, tp=None):
     """Cached MLA (decode / tree forward), absorbed form.  The new latent
     rows are written in place at ``row_idx`` [B, n] (through ``row_plan``,
     the forward's ``plan_row_writes``) or at [row_start, row_start + n);
     then the n queries attend the cache under ``attn_mask`` [B, n, S], and
     a query that sees no row gives 0.  Returns (out, ckv, krope)."""
-    q_nope, q_rope = _queries(cfg, p, x, positions)
-    c_new, kr_new = _latents(cfg, p, x, positions)
+    q_nope, q_rope = _queries(cfg, p, x, positions, tp)
+    c_new, kr_new = _latents(cfg, p, x, positions, tp)
     if row_start is not None:
         update_rows_contiguous(cache_ckv, c_new, row_start)
         update_rows_contiguous(cache_krope, kr_new, row_start)

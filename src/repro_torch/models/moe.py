@@ -95,12 +95,18 @@ def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
     """x [B, n, d] -> [B, n, d]: the routed experts plus the shared ones.
     With ``tp`` the routed experts are this rank's shards — of the "ep"
     form with ``ep`` (E/world whole experts), else of the "tp" form — and
-    their outputs are summed over the ranks."""
+    their outputs are summed over the ranks.  The router and the shared
+    experts, whole on every rank, read ``x`` as it is; the rows that fill
+    the experts' buffer and the routing weights enter the rank's experts
+    through ``TPGroup.copy``, so their gradient is the whole one."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     T, E, k = x2d.shape[0], cfg.n_experts, cfg.moe_top_k
     cap = capacity(cfg, T)
     dest, w = route(x2d, p["router"], E, k, cap)
+    xin = x2d
+    if tp is not None:
+        xin, w = tp.copy(x2d), tp.copy(w)
     E_loc = E // tp.world if ep else E
     if ep:  # keep the pairs of this rank's experts [lo, lo + E_loc)
         lo = tp.rank * E_loc * cap
@@ -109,7 +115,7 @@ def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
         w = w * mine
     # every kept pair has a slot of its own; dropped pairs all land in the sink row
     xbuf = x2d.new_zeros((E_loc * cap + 1, d))
-    xbuf[dest.reshape(-1)] = x2d.repeat_interleave(k, dim=0)
+    xbuf[dest.reshape(-1)] = xin.repeat_interleave(k, dim=0)
     xe = xbuf[:-1].reshape(E_loc, cap, d)
     h = torch.bmm(torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"]),
                   p["wd"])
@@ -117,7 +123,7 @@ def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
     contrib = hflat[dest] * w[..., None].to(h.dtype)  # [T, k, d]
     out = contrib.sum(1)
     if tp is not None:
-        out = tp.all_reduce(out)
+        out = tp.reduce(out)
     if shared is not None:
         out = out + _swiglu(x2d, shared["wg"], shared["wu"], shared["wd"])
     return out.reshape(B, S, d)

@@ -166,8 +166,14 @@ def _wkv_scan(r, k, v, w, u, state0, n_commit=None):
 def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     """Time-mix on x [B, S, d] with state ``cache`` ({"sx_tm", "wkv"}, or
     None: zeros).  tp: the group this rank's heads are split over (None:
-    all heads here).  Returns (out [B, S, d], {"sx_tm", "wkv"})."""
+    all heads here); ``x`` then enters the rank's heads through
+    ``TPGroup.copy`` (the gradients of the whole ``mu_tm`` and ``decay_a``,
+    which only the rank's heads read, are summed by
+    ``parallel.shard.Shard.reduce_grads``).  Returns (out [B, S, d],
+    {"sx_tm", "wkv"})."""
     B, S, d = x.shape
+    if tp is not None:
+        x = tp.copy(x)
     H, hd = _dims(cfg)
     ext = _shifted(x, None if cache is None else cache["sx_tm"])
     prev = ext[:, :S]
@@ -192,23 +198,27 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     y = (yh.reshape(B, S, H * hd) * p["ln_x"].float()).to(x.dtype)
     out = (y * g) @ p["w_o"]
     if tp is not None:
-        out = tp.all_reduce(out)
+        out = tp.reduce(out)
     return out, {"sx_tm": ext[:, S if n_commit is None else int(n_commit)], "wkv": state}
 
 
 def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     """Channel-mix on x [B, S, d] with state ``cache`` ({"sx_cm"}, or None).
-    tp: the group the ff is split over (None: whole here); ``k @ cm_v`` is
-    summed over it before the gate.  Returns (out [B, S, d], {"sx_cm"})."""
+    tp: the group the ff is split over (None: whole here); ``xk`` enters
+    the rank's ``cm_k`` columns through ``TPGroup.copy`` and ``k @ cm_v`` is
+    summed over it before the gate, which the whole ``cm_r`` computes on
+    every rank.  Returns (out [B, S, d], {"sx_cm"})."""
     S = x.shape[1]
     ext = _shifted(x, None if cache is None else cache["sx_cm"])
     prev = ext[:, :S]
     mu = p["mu_cm"]
     xk = x + (prev - x) * mu[0]
     xr = x + (prev - x) * mu[1]
+    if tp is not None:
+        xk = tp.copy(xk)
     k = torch.square(F.relu(xk @ p["cm_k"]))
     kv = k @ p["cm_v"]
-    out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.all_reduce(kv))
+    out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.reduce(kv))
     return out, {"sx_cm": ext[:, S if n_commit is None else int(n_commit)]}
 
 

@@ -349,8 +349,14 @@ def _mlp_apply(cfg, p, x):
 
 def _reduce(ctx: Ctx, partial):
     """A row-split product's partial sum, summed over the tensor-parallel
-    ranks (the identity without a group)."""
-    return partial if ctx.tp is None else ctx.tp.all_reduce(partial)
+    ranks (the identity without a group); its gradient passes through."""
+    return partial if ctx.tp is None else ctx.tp.reduce(partial)
+
+
+def _copy(ctx: Ctx, x):
+    """A replicated tensor entering rank-local work: itself, its gradient
+    summed over the ranks (the identity without a group)."""
+    return x if ctx.tp is None or x is None else ctx.tp.copy(x)
 
 
 def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
@@ -363,7 +369,7 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
         if full:
             if ctx.enc is None:
                 raise ValueError(f"{cfg.name}: a cross block needs the encoder states (enc)")
-            ek, ev = encoder_kv(p, ctx.enc)
+            ek, ev = encoder_kv(p, _copy(ctx, ctx.enc))
             if fill:
                 leaves["ek"][r] = ek
                 leaves["ev"][r] = ev
@@ -373,14 +379,14 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
     n = hn.shape[1]
     if _mla(cfg, kind):
         if full:
-            a, (ckv, krope) = mla_mod.mla_full(cfg, p, hn, ctx.positions)
+            a, (ckv, krope) = mla_mod.mla_full(cfg, p, hn, ctx.positions, tp=ctx.tp)
             if fill:
                 leaves["ckv"][r, :, :n] = ckv
                 leaves["krope"][r, :, :n] = krope
             return a
         return mla_mod.mla_cached(cfg, p, hn, leaves["ckv"][r], leaves["krope"][r], ctx.row_idx,
                                   ctx.positions, ctx.attn_mask, row_start=ctx.row_start,
-                                  row_plan=ctx.row_plan)[0]
+                                  row_plan=ctx.row_plan, tp=ctx.tp)[0]
     if full:
         a, (k, v) = attention_full(cfg, p, hn, ctx.positions)
         if fill:
@@ -394,13 +400,16 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
 
 def _attn_mlp(cfg, kind, p, h, ctx: Ctx, leaves, r: int):
     """A block with an attention sub-block and an MLP (SwiGLU, or the
-    mixture of experts of a moe block), both with pre-norms."""
-    h = h + _reduce(ctx, _attn_apply(cfg, kind, p.attn, rms_norm(h, p.ln1, cfg.norm_eps), ctx,
-                                     leaves, r))
+    mixture of experts of a moe block), both with pre-norms.  Under a group
+    the normed input of a GQA attention and of the dense MLP is copied into
+    their rank-local work; MLA and the MoE place their own copies."""
+    hn = rms_norm(h, p.ln1, cfg.norm_eps)
+    h = h + _reduce(ctx, _attn_apply(cfg, kind, p.attn, hn if _mla(cfg, kind) else _copy(ctx, hn),
+                                     ctx, leaves, r))
     hn = rms_norm(h, p.ln2, cfg.norm_eps)
     if kind == "moe":
         return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn, tp=ctx.tp, ep=ctx.moe_ep)
-    return h + _reduce(ctx, _mlp_apply(cfg, p.mlp, hn))
+    return h + _reduce(ctx, _mlp_apply(cfg, p.mlp, _copy(ctx, hn)))
 
 
 def _row_leaves_len(groups):
@@ -481,8 +490,9 @@ def logits_from_hidden(cfg, params: DecoderLM, h, vocab_tp=None):
     """h @ lm_head; with ``vocab_tp`` (the group lm_head's vocabulary is
     split over) every rank's columns are gathered, so each rank holds the
     whole [B, n, V]."""
-    logits = h @ params.lm_head
-    return logits if vocab_tp is None else vocab_tp.all_gather(logits, dim=-1)
+    if vocab_tp is None:
+        return h @ params.lm_head
+    return vocab_tp.gather(vocab_tp.copy(h) @ params.lm_head, dim=-1)
 
 
 def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None):
@@ -498,4 +508,4 @@ def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None):
     local = ids - vocab_tp.rank * V_loc
     mine = (local >= 0) & (local < V_loc)
     rows = params.embed[local.clamp(0, V_loc - 1)]
-    return vocab_tp.all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+    return vocab_tp.reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))

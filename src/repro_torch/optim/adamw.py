@@ -62,20 +62,38 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def global_norm(grads, group=None, weights=None) -> torch.Tensor:
+    """The gradient's global norm: the square root of a sum of per-leaf sums
+    of squares, as the reference's Python sum.
+
+    With ``group`` (a ``parallel.TPGroup`` whose ranks each hold a part of
+    the model) and ``weights`` (one per leaf, ``parallel.shard.Shard.
+    norm_weights``) it is the norm of the whole model's gradient: the
+    leaves of weight None are whole on every rank and count once; the
+    others' squares, times their weight, are summed over the group (one
+    all-reduce).  Every rank gets the same bits."""
+    if group is None or group.world == 1:
+        return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    whole = [torch.sum(torch.square(g)) for g, w in zip(grads, weights) if w is None]
+    parts = [torch.sum(torch.square(g) * w) for g, w in zip(grads, weights) if w is not None]
+    total = group.all_reduce(sum(parts, grads[0].new_zeros(())).reshape(1))[0]
+    return torch.sqrt(sum(whole, total.new_zeros(())) + total)
+
+
 def adamw_update(grads, state: AdamWState, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, grad_clip=1.0):
+                 weight_decay=0.1, grad_clip=1.0, group=None, norm_weights=None):
     """Returns (new_params, new_state).  ``grads``: one tensor per parameter
     (None counts as zeros); ``lr``: a scalar (the schedule's output).
 
     The global-norm clip scales every gradient by min(1, clip / ||g||);
     bias correction uses the new step; weight decay is decoupled and hits
     every leaf.  The arithmetic is the reference's, operation for
-    operation, in f32."""
+    operation, in f32.  ``group`` and ``norm_weights``: a tensor-parallel
+    rank's (``global_norm``), whose clip is then the whole model's."""
     leaves = param_leaves(params)
     grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
              for p, g in zip(leaves, grads)]
-    # global-norm clip (a sum of per-leaf sums, as the reference's Python sum)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    gnorm = global_norm(grads, group, norm_weights)
     scale = torch.minimum(_f32(1.0), grad_clip / torch.maximum(gnorm, _f32(1e-9)))
 
     step = state.step + 1

@@ -7,6 +7,28 @@ a dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
 so a run can report how many collectives a round issued (with gloo on
 CUDA tensors each of them is staged through the host).
 
+The sharded forward calls them through four ops with a gradient (the
+Megatron f/g pair and two more), so that a training forward has a
+backward through them:
+
+* ``reduce``: a sum in the forward, the identity in the backward — a
+  row-split product's partial sum that joins the replicated residual;
+* ``copy``: the identity in the forward, a sum in the backward — a
+  replicated tensor entering rank-local work (one copy on each such path);
+* ``sum_both``: a sum both ways — a partial sum that feeds rank-local work
+  again (mamba2's gated-norm sum of squares);
+* ``gather``: an all-gather in the forward, the rank's slice of the
+  gradient in the backward — the vocabulary-split logits.
+
+Where no gradient is needed (every serving forward) each issues exactly
+the collective it issued before the ops had a backward — in place, for
+``reduce`` and ``sum_both`` — and ``copy`` none.  In a training forward
+the collective runs on a copy of its input, never in place on a tensor
+that autograd may have saved, and the backward's collectives count too.
+
+``make_train_groups`` carves a training world into this rank's model and
+data groups (``launch.mesh.make_train_ranks``).
+
 ``init_tp`` joins the group: from torchrun's ``RANK``/``WORLD_SIZE``/
 ``LOCAL_RANK``, or from explicit arguments and a ``FileStore`` path (the
 tests, ``parallel.spawn``).  The default backend is NCCL for a CUDA device
@@ -63,6 +85,28 @@ class TPGroup:
         dist.all_gather(parts, t, group=self.pg)
         return torch.cat(parts, dim)
 
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks; its gradient passes through unchanged."""
+        if _needs_grad(t):
+            return _Reduce.apply(self, t)
+        return self.all_reduce(t)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself; its gradient is summed over the ranks."""
+        return _Copy.apply(self, t) if _needs_grad(t) else t
+
+    def sum_both(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks; its gradient is summed over them too."""
+        if _needs_grad(t):
+            return _SumBoth.apply(self, t)
+        return self.all_reduce(t)
+
+    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``all_gather``; the gradient keeps this rank's slice."""
+        if _needs_grad(t):
+            return _Gather.apply(self, t, dim)
+        return self.all_gather(t, dim)
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank, in place."""
         COLLECTIVES["broadcast"] += 1
@@ -75,6 +119,58 @@ class TPGroup:
         Every rank must call it, in the same order."""
         pg = dist.new_group(ranks=list(self.ranks), backend=self.backend)
         return dataclasses.replace(self, pg=pg)
+
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _summed(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
+    """The sum over the group of a contiguous copy of ``t``."""
+    return group.all_reduce(t.clone(memory_format=torch.contiguous_format))
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        return _summed(group, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _summed(ctx.group, g)
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return _summed(group, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _summed(ctx.group, g)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.rank, ctx.dim, ctx.n = group.rank, dim, t.shape[dim]
+        return group.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None
 
 
 def _device_key(device: torch.device) -> str:
@@ -126,6 +222,28 @@ def init_tp(device=None, backend: str | None = None, *, rank: int | None = None,
                             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     return TPGroup(pg=dist.group.WORLD, rank=rank, world=world_size, device=device,
                    backend=backend, ranks=tuple(range(world_size)))
+
+
+def make_train_groups(world: TPGroup, mesh_model: int) -> tuple[TPGroup, TPGroup]:
+    """(model group, data group) of this rank in a training ``world`` carved
+    by ``launch.mesh.make_train_ranks``: the ranks its model is sharded
+    over, and the ranks that hold the same shard.  Every rank makes every
+    group (the model groups, then the data groups, each in order) with
+    ``world``'s backend; a group of the whole world reuses its process
+    group.  Every rank must call it, with the same ``mesh_model``."""
+    from repro_torch.launch.mesh import make_train_ranks
+
+    me = world.ranks[world.rank]
+    mine = []
+    for groups in make_train_ranks(world.world, mesh_model):
+        for local in groups:
+            ranks = tuple(world.ranks[r] for r in local)
+            pg = world.pg if ranks == world.ranks else dist.new_group(ranks=list(ranks),
+                                                                       backend=world.backend)
+            if me in ranks:
+                mine.append(TPGroup(pg=pg, rank=ranks.index(me), world=len(ranks),
+                                    device=world.device, backend=world.backend, ranks=ranks))
+    return mine[0], mine[1]
 
 
 def shutdown_tp() -> None:

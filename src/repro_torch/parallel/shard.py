@@ -266,7 +266,6 @@ class Shard:
                     if s >= 0:
                         out.select(dim, s).copy_(piece.select(dim, slot))
             return out
-        c = self.padded
         if where in _RECURRENT and (where, key) not in _FF_PADDED:
             seg = self._segments(where, key)
             if seg is None:
@@ -278,6 +277,18 @@ class Shard:
                 parts += [t.narrow(d, off, n) for t in (pieces if ax == "inner" else pieces[:1])]
                 off += n
             return torch.cat(parts, d)
+        d, full = self._split_dim(where, key)
+        if d is None:
+            return pieces[0]
+        if (where, key) in _FF_PADDED:  # each rank's share without its padding
+            pieces = [t.narrow(d, 0, full[d] // self.world) for t in pieces]
+        return torch.cat(pieces, d)
+
+    def _split_dim(self, where: str, key: str) -> tuple:
+        """(the dimension the ranks split, the padded model's shape) of a
+        tensor that is neither an attention head tensor nor a recurrent
+        segment tensor; (None, None) for one kept whole."""
+        c = self.padded
         dff = c.moe_d_ff or c.d_ff
         qk, kvl = c.nope_head_dim + c.rope_head_dim, c.kv_lora_rank
         full = {("mlp", "wg"): (c.d_model, c.d_ff), ("mlp", "wu"): (c.d_model, c.d_ff),
@@ -293,11 +304,116 @@ class Shard:
                 }.get((where, key))
         axes = weight_axes(where, key, "ep" if self.ep else "tp")
         d = None if full is None else model_dim({"model": self.world}, axes, full)
-        if d is None:
-            return pieces[0]
-        if (where, key) in _FF_PADDED:  # each rank's share without its padding
-            pieces = [t.narrow(d, 0, full[d] // self.world) for t in pieces]
-        return torch.cat(pieces, d)
+        return (None, None) if d is None else (d, full)
+
+    # ---- training: what no collective of the forward does ----------------------
+    @functools.cached_property
+    def _kv_holders(self) -> dict:
+        """Global KV head -> the ranks that hold it (several where the ranks
+        do not divide the KV heads, ``attn_layout``)."""
+        c, held = self.padded, {}
+        for r in range(self.world):
+            for h in attn_layout(c.n_heads, c.n_kv_heads, r, self.world)[1]:
+                held.setdefault(h, []).append(r)
+        return held
+
+    def _attn_dim(self, key: str) -> int:
+        return 1 if key in ("wq", "wk", "wv") else 0
+
+    def reduce_grads(self, params: DecoderLM, grads: list, group) -> list:
+        """The gradients of this rank's ``params`` (one per parameter, in
+        ``parameters()`` order) once what the forward's collectives leave
+        partial is summed over ``group`` (this shard's ranks; call it after
+        the backward, on every rank):
+
+        * the whole tensors that only rank-local work reads — mamba2's BC
+          segments of ``w_in``, ``conv_w`` and ``conv_b``, rwkv6's
+          ``mu_tm`` and ``decay_a`` where the heads are split — summed;
+        * a KV head that several ranks hold (the ranks do not divide the KV
+          heads): each rank's ``wk``/``wv``/``bk``/``bv`` slot summed over
+          the ranks that hold its head;
+        * the zero query slots ``attn_layout`` pads a rank with, which are
+          no heads of the model: their ``wq``/``bq``/``wo`` gradient zeroed
+          (a zero query attends uniformly, so its ``wo`` rows get one).
+
+        Every other gradient is already this rank's part of the whole
+        one (the split tensors) or the whole one (the tensors every rank
+        holds), as the forward's ``TPGroup.copy``/``reduce`` placed them."""
+        if self.world == 1:
+            return list(grads)
+        names = [n for n, _ in params.named_parameters()]
+        return [self._reduce_grad(*param_where(n), g, group) for n, g in zip(names, grads)]
+
+    def _reduce_grad(self, where: str, key: str, g: torch.Tensor, group) -> torch.Tensor:
+        if where == "attn" and key in _Q_KEYS:
+            pads = [slot for slot, s in enumerate(self.attn[0]) if s < 0]
+            if pads:
+                g = g.clone()
+                for slot in pads:
+                    g.select(self._attn_dim(key), slot).zero_()
+            return g
+        if where == "attn" and key in _KV_KEYS:
+            held = self._kv_holders
+            if all(len(ranks) == 1 for ranks in held.values()):
+                return g
+            dim, kv_src = self._attn_dim(key), self.attn[1]
+            shape = list(g.shape)
+            shape[dim] = self.padded.n_kv_heads
+            idx = torch.tensor(kv_src, device=g.device)
+            whole = g.new_zeros(shape).index_copy_(dim, idx, g)
+            return group.all_reduce(whole).index_select(dim, idx)
+        if not self.ssm_heads:
+            return g
+        if (where, key) in (("tm", "mu_tm"), ("tm", "decay_a")):
+            return group.all_reduce(g.clone(memory_format=torch.contiguous_format))
+        if where == "mamba" and key in ("w_in", "conv_w", "conv_b"):
+            d, segs = self._segments(where, key)
+            g, off = g.clone(), 0
+            for ax, width in segs:
+                n = width // self.world if ax == "inner" else width
+                if ax is None:
+                    g.narrow(d, off, n).copy_(group.all_reduce(g.narrow(d, off, n).contiguous()))
+                off += n
+            return g
+        return g
+
+    def norm_weights(self, params: DecoderLM) -> list:
+        """Per parameter of this rank's ``params``, how its squares enter the
+        global gradient norm of the padded model (``optim.adamw``): None
+        for a tensor every rank holds whole (counted once, on each rank
+        alike), else a weight (1, or a 0/1 tensor that broadcasts against
+        it) for a tensor whose parts the ranks hold, summed over the group:
+        a KV head that several ranks hold, or mamba2's whole BC segment,
+        counts on the first rank that holds it only."""
+        return [self._norm_weight(*param_where(n), p) for n, p in params.named_parameters()]
+
+    def _norm_weight(self, where: str, key: str, t: torch.Tensor):
+        def along(dim: int, w: list):
+            shape = [1] * t.dim()
+            shape[dim] = len(w)
+            return torch.tensor(w, dtype=torch.float32, device=t.device).reshape(shape)
+
+        if self.world == 1 or where in ("block", "shared") or (where, key) == ("moe", "router"):
+            return None
+        if where == "attn" and key in _Q_KEYS:
+            return 1.0
+        if where == "attn" and key in _KV_KEYS:
+            first = [float(self._kv_holders[h][0] == self.rank) for h in self.attn[1]]
+            return 1.0 if all(first) else along(self._attn_dim(key), first)
+        axes = weight_axes(where, key, "ep" if self.ep else "tp")
+        if where in _RECURRENT and "ff" not in axes:
+            seg = self._segments(where, key)
+            if seg is None:
+                return None
+            d, segs = seg
+            if all(ax == "inner" for ax, _ in segs):
+                return 1.0
+            w = []
+            for ax, width in segs:
+                n = width // self.world if ax == "inner" else width
+                w += [1.0 if ax == "inner" or self.rank == 0 else 0.0] * n
+            return along(d, w)
+        return None if self._split_dim(where, key)[0] is None else 1.0
 
 
 def unshard_params(cfg, shards: list, moe_form: str = "tp") -> DecoderLM:

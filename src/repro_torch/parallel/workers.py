@@ -159,6 +159,142 @@ def train(group, cfg, tree, data_cfg, steps: int, lr: dict) -> dict:
     return {"losses": losses, "params": {k: _np(v) for k, v in params.named_parameters()}}
 
 
+def _rows(batch: dict, rank: int, world: int) -> dict:
+    """Data rank ``rank``'s rows of a global numpy batch (every entry split
+    along its first axis)."""
+    n = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def tp_train(group, job: dict) -> dict:
+    """``_tp_train`` with the shapes of its kernel calls (``_with_shapes``)."""
+    return _with_shapes(_tp_train, group, job)
+
+
+def _tp_train(group, job: dict) -> dict:
+    """Tensor-parallel training steps: job {"cfg", "weights" (``build``'s:
+    ("numpy", tree) or ("seed", seed, 1.0)), "batches": [global numpy batch
+    of each step, in ``launch.steps._feed``'s form], "lr" (``make_train_step``
+    kwargs), "mesh_model" (the ranks each model is sharded over; default the
+    whole group), "compress" (``grad_compress_pod``: the int8 mean over the
+    data ranks), "moe_form", "serve_prompt" (token ids: first
+    a serving prefill of them, without a gradient, whose collectives are
+    returned), "all_grads" (return every gradient, not only the whole
+    tensors'), "record_shapes"}.
+
+    The group is carved into model and data groups
+    (``parallel.group.make_train_groups``); this rank's model is the
+    weights sharded over its model group, and it trains on its data rank's
+    rows of each batch.  Before the steps, the first batch's gradient by
+    the step's own gradient half (``launch.steps.sharded_grads``) gives the
+    gradients of the tensors every rank holds whole and the clip's global
+    norm over the group.  Returns the losses, the step times
+    (host clock), this rank's parameters after the steps (numpy, by name),
+    those whole gradients, the global norm, the collectives and kernel
+    launches of the steps, the peak memory on a card, and the rank's place."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, sharded_grads
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.parallel.group import COLLECTIVES, make_train_groups, reset_collective_counts
+
+    cfg = job["cfg"]
+    mg, dg = make_train_groups(group, job.get("mesh_model", group.world))
+    model, params = build(mg, cfg, job["weights"], job.get("moe_form", "tp"))
+    params.requires_grad_(True)
+    serve = None
+    if job.get("serve_prompt") is not None:  # a serving forward's collectives, for comparison
+        reset_collective_counts()
+        with torch.no_grad():
+            model.prefill(params, job["serve_prompt"])
+        serve = dict(COLLECTIVES)
+    batches = [_rows(b, dg.rank, dg.world) for b in job["batches"]]
+    compress = job.get("compress", False)
+    # the gradient of the first batch, by the step's own gradient half, for the checks
+    grads = sharded_grads(model, params, batches[0], dg, compress)[1]
+    weights = model.shard.norm_weights(params)
+    gnorm = float(global_norm([g.float() for g in grads], mg, weights))
+    names = [n for n, _ in params.named_parameters()]
+    whole = {n: _np(g) for n, g, w in zip(names, grads, weights) if w is None}
+    every = {n: _np(g) for n, g in zip(names, grads)} if job.get("all_grads") else None
+    del grads
+    step = make_train_step(cfg, model, data=dg, grad_compress_pod=compress, **job["lr"])
+    opt = adamw_init(params)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_collective_counts()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = monotonic()
+        params, opt, loss_t = step(params, opt, batch)
+        losses.append(float(loss_t))
+        step_s.append(monotonic() - t0)
+    out = {"rank": group.rank, "model_rank": mg.rank, "data_rank": dg.rank,
+           "losses": losses, "step_s": step_s, "gnorm": gnorm, "whole_grads": whole,
+           "grads": every, "params": {n: _np(p) for n, p in params.named_parameters()},
+           "collectives": dict(COLLECTIVES), "launches": ops.launch_counts(),
+           "serve_collectives": serve}
+    if group.device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(group.device)
+    return out
+
+
+def train_step_error(group, cfg, mesh_model: int, kw: dict) -> str:
+    """What ``make_train_step(cfg, model, **kw)`` raises on this rank's model
+    sharded over its model group of ``mesh_model`` ranks (the world carved
+    by ``parallel.group.make_train_groups``), or "" when it builds a step."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.parallel.group import make_train_groups
+
+    mg, _ = make_train_groups(group, mesh_model)
+    try:
+        make_train_step(cfg, make_model(cfg, mg.device, mg), **kw)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def mesh_train(group, job: dict) -> dict:
+    """``launch.train.train`` on this world, carved by job["mesh_model"]:
+    job {"cfg", "kw" (``train``'s keyword arguments: steps, batch, seq, lr,
+    warmup_steps, ckpt_every), "mesh_model", "ckpt" (an empty directory, or
+    None), "cut"}.  An uninterrupted run, then, with "ckpt", a run with
+    checkpoints stopped before step "cut" as a preemption would, then one
+    resumed from them.  Returns this rank's losses of the first run, its
+    step times (host clock) and peak memory on a card, the kernel launches
+    of the runs, and with "ckpt" the step the last run resumed at, its
+    losses and whether its final parameters and optimizer state equal the
+    first run's bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import param_leaves
+
+    ops.reset_launch_counts()
+    if group.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(group.device)
+    kw = dict(job["kw"], world=group, mesh_model=job["mesh_model"], log=lambda *_: None)
+    whole = train(job["cfg"], **kw)
+    out = {"rank": group.rank, "losses": whole["losses"], "step_s": whole["step_s"],
+           "peak_bytes": torch.cuda.max_memory_allocated(group.device)
+           if group.device.type == "cuda" else 0}
+    if not job.get("ckpt"):
+        return dict(out, launches=ops.launch_counts())
+    train(job["cfg"], ckpt=job["ckpt"], stop_at=job["cut"], **kw)
+    resumed = train(job["cfg"], ckpt=job["ckpt"], **kw)
+
+    def state(out):
+        opt = out["opt"]
+        return param_leaves(out["params"]) + opt.mu + opt.nu + opt.master
+
+    same = resumed["opt"].step == whole["opt"].step and all(
+        torch.equal(a, b) for a, b in zip(state(whole), state(resumed)))
+    return dict(out, start=resumed["start"], resumed_losses=resumed["losses"], bit_equal=same,
+                launches=ops.launch_counts())
+
+
 class _SyncCount:
     """Host syncs inside the ``with`` block, as torch's sync debug mode
     reports them (a CUDA device only; none counted with ``on`` False)."""
