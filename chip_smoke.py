@@ -38,7 +38,8 @@ It takes no options and runs every phase, in order:
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
            llama3-1b draft, 2 of its 3 requests, prompt 16, max_new 48, d from the
-           profile pass; (b) self-draft on the same 8B weights, 2 requests —
+           profile pass; (b) self-draft on the same 8B weights, 2 requests,
+           max_new 24 —
            then continuous batching through ``ContinuousBatchingRuntime``
            on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
            (prompts 8-16, max_new 32), reduced to the first 8 of the 8B's
@@ -200,6 +201,28 @@ It takes no options and runs every phase, in order:
            group, 1 fleet exchange per fleet round on the world's gloo
            group, each rank launch its role's kernels and slot_write_rows,
            and no rank hold the other role's weights or another replica's
+  dryrun   (y), the dry run against the card: (y1) ``python -m
+           repro_torch.launch.dryrun`` (meta tensors, no card; started at
+           the script's start in processes of their own on the host's CPU,
+           with (y2)'s counts) for qwen2.5-14b at decode_32k, prefill_32k
+           and train_4k and zamba2-2.7b at long_500k on pod1, every record
+           ``ok``; (y2) memory: phase (t)'s llama3-1b train step (f32) at
+           (t)'s B 2 x S 256 and at B 2 x S 2048 (``DRYRUN_MEMORY_SHAPES``)
+           with remat "none" and "full", the counted argument bytes within
+           1 % of ``torch.cuda.memory_allocated()`` after the weights, the
+           AdamW state and the batch are placed, the counted peaks of the
+           whole step and of its forward + backward within
+           ``DRYRUN_PEAK_TOL`` of ``max_memory_allocated()``, "full"
+           saving less for the backward on both sides, and at S 2048,
+           where the activations set it, "full"'s forward + backward peak
+           below "none"'s on both sides; (y2)
+           work (in phase serve, on (a)'s weights): one 8B ``decode_step``
+           counted by ``launch/cost.py`` on the card equal to the same
+           step counted on meta (operations, bytes, calls per kernel
+           wrapper), its roofline time printed beside its measured time;
+           (y3) every line where a path of one process synced in its
+           rounds ((a)-(c4), (d), (f)-(h); the sync counter's) is a line
+           where the port's HOTSYNC rule reports a suppressed finding
   shapes   every shape at which a path called a kernel, held against its
            plain version again, the (p), (s) and (r) ranks' shapes included
            (each rank records its own and hands them back)
@@ -225,8 +248,6 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-PEAK_OPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # f32 CUDA cores / bf16 dense
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 INT4_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}  # f32: tests/test_kernels.py's
 SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
@@ -306,6 +327,14 @@ TRAIN_GRAD_TOL = 1e-4
 # (t2a): the share of the joined parameters that may lie beyond the smoke tests' tolerance
 # (elements whose gradient sits at its tensor's rounding floor), each within one AdamW step
 TRAIN_PARAM_SHARE = 1e-6
+DRYRUN_CELLS = (("qwen2.5-14b", ("decode_32k", "prefill_32k", "train_4k")),
+                ("zamba2-2.7b", ("long_500k",)))  # (y1): pod1
+DRYRUN_ARG_TOL = 0.01  # (y2): counted argument bytes against memory_allocated()
+DRYRUN_PEAK_TOL = 0.10  # (y2): counted peaks against max_memory_allocated()
+DRYRUN_DECODE_LEN = 64  # (y2) work: the 8B decode step's cache length
+# (y2) memory: (B, S) of (t)'s train step -> whether the activations set its forward +
+# backward peak (at (t)'s own the gradients do, alike under both remats)
+DRYRUN_MEMORY_SHAPES = {(TRAIN_B, TRAIN_S): False, (2, 2048): True}
 CKPT_STEPS, CKPT_CUT = 8, 6  # phase (t)'s resume check: 8 steps whole, or stopped before step 6
 # (checkpoints every 2 steps: the last at step 4) and resumed at step 5
 KV_TIMED = [  # (U, M, F) of the main path's kv_move_leaves calls, timed at B 1 and 2
@@ -514,14 +543,6 @@ class Timer:
         return sorted(times)[reps // 2]
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes over HBM rate vs
-    operations over the peak rate of the inputs' type."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / PEAK_OPS[str(dtype)] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -545,6 +566,8 @@ def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library,
     """Time kernel, plain version and library call (None: there is none;
     ``library_note`` says why, or what the call is), print the row, and
     keep the first row of each kernel in ``rows``."""
+    from repro_torch.kernels.work import bound
+
     b_ms, b_by = bound(nbytes, n_ops, dtype)
     row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
                max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
@@ -589,18 +612,12 @@ def kv_plan2(torch, M, parked):
             torch.cat([mask0, mask1[None]]))
 
 
-def kv_active(src, dst, mask, S):
-    """(batch rows, sources, destinations) of the active moves, int64."""
-    torch = sys.modules["torch"]
-    act = mask & (src >= 0) & (src < S) & (dst >= 0) & (dst < S)
-    b = torch.arange(src.shape[0], device=src.device)[:, None].expand_as(src)
-    return b[act], src[act].long(), dst[act].long()
-
-
 def kv_library(leaves, src, dst, mask, donate):
     """The PyTorch call that computes the same moves: index assignment on
     each leaf (a parallel assignment: the right side is gathered first),
     after ``clone()`` when copying through."""
+    from repro_torch.kernels.work import kv_active
+
     b, s, d = kv_active(src, dst, mask, leaves[0].shape[2])
 
     def run():
@@ -609,22 +626,6 @@ def kv_library(leaves, src, dst, mask, donate):
             y[:, b, d] = x[:, b, s]
 
     return run
-
-
-def kv_move_bytes(leaves, src, dst, mask, donate) -> int:
-    """The bytes the moves must move, each input byte read once and each
-    output byte written once: in place the active source rows read and
-    the destination rows written; copying through every row of the fresh
-    output written, and read the rows it needs — the unmoved rows and the
-    sources."""
-    B, S = leaves[0].shape[1:3]
-    b, s, d = kv_active(src, dst, mask, S)
-    if donate:
-        rows = 2 * len(s)
-    else:
-        rows = B * S + sum(len((set(range(S)) - set(d[b == r].tolist())) |
-                               set(s[b == r].tolist())) for r in range(B))
-    return sum(rows * x.shape[0] * x[0, 0, 0].numel() * x.element_size() for x in leaves)
 
 
 def phase_build():
@@ -645,7 +646,7 @@ def phase_kernels(torch, timer, card):
     """Each kernel against its plain version on the card, then the times of
     kernel, plain version and library call at the main path's shapes.
     Returns one JSON row per kernel (its first timed shape, float32)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = (torch.float32, torch.bfloat16)
@@ -732,16 +733,14 @@ def phase_kernels(torch, timer, card):
             mask = path_mask(B, n, S)
             err = check_close(f"tree_attention {label} {dtype}", ops.tree_attention(q, k, v, mask),
                               ref.tree_attention_ref(q, k, v, mask), dtype)
-            es = q.element_size()
-            kv_rows = int(mask.any(1).sum())  # each needed K/V row read once
-            nbytes = 2 * q.numel() * es + mask.numel() + 2 * kv_rows * hkv * hd * es
+            n_ops, nbytes = work.tree_attention(q, k, v, mask, data=True)  # the mask's rows
             qt, kt, vt, mt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
             timed("tree_attention", f"{label} B{B} n{n} Hq{hq} Hkv{hkv} hd{hd} S{S}", dtype, err,
                   lambda: ops.tree_attention(q, k, v, mask),
                   lambda: ref.tree_attention_ref(q, k, v, mask),
                   lambda: torch.nn.functional.scaled_dot_product_attention(
                       qt, kt, vt, attn_mask=mt, enable_gqa=True),
-                  nbytes, 4 * hd * hq * int(mask.sum()))
+                  nbytes, n_ops)
             bound = PREFIX + n
             ms = timer(lambda: ops.tree_attention(q, k, v, mask, kv_bound=bound))
             print(f"  time tree_attention {label} {str(dtype).removeprefix('torch.')} with "
@@ -792,14 +791,13 @@ def phase_kernels(torch, timer, card):
             lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
             err = check_close(f"decode_attention {label} {dtype}", ops.decode_attention(q, k, v, L),
                               ref.decode_attention_ref(q, k, v, lens), dtype)
-            es = q.element_size()
             kt, vt = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
             timed("decode_attention", f"{label} L{L} B{B} Hq{hq} Hkv{hkv} hd{hd} S{S}", dtype, err,
                   lambda: ops.decode_attention(q, k, v, L),
                   lambda: ref.decode_attention_ref(q, k, v, lens),
                   lambda: torch.nn.functional.scaled_dot_product_attention(
                       q[:, :, None], kt, vt, enable_gqa=True),
-                  2 * q.numel() * es + 2 * B * L * hkv * hd * es, 4 * B * hq * hd * L)
+                  *work.decode_attention(q, k, v, L)[::-1])
 
     # --- fused_swiglu -----------------------------------------------------------
     swiglu_new = [(f"{label}-M{shape[0]}", shape) for label, m in new.items()
@@ -819,13 +817,12 @@ def phase_kernels(torch, timer, card):
             print(f"  fused_swiglu {label} M{M} K{K} N{N} {dtype}: max|err| {err:.2e}, row 0 "
                   "alone and a repeated call bit for bit equal")
             if label in SWIGLU_TIMED or (label, (M, K, N)) in swiglu_new:
-                es = x.element_size()
                 # no single PyTorch call computes silu(x@wg) * (x@wu): the library
                 # time is a composite of two cuBLAS products and two elementwise passes
                 timed("fused_swiglu", f"{label} M{M} K{K} N{N}", dtype, err,
                       lambda: ops.fused_swiglu(x, wg, wu), lambda: ref.fused_swiglu_ref(x, wg, wu),
                       lambda: torch.nn.functional.silu(x @ wg) * (x @ wu),
-                      (M * K + 2 * K * N + M * N) * es, 4 * M * K * N,
+                      *work.fused_swiglu(x, wg, wu)[::-1],
                       "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
 
     check_swiglu_autograd(torch, timer, timed, randn, card)
@@ -903,7 +900,8 @@ def phase_kernels(torch, timer, card):
                               lambda use=use: [ref.kv_move_rows_ref(x, src, dst, mask)
                                                for x in use],
                               kv_library(use, src, dst, mask, donate),
-                              kv_move_bytes(use, src, dst, mask, donate), 0, note)
+                              *work.kv_move_leaves(use, src, dst, mask, donate=donate,
+                                                   data=True)[::-1], note)
     for dtype in dtypes:  # the configs' caches (full depth), every row leaf, B 1: the
         # compaction (M 8) and a re-root (M 73), timed in place as the paths move them;
         # the families' also copying through
@@ -925,7 +923,8 @@ def phase_kernels(torch, timer, card):
                                                                    donate=donate),
                           lambda: [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves],
                           kv_library(leaves, src, dst, mask, donate),
-                          kv_move_bytes(leaves, src, dst, mask, donate), 0,
+                          *work.kv_move_leaves(leaves, src, dst, mask, donate=donate,
+                                               data=True)[::-1],
                           "(index assignment" + ("" if donate else " after clone()") +
                           ", per leaf)")
 
@@ -965,7 +964,6 @@ def phase_kernels(torch, timer, card):
         for label, shapes in slot_cases:
             leaves = [randn(*sh, dtype=dtype) for sh in shapes]
             donors = [randn(sh[0], 1, *sh[2:], dtype=dtype) for sh in shapes]
-            slab = sum(x.shape[0] * x[0, 0].numel() * x.element_size() for x in leaves)  # a row
             what = f"L{len(shapes)} {[list(sh) for sh in shapes]}"
 
             def install_lib(leaves=leaves, donors=donors):
@@ -979,11 +977,13 @@ def phase_kernels(torch, timer, card):
             err = check_slot(f"slot_write_rows {label} install {dtype}", leaves, donors, 1)
             timed("slot_write_rows", f"{label}-install {what} slot 1", dtype, err,
                   lambda: ops.slot_write_rows(leaves, donors, 1),
-                  lambda: ref.slot_write_rows_ref(leaves, donors, 1), install_lib, 2 * slab, 0)
+                  lambda: ref.slot_write_rows_ref(leaves, donors, 1), install_lib,
+                  *work.slot_write_rows(leaves, donors, 1)[::-1])
             err = check_slot(f"slot_write_rows {label} zero {dtype}", leaves, None, 1)
             timed("slot_write_rows", f"{label}-zero {what} slot 1 (no donor)", dtype, err,
                   lambda: ops.slot_write_rows(leaves, None, 1),
-                  lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib, slab, 0)
+                  lambda: ref.slot_write_rows_ref(leaves, None, 1), zero_lib,
+                  *work.slot_write_rows(leaves, None, 1)[::-1])
 
     # --- int4_matmul ----------------------------------------------------------------
     # the reference's shapes, a ragged N, and phase (e)'s timed 8B shapes; times
@@ -1009,7 +1009,7 @@ def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
     output, dx, dwg and dwu.  Times the forward beside the plain version and
     the composite ``silu(x@wg) * (x@wu)``, and the backward beside the
     composite's autograd backward."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     label, (M, K, N) = SWIGLU_TRAIN
     x, wg, wu = randn(M, K), randn(K, N, scale=K ** -0.5), randn(K, N, scale=K ** -0.5)
@@ -1039,7 +1039,7 @@ def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
           max_err(got[0].detach(), want[0].detach()), lambda: ops.fused_swiglu(x, wg, wu),
           lambda: ref.fused_swiglu_ref(x, wg, wu),
           lambda: torch.nn.functional.silu(x @ wg) * (x @ wu),
-          (M * K + 2 * K * N + M * N) * 4, 4 * M * K * N,
+          *work.fused_swiglu(x, wg, wu)[::-1],
           "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
     label_tp, (M, K, N) = SWIGLU_TRAIN_TP  # a tensor-parallel rank's share in (t2a)
     xt, wgt, wut = randn(M, K), randn(K, N, scale=K ** -0.5), randn(K, N, scale=K ** -0.5)
@@ -1048,7 +1048,7 @@ def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
     timed("fused_swiglu", f"{label_tp} M{M} K{K} N{N} forward", torch.float32, err,
           lambda: ops.fused_swiglu(xt, wgt, wut), lambda: ref.fused_swiglu_ref(xt, wgt, wut),
           lambda: torch.nn.functional.silu(xt @ wgt) * (xt @ wut),
-          (M * K + 2 * K * N + M * N) * 4, 4 * M * K * N,
+          *work.fused_swiglu(xt, wgt, wut)[::-1],
           "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
     del xt, wgt, wut
     label, (M, K, N) = SWIGLU_TRAIN
@@ -1058,7 +1058,7 @@ def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
     t_cbwd = timer(lambda: torch.autograd.grad(out_c, comp, dh, retain_graph=True))
     # the backward's least work: 6 products of M·K·N multiply-adds (g and u again, dx's two,
     # dwg and dwu), reading x, wg, wu, dh once and writing dx, dwg, dwu once
-    b_ms, b_by = bound((2 * M * K + 4 * K * N + M * N) * 4, 12 * M * K * N, torch.float32)
+    b_ms, b_by = work.bound(*work.swiglu_backward(x, wg, wu)[::-1], torch.float32)
     print(f"  time fused_swiglu backward {label} M{M} K{K} N{N} float32: ops.swiglu_backward "
           f"{t_bwd:.4f} ms (no kernel: the TPU kernel has no backward, so the port's is plain "
           f"products and elementwise ops), composite autograd backward {t_cbwd:.4f} ms, bound "
@@ -1125,7 +1125,7 @@ def phase_awq(torch, timer, rows, weights, card):
     and the INT4_TIMED weights are timed at M 1 and 8.  Returns the run's
     launch counts."""
     from repro_torch import quant
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     timed_at = {(label.split("-")[1], K, N): label for label, K, N in INT4_TIMED}
@@ -1170,12 +1170,10 @@ def phase_awq(torch, timer, rows, weights, card):
                                                                        order[t[0]], t[1])):
         K, N = x.shape[1], q.qweight.shape[1]
         library, note = int4pack_library(torch, x, q)
-        es = x.element_size()
-        nbytes = q.qweight.numel() + 4 * (q.scales.numel() + q.zeros.numel()) + (M * K + M * N) * es
+        n_ops, nbytes = work.int4_matmul(x, *q[:3], group_size=AWQ_GROUP)
         time_row(rows, timer, card, "int4_matmul", f"{label} M{M} K{K} N{N} g{AWQ_GROUP}", dtype,
                  err, lambda: ops.int4_matmul(x, *q[:3], group_size=AWQ_GROUP),
-                 lambda: ref.int4_matmul_ref(x, *q[:3], AWQ_GROUP), library, nbytes,
-                 2 * M * K * N, note)
+                 lambda: ref.int4_matmul_ref(x, *q[:3], AWQ_GROUP), library, nbytes, n_ops, note)
     return counts
 
 
@@ -1230,6 +1228,9 @@ class SyncCounter:
     @property
     def n(self) -> int:
         return len(self.where)
+
+
+SYNC_SITES: dict = {}  # path label -> where its rounds synced (count_syncs, SyncCounter)
 
 
 def count_syncs(torch, sess, prompt, rounds: int):
@@ -1372,6 +1373,7 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card, kernels=MAIN_KERNEL
     wall = monotonic() - t0
     counts = ops.launch_counts()
     syncs, sync_lines = count_syncs(torch, sess, prompts[0], rounds=4)
+    SYNC_SITES[label] = sync_lines
     for i, (out, (ref_toks, margins)) in enumerate(zip(outs, refs)):
         if out != ref_toks[:len(out)] or len(out) != eng.cfg.max_new:
             j = next((p for p, (a, b) in enumerate(zip(out, ref_toks)) if a != b), len(out))
@@ -1443,7 +1445,8 @@ def serve_continuous(torch, label, tag, eng, tp, dp, trace, refs, card):
           f"syncs per round; overlap_draft_verify {bd['overlap_draft_verify_s'] * 1e3:.2f} ms, "
           f"draft serialized {bd['draft_serialized_frac']:.3f} of the round (d={eng.cfg.d}) "
           f"on {card}", flush=True)
-    print(f"{label}: host syncs made at {sorted(set(sc.where))}", flush=True)
+    SYNC_SITES[label] = sorted(set(sc.where))
+    print(f"{label}: host syncs made at {SYNC_SITES[label]}", flush=True)
     print(f"{label}: kernel launches {counts}", flush=True)
     if sorted(results) != [r.rid for r in trace]:
         fail(f"{label}: served {sorted(results)}, not every request of the trace")
@@ -1633,7 +1636,8 @@ def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card, kernels=CHAIN
           f"{rounds * (c.k - 1)} drafts, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, "
           f"{toks / wall:.2f} tok/s, {syncs:.2f} host syncs per round (+1 per request: its first "
           f"token) (k={c.k}, {c.mode}) on {card}; every output equals the greedy decode", flush=True)
-    print(f"{label}: host syncs made at {sorted(set(sc.where))}", flush=True)
+    SYNC_SITES[label] = sorted(set(sc.where))
+    print(f"{label}: host syncs made at {SYNC_SITES[label]}", flush=True)
     print(f"{label}: kernel launches {counts}, per round {per_round}", flush=True)
     if sc.n != rounds + len(prompts):
         fail(f"{label}: {sc.n} host syncs for {rounds} rounds of {len(prompts)} request(s), not "
@@ -1691,8 +1695,10 @@ def phase_serve(torch, card):
     print("serve (a): reduced: the first 2 of the serve CLI's 3 requests", flush=True)
     refs = [greedy_decode(torch, eng.target, tp, p, eng.cfg.max_new, eng.S_max_t) for p in prompts]
     counts = {"a": run_path(torch, "main path (a) 8B+1B", eng, tp, dp, prompts, refs, card)}
+    check_decode_work(torch, eng.target, tp, eng.S_max_t, card)
     # (b) self-draft, built the way examples/quickstart.py builds it (draft = target)
-    cfg_b = SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=48)
+    # reduced: max_new 24 (was 48), a cut for phase (y)
+    cfg_b = SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=24)
     eng_b = SpecEngine(eng.target, eng.target, cfg_b, S_max_t=512, S_max_d=512)
     counts["b"] = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts[:2],
                            refs[:2], card)
@@ -3023,6 +3029,248 @@ def phase_shapes(torch, log, card):
           flush=True)
 
 
+# -----------------------------------------------------------------------------
+# (y) the dry run against the card
+# -----------------------------------------------------------------------------
+
+_DRYRUN_PROCS: list = []
+
+
+DRYRUN_OUT = os.path.join(HERE, "build", "dryrun_smoke")
+DRYRUN_MEMORY = os.path.join(DRYRUN_OUT, "memory.json")  # (y2)'s counts on meta
+
+
+def start_dryrun() -> None:
+    """(y1): start the dry run of ``DRYRUN_CELLS`` in one process per
+    architecture on the host's CPU (meta tensors: no card, CUDA hidden from
+    it), and (y2)'s memory counts (``predict_memory``) in one more, so that
+    they run while the card's phases do; ``phase_dryrun`` reads what they
+    wrote."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), CUDA_VISIBLE_DEVICES="")
+    for arch, shapes in DRYRUN_CELLS:
+        shape = shapes[0] if len(shapes) == 1 else "all"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "pod1", "--out", DRYRUN_OUT]
+        _DRYRUN_PROCS.append((arch, shapes, subprocess.Popen(
+            cmd, cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    code = (f"import sys; sys.path[:0] = [{HERE!r}]; import chip_smoke; "
+            f"chip_smoke.predict_memory({DRYRUN_MEMORY!r})")
+    _DRYRUN_PROCS.append(("(y2) memory", (), subprocess.Popen(
+        [sys.executable, "-c", code], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)))
+    atexit.register(lambda: [p.kill() for *_, p in _DRYRUN_PROCS if p.poll() is None])
+
+
+def check_decode_work(torch, model, params, S_max: int, card) -> None:
+    """(y2) work: one ``decode_step`` of ``model`` counted by
+    ``launch/cost.py`` on the card must equal the same step counted on meta
+    — operations, bytes and calls per kernel wrapper, both phases; its
+    roofline time (information) printed beside its measured time."""
+    from repro_torch.kernels.work import HBM_BYTES_PER_S, PEAK_OPS
+    from repro_torch.launch import cost
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.api import make_model
+
+    cfg = model.cfg
+
+    def args(m, p, device):
+        cache = m.init_cache(1, S_max)
+        cache["len"] = DRYRUN_DECODE_LEN
+        return p, cache, torch.zeros((1, 1), dtype=torch.int32, device=device)
+
+    step = make_decode_step(cfg, model, S_max=S_max)
+    on_card = args(model, params, "cuda")
+    got, _ = cost.count(step, *on_card)
+    meta_model = make_model(cfg, "meta")
+    want, _ = cost.count(make_decode_step(cfg, meta_model, S_max=S_max),
+                         *args(meta_model, meta_model.init(0), "meta"))
+    if got.work() != want.work():
+        fail(f"(y2) work: {cfg.name} decode_step counted on the card {got.work()} differs from "
+             f"the count on meta {want.work()}")
+    times = []
+    for _ in range(5):
+        s0, e0 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0.record()
+        step(*on_card)
+        e0.record()
+        e0.synchronize()
+        times.append(s0.elapsed_time(e0))
+    t_roof = max(got.total_flops / PEAK_OPS[str(params.embed.dtype)],
+                 got.total_bytes / HBM_BYTES_PER_S) * 1e3
+    print(f"(y2) work: {cfg.name} decode_step (B 1, cache {DRYRUN_DECODE_LEN} of {S_max} rows, "
+          f"f32) counted on the card = on meta: {got.total_flops:.6e} operations, "
+          f"{got.total_bytes:.6e} bytes, calls {got.calls}; roofline {t_roof:.4f} ms "
+          f"(H100 SXM data sheet) beside a measured {sorted(times)[2]:.4f} ms (median of 5, "
+          f"CUDA events) on {card}", flush=True)
+
+
+def _train_placed(torch, device, B=TRAIN_B, S=TRAIN_S):
+    """Phase (t)'s llama3-1b model, weights, AdamW state and a B x S batch
+    on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import make_model
+    from repro_torch.optim import adamw_init
+
+    model = make_model(get_config("llama3-1b"), device)
+    params = model.init(0, trainable=True)
+    batch = {"tokens": torch.zeros((B, S + 1), dtype=torch.int32, device=device)}
+    return model, params, adamw_init(params), batch
+
+
+def predict_memory(path: str) -> None:
+    """(y2)'s counts on meta, written to ``path``: phase (t)'s llama3-1b
+    train step at each of ``DRYRUN_MEMORY_SHAPES`` counted by
+    ``launch/cost.py`` with each ``remat`` — the
+    arguments, the bytes live when the backward starts (what the forward
+    saved for it), the peak up to the backward's end and the whole step's
+    peak.  Runs in a process of its own, with no card."""
+    import torch
+
+    from repro_torch.launch import cost
+    from repro_torch.launch.steps import make_train_step
+
+    out = {}
+    for B, S in DRYRUN_MEMORY_SHAPES:
+        for remat in ("none", "full"):
+            model, params, opt, batch = _train_placed(torch, "meta", B, S)
+            c, _ = cost.count(make_train_step(model.cfg, model, remat=remat), params, opt, batch)
+            out.setdefault(f"{B}x{S}", {})[remat] = {
+                "args": c.argument_bytes, "saved": c.live_at_backward,
+                "fwd+bwd": c.peak_to_backward_end, "step": c.peak_bytes}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _dryrun_memory(torch, B: int, S: int, remat: str, want: dict, card) -> dict:
+    """(y2) memory of phase (t)'s llama3-1b train step at B x S with
+    ``remat``: the dry run's counts on meta (``predict_memory``'s ``want``)
+    against the card's allocator.  -> {what: (counted, card)}."""
+    import gc
+
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.common import cross_entropy_loss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model, params, opt, batch = _train_placed(torch, "cuda", B, S)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    got = {"args": torch.cuda.memory_allocated() - base}
+    tokens = batch["tokens"]
+    loss = cross_entropy_loss(model.forward_train(params, tokens=tokens[:, :-1], remat=remat),
+                              tokens[:, 1:])
+    torch.cuda.synchronize()
+    got["saved"] = torch.cuda.memory_allocated() - base
+    del loss
+    step = make_train_step(cfg, model, remat=remat)
+    for what, run in (("fwd+bwd", lambda: loss_and_grads(model, params, batch, remat)),
+                      ("step", lambda: step(params, opt, batch))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        got[what] = torch.cuda.max_memory_allocated() - base
+        del out
+    del model, params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {what: (want[what], got[what]) for what in ("args", "saved", "fwd+bwd", "step")}
+    for what, (w, g) in rec.items():
+        tol = DRYRUN_ARG_TOL if what == "args" else DRYRUN_PEAK_TOL
+        err = abs(w - g) / g
+        print(f"(y2) memory: llama3-1b train B{B} x S{S} f32 remat={remat!r} "
+              f"{what}: counted {w / 2**30:.4f} GiB, card {g / 2**30:.4f} GiB "
+              f"({err * 100:.2f} %, tolerance {tol * 100:.0f} %) on {card}", flush=True)
+        if err > tol:
+            fail(f"(y2) memory: remat={remat!r} {what}: the count {w} bytes is "
+                 f"{err * 100:.2f} % from the card's {g} (tolerance {tol * 100:.0f} %)")
+    return rec
+
+
+def check_memory(torch, card) -> None:
+    """(y2) memory: ``predict_memory``'s counts against the card's, at each
+    of ``DRYRUN_MEMORY_SHAPES``."""
+    with open(DRYRUN_MEMORY) as f:
+        predicted = json.load(f)
+    for (B, S), activations in DRYRUN_MEMORY_SHAPES.items():
+        rec = {r: _dryrun_memory(torch, B, S, r, predicted[f"{B}x{S}"][r], card)
+               for r in ("none", "full")}
+        # remat moves what the forward saves for the backward, and with it the forward +
+        # backward peak where the activations set it (else the gradients do, alike)
+        for side, i in (("counted", 0), ("card", 1)):
+            if not rec["full"]["saved"][i] < rec["none"]["saved"][i]:
+                fail(f"(y2) memory B{B} x S{S}: remat='full' does not save less for the "
+                     f"backward than 'none' ({side}: {rec['full']['saved'][i]} vs "
+                     f"{rec['none']['saved'][i]})")
+            full, none = rec["full"]["fwd+bwd"][i], rec["none"]["fwd+bwd"][i]
+            if (activations and not full < none) or full > none:
+                fail(f"(y2) memory B{B} x S{S}: remat='full''s forward + backward peak is not "
+                     f"{'below' if activations else 'at or below'} 'none''s "
+                     f"({side}: {full} vs {none})")
+        setter = "the activations" if activations else "the gradients"
+        print(f"(y2) memory B{B} x S{S}: remat='full' saves less for the backward on both "
+              f"sides: counted {rec['none']['saved'][0] / 2**30:.4f} -> "
+              f"{rec['full']['saved'][0] / 2**30:.4f} GiB, card "
+              f"{rec['none']['saved'][1] / 2**30:.4f} -> {rec['full']['saved'][1] / 2**30:.4f} "
+              f"GiB; forward + backward peak ({setter} set it) counted "
+              f"{rec['none']['fwd+bwd'][0] / 2**30:.4f} -> "
+              f"{rec['full']['fwd+bwd'][0] / 2**30:.4f} GiB, card "
+              f"{rec['none']['fwd+bwd'][1] / 2**30:.4f} -> "
+              f"{rec['full']['fwd+bwd'][1] / 2**30:.4f} GiB", flush=True)
+
+
+def phase_dryrun(torch, card) -> None:
+    """(y): the dry run's records (y1), its memory against the card's (y2),
+    and the static HOTSYNC rule against the runtime sync counter (y3)."""
+    for what, shapes, proc in _DRYRUN_PROCS:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"(y1) the dry run of {what} did not end in 600 s")
+        if shapes:
+            print("\n".join(f"(y1) {line}" for line in text.strip().splitlines() if line),
+                  flush=True)
+        if proc.returncode != 0:
+            fail(f"(y1) the dry run of {what} exited {proc.returncode}: {text[-2000:]}")
+        for shape in shapes:
+            with open(os.path.join(DRYRUN_OUT, "pod1", f"{what}__{shape}.json")) as f:
+                rec = json.load(f)
+            if rec["status"] != "ok":
+                fail(f"(y1) {what} {shape}: status {rec['status']}")
+
+    check_memory(torch, card)
+
+    from repro_torch.analysis import build_project_context
+    from repro_torch.analysis.core import analyze_file
+
+    pkg = os.path.join(HERE, "src", "repro_torch")
+    project = build_project_context([pkg])
+    if not SYNC_SITES.get("main path (a) 8B+1B"):
+        fail("(y3) path (a) recorded no sync site")
+    lines = collections.defaultdict(list)  # the port's line -> the paths that synced there
+    for label, sites in SYNC_SITES.items():
+        for site in sites:
+            where = site.split(" via ", 1)[-1].split(" <- ")[0]  # the innermost port frame
+            if not where.startswith("src/repro_torch/"):
+                fail(f"(y3) {label} synced outside the port's code: {site}")
+            lines[where].append(label[label.find("("):label.find(")") + 1] or label)
+    for where, labels in sorted(lines.items()):
+        path, line = where.rsplit(":", 1)
+        found = analyze_file(os.path.join(HERE, path), pkg, project, with_suppressed=True)
+        if not any(f.rule == "HOTSYNC" and f.suppressed and f.line == int(line) for f in found):
+            fail(f"(y3) {labels} synced at {where}, where the port's HOTSYNC rule reports no "
+                 f"suppressed finding")
+        print(f"(y3) {where}: a suppressed HOTSYNC line (a designated sync), where "
+              f"{len(labels)} path(s) synced: {sorted(set(labels))}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3049,6 +3297,7 @@ def main() -> int:
     card = f"[{smi}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    start_dryrun()
     phase_build()
     timing("build")
     timer = Timer(torch)
@@ -3078,6 +3327,8 @@ def main() -> int:
     timing("tp (p1)-(p3), split (s1)-(s2) and families (q1)-(q4)")
     counts.update(phase_fleet(torch, card, log))
     timing("fleet (r)")
+    phase_dryrun(torch, card)
+    timing("dryrun (y1)-(y3)")
     log.uninstall()
     phase_shapes(torch, log, card)
     timing("shapes")

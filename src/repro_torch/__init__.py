@@ -10,7 +10,10 @@ those paths.  It imports neither jax nor anything of ``repro``.
 Every entry point takes an explicit ``device``.  Left unset it means
 ``cuda``; without a CUDA device that raises rather than falling back to the
 CPU.  The CPU runs only when the caller asks for it (the parity tests do),
-and then every kernel wrapper takes its plain PyTorch version.
+and then every kernel wrapper takes its plain PyTorch version.  An explicit
+``meta`` builds tensors with shapes and no storage (the dry run,
+``launch/dryrun.py``): every kernel wrapper then returns its outputs'
+shapes without arithmetic.  Nothing defaults to it.
 """
 
 from __future__ import annotations
@@ -19,14 +22,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA request without a CUDA device raises."""
+    """``None`` -> ``cuda``; a CUDA request without a CUDA device raises.
+    ``meta`` only when asked for by name."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' to "
             "run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda', 'cpu' or 'meta', not {dev}")
     return dev
 
 

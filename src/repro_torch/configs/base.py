@@ -163,6 +163,34 @@ class ModelConfig:
 
 
 # -----------------------------------------------------------------------------
+# Shape cells (``repro.configs.base``: 4 shapes per LM arch).
+# -----------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """long_500k only runs for sub-quadratic archs (assignment rule)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k dense-KV decode is the quadratic regime the shape excludes (DESIGN.md §6)"
+    return True, ""
+
+
+# -----------------------------------------------------------------------------
 # Arbitrary-TP padding (paper §4 "Enabling arbitrary tensor parallelism").
 # -----------------------------------------------------------------------------
 
@@ -217,9 +245,29 @@ PORTED = ["llama3-8b", "llama3-1b", "qwen2.5-14b", "zamba2-2.7b", "llama3-3b", "
           "llama-3.2-vision-90b"]
 
 
+ASSIGNED = [
+    "mixtral-8x22b",
+    "deepseek-moe-16b",
+    "qwen2.5-14b",
+    "granite-20b",
+    "deepseek-coder-33b",
+    "minicpm3-4b",
+    "musicgen-large",
+    "zamba2-2.7b",
+    "llama-3.2-vision-90b",
+    "rwkv6-7b",
+]
+
+PAPER_OWN = ["llama3-70b", "llama3-8b", "llama3-3b", "llama3-1b", "deepseek-coder-1.3b"]
+
+
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in PORTED:
         raise KeyError(f"unknown architecture {name!r}; known: {', '.join(PORTED)}")
     mod_name = name.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.CONFIG
+
+
+def all_arch_names():
+    return list(ASSIGNED)

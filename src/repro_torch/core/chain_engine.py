@@ -184,7 +184,8 @@ class ChainSession:
                 tlogits, tcache = eng._tprefill(tparams, _to_device(prompt, eng.device))
                 first_t = tlogits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             first_t = eng._share(first_t, "target", (1, 1))
-            first = int(first_t[0, 0])  # the request's first token: its one extra sync
+            # repro_torch: disable=HOTSYNC — the request's first token: its one extra sync
+            first = int(first_t[0, 0])
         if eng.runs_draft:
             with eng._draft():
                 _, dcache = eng._dprefill(dparams, _to_device(prompt, eng.device))
@@ -243,6 +244,7 @@ class ChainSession:
             # --- the round's one host sync ---------------------------------------
             with obs.span("sync_emitted", track), eng._target():
                 argmax = eng._share(argmax, "target", (1, k))  # a split's verdict: to every rank
+                # repro_torch: disable=HOTSYNC — the round's one designated sync: verdict + drafts
                 host = torch.cat([argmax, drafts], dim=1).cpu().numpy()[0]
             vspan.end()
             argmax_h, drafts_h = host[:k], host[k:]
@@ -251,6 +253,7 @@ class ChainSession:
                 n_acc += 1
             n_emit = n_acc + 1
 
+            # repro_torch: disable=HOTSYNC — argmax_h is host numpy (the sync above)
             for t in argmax_h[:n_emit].tolist():
                 out.append(int(t))
                 if (c.eos_id >= 0 and t == c.eos_id) or len(out) >= max_new:

@@ -706,10 +706,12 @@ class EngineSession:
             buf, verify = eng._verdict(verify, B)
             # the round's ONE designated host sync: one fused transfer (on a
             # split, of the broadcast verdict)
-            if buf is None:
-                host = pack((verify[1], *verify[3:])).cpu().numpy()  # n_acc, emitted, n_emitted
+            if buf is None:  # n_acc, emitted, n_emitted
+                # repro_torch: disable=HOTSYNC — the round's one designated sync
+                host = pack((verify[1], *verify[3:])).cpu().numpy()
                 n_acc_h, emitted_h, n_emitted_h = unpack(host, (1, c.bs + 1, 1))
             else:
+                # repro_torch: disable=HOTSYNC — the round's one designated sync (a split's)
                 _, n_acc_h, _, emitted_h, n_emitted_h = unpack(buf.cpu().numpy(),
                                                                verdict_widths(c.bs))
         # --- re-root, fill, grow, select next batch (draft) -------------------
@@ -822,7 +824,7 @@ class EngineSession:
             # prediction cross in a single fused transfer
             fused = (pack(verify + rif.pred) if vbuf is None else
                      torch.cat([vbuf, pbuf], dim=1))
-            host = fused.cpu().numpy()
+            host = fused.cpu().numpy()  # repro_torch: disable=HOTSYNC — the designated sync
         rif.verify_span.end()
         (acc_h, n_acc_h, bonus_h, emitted_h, n_emitted_h, pred_acc_h, pred_n_h,
          pred_bonus_h) = unpack(host, verdict_widths(bs) + pred_widths(bs))
@@ -880,6 +882,7 @@ class EngineSession:
         rounds_cap = max_new + 2  # greedy emits >=1 token/round
 
         for _ in range(rounds_cap):
+            # repro_torch: disable=HOTSYNC — SpecStats.emitted_rows is host numpy
             longest = 0 if stats.emitted_rows is None else int(stats.emitted_rows.max())
             if done.all() or (P + longest) >= eng.plen_budget:
                 break

@@ -3,9 +3,13 @@
 A CPU tensor goes to the plain PyTorch version in ``kernels/ref.py``; a CUDA
 tensor goes to the hand-written kernel in ``csrc/`` or the wrapper raises.
 Nothing — no flag, no environment variable, no ``try`` — sends a CUDA tensor
-to a plain version.  Each wrapper adds one to ``LAUNCHES[name]`` where it
-launches its kernel and nowhere else, so a run can show which kernels its
-path went through.  Kernels launch on PyTorch's current stream and do not
+to a plain version.  A meta tensor (the dry run, asked for by name) goes to
+the wrapper's meta branch, which returns outputs of the kernel's shapes and
+dtype with no arithmetic and no library call, and allocates the scratch
+the kernel's launch allocates, so that a memory count sees it; each
+wrapper is one unit of ``kernels.work``'s count.  Each wrapper adds one to
+``LAUNCHES[name]`` where it launches its kernel and nowhere else, so a run
+can show which kernels its path went through.  Kernels launch on PyTorch's current stream and do not
 synchronise; the wrappers allocate every output and scratch buffer.
 Every kernel with a split combine (tree_attention, decode_attention,
 fused_swiglu, int4_matmul) takes atomic tickets from one zeroed buffer kept
@@ -21,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0,
             "slot_write_rows": 0, "int4_matmul": 0}
@@ -58,16 +62,16 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def _on_cuda(name: str, *tensors) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on a mix or any
-    other device."""
+def _route(name: str, *tensors) -> str:
+    """"cuda", "cpu" or "meta": the one device of the inputs; raises on a
+    mix or any other device."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: inputs on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type
 
 
 def _stream(dev) -> int:
@@ -115,6 +119,23 @@ def _attention_scratch(lib, q, B, n, hq, hkv, hd, S, kv_end):
     return split_keys, n_launch, part_acc, part_ml, ctr, stream
 
 
+_ATTENTION_ROWS = {torch.float32: 8, torch.bfloat16: 16}  # attention.cuh's Tile<T>::kRows
+
+
+def _attention_scratch_meta(q, B, n, hq, hkv, hd, S, kv_end):
+    """The partial buffers ``_attention_scratch`` allocates for one launch,
+    on meta (the tickets are the stream's, allocated once)."""
+    rows = _ATTENTION_ROWS[q.dtype]
+    n_rowtiles = -(-(hq // hkv) * n // rows)
+    _, n_launch = attn_plan(S, kv_end)
+    if n_launch == 1:
+        return ()
+    return (torch.empty(B * hkv * n_rowtiles * rows * n_launch * hd, dtype=torch.float32,
+                        device=q.device),
+            torch.empty(B * hkv * n_rowtiles * rows * n_launch * 2, dtype=torch.float32,
+                        device=q.device))
+
+
 def _tickets(dev, stream: int, need: int):
     """The zeroed int32 ticket buffer of (device, stream), at least ``need``
     long: a split kernel takes one ticket per split and the last block to
@@ -131,6 +152,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@work.counted("tree_attention", work.tree_attention)
 def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
     """q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S].
 
@@ -142,7 +164,15 @@ def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
     past it (the mask is False there): the kernel then neither loads those
     keys nor launches their splits, and the result is the same bit for bit
     as without it.  The CPU path checks the promise."""
-    if not _on_cuda("tree_attention", q, k, v, mask):
+    route = _route("tree_attention", q, k, v, mask)
+    if route == "meta":
+        S = k.shape[1]
+        kv_end = S if kv_bound is None else max(0, min(int(kv_bound), S))
+        scratch = _attention_scratch_meta(q, *q.shape[:3], k.shape[2], q.shape[3], S, kv_end)
+        out = torch.empty_like(q)
+        del scratch
+        return out
+    if route == "cpu":
         if kv_bound is not None and bool(mask[..., max(0, int(kv_bound)):].any()):
             raise ValueError(f"tree_attention: the mask attends a key at or past "
                              f"kv_bound={kv_bound}")
@@ -175,6 +205,7 @@ def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
 # -----------------------------------------------------------------------------
 
 
+@work.counted("decode_attention", work.decode_attention)
 def decode_attention(q, k, v, length):
     """q: [B, Hq, hd]; k, v: [B, S, Hkv, hd]; length: int [B] tensor, or a
     host int for every batch row.
@@ -188,7 +219,15 @@ def decode_attention(q, k, v, length):
     per_row = isinstance(length, torch.Tensor)
     if per_row and tuple(length.shape) != (B,):
         raise ValueError(f"decode_attention: length must be [B={B}], got {tuple(length.shape)}")
-    if not _on_cuda("decode_attention", q, k, v, *((length,) if per_row else ())):
+    route = _route("decode_attention", q, k, v, *((length,) if per_row else ()))
+    if route == "meta":
+        S = k.shape[1]
+        kv_end = S if per_row else max(0, min(int(length), S))
+        scratch = _attention_scratch_meta(q, B, 1, hq, k.shape[2], hd, S, kv_end)
+        out = torch.empty_like(q)
+        del scratch
+        return out
+    if route == "cpu":
         lt = length if per_row else torch.full((B,), int(length), dtype=torch.int32)
         return ref.decode_attention_ref(q, k, v, lt)
     q, k, v = _check_attention("decode_attention", q, k, v, B)
@@ -255,6 +294,7 @@ def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
 # -----------------------------------------------------------------------------
 
 
+@work.counted("fused_swiglu", work.fused_swiglu, work.swiglu_backward)
 def fused_swiglu(x, wg, wu):
     """x: [M, K]; wg, wu: [K, N] -> silu(x@wg) * (x@wu), [M, N] in x's dtype.
     The kernel takes float32 or bfloat16, any N (a tensor-parallel rank's
@@ -265,8 +305,14 @@ def fused_swiglu(x, wg, wu):
     CUDA, when an input requires a gradient (a training forward), the
     kernel runs inside ``_FusedSwiGLU``, whose backward is
     ``swiglu_backward``.  Without one (every serving path) the kernel is
-    called directly and no graph is built."""
-    if not _on_cuda("fused_swiglu", x, wg, wu):
+    called directly and no graph is built.  On meta the same, with the
+    meta branch in place of the kernel."""
+    route = _route("fused_swiglu", x, wg, wu)
+    if route == "meta":
+        if torch.is_grad_enabled() and (x.requires_grad or wg.requires_grad or wu.requires_grad):
+            return _FusedSwiGLU.apply(x, wg, wu)
+        return _fused_swiglu_meta(x, wg, wu)
+    if route == "cpu":
         return ref.fused_swiglu_ref(x, wg, wu)
     if torch.is_grad_enabled() and (x.requires_grad or wg.requires_grad or wu.requires_grad):
         return _FusedSwiGLU.apply(x, wg, wu)
@@ -291,12 +337,15 @@ def swiglu_backward(x, wg, wu, dh):
 
 
 class _FusedSwiGLU(torch.autograd.Function):
-    """The fused_swiglu kernel as an autograd op on CUDA tensors: the
-    forward is the kernel, the backward ``swiglu_backward``."""
+    """The fused_swiglu kernel as an autograd op on CUDA (or meta)
+    tensors: the forward is the kernel (its meta branch), the backward
+    ``swiglu_backward``."""
 
     @staticmethod
     def forward(ctx, x, wg, wu):
         ctx.save_for_backward(x, wg, wu)
+        if x.device.type == "meta":
+            return _fused_swiglu_meta(x, wg, wu)
         return _fused_swiglu_kernel(x, wg, wu)
 
     @staticmethod
@@ -304,6 +353,19 @@ class _FusedSwiGLU(torch.autograd.Function):
         dx, dwg, dwu = swiglu_backward(*ctx.saved_tensors, dh)
         return tuple(g if need else None for g, need in zip((dx, dwg, dwu),
                                                              ctx.needs_input_grad))
+
+
+def _fused_swiglu_meta(x, wg, wu):
+    """The kernel's output on meta, with the split partials it allocates."""
+    M, K = x.shape
+    N = wg.shape[1]
+    _, splits = stream_plan(K, N, _STREAM_TILE_N, _SWIGLU_K_QUANTUM)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if splits > 1:
+        part = torch.empty(splits * 2 * min(M, _STREAM_ROWS_PER_PASS) * (-(-N // 4) * 4),
+                           dtype=torch.float32, device=x.device)
+        del part
+    return out
 
 
 def _fused_swiglu_kernel(x, wg, wu):
@@ -365,6 +427,7 @@ def kv_move_plan(leaf_shapes, B: int, M: int, elem_bytes: int) -> tuple[int, int
     return chunk, blocks(chunk)
 
 
+@work.counted("kv_move_rows", work.kv_move_leaves)
 def kv_move_leaves(leaves, src, dst, mask, *, donate: bool = False) -> list:
     """Move rows of every row leaf of one cache in one launch: leaves[i]
     [U_i, B, S, ...] (U and trailing dims may differ; B, S and the dtype
@@ -398,7 +461,10 @@ def kv_move_leaves(leaves, src, dst, mask, *, donate: bool = False) -> list:
                          f"{tuple(src.shape)}/{tuple(dst.shape)}/{tuple(mask.shape)}")
     if M == 0:
         return leaves if donate else [x.clone() for x in leaves]
-    if not _on_cuda("kv_move_leaves", *leaves, src, dst, mask):
+    route = _route("kv_move_leaves", *leaves, src, dst, mask)
+    if route == "meta":
+        return leaves if donate else [torch.empty_like(x) for x in leaves]
+    if route == "cpu":
         return [ref.kv_move_rows_ref(x, src, dst, mask) for x in leaves]
     if not all(x.is_contiguous() for x in leaves):
         raise ValueError("kv_move_leaves: the cache leaves must be contiguous")
@@ -437,6 +503,7 @@ def kv_move_rows(arr, src, dst, mask, *, donate: bool = False):
 # slot lifecycle writes
 # -----------------------------------------------------------------------------
 
+@work.counted("slot_write_rows", work.slot_write_rows)
 def slot_write_rows(cache_leaves, donor_leaves, slot: int):
     """Write batch row 0 of every donor leaf into batch row ``slot`` of the
     matching cache leaf — or zeros, when ``donor_leaves`` is None — for all
@@ -466,7 +533,10 @@ def slot_write_rows(cache_leaves, donor_leaves, slot: int):
         if not 0 <= slot < big.shape[1]:
             raise ValueError(f"slot_write_rows: slot {slot} outside [0, {big.shape[1]})")
     tensors = list(cache_leaves) + ([] if donor_leaves is None else list(donor_leaves))
-    if not _on_cuda("slot_write_rows", *tensors):
+    route = _route("slot_write_rows", *tensors)
+    if route == "meta":
+        return list(cache_leaves)
+    if route == "cpu":
         return ref.slot_write_rows_ref(cache_leaves, donor_leaves, slot)
     lib = build.lib("slot_write")
     max_leaves = lib.slot_write_rows_max_leaves()  # the kernel's pointer table
@@ -502,6 +572,7 @@ def slot_write_rows(cache_leaves, donor_leaves, slot: int):
 # int4 AWQ dequant-GEMM
 # -----------------------------------------------------------------------------
 
+@work.counted("int4_matmul", work.int4_matmul)
 def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     """x: [T, K]; qweight: int8 [K//2, N] packed (low nibble even k, high
     nibble odd k, ``repro_torch.quant``); scales/zeros: [K//group_size, N].
@@ -530,7 +601,16 @@ def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     if not (scales.is_floating_point() and zeros.is_floating_point()):
         raise TypeError(f"int4_matmul: scales/zeros must be float, got "
                         f"{scales.dtype}/{zeros.dtype}")
-    if not _on_cuda("int4_matmul", x, qweight, scales, zeros):
+    route = _route("int4_matmul", x, qweight, scales, zeros)
+    if route == "meta":
+        _, splits = stream_plan(K, N, _STREAM_TILE_N, group_size)
+        out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+        if splits > 1 and T:
+            part = torch.empty(splits * min(T, _STREAM_ROWS_PER_PASS) * (-(-N // 4) * 4),
+                               dtype=torch.float32, device=x.device)
+            del part
+        return out
+    if route == "cpu":
         return ref.int4_matmul_ref(x, qweight, scales, zeros, group_size)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"int4_matmul: x must be float32 or bfloat16, got {x.dtype}")

@@ -11,7 +11,9 @@ process per card, are carved the same way (``make_serving_ranks``): one
 split, or R replicas of one, each its own (target ranks, draft ranks).
 A training world is carved into model and data ranks (``make_train_ranks``,
 the reference's ("data", "model") mesh of ``launch/train.py
---mesh-model``).  Carving is pure: it only reads the devices it is given.
+--mesh-model``).  ``production_mesh`` names the reference's production
+meshes for the dry run (``launch/dryrun.py``).  Carving is pure: it only
+reads the devices it is given.
 """
 
 from __future__ import annotations
@@ -110,3 +112,14 @@ def make_train_ranks(world: int, mesh_model: int) -> tuple[tuple, tuple]:
     model = tuple(tuple(range(i * mesh_model, (i + 1) * mesh_model)) for i in range(n_data))
     data = tuple(tuple(range(j, world, mesh_model)) for j in range(mesh_model))
     return model, data
+
+
+def production_mesh(multi_pod: bool = False) -> dict:
+    """The reference's production meshes (``repro.launch.mesh.
+    make_production_mesh``) as the ``{axis: size}`` dict that
+    ``parallel.rules.spec_for`` takes: one pod ("data" 16 x "model" 16,
+    256 ranks), or two ("pod" 2 x "data" 16 x "model" 16, 512 ranks), the
+    "pod" axis pure data parallelism.  It touches no device."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}

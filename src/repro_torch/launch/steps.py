@@ -42,15 +42,15 @@ def _feed(model, batch) -> tuple[dict, torch.Tensor]:
     return feed, labels
 
 
-def loss_and_grads(model, params, batch) -> tuple[torch.Tensor, list]:
+def loss_and_grads(model, params, batch, remat: str = "none") -> tuple[torch.Tensor, list]:
     """Mean-token cross-entropy of ``batch`` and its gradient, one tensor per
     parameter (``param_leaves`` order; zeros for a parameter the loss does
     not reach).  Every parameter must require a gradient.  On a sharded
     model each gradient is what this rank's backward gives, before
-    ``Shard.reduce_grads``."""
+    ``Shard.reduce_grads``.  ``remat``: ``Model.forward_train``'s."""
     feed, labels = _feed(model, batch)
     leaves = param_leaves(params)
-    loss = cross_entropy_loss(model.forward_train(params, **feed), labels)
+    loss = cross_entropy_loss(model.forward_train(params, **feed, remat=remat), labels)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(leaves, grads)]
@@ -87,14 +87,15 @@ def _model_group(model):
     return group if group is not None and group.world > 1 else None
 
 
-def sharded_grads(model, params, batch, data=None, compress: bool = False):
+def sharded_grads(model, params, batch, data=None, compress: bool = False,
+                  remat: str = "none"):
     """The train step's gradient half: ``loss_and_grads``, then on a model
     sharded over a group ``Shard.reduce_grads``, then the mean over the
     data-parallel ranks ``data`` — exact (``data_mean``), or with
     ``compress`` the gradient by the int8 exchange
     (``optim.pod_allreduce_compressed``) and the loss exactly.  -> (loss,
     grads), one gradient per parameter in ``param_leaves`` order."""
-    loss, grads = loss_and_grads(model, params, batch)
+    loss, grads = loss_and_grads(model, params, batch, remat)
     group = _model_group(model)
     if group is not None:
         grads = model.shard.reduce_grads(params, grads, group)
@@ -105,7 +106,7 @@ def sharded_grads(model, params, batch, data=None, compress: bool = False):
 
 
 def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=10_000,
-                    grad_compress_pod: bool = False, data=None):
+                    grad_compress_pod: bool = False, data=None, remat: str = "none"):
     """fwd + CE loss + bwd + AdamW at the ``warmup_cosine`` learning rate of
     the state's step.  ``train_step(params, opt_state, batch) -> (params,
     opt_state, loss)``; the batch as ``_feed`` takes it.
@@ -124,7 +125,11 @@ def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=1
     whole process group, when one is initialized and the model is not
     sharded over it (its ranks data-parallel replicas; each returns its own
     rows' loss); a single-process run has no such group, and the flag
-    changes nothing, as in the reference without a "pod" mesh axis."""
+    changes nothing, as in the reference without a "pod" mesh axis.
+
+    ``remat="full"`` recomputes each unit of the plan in the backward (the
+    reference's ``remat="full"``, which its dry run trains with): the same
+    gradients, the residual between units the only activation kept."""
     group = _model_group(model)
     pod = None
     if data is None and grad_compress_pod and torch.distributed.is_available() and \
@@ -138,7 +143,8 @@ def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=1
     weights = []  # Shard.norm_weights of the params, made at the first step
 
     def train_step(params, opt_state, batch):
-        loss, grads = sharded_grads(model, params, batch, data, compress=grad_compress_pod)
+        loss, grads = sharded_grads(model, params, batch, data, compress=grad_compress_pod,
+                                    remat=remat)
         if pod is not None:
             grads = [pod_allreduce_compressed(g, pod) for g in grads]
         if group is not None and not weights:

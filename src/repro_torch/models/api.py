@@ -106,17 +106,18 @@ class Model:
         return self._embed_ids(params, tokens)
 
     # ---- training ----------------------------------------------------------
-    def forward_train(self, params, tokens=None, embeds=None, enc=None):
+    def forward_train(self, params, tokens=None, embeds=None, enc=None, remat: str = "none"):
         """Full causal forward -> logits [B, S, V]: no cache, differentiable
         in ``params`` (and in ``embeds``/``enc`` when they require a
-        gradient)."""
+        gradient).  ``remat="full"`` recomputes each unit in the backward
+        (``transformer.apply_model``)."""
         h = self._embed(params, tokens, embeds)
         B, S, _ = h.shape
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
         if enc is not None:
             enc = self._dev(enc, h.dtype)
         h, _ = apply_model(self.run_cfg, params, h,
-                           self._ctx(mode="full", positions=positions, enc=enc))
+                           self._ctx(mode="full", positions=positions, enc=enc), remat=remat)
         return self._logits(params, h)
 
     # ---- serving -----------------------------------------------------------

@@ -9,7 +9,12 @@ K/V rows into the cache first and then attends, so every node sees its own
 row.  Cache writes are in place: the lockstep round owns
 every cache it touches (see ``core/kv.py``).  Prefill attention and the
 cross blocks' attention to the encoder states are plain PyTorch, as the
-reference computes them in XLA outside any Pallas kernel.
+reference computes them in XLA outside any Pallas kernel.  Full causal
+attention runs in query chunks of ``ATTN_CHUNK`` rows, as the reference's
+(``attn_chunk``), each chunk's mask built from the positions, so neither
+the whole [S, S] mask nor the whole score tensor is ever held; under a
+gradient each chunk is recomputed in the backward, as the reference
+checkpoints it.
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, work
 from repro_torch.models.common import apply_rope
 
 
@@ -58,14 +64,68 @@ def _attend(q, k, v, mask):
     return out.reshape(B, n, hq, hd)
 
 
+ATTN_CHUNK = 512  # query rows per chunk of full attention (the reference's attn_chunk)
+
+
+def attn_chunk(S: int) -> int:
+    """Query rows per chunk for a sequence of S: ``ATTN_CHUNK``, halved
+    until it divides S."""
+    c = min(ATTN_CHUNK, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def chunked(one_chunk, S: int, *tensors):
+    """``one_chunk(start, *tensors)`` -> [B, c, ...] over the query chunks
+    of S rows, joined along dim 1; each chunk recomputed in the backward
+    when a tensor requires a gradient."""
+    c = attn_chunk(S)
+    if c == S:
+        return one_chunk(0, *tensors)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    outs = [checkpoint(one_chunk, i, *tensors, use_reentrant=False) if grad
+            else one_chunk(i, *tensors) for i in range(0, S, c)]
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(pos_q, pos_k, window: int = 0):
+    """[B, c, S] bool: query positions ``pos_q`` [B, c] see keys ``pos_k``
+    [B, S] at or before them (within ``window`` when set)."""
+    m = pos_k[:, None, :] <= pos_q[:, :, None]
+    if window:
+        m &= pos_k[:, None, :] > (pos_q[:, :, None] - window)
+    return m
+
+
+def _full_work(q, k, v, positions, window=0):
+    return work.full_attention(q, k, v)
+
+
+def _full_work_bwd(q, k, v, positions, window=0):
+    return work.full_attention_backward(q, k, v, recompute=attn_chunk(q.shape[1]) < q.shape[1])
+
+
+@work.counted("attention_full", _full_work, _full_work_bwd)
+def causal_attention(q, k, v, positions, window: int = 0):
+    """Causal attention of q [B, S, Hq, hd] over k/v [B, S, Hkv, hd] at
+    ``positions`` [B, S], in query chunks (``chunked``)."""
+    S = q.shape[1]
+    c = attn_chunk(S)
+
+    def one_chunk(i, q, k, v, positions):
+        m = causal_mask(positions[:, i:i + c], positions, window)
+        return _attend(q[:, i:i + c], k, v, m)
+
+    return chunked(one_chunk, S, q, k, v, positions)
+
+
 def attention_full(cfg, p, x, positions):
-    """Causal full-sequence attention (prefill).  Returns (out [B, S, d],
-    (k, v)) — the computed K/V for cache population."""
+    """Causal full-sequence attention (prefill, training).  Returns (out
+    [B, S, d], (k, v)) — the computed K/V for cache population."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    m = positions[:, None, :] <= positions[:, :, None]  # [B, S_q, S_k]
-    if cfg.sliding_window:
-        m &= positions[:, None, :] > (positions[:, :, None] - cfg.sliding_window)
-    return _out_proj(p, _attend(q, k, v, m)), (k, v)
+    out = causal_attention(q, k, v, positions, cfg.sliding_window or 0)
+    return _out_proj(p, out), (k, v)
 
 
 def encoder_kv(p, enc):

@@ -9,7 +9,10 @@ import torch
 def dense_init(gen: torch.Generator, shape, dtype, device, scale=None) -> torch.Tensor:
     """Truncated-normal init in [-3σ, 3σ], σ = ``scale`` or fan_in^-1/2,
     drawn by ``gen`` straight into a tensor on ``device`` (a full-width
-    model is never built on the host and copied)."""
+    model is never built on the host and copied).  On meta nothing is
+    drawn (``gen`` may be None): only the shape and dtype exist."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     t = torch.empty(shape, dtype=torch.float32, device=device)

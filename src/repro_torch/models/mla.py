@@ -16,7 +16,15 @@ import math
 
 import torch
 
-from repro_torch.models.attention import plan_row_writes, scatter_rows, update_rows_contiguous
+from repro_torch.kernels import work
+from repro_torch.models.attention import (
+    attn_chunk,
+    causal_mask,
+    chunked,
+    plan_row_writes,
+    scatter_rows,
+    update_rows_contiguous,
+)
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
@@ -62,10 +70,40 @@ def _out(p, o):
     return torch.einsum("bnhk,hkd->bnd", o, p["wo"])
 
 
+def _attend_work(q_nope, q_rope, k_nope, k_rope, v, positions, scale, backward=False):
+    d_qk = q_nope.shape[-1] + q_rope.shape[-1]
+    S = q_nope.shape[1]
+    if backward:
+        flops, nbytes = work.full_attention_backward(q_nope, k_nope, v, d_qk=d_qk,
+                                                     recompute=attn_chunk(S) < S)
+    else:
+        flops, nbytes = work.full_attention(q_nope, k_nope, v, d_qk=d_qk)
+    return flops, nbytes + (q_rope.numel() + k_rope.numel()) * q_rope.element_size() * (
+        2 if backward else 1)
+
+
+@work.counted("mla_full", _attend_work, lambda *a: _attend_work(*a, backward=True))
+def causal_mla(q_nope, q_rope, k_nope, k_rope, v, positions, scale: float):
+    """MLA's causal attention over per-head keys (``k_nope`` [B, S, H, nd]
+    and the shared ``k_rope`` [B, S, rd]) and values ``v`` [B, S, H, vd],
+    in query chunks (``attention.chunked``).  -> [B, S, H, vd]."""
+    S = q_nope.shape[1]
+    c = attn_chunk(S)
+
+    def one_chunk(i, q_nope, q_rope, k_nope, k_rope, v, positions):
+        scores = (torch.einsum("bnhk,bshk->bhns", q_nope[:, i:i + c], k_nope)
+                  + torch.einsum("bnhk,bsk->bhns", q_rope[:, i:i + c], k_rope)) * scale
+        mask = causal_mask(positions[:, i:i + c], positions)[:, None]  # [B, 1, c, S]
+        probs = torch.softmax(torch.where(mask, scores.float(), -1e30), dim=-1).to(v.dtype)
+        return torch.einsum("bhns,bshk->bnhk", probs, v)
+
+    return chunked(one_chunk, S, q_nope, q_rope, k_nope, k_rope, v, positions)
+
+
 def mla_full(cfg, p, x, positions, tp=None):
     """Causal MLA over the whole sequence (prefill), with per-head K/V built
     from the latent.  Returns (out [B, S, d], (c_kv, k_rope)) for the cache.
-    The reference computes it in query chunks, which change no value.
+    The attention runs in query chunks, as the reference's.
     ``tp``: the group the heads are split over (None: all here); the down
     projections and their norms are whole on every rank, and their outputs
     (``q_lat``, ``c_kv``, ``k_rope``) enter the rank's heads through
@@ -75,11 +113,8 @@ def mla_full(cfg, p, x, positions, tp=None):
     c_kv, k_rope = _latents(cfg, p, x, positions, tp)
     k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uk"])
     v = torch.einsum("bsl,lhk->bshk", c_kv, p["w_uv"])
-    scores = (torch.einsum("bnhk,bshk->bhns", q_nope, k_nope)
-              + torch.einsum("bnhk,bsk->bhns", q_rope, k_rope)) * scale
-    mask = (positions[:, None, :] <= positions[:, :, None])[:, None]  # [B, 1, S, S]
-    probs = torch.softmax(torch.where(mask, scores.float(), -1e30), dim=-1).to(v.dtype)
-    return _out(p, torch.einsum("bhns,bshk->bnhk", probs, v)), (c_kv, k_rope)
+    out = causal_mla(q_nope, q_rope, k_nope, k_rope, v, positions, scale)
+    return _out(p, out), (c_kv, k_rope)
 
 
 def mla_cached(cfg, p, x, cache_ckv, cache_krope, row_idx, positions, attn_mask, *,

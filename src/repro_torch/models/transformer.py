@@ -39,6 +39,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.kv import ROW_KEYS
 from repro_torch.kernels import ops
@@ -219,7 +220,9 @@ def init_model(cfg, seed: int, device, place=None) -> DecoderLM:
     recurrent blocks' dicts are placed once drawn whole."""
     plan = check_plan(cfg)
     place = place or _keep
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # meta (the dry run) draws nothing: a meta tensor has a shape and no values
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
@@ -422,12 +425,52 @@ def _row_leaves_len(groups):
     return None
 
 
-def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
+REMAT = ("none", "full")
+
+
+def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: int, heads_tp):
+    """One block of ``kind`` (weights ``p``) on the residual ``h``; returns
+    (h, its new state leaves — None for a block without state or outside
+    the cached mode)."""
+    c = nc = None
+    if kind in STATE_LEAVES and ctx.mode == "cached":
+        c = {key: leaves[key][r] for key in STATE_LEAVES[kind]}
+    if kind == "mamba2":
+        out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
+                                  ctx.n_commit, tp=heads_tp)
+        h = h + out
+    elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
+        out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
+                                    ctx.n_commit, tp=heads_tp)
+        h = h + out
+        out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps),
+                                          c, ctx.n_commit, tp=ctx.tp)
+        h = h + out
+        nc = {**nc, **nc_cm}
+    elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w
+        inp = torch.cat([h, x0], dim=-1) @ p.in_w
+        h = h + _attn_mlp(cfg, "shared", params.shared_attn, inp, ctx, leaves, r)
+    else:  # dense, moe, cross
+        h = _attn_mlp(cfg, kind, p, h, ctx, leaves, r)
+    return h, nc
+
+
+def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "none"):
     """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
     in "cached" mode the row leaves of ``cache`` are written in place and
     the returned cache holds them, the cross blocks' encoder K/V as they
     were, and new mamba2 and rwkv6 state leaves; a prefill with
-    ``make_cache`` returns a new cache."""
+    ``make_cache`` returns a new cache.
+
+    ``remat="full"`` (a forward without a cache: training) runs each unit
+    of the plan — one repeat of its group's blocks — under
+    ``torch.utils.checkpoint``, as the reference checkpoints each scanned
+    unit: the backward recomputes the unit's forward, collectives
+    included, and keeps only the residual between units."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "full" and (ctx.mode == "cached" or ctx.make_cache):
+        raise ValueError("remat='full' recomputes the forward: no cache may be written")
     plan = check_plan(cfg)
     B = h.shape[0]
     x0 = h  # the embeddings: input of every shared invocation
@@ -448,34 +491,26 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None):
         # the new state leaves of every recurrent block, one list per leaf over U
         states = {bi: {key: [] for key in STATE_LEAVES[kind]}
                   for bi, kind in enumerate(unit_def) if kind in STATE_LEAVES}
-        for r in range(U):
+
+        def run_unit(h, r, li, unit_def=unit_def, unit=unit):
+            ncs = []
             for bi, kind in enumerate(unit_def):
-                p = params.layers[li]
-                li += 1
-                leaves = None if unit is None else unit[bi]
-                c = None
-                if kind in STATE_LEAVES and ctx.mode == "cached":
-                    c = {key: leaves[key][r] for key in STATE_LEAVES[kind]}
-                if kind == "mamba2":
-                    out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
-                                              ctx.n_commit, tp=heads_tp)
-                    h = h + out
-                elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
-                    out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
-                                                ctx.n_commit, tp=heads_tp)
-                    h = h + out
-                    out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps),
-                                                      c, ctx.n_commit, tp=ctx.tp)
-                    h = h + out
-                    nc = {**nc, **nc_cm}
-                elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w
-                    inp = torch.cat([h, x0], dim=-1) @ p.in_w
-                    h = h + _attn_mlp(cfg, "shared", params.shared_attn, inp, ctx, leaves, r)
-                else:  # dense, moe, cross
-                    h = _attn_mlp(cfg, kind, p, h, ctx, leaves, r)
-                if bi in states:
+                h, nc = _apply_block(cfg, kind, params, params.layers[li + bi], h, x0, ctx,
+                                     None if unit is None else unit[bi], r, heads_tp)
+                ncs.append(nc)
+            return h, ncs
+
+        for r in range(U):
+            if remat == "full":
+                # the backward recomputes it later: bind this group's run_unit now
+                h = checkpoint(lambda h, r=r, li=li, f=run_unit: f(h, r, li)[0], h,
+                               use_reentrant=False)
+            else:
+                h, ncs = run_unit(h, r, li)
+                for bi in states:
                     for key, leaf in states[bi].items():
-                        leaf.append(nc[key])
+                        leaf.append(ncs[bi][key])
+            li += len(unit_def)
         if unit is not None:
             new_groups.append(tuple(
                 {key: torch.stack(leaf) for key, leaf in states[bi].items()}

@@ -15,6 +15,7 @@ import time
 
 def monotonic() -> float:
     """Monotonic fractional seconds; the process-wide stopwatch timebase."""
-    # the single sanctioned raw read the CLOCK rule allows
+    # the single sanctioned raw read the CLOCK rule allows (both linters')
+    # repro_torch: disable=CLOCK — this IS the abstraction
     return time.perf_counter()  # repro: disable=CLOCK — this IS the abstraction
 

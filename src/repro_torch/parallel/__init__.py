@@ -2,7 +2,8 @@
 ``repro.core.collective_matmul``).
 
 * ``group``: ``TPGroup`` (a process group with the collectives the sharded
-  forward uses, and their forms with a gradient for training), ``init_tp``
+  forward uses, and their forms with a gradient for training),
+  ``CountingGroup`` (its stand-in for the dry run, which counts), ``init_tp``
   and ``make_train_groups`` (a training world's model and data ranks);
 * ``rules``: ``DEFAULT_RULES`` and ``spec_for``, over the weights' logical
   axes (``models.axes``);
@@ -20,6 +21,7 @@ on every rank; ``launch.steps.make_train_step`` trains it.
 
 from repro_torch.parallel.group import (
     COLLECTIVES,
+    CountingGroup,
     TPGroup,
     init_tp,
     reset_collective_counts,
@@ -27,5 +29,5 @@ from repro_torch.parallel.group import (
 )
 from repro_torch.parallel.rules import DEFAULT_RULES, spec_for
 
-__all__ = ["COLLECTIVES", "DEFAULT_RULES", "TPGroup", "init_tp", "reset_collective_counts",
-           "shutdown_tp", "spec_for"]
+__all__ = ["COLLECTIVES", "CountingGroup", "DEFAULT_RULES", "TPGroup", "init_tp",
+           "reset_collective_counts", "shutdown_tp", "spec_for"]

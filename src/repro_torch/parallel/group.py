@@ -26,6 +26,13 @@ the collective it issued before the ops had a backward — in place, for
 the collective runs on a copy of its input, never in place on a tensor
 that autograd may have saved, and the backward's collectives count too.
 
+``CountingGroup`` stands in for a ``TPGroup`` where no ranks run (the
+dry run, ``launch/specs.py``): one rank's place in a group, whose
+collectives return a tensor of the right shape without communicating and
+report each call's kind and operand bytes to the cost counter, the
+per-participant count.  The four ops go through it unchanged, so a train
+step on it counts its backward's collectives too.
+
 ``make_train_groups`` carves a training world into this rank's model and
 data groups (``launch.mesh.make_train_ranks``).
 
@@ -119,6 +126,44 @@ class TPGroup:
         Every rank must call it, in the same order."""
         pg = dist.new_group(ranks=list(self.ranks), backend=self.backend)
         return dataclasses.replace(self, pg=pg)
+
+
+class CountingGroup(TPGroup):
+    """Rank ``rank`` of a group of ``world`` ranks along mesh axis ``axis``
+    ("model", or "data" for the ranks a gradient is averaged over), with
+    no process group: ``all_reduce`` and ``broadcast`` return their input,
+    ``all_gather`` a tensor of the joined shape (uninitialised), and each
+    call reports (kind, operand bytes) to the active cost counter
+    (``kernels.work``).  ``COLLECTIVES`` counts real collectives only, so
+    it is left alone."""
+
+    def __init__(self, rank: int, world: int, device="meta", axis: str = "model"):
+        super().__init__(pg=None, rank=rank, world=world, device=torch.device(device),
+                         backend="none", ranks=tuple(range(world)))
+        self.axis = axis
+
+    def _record(self, kind: str, t: torch.Tensor) -> None:
+        from repro_torch.kernels import work
+
+        if work._COUNTER is not None:
+            work._COUNTER.collective(kind, t.numel() * t.element_size(), self.axis, self.world)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        self._record("all_reduce", t)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        self._record("all_gather", t)
+        shape = list(t.shape)
+        shape[dim] *= self.world
+        return t.new_empty(shape)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        self._record("broadcast", t)
+        return t
+
+    def new_group(self) -> "CountingGroup":
+        return CountingGroup(self.rank, self.world, self.device, self.axis)
 
 
 def _needs_grad(t: torch.Tensor) -> bool:

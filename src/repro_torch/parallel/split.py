@@ -217,7 +217,7 @@ class Fleet:
         mine = torch.from_numpy(np.ascontiguousarray(row, np.int32))
         parts = [torch.empty_like(mine) for _ in range(self.exchange.world)]
         dist.all_gather(parts, mine, group=self.exchange.pg)
-        return torch.stack(parts).numpy()
+        return torch.stack(parts).numpy()  # repro_torch: disable=HOTSYNC — gloo's CPU tensors
 
 
 def make_fleet(world: TPGroup, n_target: int, n_draft: int, replicas: int) -> Fleet:

@@ -908,6 +908,38 @@ def resplit(group, job: dict) -> list:
     return out
 
 
+def remat_counts(group, job: dict) -> dict:
+    """The dry run's checks on a real group: job {"cfg", "seed", "batch"
+    (a train batch, numpy), "prompt" [B, P] ids, "S_max"}.  This rank's
+    gradient of ``batch`` with ``remat`` "none" and "full"
+    (``launch.steps.loss_and_grads``, before ``Shard.reduce_grads``), and
+    the collectives (``COLLECTIVES``) of one train step per remat
+    (``make_train_step``), of a prefill of ``prompt`` and of one decode
+    step after it."""
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
+
+    cfg = job["cfg"]
+    model, params = build(group, cfg, ("seed", job["seed"], 1.0))
+    counts, grads = {}, {}
+    with torch.no_grad():
+        reset_collective_counts()
+        _, cache = model.prefill(params, job["prompt"], S_max=job["S_max"])
+        counts["prefill"] = dict(COLLECTIVES)
+        reset_collective_counts()
+        model.decode_step(params, cache, np.zeros((len(job["prompt"]), 1), np.int32),
+                          job["S_max"])
+        counts["decode"] = dict(COLLECTIVES)
+    params.requires_grad_(True)
+    for remat in ("none", "full"):
+        grads[remat] = [_np(g) for g in loss_and_grads(model, params, job["batch"], remat)[1]]
+        reset_collective_counts()
+        make_train_step(cfg, model, remat=remat)(params, adamw_init(params), job["batch"])
+        counts[f"train_{remat}"] = dict(COLLECTIVES)
+    return {"rank": group.rank, "grads": grads, "collectives": counts}
+
+
 def several(group, calls: list) -> list:
     """Every (name, args) of ``calls``: the rank program ``name`` of this
     module on ``args``, in order on one group (one spawn for several

@@ -22,7 +22,7 @@ torch.set_num_threads(2)  # beside the other test workers and the reference's wa
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
-    sorted((ROOT / "tools").glob("*_variants.py"))
+    sorted((ROOT / "tools").glob("*.py"))
 OK_LINE = '{"ok": true'
 
 
@@ -39,6 +39,13 @@ def test_no_jax_and_no_reference_imports(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_the_walk_covers_the_tools_and_the_port_linter():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"tools/split_nccl.py", "tools/fleet_nccl.py", "tools/train_nccl.py",
+            "src/repro_torch/analysis/core.py",
+            "src/repro_torch/analysis/rules/hotsync.py"} <= names
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -74,7 +81,8 @@ def test_entry_points_without_device_raise_on_a_machine_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(cfg, {"groups": [({},)]}, None)
     with pytest.raises(ValueError):
-        make_model(cfg, "meta")
+        make_model(cfg, "mps")
+    assert make_model(cfg, "meta").device == torch.device("meta")  # asked for by name only
     assert make_model(cfg, "cpu").device == torch.device("cpu")
 
 

@@ -12,6 +12,7 @@ Tolerances: float32 2e-5 (the two sides sum in different orders), bfloat16
 
 import inspect
 import math
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -585,9 +586,12 @@ def test_wrappers_refuse_mixed_and_foreign_devices():
     kv = torch.zeros(1, 3, 1, 4, device="meta")
     with pytest.raises(ValueError, match="several devices"):
         ops.tree_attention(q, kv, kv, torch.ones(1, 1, 3, dtype=torch.bool))
+    # meta is the dry run's device: shapes out, no arithmetic; any other raises
     x = torch.zeros(2, 4, device="meta")
+    out = ops.fused_swiglu(x, torch.zeros(4, 3, device="meta"), torch.zeros(4, 3, device="meta"))
+    assert out.is_meta and out.shape == (2, 3)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.fused_swiglu(x, torch.zeros(4, 4, device="meta"), torch.zeros(4, 4, device="meta"))
+        ops._route("fused_swiglu", types.SimpleNamespace(device=torch.device("xla")))
 
 
 # -----------------------------------------------------------------------------

@@ -12,6 +12,8 @@ rounding of the output).  The CUDA kernel is held against the same plain
 version on the card by ``chip_smoke.py``.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,9 +130,11 @@ def test_int4_matmul_refuses_mixed_and_foreign_devices():
     q = quant.quantize_groupwise(torch.randn(256, 8), 128)
     with pytest.raises(ValueError, match="several devices"):
         ops.int4_matmul(torch.zeros(2, 256, device="meta"), q.qweight, q.scales, q.zeros)
-    meta = [t.to("meta") for t in q[:3]]
+    meta = [t.to("meta") for t in q[:3]]  # the dry run's device: shapes out, no arithmetic
+    out = ops.int4_matmul(torch.zeros(2, 256, device="meta"), *meta)
+    assert out.is_meta and out.shape == (2, 8)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.int4_matmul(torch.zeros(2, 256, device="meta"), *meta)
+        ops._route("int4_matmul", types.SimpleNamespace(device=torch.device("xla")))
 
 
 def test_int4_matmul_takes_scales_of_another_float_dtype_as_f32():

@@ -37,6 +37,7 @@ the card's name and power limit.  Nothing here is imported by the port.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -98,6 +99,12 @@ def child(src: str, name: str) -> None:
     sys.path.insert(1, HERE)
     import chip_smoke as cs
 
+    # this checkout's work formulas, whichever checkout's kernel is timed
+    spec = importlib.util.spec_from_file_location(
+        "work", os.path.join(HERE, "src", "repro_torch", "kernels", "work.py"))
+    work = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(work)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.build_all(("kv_moves",))
@@ -126,7 +133,8 @@ def child(src: str, name: str) -> None:
                         what = ("in place" if donate else "copy-through") + \
                             (", k+v" if len(use) == 2 else ", one leaf")
                         ms = timer(move(use, plan, donate))
-                        bound = cs.kv_move_bytes(use, *plan, donate) / cs.HBM_BYTES_PER_S * 1e3
+                        bound = work.kv_move_leaves(use, *plan, donate=donate, data=True)[1] \
+                            / work.HBM_BYTES_PER_S * 1e3
                         line = (f"variant {name} kv_move {label} U{U} B{B} S{S} F{Fw} M{M} {dt} "
                                 f"{what}: {ms:.4f} ms (bound {bound:.4f})")
                         if name == "kernel":
