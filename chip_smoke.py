@@ -127,6 +127,12 @@ It takes no options and runs every phase, in order:
            step 1's learning rate, every whole tensor's gradient bit equal on
            both ranks, fused_swiglu in every layer of every step; each
            rank's step time, collectives per step and peak memory printed;
+           (t2s) in the same ranks, the same steps with the residual
+           stream split over the ranks by sequence (``seq_shard``: each
+           rank's rows [2, 128, 2048] between the blocks, fused_swiglu at
+           the gathered M 512), held to the same single-process step by
+           the same gates, a reduce-scatter in every rank's steps, its
+           collectives per step and peak printed beside (t2a)'s;
            (t2b) ``launch.train.train`` with mesh_model 2 on 4 gloo ranks
            (2 data x 2 model) on the smoke config: its losses the
            single-process run's on the same global batches, and a run
@@ -148,7 +154,14 @@ It takes no options and runs every phase, in order:
            port's per lockstep round (the collectives, staged through the
            host by gloo, are reported apart); (p3) (p1)'s target on an NCCL
            group of one rank in this process: its prefill bit for bit equal
-           to the model without a group
+           to the model without a group; (p1 seq) in (p1)'s ranks, last,
+           its target prefilled with the residual stream split by sequence
+           (``workers.seq_prefill``): the logits within 2e-4 of the
+           single-process model's, the logits and every cache leaf within
+           1e-5 of their scale of the rank's whole-sequence prefill, 4
+           greedy tokens from its cache equal to those from the
+           whole-sequence cache, no all-reduce, 2 x 8 + 1 reduce-scatters,
+           fused_swiglu in every layer
   split    (s), the disaggregated engine, run in the ranks of (p1)'s and
            (p2)'s spawns after them (``workers.split_engine``): target and
            draft on disjoint rank groups that share the card through gloo,
@@ -215,7 +228,12 @@ It takes no options and runs every phase, in order:
            ``DRYRUN_PEAK_TOL`` of ``max_memory_allocated()``, "full"
            saving less for the backward on both sides, and at S 2048,
            where the activations set it, "full"'s forward + backward peak
-           below "none"'s on both sides; (y2)
+           below "none"'s on both sides; then (t2a)'s and (t2s)'s step of a
+           rank counted on meta over a ``CountingGroup`` (in the same
+           background process) against each rank's allocator: the
+           arguments within 1 %, the steps' peak within 10 %; (y1)'s train
+           and prefill records sequence-sharded, the decode and long ones
+           not; (y2)
            work (in phase serve, on (a)'s weights): one 8B ``decode_step``
            counted by ``launch/cost.py`` on the card equal to the same
            step counted on meta (operations, bytes, calls per kernel
@@ -327,6 +345,9 @@ TRAIN_GRAD_TOL = 1e-4
 # (t2a): the share of the joined parameters that may lie beyond the smoke tests' tolerance
 # (elements whose gradient sits at its tensor's rounding floor), each within one AdamW step
 TRAIN_PARAM_SHARE = 1e-6
+# (t2a)/(t2s): each rank's bytes allocated by the job (at its first step's start, at the peak
+# of its steps), beyond what the process held when the job started
+TRAIN_TP_MEMORY: dict = {}
 DRYRUN_CELLS = (("qwen2.5-14b", ("decode_32k", "prefill_32k", "train_4k")),
                 ("zamba2-2.7b", ("long_500k",)))  # (y1): pod1
 DRYRUN_ARG_TOL = 0.01  # (y2): counted argument bytes against memory_allocated()
@@ -425,6 +446,11 @@ TP_BACKEND = "gloo"  # several ranks on one card: NCCL refuses two ranks on one 
 # split over the ranks and added by the all-reduce, so they round in another order; the
 # reference's own tensor-parallel tolerance (tests/test_sharding.py:65)
 TP_LOGIT_TOL = 2e-4
+# (p1) seq: a prefill with the residual stream split by sequence against the whole-sequence
+# prefill of the same rank (logits and every cache leaf, f32, of each tensor's scale), and the
+# greedy steps decoded from each cache, which must be the same tokens
+SEQ_PREFILL_TOL = 1e-5
+SEQ_PREFILL_DECODE = 4
 FAMILY_TOKENS = 16  # max_new of (h1)-(h4)
 VISION_LAYERS = 5  # (h5): one unit of llama-3.2-vision-90b, 4 dense blocks + 1 cross, of 100
 VISION_STEPS = 16  # (h5): prompt 16, then 16 greedy decode steps
@@ -2192,27 +2218,29 @@ def phase_train_tp(torch, card, log):
     rank at the rank's width.  Prints each rank's step time, collectives
     per step and peak memory.
 
+    (t2s): in the same ranks after (t2a), the same steps with the residual
+    stream split over the ranks by sequence (``seq_shard``), held to the
+    same single-process step by the same gates (``check_tp_train``), with a
+    reduce-scatter in every rank's steps; its peak memory is printed beside
+    (t2a)'s, and each rank's allocator figures (at the first step's start,
+    and the peak of the steps) are kept in ``TRAIN_TP_MEMORY`` for phase
+    (y) to hold the dry run's count against.
+
     (t2b): ``launch.train.train`` with ``mesh_model`` 2 on MESH_TRAIN's four
     gloo ranks (2 data x 2 model) on the smoke config
     (``workers.mesh_train``): its losses the single-process run's on the
     same global batches, and a run stopped before step CKPT_CUT and resumed
     from its per-rank checkpoints bit for bit equal to the uninterrupted
-    run on every rank.  Returns the launch counts of both."""
+    run on every rank.  Returns the launch counts of the three."""
     import dataclasses
-    import tempfile
-
-    import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.launch.steps import loss_and_grads, make_train_step
-    from repro_torch.launch.train import train
     from repro_torch.models.api import make_model
-    from repro_torch.models.transformer import param_where
     from repro_torch.obs.clock import monotonic
-    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import global_norm
-    from repro_torch.parallel.shard import Shard
     from repro_torch.parallel.spawn import run_ranks
 
     name, depth, tp = TP_TRAIN
@@ -2249,12 +2277,49 @@ def phase_train_tp(torch, card, log):
     t1 = monotonic()
     job = {"cfg": cfg, "weights": ("seed", 0, 1.0), "batches": batches, "lr": lr,
            "record_shapes": True, "all_grads": True}
-    ranks = run_ranks("repro_torch.parallel.workers:tp_train", tp, (job,),
-                      workdir=os.path.join(HERE, "build", "tp_train"), device="cuda:0",
-                      backend=TP_BACKEND, timeout_s=300, threads=2)
+    # (t2a), then (t2s) — the same steps with the residual stream split by sequence — in the
+    # same ranks
+    out = run_ranks("repro_torch.parallel.workers:several", tp,
+                    ([("tp_train", (job,)), ("tp_train", (dict(job, seq_shard=True),))],),
+                    workdir=os.path.join(HERE, "build", "tp_train"), device="cuda:0",
+                    backend=TP_BACKEND, timeout_s=300, threads=2)
     print(f"{label}: single-process reference {t1 - t0:.1f} s; {tp} ranks started, drew their "
-          f"shards, trained and handed back their gradients and parameters in "
+          f"shards, trained (t2a, then t2s) and handed back their gradients and parameters in "
           f"{monotonic() - t1:.1f} s", flush=True)
+    want_ref = (want_losses, want_gnorm, want_grads, want, vhat)
+    launches, peaks = {}, {}
+    for i, run in enumerate(("t2a", "t2s")):
+        ranks = [r[i] for r in out]
+        run_label = label if run == "t2a" else f"(t2s) train {name}/{depth} tp {tp} seq_shard"
+        launches[run] = check_tp_train(torch, run_label, cfg, tp, names, ranks, want_ref, lr,
+                                       card, log)
+        # what the job allocated: at its first step's start, and at the steps' peak
+        TRAIN_TP_MEMORY[run] = [(r["base_bytes"] - r["start_bytes"],
+                                 r["peak_bytes"] - r["start_bytes"]) for r in ranks]
+        peaks[run] = [round(r["peak_bytes"] / 2**30, 4) for r in ranks]
+    del want_ref, want_grads, want, vhat
+    torch.cuda.empty_cache()  # the single-process state back to the card
+    print(f"(t2s) beside (t2a): peak memory a rank {peaks['t2s']} GiB against {peaks['t2a']} GiB "
+          f"with the whole sequence on every rank (max_memory_allocated), on {card}", flush=True)
+    launches.update(phase_train_mesh(torch, name, card))
+    return launches
+
+
+def check_tp_train(torch, label, cfg, tp, names, ranks, want_ref, lr, card, log) -> dict:
+    """(t2a)/(t2s)'s gates on the ranks' ``tp_train`` results against the
+    single-process step on the same draws (``want_ref``: its losses, the
+    clip's norm, the first-batch gradient and the parameters after the
+    steps by name, and the bias-corrected second moments); see
+    ``phase_train_tp``.  Returns the kernel launches summed over the
+    ranks."""
+    import numpy as np
+
+    from repro_torch.models.transformer import param_where
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.parallel.shard import Shard
+
+    depth = cfg.n_layers
+    want_losses, want_gnorm, want_grads, want, vhat = want_ref
     lr1 = float(warmup_cosine(1, **lr))
     shard = Shard(cfg, 0, tp)
     worst_g = worst_p = 0.0
@@ -2262,7 +2327,7 @@ def phase_train_tp(torch, card, log):
     for pname in names:
         where = param_where(pname)
         g = shard.join(*where, [torch.from_numpy(r["grads"][pname]).cuda() for r in ranks])
-        wg = want_grads.pop(pname)
+        wg = want_grads[pname]
         g_tol = TRAIN_GRAD_TOL * float(wg.abs().max())
         err = max_err(g, wg)
         if g.shape != wg.shape or not torch.allclose(g, wg, rtol=TRAIN_GRAD_TOL, atol=g_tol):
@@ -2270,14 +2335,14 @@ def phase_train_tp(torch, card, log):
                  f"one by {err:.3e} (tolerance {g_tol:.3e})")
         worst_g = max(worst_g, err / g_tol)
         got = shard.join(*where, [torch.from_numpy(r["params"][pname]).cuda() for r in ranks])
-        w = want.pop(pname)
+        w = want[pname]
         tol = 1e-5 * float(w.abs().max()) + 1e-3 * lr1
         # what the gradient's tolerance admits through AdamW: a gradient error g_tol moves an
         # element by up to lr1 * g_tol / sqrt(v-hat) (an element whose gradient sits at its
         # tensor's rounding floor takes a whole step whatever that floor's bits), and never by
         # more than one step, lr1 (|m-hat| / sqrt(v-hat) <= 1.0003 after two steps): a step
         # taken the other way, 2 x lr1, fails
-        adam_tol = tol + torch.clamp(lr1 * g_tol / (vhat.pop(pname) + 1e-8), max=lr1)
+        adam_tol = tol + torch.clamp(lr1 * g_tol / (vhat[pname] + 1e-8), max=lr1)
         d = (got - w).abs()
         if got.shape != w.shape or bool((d > adam_tol + 1e-5 * w.abs()).any()):
             fail(f"{label}: the joined {pname} differs from the single-process step's by "
@@ -2286,7 +2351,7 @@ def phase_train_tp(torch, card, log):
         if over:
             plain_over[pname] = over
         worst_p = max(worst_p, float(d.max()) / tol)
-    torch.cuda.empty_cache()  # the single-process state, popped above, back to the card
+        del g, got, d, adam_tol
     if sum(plain_over.values()) > TRAIN_PARAM_SHARE * n_el:
         fail(f"{label}: {sum(plain_over.values())} of {n_el} joined parameters lie beyond the "
              f"smoke tests' tolerance, more than {TRAIN_PARAM_SHARE:g} of them: {plain_over}")
@@ -2313,6 +2378,8 @@ def phase_train_tp(torch, card, log):
             fail(f"{label} rank {r['rank']}: the clip's norm over the group {r['gnorm']} against "
                  f"one process's {want_gnorm} (rtol {TRAIN_GRAD_TOL}) and rank 0's")
         coll = {k: v // TP_TRAIN_STEPS for k, v in r["collectives"].items() if v}
+        if "seq_shard" in label and not coll.get("reduce_scatter"):
+            fail(f"{label} rank {r['rank']}: no reduce-scatter in its steps ({coll})")
         print(f"{label} rank {r['rank']}: losses {r['losses']} (single process {want_losses}), "
               f"step {np.median(r['step_s']) * 1e3:.2f} ms (median, host clock, {TP_BACKEND} "
               f"ranks sharing the card), {coll} collectives per step, peak memory "
@@ -2326,6 +2393,19 @@ def phase_train_tp(torch, card, log):
           f"(1e-5 of each tensor's scale + 1e-3 x lr {lr1:g}), which "
           f"{sum(plain_over.values())} of {n_el} elements exceed ({plain_over}); kernel launches "
           f"summed over the ranks {launches}", flush=True)
+    return launches
+
+
+def phase_train_mesh(torch, name, card) -> dict:
+    """(t2b): see ``phase_train_tp``."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.obs.clock import monotonic
+    from repro_torch.parallel.spawn import run_ranks
 
     small = get_config(name, smoke=True)
     world, mesh_model = MESH_TRAIN
@@ -2355,8 +2435,7 @@ def phase_train_tp(torch, card, log):
           f"single-process run's; a run stopped before step {CKPT_CUT} and resumed at step "
           f"{CKPT_CUT - 1} from its per-rank checkpoints: parameters, moments, masters and losses "
           f"bit for bit equal to the uninterrupted run on all {world} ranks on {card}", flush=True)
-    return {"t2a": launches,
-            "t2b": {k: sum(r["launches"][k] for r in mesh) for k in ALL_KERNELS}}
+    return {"t2b": {k: sum(r["launches"][k] for r in mesh) for k in ALL_KERNELS}}
 
 
 def phase_tp(torch, card, log):
@@ -2449,6 +2528,11 @@ def phase_tp(torch, card, log):
                   f"{', '.join(f'({n})' for n in families)} in {monotonic() - t0:.1f} s, each "
                   "model freed before the next", flush=True)
         calls += [family_refs[name][0] for name in families]
+        seq_job = None
+        if path == "p1":  # last in the spawn: (p1)'s target, prefilled sequence-sharded
+            seq_job = {"cfg": tcfg, "weights": ("seed", 0, 4.0), "prompt": prompt, "S_max": 512,
+                       "decode": SEQ_PREFILL_DECODE, "record_shapes": True}
+            calls.append(("seq_prefill", (seq_job,)))
         t0 = monotonic()
         out = run_ranks("repro_torch.parallel.workers:several", tp, (calls,),
                         workdir=os.path.join(work, path), device="cuda:0", backend=TP_BACKEND,
@@ -2515,7 +2599,66 @@ def phase_tp(torch, card, log):
         for i, name in enumerate(families, start=1 + len(splits)):
             counts[name] = report_family_tp(name, tp, [r[i] for r in out], family_refs[name][1],
                                             card, log)
+        if seq_job is not None:
+            counts[f"{path}-seq"] = report_seq_prefill(f"({path} seq) {tname}/{tdepth} tp {tp}",
+                                                       [r[-1] for r in out], ref, tdepth, card,
+                                                       log)
     return counts
+
+
+def report_seq_prefill(label, ranks, ref, depth, card, log) -> dict:
+    """(p1) seq: each rank's ``workers.seq_prefill`` — (p1)'s target
+    prefilled with the residual stream split over the ranks by sequence —
+    against the single-process logits ``ref`` within TP_LOGIT_TOL, the
+    same rank's whole-sequence prefill (logits and every cache leaf) within
+    SEQ_PREFILL_TOL of each tensor's scale, every rank's logits bit equal;
+    SEQ_PREFILL_DECODE greedy tokens from its cache equal to those from the
+    whole-sequence cache; no all-reduce, one reduce-scatter for the lookup
+    and two a block, fused_swiglu in every layer.  Returns the kernel
+    launches of the sequence-sharded prefills, summed over the ranks."""
+    import numpy as np
+
+    worst = 0.0
+    for r in ranks:
+        for name, keys in r["shapes"].items():
+            log.seen[name] |= keys
+        got, plain = r["seq"], r["plain"]
+        err = float(np.abs(got["logits"] - ref).max())
+        if not np.allclose(got["logits"], ref, atol=TP_LOGIT_TOL, rtol=TP_LOGIT_TOL):
+            fail(f"{label} rank {r['rank']}: prefill logits differ from the single-process "
+                 f"model's by {err:.3e} (tolerance {TP_LOGIT_TOL})")
+        if not np.array_equal(got["logits"], ranks[0]["seq"]["logits"]):
+            fail(f"{label} rank {r['rank']}: its logits differ from rank 0's")
+        leaves = {"logits": (got["logits"], plain["logits"])}
+        leaves.update({k: (v, plain["cache"][k]) for k, v in got["cache"].items()})
+        bits = True
+        for key, (a, b) in leaves.items():
+            scale = float(np.abs(b).max())
+            e = float(np.abs(a - b).max())
+            bits &= bool(np.array_equal(a, b))
+            worst = max(worst, e / max(scale, 1e-30))
+            if a.shape != b.shape or e > SEQ_PREFILL_TOL * scale:
+                fail(f"{label} rank {r['rank']}: {key} differs from the whole-sequence prefill's "
+                     f"by {e:.3e} (tolerance {SEQ_PREFILL_TOL} of its scale {scale:.3e})")
+        if got["tokens"] != plain["tokens"] or len(got["tokens"][0]) != SEQ_PREFILL_DECODE:
+            fail(f"{label} rank {r['rank']}: greedy tokens {got['tokens']} from its cache, "
+                 f"{plain['tokens']} from the whole-sequence one")
+        coll = r["collectives"]
+        if coll["all_reduce"] or coll["reduce_scatter"] != 2 * depth + 1:
+            fail(f"{label} rank {r['rank']}: collectives {coll}, not 2 x {depth} + 1 "
+                 "reduce-scatters and no all-reduce")
+        if r["launches"]["fused_swiglu"] < depth:
+            fail(f"{label} rank {r['rank']}: fused_swiglu launched {r['launches']['fused_swiglu']} "
+                 f"times in {depth} layers")
+        print(f"{label} rank {r['rank']}: logits max|err| {err:.3e} against the single-process "
+              f"model (tolerance {TP_LOGIT_TOL}); logits and {len(got['cache'])} cache leaves "
+              f"{'bit for bit equal to' if bits else 'within ' + str(SEQ_PREFILL_TOL) + ' of'} "
+              f"the rank's whole-sequence prefill; greedy tokens {got['tokens'][0]} from its cache "
+              f"= the whole-sequence cache's; collectives {coll}; fused_swiglu "
+              f"{r['launches']['fused_swiglu']} launches on {card}", flush=True)
+    print(f"{label}: every rank within {worst:.3e} of its scale of the whole-sequence prefill",
+          flush=True)
+    return {k: sum(r["launches"][k] for r in ranks) for k in ALL_KERNELS}
 
 
 def family_tp_job(torch, name: str, tp: int):
@@ -3126,13 +3269,32 @@ def predict_memory(path: str) -> None:
     ``launch/cost.py`` with each ``remat`` — the
     arguments, the bytes live when the backward starts (what the forward
     saved for it), the peak up to the backward's end and the whole step's
-    peak.  Runs in a process of its own, with no card."""
+    peak; and (t2a)'s and (t2s)'s step for rank 0 of its group (a
+    ``CountingGroup``), the arguments and the step's peak.  Runs in a
+    process of its own, with no card."""
+    import dataclasses
+
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import cost
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import make_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.group import CountingGroup
 
     out = {}
+    name, depth, tp = TP_TRAIN
+    cfg = dataclasses.replace(get_config(name), n_layers=depth)
+    lr = dict(peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TP_TRAIN_STEPS)
+    for run, seq in (("t2a", False), ("t2s", True)):
+        model = make_model(cfg, "meta", CountingGroup(0, tp))
+        params = model.init(0, trainable=True)
+        batch = {"tokens": torch.zeros((TRAIN_B, TRAIN_S + 1), dtype=torch.int32,
+                                       device="meta")}
+        c, _ = cost.count(make_train_step(cfg, model, seq_shard=seq, **lr), params,
+                          adamw_init(params), batch)
+        out[run] = {"args": c.argument_bytes, "step": c.peak_bytes}
     for B, S in DRYRUN_MEMORY_SHAPES:
         for remat in ("none", "full"):
             model, params, opt, batch = _train_placed(torch, "meta", B, S)
@@ -3225,6 +3387,36 @@ def check_memory(torch, card) -> None:
               f"{rec['full']['fwd+bwd'][1] / 2**30:.4f} GiB", flush=True)
 
 
+def check_tp_memory(card) -> None:
+    """(y2) memory of (t2a)'s and (t2s)'s steps: ``predict_memory``'s count
+    for a rank on meta against each rank's allocator (``TRAIN_TP_MEMORY``):
+    the step's peak against the steps' peak within DRYRUN_PEAK_TOL, and
+    (t2s)'s arguments against the bytes its job allocated before its first
+    step within DRYRUN_ARG_TOL.  (t2a)'s are printed only: it runs first in
+    its process, whose first products allocate beside the job's tensors
+    what the count of a step has no place for (75.5 MB more than the count
+    on an H100 80GB HBM3)."""
+    with open(DRYRUN_MEMORY) as f:
+        predicted = json.load(f)
+    for run in ("t2a", "t2s"):
+        want = predicted[run]
+        for rank, (base, peak) in enumerate(TRAIN_TP_MEMORY[run]):
+            for what, w, g, tol in (("args", want["args"], base, DRYRUN_ARG_TOL),
+                                    ("step", want["step"], peak, DRYRUN_PEAK_TOL)):
+                gated = run == "t2s" or what == "step"
+                err = abs(w - g) / g
+                print(f"(y2) memory: ({run}) train {TP_TRAIN[0]}/{TP_TRAIN[1]} tp {TP_TRAIN[2]} "
+                      f"rank {rank}{' seq_shard' if run == 't2s' else ''} {what}: counted "
+                      f"{w / 2**30:.4f} GiB, card {g / 2**30:.4f} GiB ({err * 100:.2f} %, "
+                      + (f"tolerance {tol * 100:.0f} %" if gated else "printed only")
+                      + f") on {card}", flush=True)
+                if not gated:
+                    continue
+                if err > tol:
+                    fail(f"(y2) memory: ({run}) rank {rank} {what}: the count {w} bytes is "
+                         f"{err * 100:.2f} % from the card's {g} (tolerance {tol * 100:.0f} %)")
+
+
 def phase_dryrun(torch, card) -> None:
     """(y): the dry run's records (y1), its memory against the card's (y2),
     and the static HOTSYNC rule against the runtime sync counter (y3)."""
@@ -3244,8 +3436,12 @@ def phase_dryrun(torch, card) -> None:
                 rec = json.load(f)
             if rec["status"] != "ok":
                 fail(f"(y1) {what} {shape}: status {rec['status']}")
+            if rec["seq_shard"] != shape.startswith(("train", "prefill")):
+                fail(f"(y1) {what} {shape}: seq_shard {rec['seq_shard']} (train and prefill "
+                     "cells split the residual by sequence, as the reference's dry run)")
 
     check_memory(torch, card)
+    check_tp_memory(card)
 
     from repro_torch.analysis import build_project_context
     from repro_torch.analysis.core import analyze_file

@@ -11,8 +11,13 @@ backward, and returns a ``Cost``:
 * bytes: each op's inputs read and outputs written (a view, an alias and
   an uninitialised allocation move none; an expanded input counts its
   distinct elements);
-* the collectives of a ``parallel.CountingGroup``, by kind, with their
-  count and operand bytes;
+* the collectives of a ``parallel.CountingGroup``, by kind
+  (``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``),
+  with their count and operand bytes (a reduce-scatter's operand is its
+  whole input, an all-gather's the rank's part: the reference's HLO count
+  reads operand sizes too, so a reduce-scatter and an all-gather that
+  replace an all-reduce count 1 + 1/ranks of its bytes, where a ring
+  moves the same bytes for both forms);
 * memory: the arguments' bytes exactly (their storages), and the peak of
   live bytes, every op's output counted from its allocation until its
   storage is freed — autograd's saved tensors live until the backward has

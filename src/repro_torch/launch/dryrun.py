@@ -6,13 +6,17 @@ its roofline terms on an H100 (``repro.launch.dryrun``'s counterpart).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all            # every cell, both meshes
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh pod1
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --seq-shard off --out build/dryrun_off
 
 It needs no card and never initialises CUDA: the step runs on meta tensors
 under ``launch.cost.CostCounter`` (the reference lowers and compiles for
 512 placeholder devices instead).  Train cells recompute each unit in the
-backward (``remat="full"``), as the reference's dry run trains.  Records
-land in ``build/dryrun/<mesh>/<arch>__<shape>.json`` (``--out``); the
-reference's ``--flag`` has no counterpart, since the port has no flags.
+backward (``remat="full"``), and train and prefill cells split the
+residual stream's sequence over the model ranks (``seq_shard``), as the
+reference's dry run trains and prefills; ``--seq-shard off`` counts them
+with the whole sequence on every rank, the reference's ``--flag
+seq_shard_acts=False`` (the port has no other flag).  Records land in
+``build/dryrun/<mesh>/<arch>__<shape>.json`` (``--out``).
 """
 
 from __future__ import annotations
@@ -34,23 +38,31 @@ from repro_torch.obs.clock import monotonic
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 
-def differences(cfg, shape, mesh: dict) -> list[str]:
+def differences(cfg, shape, mesh: dict, seq_shard: bool = False) -> list[str]:
     """The accepted differences from the reference that move this cell's
     record (``launch/specs.py``): "data_replicas", the data ranks hold
     whole replicas of the model's shard (the reference shards the weights
     over "data" too); "per_rank_kv", a rank caches its query heads' KV
     heads and MLA's whole latent (the reference shards the cache's
-    sequence over "model")."""
+    sequence over "model"); "heads_tp_attention", under ``seq_shard`` a
+    rank attends with its heads on the whole sequence between the
+    all-gather and the reduce-scatter (the reference's default there,
+    ``attn_heads_tp=False``, keeps q on its sequence shard and sums each
+    chunk's sequence-sharded scores over the ranks)."""
     out = []
+    model = mesh.get("model", 1) > 1
     if any(mesh.get(a, 1) > 1 for a in ("pod", "data")):
         out.append("data_replicas")
-    if shape.kind != "train" and mesh.get("model", 1) > 1 and cfg.n_heads:
+    if shape.kind != "train" and model and cfg.n_heads:
         out.append("per_rank_kv")
+    if seq_shard and model and cfg.n_heads:
+        out.append("heads_tp_attention")
     return out
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
-    """Count one cell on one rank; returns the record (raises on failure)."""
+def run_cell(arch: str, shape_name: str, multi_pod: bool, seq_shard: bool = True) -> dict:
+    """Count one cell on one rank; returns the record (raises on failure).
+    ``seq_shard``: ``launch.specs.cell_specs``'s."""
     mesh = production_mesh(multi_pod)
     mesh_name = "pod2" if multi_pod else "pod1"
     n_chips = math.prod(mesh.values())
@@ -62,7 +74,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
                 "reason": why}
 
     t0 = monotonic()
-    step, args, meta = cell_specs(arch, shape_name, mesh)
+    step, args, meta = cell_specs(arch, shape_name, mesh, seq_shard=seq_shard)
     cost, _ = count(step, *args)
     trace_s = monotonic() - t0
     cfg = dryrun_config(arch, mesh)
@@ -78,6 +90,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         "rank_batch": meta["rank_batch"],
         "local_cfg": meta["local_cfg"],
         "remat": "full" if shape.kind == "train" else "none",
+        "seq_shard": meta["seq_shard"],
         "trace_s": round(trace_s, 1),
         "memory": {
             "argument_bytes": cost.argument_bytes,
@@ -94,7 +107,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         },
         "work": cost.work(),
         "roofline": rf.as_dict(),
-        "differences": differences(cfg_pub, shape, mesh),
+        "differences": differences(cfg_pub, shape, mesh, meta["seq_shard"]),
     }
 
 
@@ -128,7 +141,12 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true", help="every arch x shape x mesh")
     ap.add_argument("--out", default=str(RESULTS_DIR))
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--seq-shard", choices=["on", "off"], default="on",
+                    help="split train and prefill cells' residual stream by sequence over the "
+                         "model ranks (the reference's seq_shard_acts); off: the whole sequence "
+                         "on every rank")
     args = ap.parse_args(argv)
+    seq_shard = args.seq_shard == "on"
 
     archs = ASSIGNED if (args.all or args.arch == "all") else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape == "all") else [args.shape]
@@ -144,7 +162,7 @@ def main(argv=None) -> int:
                     print(f"{arch:22s} {shape:12s} {mesh_name}: cached")
                     continue
                 try:
-                    rec = run_cell(arch, shape, multi_pod)
+                    rec = run_cell(arch, shape, multi_pod, seq_shard)
                 except Exception as e:  # noqa: BLE001 — report, continue
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "fail", "error": f"{type(e).__name__}: {e}",

@@ -9,6 +9,11 @@ for the (architecture x input shape) cell:
   prefill_*  -> prefill_step(params, batch)            full forward + cache
   decode_* / long_* -> serve_step(params, cache, tokens)  one token vs the cache
 
+Train and prefill steps split the residual stream's sequence over the
+model ranks (``seq_shard``), as the reference's dry run turns on
+``seq_shard_acts`` for them; ``cell_specs(..., seq_shard=False)`` counts
+the whole-sequence form (its ``--flag seq_shard_acts=False``).
+
 A mesh is ``launch.mesh.production_mesh``'s dict.  The rank's model is the
 published config in bf16 (``COMPUTE_DTYPE``) sharded over a
 ``parallel.CountingGroup`` of ``mesh["model"]`` ranks, so its shapes are
@@ -134,9 +139,11 @@ def check_ranks_alike(arch: str, mesh: dict) -> None:
                          "count would not stand for all")
 
 
-def cell_specs(arch: str, shape_name: str, mesh: dict, rank: int = 0):
+def cell_specs(arch: str, shape_name: str, mesh: dict, rank: int = 0, seq_shard: bool = True):
     """-> (step_fn, args, meta dict) of model rank ``rank`` of the cell
-    (every rank alike: ``check_ranks_alike``)."""
+    (every rank alike: ``check_ranks_alike``).  ``seq_shard`` applies to
+    train and prefill cells (a decode step has no sequence to split); the
+    meta dict says whether the step runs it."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
 
     shape = SHAPES[shape_name]
@@ -144,7 +151,9 @@ def cell_specs(arch: str, shape_name: str, mesh: dict, rank: int = 0):
     model = rank_model(arch, mesh, rank)
     cfg = model.cfg
     n_data = data_ranks(mesh, shape.global_batch)
+    seq = seq_shard and shape.kind in ("train", "prefill")
     meta = {"arch": arch, "shape": shape_name, "kind": shape.kind, "seq_len": shape.seq_len,
+            "seq_shard": seq,
             "global_batch": shape.global_batch, "rank": rank,
             "rank_batch": shape.global_batch // n_data, "data_ranks": n_data,
             "local_cfg": {k: v for k, v in dataclasses.asdict(model.run_cfg).items()
@@ -154,12 +163,12 @@ def cell_specs(arch: str, shape_name: str, mesh: dict, rank: int = 0):
     if shape.kind == "train":
         params = param_specs(model, trainable=True)
         data = CountingGroup(0, n_data, "meta", axis="data") if n_data > 1 else None
-        step = make_train_step(cfg, model, data=data, remat="full")
+        step = make_train_step(cfg, model, data=data, remat="full", seq_shard=seq)
         return step, (params, opt_specs(params), batch_specs(cfg, shape, mesh)), meta
 
     params = param_specs(model)
     if shape.kind == "prefill":
-        step = make_prefill_step(cfg, model, S_max=shape.seq_len)
+        step = make_prefill_step(cfg, model, S_max=shape.seq_len, seq_shard=seq)
         return step, (params, batch_specs(cfg, shape, mesh)), meta
 
     # decode / long-context decode: one token against a full cache of seq_len rows

@@ -13,11 +13,15 @@ A model sharded over a group of several ranks trains too (the reference's
 ``--mesh-model``, where GSPMD makes the backward): every rank computes the
 same loss from the same gathered logits, the forward's collectives carry
 the gradient (``parallel.group``: ``reduce``, ``copy``, ``sum_both``,
-``gather``), ``parallel.shard.Shard.reduce_grads`` sums what they leave
+``gather``; with ``seq_shard`` also ``seq_copy``, ``seq_reduce`` and
+``split``), ``parallel.shard.Shard.reduce_grads`` sums what they leave
 partial (``sharded_grads``, the step's gradient half), and the clip takes
 the whole model's norm over the group.  The gradient of a tensor every
 rank holds whole is then the whole gradient, the same bits on every rank;
-a split tensor's is the rank's part of it.
+a split tensor's is the rank's part of it.  ``seq_shard`` (the reference's
+``seq_shard_acts``, which its dry run trains and prefills with) splits the
+residual stream's sequence over the model's ranks between the blocks: the
+same gradients, each rank holding its rows of the residual only.
 """
 
 from __future__ import annotations
@@ -42,15 +46,17 @@ def _feed(model, batch) -> tuple[dict, torch.Tensor]:
     return feed, labels
 
 
-def loss_and_grads(model, params, batch, remat: str = "none") -> tuple[torch.Tensor, list]:
+def loss_and_grads(model, params, batch, remat: str = "none",
+                   seq_shard: bool = False) -> tuple[torch.Tensor, list]:
     """Mean-token cross-entropy of ``batch`` and its gradient, one tensor per
     parameter (``param_leaves`` order; zeros for a parameter the loss does
     not reach).  Every parameter must require a gradient.  On a sharded
     model each gradient is what this rank's backward gives, before
-    ``Shard.reduce_grads``.  ``remat``: ``Model.forward_train``'s."""
+    ``Shard.reduce_grads``.  ``remat``, ``seq_shard``: ``Model.forward_train``'s."""
     feed, labels = _feed(model, batch)
     leaves = param_leaves(params)
-    loss = cross_entropy_loss(model.forward_train(params, **feed, remat=remat), labels)
+    loss = cross_entropy_loss(model.forward_train(params, **feed, remat=remat,
+                                                  seq_shard=seq_shard), labels)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(leaves, grads)]
@@ -88,17 +94,17 @@ def _model_group(model):
 
 
 def sharded_grads(model, params, batch, data=None, compress: bool = False,
-                  remat: str = "none"):
+                  remat: str = "none", seq_shard: bool = False):
     """The train step's gradient half: ``loss_and_grads``, then on a model
     sharded over a group ``Shard.reduce_grads``, then the mean over the
     data-parallel ranks ``data`` — exact (``data_mean``), or with
     ``compress`` the gradient by the int8 exchange
     (``optim.pod_allreduce_compressed``) and the loss exactly.  -> (loss,
     grads), one gradient per parameter in ``param_leaves`` order."""
-    loss, grads = loss_and_grads(model, params, batch, remat)
+    loss, grads = loss_and_grads(model, params, batch, remat, seq_shard)
     group = _model_group(model)
     if group is not None:
-        grads = model.shard.reduce_grads(params, grads, group)
+        grads = model.shard.reduce_grads(params, grads, group, seq_shard)
     if data is not None and data.world > 1:
         mean, loss = data_mean([] if compress else grads, loss, data)
         grads = [pod_allreduce_compressed(g, data) for g in grads] if compress else mean
@@ -106,7 +112,8 @@ def sharded_grads(model, params, batch, data=None, compress: bool = False,
 
 
 def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=10_000,
-                    grad_compress_pod: bool = False, data=None, remat: str = "none"):
+                    grad_compress_pod: bool = False, data=None, remat: str = "none",
+                    seq_shard: bool = False):
     """fwd + CE loss + bwd + AdamW at the ``warmup_cosine`` learning rate of
     the state's step.  ``train_step(params, opt_state, batch) -> (params,
     opt_state, loss)``; the batch as ``_feed`` takes it.
@@ -129,7 +136,10 @@ def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=1
 
     ``remat="full"`` recomputes each unit of the plan in the backward (the
     reference's ``remat="full"``, which its dry run trains with): the same
-    gradients, the residual between units the only activation kept."""
+    gradients, the residual between units the only activation kept.
+
+    ``seq_shard`` splits that residual, and every norm and residual add,
+    over the model's ranks by sequence (``Model.forward_train``)."""
     group = _model_group(model)
     pod = None
     if data is None and grad_compress_pod and torch.distributed.is_available() and \
@@ -144,7 +154,7 @@ def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=1
 
     def train_step(params, opt_state, batch):
         loss, grads = sharded_grads(model, params, batch, data, compress=grad_compress_pod,
-                                    remat=remat)
+                                    remat=remat, seq_shard=seq_shard)
         if pod is not None:
             grads = [pod_allreduce_compressed(g, pod) for g in grads]
         if group is not None and not weights:
@@ -158,14 +168,15 @@ def make_train_step(cfg, model, *, peak_lr=3e-4, warmup_steps=100, total_steps=1
     return train_step
 
 
-def make_prefill_step(cfg, model, *, S_max: int):
-    """Full forward populating the KV cache; emits (next-token ids [B, 1], cache)."""
+def make_prefill_step(cfg, model, *, S_max: int, seq_shard: bool = False):
+    """Full forward populating the KV cache; emits (next-token ids [B, 1],
+    cache).  ``seq_shard``: ``Model.prefill``'s."""
 
     def prefill_step(params, batch):
         feed = {"tokens": batch["tokens"]} if "tokens" in batch else {"embeds": batch["embeds"]}
         if "enc" in batch:
             feed["enc"] = batch["enc"]
-        logits, cache = model.prefill(params, S_max=S_max, **feed)
+        logits, cache = model.prefill(params, S_max=S_max, seq_shard=seq_shard, **feed)
         return logits[:, -1, :].argmax(-1).to(torch.int32)[:, None], cache
 
     return prefill_step

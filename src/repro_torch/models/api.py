@@ -14,6 +14,11 @@ the encoder K/V that the prefill cached.  The cached forwards write K/V rows int
 cache in place and return new mamba2 and rwkv6 state tensors (the input
 cache keeps its state; ``models/transformer.py``).
 
+``forward_train`` and ``prefill`` take ``seq_shard``: sharded, the
+residual stream between the blocks holds each rank's rows of the sequence
+only (``transformer.apply_model``), and the logits and the cache are the
+same; on one device it changes nothing.
+
 Weights are frozen (no parameter requires a gradient), so no serving
 forward builds an autograd graph; ``init(seed, trainable=True)`` gives a
 trainer weights that do, and the serving engines refuse them.
@@ -38,6 +43,7 @@ from repro_torch.models.transformer import (
     init_cache,
     init_model,
     logits_from_hidden,
+    seq_group,
 )
 
 
@@ -78,8 +84,8 @@ class Model:
     def _logits(self, params, h):
         return logits_from_hidden(self.run_cfg, params, h, self._vocab_tp)
 
-    def _embed_ids(self, params, tokens):
-        return embed_tokens(self.run_cfg, params, self._dev(tokens), self._vocab_tp)
+    def _embed_ids(self, params, tokens, seq=None):
+        return embed_tokens(self.run_cfg, params, self._dev(tokens), self._vocab_tp, seq)
 
     # ---- construction ----------------------------------------------------
     def init(self, seed: int, trainable: bool = False) -> DecoderLM:
@@ -98,40 +104,49 @@ class Model:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     # ---- embedding helpers -------------------------------------------------
-    def _embed(self, params, tokens=None, embeds=None):
-        """Token ids through the embedding table, or ``embeds`` [B, S, d]
-        (a stub frontend's frame embeddings) cast to the compute dtype."""
+    def _embed(self, params, tokens=None, embeds=None, seq_shard: bool = False):
+        """(the embedded inputs, B, S): token ids through the embedding
+        table, or ``embeds`` [B, S, d] (a stub frontend's frame embeddings)
+        cast to the compute dtype; with ``seq_shard`` under a group, this
+        rank's rows of them (``transformer.seq_group``)."""
+        x = self._dev(embeds, getattr(torch, self.cfg.dtype)) if embeds is not None else \
+            self._dev(tokens)
+        B, S = x.shape[:2]
+        seq = seq_group(self.group, S) if seq_shard else None
         if embeds is not None:
-            return self._dev(embeds, getattr(torch, self.cfg.dtype))
-        return self._embed_ids(params, tokens)
+            return (x if seq is None else seq.split(x)), B, S
+        return self._embed_ids(params, x, seq), B, S
 
     # ---- training ----------------------------------------------------------
-    def forward_train(self, params, tokens=None, embeds=None, enc=None, remat: str = "none"):
+    def forward_train(self, params, tokens=None, embeds=None, enc=None, remat: str = "none",
+                      seq_shard: bool = False):
         """Full causal forward -> logits [B, S, V]: no cache, differentiable
         in ``params`` (and in ``embeds``/``enc`` when they require a
-        gradient).  ``remat="full"`` recomputes each unit in the backward
-        (``transformer.apply_model``)."""
-        h = self._embed(params, tokens, embeds)
-        B, S, _ = h.shape
+        gradient).  ``remat="full"`` recomputes each unit in the backward,
+        ``seq_shard`` splits the residual stream's sequence over the group's
+        ranks between the blocks (``transformer.apply_model``)."""
+        h, B, S = self._embed(params, tokens, embeds, seq_shard)
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
         if enc is not None:
             enc = self._dev(enc, h.dtype)
         h, _ = apply_model(self.run_cfg, params, h,
-                           self._ctx(mode="full", positions=positions, enc=enc), remat=remat)
+                           self._ctx(mode="full", positions=positions, enc=enc), remat=remat,
+                           seq_shard=seq_shard)
         return self._logits(params, h)
 
     # ---- serving -----------------------------------------------------------
-    def prefill(self, params, tokens=None, embeds=None, enc=None, S_max=None):
+    def prefill(self, params, tokens=None, embeds=None, enc=None, S_max=None,
+                seq_shard: bool = False):
         """Returns (logits [B, S, V], cache with len=S).  ``embeds`` [B, S, d]
         stand in for ``tokens``; ``enc`` [B, n_enc, d] are the stub encoder
-        states that a model with cross blocks attends (``needs_enc``)."""
-        h = self._embed(params, tokens, embeds)
-        B, S, _ = h.shape
+        states that a model with cross blocks attends (``needs_enc``).
+        ``seq_shard``: ``forward_train``'s (the same logits and cache)."""
+        h, B, S = self._embed(params, tokens, embeds, seq_shard)
         positions = torch.arange(S, dtype=torch.int32, device=self.device).expand(B, S)
         if enc is not None:
             enc = self._dev(enc, h.dtype)
         ctx = self._ctx(mode="full", make_cache=S_max or S, positions=positions, enc=enc)
-        h, cache = apply_model(self.run_cfg, params, h, ctx)
+        h, cache = apply_model(self.run_cfg, params, h, ctx, seq_shard=seq_shard)
         cache["len"] = S
         return self._logits(params, h), cache
 

@@ -201,11 +201,14 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
     are then summed over it, and ``xin`` enters the rank's heads through
     ``TPGroup.copy`` (the gradients of ``w_in``'s, ``conv_w``'s and
     ``conv_b``'s whole BC segments, which only the rank's heads read, are
-    summed by ``parallel.shard.Shard.reduce_grads``).  Returns (out [B, S,
+    summed by ``parallel.shard.Shard.reduce_grads``).  ``tp`` may be a
+    ``parallel.SeqGroup`` (the residual stream sequence-sharded): ``xin``
+    is then this rank's rows, its ``copy`` gathers the whole sequence and
+    its ``reduce`` scatters ``out`` back to the rows.  Returns (out [B, S,
     d], new cache); the input cache is never written."""
-    B, S, _ = xin.shape
     if tp is not None:
         xin = tp.copy(xin)
+    B, S, _ = xin.shape
     d_in, nheads, conv_dim = _dims(cfg)
     GN = cfg.ssm_groups * cfg.ssm_state
     K = cfg.ssm_conv

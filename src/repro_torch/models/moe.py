@@ -31,6 +31,13 @@ row and keeping the pairs of its own experts at the same capacity and the
 same places within each expert as the whole dispatch, then one all-reduce.
 The shared experts run replicated on every rank, after the all-reduce, as
 the reference computes them outside its ``shard_map``.
+
+With the residual stream sequence-sharded (``seq``, a
+``parallel.SeqGroup``) the router must still see every row of the forward,
+since the capacity counts them all: the rank's rows are gathered (work
+that every rank repeats whole), the dispatch runs as above on the whole
+sequence, and the experts' partial sum is reduce-scattered to the rank's
+rows; the shared experts run on the rank's rows only.
 """
 
 from __future__ import annotations
@@ -91,14 +98,19 @@ def _swiglu(x, wg, wu, wd):
     return (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
 
 
-def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
+def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False, seq=None):
     """x [B, n, d] -> [B, n, d]: the routed experts plus the shared ones.
     With ``tp`` the routed experts are this rank's shards — of the "ep"
     form with ``ep`` (E/world whole experts), else of the "tp" form — and
     their outputs are summed over the ranks.  The router and the shared
     experts, whole on every rank, read ``x`` as it is; the rows that fill
     the experts' buffer and the routing weights enter the rank's experts
-    through ``TPGroup.copy``, so their gradient is the whole one."""
+    through ``TPGroup.copy``, so their gradient is the whole one.  With
+    ``seq`` (a ``parallel.SeqGroup`` over ``tp``), ``x`` and the result
+    are this rank's rows of the sequence (the module docstring)."""
+    x_own = x
+    if seq is not None:
+        x = seq.gather(x)
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     T, E, k = x2d.shape[0], cfg.n_experts, cfg.moe_top_k
@@ -122,8 +134,11 @@ def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False):
     hflat = torch.cat([h.reshape(E_loc * cap, d), h.new_zeros((1, d))])
     contrib = hflat[dest] * w[..., None].to(h.dtype)  # [T, k, d]
     out = contrib.sum(1)
-    if tp is not None:
+    if seq is not None:  # this rank's rows from here on
+        out = seq.reduce(out.reshape(B, S, d)).reshape(-1, d)
+        x2d = x_own.reshape(-1, d)
+    elif tp is not None:
         out = tp.reduce(out)
     if shared is not None:
         out = out + _swiglu(x2d, shared["wg"], shared["wu"], shared["wd"])
-    return out.reshape(B, S, d)
+    return out.reshape(x_own.shape)

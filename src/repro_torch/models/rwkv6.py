@@ -169,11 +169,13 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     all heads here); ``x`` then enters the rank's heads through
     ``TPGroup.copy`` (the gradients of the whole ``mu_tm`` and ``decay_a``,
     which only the rank's heads read, are summed by
-    ``parallel.shard.Shard.reduce_grads``).  Returns (out [B, S, d],
-    {"sx_tm", "wkv"})."""
-    B, S, d = x.shape
+    ``parallel.shard.Shard.reduce_grads``).  ``tp`` may be a
+    ``parallel.SeqGroup`` (the residual stream sequence-sharded): ``x`` is
+    then this rank's rows, and the token shift runs on the whole sequence
+    its ``copy`` gathers.  Returns (out [B, S, d], {"sx_tm", "wkv"})."""
     if tp is not None:
         x = tp.copy(x)
+    B, S, d = x.shape
     H, hd = _dims(cfg)
     ext = _shifted(x, None if cache is None else cache["sx_tm"])
     prev = ext[:, :S]
@@ -202,23 +204,38 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     return out, {"sx_tm": ext[:, S if n_commit is None else int(n_commit)], "wkv": state}
 
 
-def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
+def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None, tp=None, seq=None):
     """Channel-mix on x [B, S, d] with state ``cache`` ({"sx_cm"}, or None).
     tp: the group the ff is split over (None: whole here); ``xk`` enters
     the rank's ``cm_k`` columns through ``TPGroup.copy`` and ``k @ cm_v`` is
     summed over it before the gate, which the whole ``cm_r`` computes on
-    every rank.  Returns (out [B, S, d], {"sx_cm"})."""
+    every rank.
+
+    seq: a ``parallel.SeqGroup`` over ``tp`` (the residual stream
+    sequence-sharded; ``x`` this rank's rows): the token shift reads the
+    row before, another rank's at a shard's edge, so ``x`` enters by
+    ``seq.copy`` (the whole sequence) before it; ``k @ cm_v`` is
+    reduce-scattered to the rank's rows and gated there by ``cm_r`` on the
+    rank's rows of ``xr``, which are rank-local work: the gradients of
+    ``mu_cm`` and ``cm_r`` are then partial, summed by
+    ``parallel.shard.Shard.reduce_grads``.  Returns (out [B, S, d],
+    {"sx_cm"})."""
+    if seq is not None:
+        x = seq.copy(x)
     S = x.shape[1]
     ext = _shifted(x, None if cache is None else cache["sx_cm"])
     prev = ext[:, :S]
     mu = p["mu_cm"]
     xk = x + (prev - x) * mu[0]
     xr = x + (prev - x) * mu[1]
-    if tp is not None:
+    if tp is not None and seq is None:
         xk = tp.copy(xk)
     k = torch.square(F.relu(xk @ p["cm_k"]))
     kv = k @ p["cm_v"]
-    out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.reduce(kv))
+    if seq is not None:
+        out = torch.sigmoid(seq.rows_of(xr) @ p["cm_r"]) * seq.reduce(kv)
+    else:
+        out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.reduce(kv))
     return out, {"sx_cm": ext[:, S if n_commit is None else int(n_commit)]}
 
 

@@ -29,6 +29,16 @@ past the committed length are dead and may be shared), but return new
 mamba2 and rwkv6 state tensors and leave the input's as they were, so a
 caller may keep a cache as a snapshot of its recurrent state (the chain
 engine does).
+
+Under a tensor-parallel group a training or prefill forward may split the
+residual stream's sequence over the ranks between the blocks
+(``apply_model(..., seq_shard=True)``, the reference's ``seq_shard_acts``
+with its "act_seq" rule): each rank holds its rows (``parallel.SeqGroup``),
+runs the norms and the residual adds on them, and forms the whole
+sequence only inside a block — an all-gather into the rank's heads or ff
+columns, a reduce-scatter out, where the whole-sequence form has its
+all-reduce — or for work every rank repeats whole (the MoE router, a
+recurrent block whose heads the ranks do not divide).
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from repro_torch.models.attention import (
     plan_row_writes,
 )
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.parallel.group import SeqGroup
 
 # -----------------------------------------------------------------------------
 # Plans
@@ -116,6 +127,7 @@ class Ctx:
     enc: Any = None  # [B, n_enc, d] stub encoder states (cross blocks, prefill)
     tp: Any = None  # parallel.TPGroup: the weights are this rank's shards (cfg its shapes)
     moe_ep: bool = False  # with tp: the MoE's shards are of the "ep" form (else "tp")
+    seq: Any = None  # parallel.SeqGroup over tp: the residual holds this rank's rows only
 
 
 # -----------------------------------------------------------------------------
@@ -350,16 +362,45 @@ def _mlp_apply(cfg, p, x):
     return (h @ p["wd"]).reshape(B, S, d)
 
 
+def _io(ctx: Ctx):
+    """The group through which the residual stream enters and leaves
+    rank-local work: ``ctx.seq`` when it is sequence-sharded, else
+    ``ctx.tp`` (None without a group)."""
+    return ctx.tp if ctx.seq is None else ctx.seq
+
+
 def _reduce(ctx: Ctx, partial):
-    """A row-split product's partial sum, summed over the tensor-parallel
-    ranks (the identity without a group); its gradient passes through."""
-    return partial if ctx.tp is None else ctx.tp.reduce(partial)
+    """A row-split product's partial sum back onto the residual: summed over
+    the tensor-parallel ranks (reduce-scattered to this rank's rows when the
+    stream is sequence-sharded; the identity without a group)."""
+    io = _io(ctx)
+    return partial if io is None else io.reduce(partial)
 
 
 def _copy(ctx: Ctx, x):
-    """A replicated tensor entering rank-local work: itself, its gradient
-    summed over the ranks (the identity without a group)."""
-    return x if ctx.tp is None or x is None else ctx.tp.copy(x)
+    """The residual stream entering rank-local work: itself (all-gathered
+    when sequence-sharded), its gradient summed over the ranks (the
+    identity without a group)."""
+    io = _io(ctx)
+    return x if io is None else io.copy(x)
+
+
+def _whole(ctx: Ctx, x):
+    """The residual stream entering work that every rank repeats whole: the
+    whole sequence (``SeqGroup.gather``), or ``x`` itself."""
+    return x if ctx.seq is None else ctx.seq.gather(x)
+
+
+def _own(ctx: Ctx, y):
+    """The whole result of such work back onto this rank's rows
+    (``SeqGroup.split``), or ``y`` itself."""
+    return y if ctx.seq is None else ctx.seq.split(y)
+
+
+def seq_group(tp, n: int):
+    """The ``parallel.SeqGroup`` of a sequence of ``n`` rows split over
+    ``tp``'s ranks; None without a group (one rank holds every row)."""
+    return None if tp is None else SeqGroup(tp, n)
 
 
 def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
@@ -372,7 +413,7 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
         if full:
             if ctx.enc is None:
                 raise ValueError(f"{cfg.name}: a cross block needs the encoder states (enc)")
-            ek, ev = encoder_kv(p, _copy(ctx, ctx.enc))
+            ek, ev = encoder_kv(p, ctx.enc if ctx.tp is None else ctx.tp.copy(ctx.enc))
             if fill:
                 leaves["ek"][r] = ek
                 leaves["ev"][r] = ev
@@ -405,13 +446,16 @@ def _attn_mlp(cfg, kind, p, h, ctx: Ctx, leaves, r: int):
     """A block with an attention sub-block and an MLP (SwiGLU, or the
     mixture of experts of a moe block), both with pre-norms.  Under a group
     the normed input of a GQA attention and of the dense MLP is copied into
-    their rank-local work; MLA and the MoE place their own copies."""
+    their rank-local work (``_copy``), which attends head-parallel on the
+    whole sequence; MLA's input is whole (its down projections are whole on
+    every rank, and it places its own copies), and the MoE places its own."""
     hn = rms_norm(h, p.ln1, cfg.norm_eps)
-    h = h + _reduce(ctx, _attn_apply(cfg, kind, p.attn, hn if _mla(cfg, kind) else _copy(ctx, hn),
-                                     ctx, leaves, r))
+    hn = _whole(ctx, hn) if _mla(cfg, kind) else _copy(ctx, hn)
+    h = h + _reduce(ctx, _attn_apply(cfg, kind, p.attn, hn, ctx, leaves, r))
     hn = rms_norm(h, p.ln2, cfg.norm_eps)
     if kind == "moe":
-        return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn, tp=ctx.tp, ep=ctx.moe_ep)
+        return h + moe_mod.moe_apply(cfg, p.moe, p.shared, hn, tp=ctx.tp, ep=ctx.moe_ep,
+                                     seq=ctx.seq)
     return h + _reduce(ctx, _mlp_apply(cfg, p.mlp, _copy(ctx, hn)))
 
 
@@ -428,7 +472,19 @@ def _row_leaves_len(groups):
 REMAT = ("none", "full")
 
 
-def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: int, heads_tp):
+def _recurrent(ctx: Ctx, heads_io, fn, x):
+    """``fn(x, tp)`` of a recurrent sub-block on its normed input: with its
+    heads split, ``heads_io`` (``_io``) enters and leaves their rank-local
+    work; with every head on every rank, the block runs whole — on the whole
+    sequence, this rank's rows taken after, when the stream is
+    sequence-sharded.  -> (out, new state)."""
+    if heads_io is not None or ctx.seq is None:
+        return fn(x, heads_io)
+    out, nc = fn(_whole(ctx, x), None)
+    return _own(ctx, out), nc
+
+
+def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: int, heads_io):
     """One block of ``kind`` (weights ``p``) on the residual ``h``; returns
     (h, its new state leaves — None for a block without state or outside
     the cached mode)."""
@@ -436,15 +492,15 @@ def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: in
     if kind in STATE_LEAVES and ctx.mode == "cached":
         c = {key: leaves[key][r] for key in STATE_LEAVES[kind]}
     if kind == "mamba2":
-        out, nc = m2.mamba2_apply(cfg, p.mamba, rms_norm(h, p.ln, cfg.norm_eps), c,
-                                  ctx.n_commit, tp=heads_tp)
+        out, nc = _recurrent(ctx, heads_io, lambda x, tp: m2.mamba2_apply(
+            cfg, p.mamba, x, c, ctx.n_commit, tp=tp), rms_norm(h, p.ln, cfg.norm_eps))
         h = h + out
     elif kind == "rwkv6":  # the channel-mix reads its weights from the same dict
-        out, nc = rk.rwkv6_time_mix(cfg, p.tm, rms_norm(h, p.ln1, cfg.norm_eps), c,
-                                    ctx.n_commit, tp=heads_tp)
+        out, nc = _recurrent(ctx, heads_io, lambda x, tp: rk.rwkv6_time_mix(
+            cfg, p.tm, x, c, ctx.n_commit, tp=tp), rms_norm(h, p.ln1, cfg.norm_eps))
         h = h + out
         out, nc_cm = rk.rwkv6_channel_mix(cfg, p.tm, rms_norm(h, p.ln2, cfg.norm_eps),
-                                          c, ctx.n_commit, tp=ctx.tp)
+                                          c, ctx.n_commit, tp=ctx.tp, seq=ctx.seq)
         h = h + out
         nc = {**nc, **nc_cm}
     elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w
@@ -455,7 +511,8 @@ def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: in
     return h, nc
 
 
-def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "none"):
+def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "none",
+                seq_shard: bool = False):
     """h: [B, n, d] embedded inputs.  Returns (hidden [B, n, d], cache):
     in "cached" mode the row leaves of ``cache`` are written in place and
     the returned cache holds them, the cross blocks' encoder K/V as they
@@ -466,11 +523,26 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "n
     of the plan — one repeat of its group's blocks — under
     ``torch.utils.checkpoint``, as the reference checkpoints each scanned
     unit: the backward recomputes the unit's forward, collectives
-    included, and keeps only the residual between units."""
+    included, and keeps only the residual between units.
+
+    ``seq_shard`` (a forward without a cache or a prefill, under
+    ``ctx.tp``): the residual stream between the blocks, the residual that
+    ``remat="full"`` keeps included, holds this rank's rows only, and ``h``
+    is this rank's rows of the n = ``ctx.positions.shape[1]`` embedded rows
+    (``embed_tokens``, or ``SeqGroup.split``, with ``seq_group(ctx.tp,
+    n)``).  The hidden returned is whole, the final norm run on the rows
+    then gathered; the cache is the whole-sequence forward's.  Without a
+    group it is the plain forward.  The cached forwards (a few new rows
+    each) raise."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     if remat == "full" and (ctx.mode == "cached" or ctx.make_cache):
         raise ValueError("remat='full' recomputes the forward: no cache may be written")
+    if seq_shard and ctx.mode == "cached":
+        raise ValueError("seq_shard splits a whole sequence over the ranks: a cached forward "
+                         "has none")
+    if seq_shard:
+        ctx = dataclasses.replace(ctx, seq=seq_group(ctx.tp, ctx.positions.shape[1]))
     plan = check_plan(cfg)
     B = h.shape[0]
     x0 = h  # the embeddings: input of every shared invocation
@@ -484,7 +556,7 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "n
         groups = init_cache(cfg, B, ctx.make_cache, h.dtype, h.device)["groups"]
     new_groups = []
     # the group the recurrent blocks' heads are split over (None: whole on this rank)
-    heads_tp = ctx.tp if getattr(cfg, "ssm_heads", 0) else None
+    heads_io = _io(ctx) if getattr(cfg, "ssm_heads", 0) else None
     li = 0  # index of the next layer in params.layers
     for gi, (unit_def, U) in enumerate(plan):
         unit = None if groups is None else groups[gi]
@@ -496,7 +568,7 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "n
             ncs = []
             for bi, kind in enumerate(unit_def):
                 h, nc = _apply_block(cfg, kind, params, params.layers[li + bi], h, x0, ctx,
-                                     None if unit is None else unit[bi], r, heads_tp)
+                                     None if unit is None else unit[bi], r, heads_io)
                 ncs.append(nc)
             return h, ncs
 
@@ -515,7 +587,7 @@ def apply_model(cfg, params: DecoderLM, h, ctx: Ctx, cache=None, remat: str = "n
             new_groups.append(tuple(
                 {key: torch.stack(leaf) for key, leaf in states[bi].items()}
                 if bi in states else leaves for bi, leaves in enumerate(unit)))
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = _whole(ctx, rms_norm(h, params.final_norm, cfg.norm_eps))
     if groups is None:
         return h, None
     return h, {"len": None, "groups": new_groups}  # len managed by the caller
@@ -530,17 +602,21 @@ def logits_from_hidden(cfg, params: DecoderLM, h, vocab_tp=None):
     return vocab_tp.gather(vocab_tp.copy(h) @ params.lm_head, dim=-1)
 
 
-def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None):
+def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None, seq=None):
     """The embedding rows of ``tokens``; with ``vocab_tp`` (the group the
     table's vocabulary is split over; ``cfg`` the rank's, its
     ``vocab_size`` the rank's rows) each rank looks up the ids in its
     range, zeros elsewhere, and the sum over the ranks is the row (exactly:
-    one term is not zero)."""
+    one term is not zero).  With ``seq`` (a ``parallel.SeqGroup``) this
+    rank's rows of the sequence only: the sum reduce-scattered, or the
+    whole table's rows split."""
     ids = tokens.long()
     if vocab_tp is None:
-        return params.embed[ids]
+        rows = params.embed[ids]
+        return rows if seq is None else seq.split(rows)
     V_loc = cfg.vocab_size
     local = ids - vocab_tp.rank * V_loc
     mine = (local >= 0) & (local < V_loc)
     rows = params.embed[local.clamp(0, V_loc - 1)]
-    return vocab_tp.reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+    part = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return vocab_tp.reduce(part) if seq is None else seq.reduce(part)

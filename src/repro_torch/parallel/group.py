@@ -1,9 +1,10 @@
 """The tensor-parallel group: the ranks that share one model's tensors.
 
 ``TPGroup`` holds a ``torch.distributed`` process group with this rank's
-place in it and its device, and the three collectives the sharded forward
+place in it and its device, and the four collectives the sharded forward
 uses — ``all_reduce`` (a sum), ``all_gather`` (the list form, joined along
-a dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
+a dimension), ``reduce_scatter`` (the sum, this rank's slice of it along a
+dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
 so a run can report how many collectives a round issued (with gloo on
 CUDA tensors each of them is staged through the host).
 
@@ -18,7 +19,23 @@ backward through them:
 * ``sum_both``: a sum both ways — a partial sum that feeds rank-local work
   again (mamba2's gated-norm sum of squares);
 * ``gather``: an all-gather in the forward, the rank's slice of the
-  gradient in the backward — the vocabulary-split logits.
+  gradient in the backward — the vocabulary-split logits, and a
+  sequence-sharded tensor entering work that every rank repeats whole;
+* ``split``: the rank's slice in the forward, an all-gather in the
+  backward — the whole result of such work back onto the rank's rows;
+* ``seq_copy``: an all-gather in the forward, a reduce-scatter in the
+  backward — ``copy`` for a sequence-sharded tensor entering rank-local
+  work (each rank's gradient of the whole tensor is partial: summed, and
+  each rank keeps its rows);
+* ``seq_reduce``: a reduce-scatter in the forward, an all-gather in the
+  backward — ``reduce`` for a partial sum that leaves rank-local work
+  onto a sequence-sharded residual.
+
+``SeqGroup`` is a group seen from a residual stream whose rows are split
+over its ranks (sequence parallelism, ``models/transformer.py``): its
+``copy`` and ``reduce`` are ``seq_copy`` and ``seq_reduce`` along the
+sequence, so that the code of a block that enters rank-local work by
+``copy`` and leaves it by ``reduce`` runs unchanged on either layout.
 
 Where no gradient is needed (every serving forward) each issues exactly
 the collective it issued before the ops had a backward — in place, for
@@ -30,7 +47,8 @@ that autograd may have saved, and the backward's collectives count too.
 dry run, ``launch/specs.py``): one rank's place in a group, whose
 collectives return a tensor of the right shape without communicating and
 report each call's kind and operand bytes to the cost counter, the
-per-participant count.  The four ops go through it unchanged, so a train
+per-participant count (a reduce-scatter's operand is the whole input, as
+the reference's HLO count reads operand sizes).  The four ops go through it unchanged, so a train
 step on it counts its backward's collectives too.
 
 ``make_train_groups`` carves a training world into this rank's model and
@@ -57,7 +75,7 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "broadcast": 0}
 COLLECTIVE_TIMEOUT_S = 300  # a collective that waits longer for a rank raises
 
 
@@ -92,6 +110,15 @@ class TPGroup:
         dist.all_gather(parts, t, group=self.pg)
         return torch.cat(parts, dim)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's slice along ``dim`` (of ``t.shape[dim] / world``) of the
+        sum over the ranks, a new tensor."""
+        COLLECTIVES["reduce_scatter"] += 1
+        parts = t.movedim(dim, 0).contiguous()
+        out = parts.new_empty((parts.shape[0] // self.world,) + parts.shape[1:])
+        dist.reduce_scatter_tensor(out, parts, group=self.pg)
+        return out.movedim(0, dim)
+
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks; its gradient passes through unchanged."""
         if _needs_grad(t):
@@ -113,6 +140,24 @@ class TPGroup:
         if _needs_grad(t):
             return _Gather.apply(self, t, dim)
         return self.all_gather(t, dim)
+
+    def split(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's slice along ``dim``; the gradient is all-gathered."""
+        if _needs_grad(t):
+            return _Split.apply(self, t, dim)
+        return _slice(self, t, dim)
+
+    def seq_copy(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``all_gather`` along ``dim``; the gradient is reduce-scattered."""
+        if _needs_grad(t):
+            return _SeqCopy.apply(self, t, dim)
+        return self.all_gather(t, dim)
+
+    def seq_reduce(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """``reduce_scatter`` along ``dim``; the gradient is all-gathered."""
+        if _needs_grad(t):
+            return _SeqReduce.apply(self, t, dim)
+        return self.reduce_scatter(t, dim)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank, in place."""
@@ -156,6 +201,12 @@ class CountingGroup(TPGroup):
         self._record("all_gather", t)
         shape = list(t.shape)
         shape[dim] *= self.world
+        return t.new_empty(shape)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        self._record("reduce_scatter", t)
+        shape = list(t.shape)
+        shape[dim] //= self.world
         return t.new_empty(shape)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -216,6 +267,107 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None
+
+
+def _slice(group: TPGroup, t: torch.Tensor, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // group.world
+    return t.narrow(dim, group.rank * n, n)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(group, t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.all_gather(g, ctx.dim), None
+
+
+class _SeqCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.reduce_scatter(g, ctx.dim), None
+
+
+class _SeqReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.group.all_gather(g, ctx.dim), None
+
+
+@dataclasses.dataclass(eq=False)
+class SeqGroup:
+    """``group`` seen from a residual stream [B, rows, ...] whose sequence
+    (``n`` rows in all) is split over its ranks: each holds ``rows =
+    ceil(n / world)`` of them, rank r rows [r·rows, (r+1)·rows), the last
+    ranks' rows past ``n`` padding (the residual's rows are independent, so
+    a pad row never reaches a real one, and the pads are dropped wherever
+    the whole sequence is formed).
+
+    ``copy`` enters rank-local work by ``seq_copy`` and ``reduce`` leaves
+    it by ``seq_reduce``, along dim 1; ``gather`` enters work that every
+    rank repeats whole, ``split`` leaves it.  The whole sequence that
+    ``copy`` and ``gather`` return holds the ``n`` real rows only, and
+    ``reduce`` and ``split`` take it so; ``sum_both`` (a sum over the
+    ranks of a tensor of the whole sequence), ``rank`` and ``world`` are
+    ``group``'s."""
+
+    group: TPGroup
+    n: int
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def world(self) -> int:
+        return self.group.world
+
+    @property
+    def rows(self) -> int:
+        return -(-self.n // self.group.world)
+
+    def _pad(self, t: torch.Tensor) -> torch.Tensor:
+        extra = self.rows * self.world - t.shape[1]
+        if not extra:
+            return t
+        return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])], 1)
+
+    def _trim(self, t: torch.Tensor) -> torch.Tensor:
+        return t if t.shape[1] == self.n else t[:, :self.n]
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        return self._trim(self.group.seq_copy(t, 1))
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.seq_reduce(self._pad(t), 1)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self._trim(self.group.gather(t, 1))
+
+    def split(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.split(self._pad(t), 1)
+
+    def rows_of(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t``, a whole-sequence tensor of rank-local
+        work (no collective: its gradient is 0 on the other rows, a partial
+        gradient as rank-local work's is)."""
+        return self._pad(t)[:, self.rank * self.rows:(self.rank + 1) * self.rows]
+
+    def sum_both(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.sum_both(t)
 
 
 def _device_key(device: torch.device) -> str:

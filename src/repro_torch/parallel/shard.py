@@ -63,6 +63,10 @@ FF_ALIGN = 8  # a rank's dense-MLP width is a multiple of this: 16-byte rows in 
 # block's too) and rwkv6's channel-mix
 _FF_PADDED = {("mlp", "wg"), ("mlp", "wu"), ("mlp", "wd"), ("tm", "cm_k"), ("tm", "cm_v")}
 _RECURRENT = ("mamba", "tm")  # where the recurrent blocks' tensors sit (param_where)
+# the whole tensors a sequence-sharded forward reads on each rank's own rows only (by where, or
+# (where, key)): every block's own tensors (the norms, zamba2's in_w), the final norm, a MoE
+# block's shared experts, rwkv6's channel-mix gate
+_ROW_LOCAL = {"block", "shared", ("model", "final_norm"), ("tm", "cm_r"), ("tm", "mu_cm")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,7 +324,8 @@ class Shard:
     def _attn_dim(self, key: str) -> int:
         return 1 if key in ("wq", "wk", "wv") else 0
 
-    def reduce_grads(self, params: DecoderLM, grads: list, group) -> list:
+    def reduce_grads(self, params: DecoderLM, grads: list, group,
+                     seq_shard: bool = False) -> list:
         """The gradients of this rank's ``params`` (one per parameter, in
         ``parameters()`` order) once what the forward's collectives leave
         partial is summed over ``group`` (this shard's ranks; call it after
@@ -329,6 +334,12 @@ class Shard:
         * the whole tensors that only rank-local work reads — mamba2's BC
           segments of ``w_in``, ``conv_w`` and ``conv_b``, rwkv6's
           ``mu_tm`` and ``decay_a`` where the heads are split — summed;
+        * after a forward with ``seq_shard`` (the residual stream split over
+          the ranks by sequence), the whole tensors that each rank reads on
+          its own rows only — every norm of the residual (the blocks'
+          ``ln1``/``ln2``/``ln``, ``final_norm``), zamba2's ``in_w``, a MoE
+          block's shared experts, rwkv6's ``cm_r`` and ``mu_cm`` (the
+          channel-mix gate) — summed, in one all-reduce per dtype;
         * a KV head that several ranks hold (the ranks do not divide the KV
           heads): each rank's ``wk``/``wv``/``bk``/``bv`` slot summed over
           the ranks that hold its head;
@@ -341,8 +352,16 @@ class Shard:
         holds), as the forward's ``TPGroup.copy``/``reduce`` placed them."""
         if self.world == 1:
             return list(grads)
-        names = [n for n, _ in params.named_parameters()]
-        return [self._reduce_grad(*param_where(n), g, group) for n, g in zip(names, grads)]
+        where = [param_where(n) for n, _ in params.named_parameters()]
+        out = [self._reduce_grad(*w, g, group) for w, g in zip(where, grads)]
+        if seq_shard:
+            rows = [i for i, w in enumerate(where) if w[0] in _ROW_LOCAL or w in _ROW_LOCAL]
+            for dtype in {out[i].dtype for i in rows}:
+                idx = [i for i in rows if out[i].dtype == dtype]
+                flat = group.all_reduce(torch.cat([out[i].reshape(-1) for i in idx]))
+                for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+                    out[i] = part.view_as(out[i])
+        return out
 
     def _reduce_grad(self, where: str, key: str, g: torch.Tensor, group) -> torch.Tensor:
         if where == "attn" and key in _Q_KEYS:

@@ -177,10 +177,11 @@ def _tp_train(group, job: dict) -> dict:
     of each step, in ``launch.steps._feed``'s form], "lr" (``make_train_step``
     kwargs), "mesh_model" (the ranks each model is sharded over; default the
     whole group), "compress" (``grad_compress_pod``: the int8 mean over the
-    data ranks), "moe_form", "serve_prompt" (token ids: first
-    a serving prefill of them, without a gradient, whose collectives are
-    returned), "all_grads" (return every gradient, not only the whole
-    tensors'), "record_shapes"}.
+    data ranks), "moe_form", "seq_shard" (the residual stream split over the
+    model ranks by sequence, ``make_train_step``'s), "remat", "serve_prompt"
+    (token ids: first a serving prefill of them, without a gradient, whose
+    collectives are returned), "all_grads" (return every gradient, not
+    only the whole tensors'), "record_shapes"}.
 
     The group is carved into model and data groups
     (``parallel.group.make_train_groups``); this rank's model is the
@@ -191,7 +192,9 @@ def _tp_train(group, job: dict) -> dict:
     norm over the group.  Returns the losses, the step times
     (host clock), this rank's parameters after the steps (numpy, by name),
     those whole gradients, the global norm, the collectives and kernel
-    launches of the steps, the peak memory on a card, and the rank's place."""
+    launches of the steps, on a card the bytes allocated when the job
+    started, at the first step's start and at the steps' peak, and the
+    rank's place."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step, sharded_grads
     from repro_torch.obs.clock import monotonic
@@ -200,6 +203,8 @@ def _tp_train(group, job: dict) -> dict:
     from repro_torch.parallel.group import COLLECTIVES, make_train_groups, reset_collective_counts
 
     cfg = job["cfg"]
+    cuda = group.device.type == "cuda"
+    start = torch.cuda.memory_allocated(group.device) if cuda else 0  # before this job's tensors
     mg, dg = make_train_groups(group, job.get("mesh_model", group.world))
     model, params = build(mg, cfg, job["weights"], job.get("moe_form", "tp"))
     params.requires_grad_(True)
@@ -211,19 +216,22 @@ def _tp_train(group, job: dict) -> dict:
         serve = dict(COLLECTIVES)
     batches = [_rows(b, dg.rank, dg.world) for b in job["batches"]]
     compress = job.get("compress", False)
+    seq = dict(remat=job.get("remat", "none"), seq_shard=job.get("seq_shard", False))
     # the gradient of the first batch, by the step's own gradient half, for the checks
-    grads = sharded_grads(model, params, batches[0], dg, compress)[1]
+    grads = sharded_grads(model, params, batches[0], dg, compress, **seq)[1]
     weights = model.shard.norm_weights(params)
     gnorm = float(global_norm([g.float() for g in grads], mg, weights))
     names = [n for n, _ in params.named_parameters()]
     whole = {n: _np(g) for n, g, w in zip(names, grads, weights) if w is None}
     every = {n: _np(g) for n, g in zip(names, grads)} if job.get("all_grads") else None
     del grads
-    step = make_train_step(cfg, model, data=dg, grad_compress_pod=compress, **job["lr"])
+    step = make_train_step(cfg, model, data=dg, grad_compress_pod=compress, **seq, **job["lr"])
     opt = adamw_init(params)
-    if group.device.type == "cuda":
+    base = 0
+    if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated(group.device)
     reset_collective_counts()
     ops.reset_launch_counts()
     losses, step_s = [], []
@@ -237,8 +245,52 @@ def _tp_train(group, job: dict) -> dict:
            "grads": every, "params": {n: _np(p) for n, p in params.named_parameters()},
            "collectives": dict(COLLECTIVES), "launches": ops.launch_counts(),
            "serve_collectives": serve}
-    if group.device.type == "cuda":
+    if cuda:
         out["peak_bytes"] = torch.cuda.max_memory_allocated(group.device)
+        out["base_bytes"], out["start_bytes"] = base, start
+    return out
+
+
+def seq_prefill(group, job: dict) -> dict:
+    """``_seq_prefill`` with the shapes of its kernel calls (``_with_shapes``)."""
+    return _with_shapes(_seq_prefill, group, job)
+
+
+def _seq_prefill(group, job: dict) -> dict:
+    """A prefill with the residual stream split over the ranks by sequence
+    beside the whole-sequence one: job {"cfg", "weights" (``build``'s),
+    "prompt" [B, P] token ids (or "embeds" [B, P, d]), "enc", "S_max",
+    "decode" (greedy steps from each cache, default 0), "moe_form",
+    "record_shapes"}.
+    Returns both prefills' logits and cache leaves ("group.block.key" ->
+    numpy), the greedy tokens decoded from each cache, and the collectives
+    and kernel launches of the sequence-sharded prefill alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
+
+    model, params = build(group, job["cfg"], job["weights"], job.get("moe_form", "tp"))
+    S_max, n = job["S_max"], job.get("decode", 0)
+    feed = {"enc": job.get("enc")}
+    feed.update({"embeds": job["embeds"]} if "embeds" in job else {"tokens": job["prompt"]})
+    out = {"rank": group.rank}
+    for key, seq in (("plain", False), ("seq", True)):
+        with torch.no_grad():
+            reset_collective_counts()
+            ops.reset_launch_counts()
+            lg, cache = model.prefill(params, S_max=S_max, seq_shard=seq, **feed)
+            if seq:
+                out["collectives"], out["launches"] = dict(COLLECTIVES), ops.launch_counts()
+            leaves = {f"{gi}.{bi}.{k}": _np(x).copy() for gi, unit in enumerate(cache["groups"])
+                      for bi, blk in enumerate(unit) for k, x in blk.items()}
+            cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks = [cur]
+            for _ in range(n - 1):
+                ld, cache = model.decode_step(params, cache, cur, S_max)
+                cur = ld[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                toks.append(cur)
+        out[key] = {"logits": _np(lg), "tokens": torch.cat(toks, 1).tolist() if n else [],
+                    "cache": leaves}
+        del lg, cache
     return out
 
 
@@ -915,7 +967,8 @@ def remat_counts(group, job: dict) -> dict:
     (``launch.steps.loss_and_grads``, before ``Shard.reduce_grads``), and
     the collectives (``COLLECTIVES``) of one train step per remat
     (``make_train_step``), of a prefill of ``prompt`` and of one decode
-    step after it."""
+    step after it, and of the prefill and the train steps again with the
+    residual stream sequence-sharded ("prefill_seq", "train_seq_<remat>")."""
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     from repro_torch.optim import adamw_init
     from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
@@ -931,12 +984,17 @@ def remat_counts(group, job: dict) -> dict:
         model.decode_step(params, cache, np.zeros((len(job["prompt"]), 1), np.int32),
                           job["S_max"])
         counts["decode"] = dict(COLLECTIVES)
+        reset_collective_counts()
+        model.prefill(params, job["prompt"], S_max=job["S_max"], seq_shard=True)
+        counts["prefill_seq"] = dict(COLLECTIVES)
     params.requires_grad_(True)
     for remat in ("none", "full"):
         grads[remat] = [_np(g) for g in loss_and_grads(model, params, job["batch"], remat)[1]]
-        reset_collective_counts()
-        make_train_step(cfg, model, remat=remat)(params, adamw_init(params), job["batch"])
-        counts[f"train_{remat}"] = dict(COLLECTIVES)
+        for seq in (False, True):
+            reset_collective_counts()
+            make_train_step(cfg, model, remat=remat, seq_shard=seq)(params, adamw_init(params),
+                                                                    job["batch"])
+            counts[f"train_seq_{remat}" if seq else f"train_{remat}"] = dict(COLLECTIVES)
     return {"rank": group.rank, "grads": grads, "collectives": counts}
 
 

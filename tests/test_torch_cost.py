@@ -10,7 +10,9 @@
   (the meta branches): a wrapper counts once, by its formula, whatever
   runs inside it.
 * The collectives a ``CountingGroup`` counts on meta at tp 2 equal
-  ``COLLECTIVES`` after the same steps on 2 gloo ranks.
+  ``COLLECTIVES`` after the same steps on 2 gloo ranks, sequence-sharded
+  (``seq_shard``) too; a reduce-scatter counts its whole operand and
+  returns the rank's slice of it.
 * The products' operations of a smoke decode and train step equal the
   reference's ``hlo_parse.analyze(...).flops`` of the compiled step on the
   CPU — tolerance 0 once the one term the two count differently is taken
@@ -150,11 +152,15 @@ def test_collectives_counted_on_meta_equal_a_real_tp2_run(real_tp2, name):
             counted["prefill"] = c
             counted["decode"], _ = cost.count(
                 lambda p, ca, t: model.decode_step(p, ca, t, S_MAX), params, cache, toks[:, :1])
+            counted["prefill_seq"], _ = cost.count(
+                lambda p, t: model.prefill(p, t, S_max=S_MAX, seq_shard=True), params, toks)
         tparams = model.init(0, trainable=True)
         for remat in ("none", "full"):
-            counted[f"train_{remat}"], _ = cost.count(
-                make_train_step(cfg, model, remat=remat), tparams, adamw_init(tparams),
-                {"tokens": torch.zeros((B, S + 1), dtype=torch.int32, device="meta")})
+            for seq in (False, True):
+                counted[f"train_seq_{remat}" if seq else f"train_{remat}"], _ = cost.count(
+                    make_train_step(cfg, model, remat=remat, seq_shard=seq), tparams,
+                    adamw_init(tparams),
+                    {"tokens": torch.zeros((B, S + 1), dtype=torch.int32, device="meta")})
         real = real_tp2[name][rank]["collectives"]
         for k, c in counted.items():
             got = {kind: c.collectives.get(kind, {"count": 0})["count"] for kind in real[k]}
@@ -163,6 +169,25 @@ def test_collectives_counted_on_meta_equal_a_real_tp2_run(real_tp2, name):
         full, none = counted["train_full"], counted["train_none"]
         assert sum(v["count"] for v in full.collectives_by_phase["backward"].values()) > \
             sum(v["count"] for v in none.collectives_by_phase["backward"].values())
+        # sequence-sharded, the all-reduces of the residual (the lookup's and two a block) are
+        # gone; one sums the gradients of the norms, which each rank reads on its own rows
+        fwd = {k: v["count"] for k, v in counted["train_none"].collectives_by_phase[
+            "forward"].items()}
+        seq = {k: v["count"] for k, v in counted["train_seq_none"].collectives_by_phase[
+            "forward"].items()}
+        assert seq["all_reduce"] == fwd["all_reduce"] - (1 + 2 * cfg.n_layers) + 1
+        assert seq["reduce_scatter"] == 1 + 2 * cfg.n_layers
+
+
+def test_reduce_scatter_counts_its_operand_and_returns_the_rank_slice():
+    group = CountingGroup(1, 4)
+    x = torch.empty((2, 8, 16), device="meta")
+    c, out = cost.count(lambda t: group.reduce_scatter(t, 1), x)
+    assert out.shape == (2, 2, 16)
+    assert c.collectives == {"reduce_scatter": {"count": 1, "bytes": 2 * 8 * 16 * 4}}
+    assert c.collective_axes == {"model": {"ranks": 4, "bytes": 2 * 8 * 16 * 4}}
+    c, out = cost.count(lambda t: group.all_gather(t, 1), out)
+    assert out.shape == (2, 8, 16) and c.collectives["all_gather"]["bytes"] == 2 * 2 * 16 * 4
 
 
 def test_product_operations_equal_the_reference_hlo():

@@ -94,7 +94,7 @@ def test_split_chain_engine_matches_the_reference(cases, ranks, name, mode):
         assert got["tokens"] == want
         assert [got["stats"][0][f] for f in STAT_FIELDS] == [getattr(jst, f) for f in STAT_FIELDS]
         # the first token once, then the chain and the argmax each round
-        assert got["collectives"] == {"all_reduce": 0, "all_gather": 0,
+        assert got["collectives"] == {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
                                       "broadcast": 1 + 2 * got["rounds"]}
         assert res["standin"] == {"is_standin": True, "tensors": 0}
     if name == "zamba2-self":

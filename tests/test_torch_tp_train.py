@@ -267,10 +267,12 @@ def test_collectives_of_a_serving_forward_and_of_a_train_step(ranks, case):
     L, dup = cfg.n_layers, 2 * cfg.n_layers if tp == 3 else 0
     for r in ranks[case]:
         assert r["serve_collectives"] == {"all_reduce": int(vocab) + 2 * L,
-                                          "all_gather": int(vocab), "broadcast": 0}
+                                          "all_gather": int(vocab), "reduce_scatter": 0,
+                                          "broadcast": 0}
         per_step = {k: v // 2 for k, v in r["collectives"].items()}
         assert per_step == {"all_reduce": int(vocab) + 2 * L + 2 * L + int(vocab) + 1 + dup,
-                            "all_gather": int(vocab), "broadcast": 0}, r["collectives"]
+                            "all_gather": int(vocab), "reduce_scatter": 0, "broadcast": 0}, \
+            r["collectives"]
 
 
 def test_two_data_by_two_model_ranks_are_the_single_process_step(reference, ranks):
