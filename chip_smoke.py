@@ -23,10 +23,11 @@ It takes no options and runs every phase, in order:
            copying through and slot_write_rows on deepseek-moe's two-group
            cache and minicpm3's MLA latents) and of the tensor-parallel
            ranks of phase (tp) and beyond (Hq 16 / Hkv 4 at hd 128 and 64,
-           G 5, llama3-70b's tp-3 layouts G 9 over 3 and 4 KV heads,
-           fused_swiglu at the per-rank widths 4784, 2736 and 9560 that the
-           ranks run and at the ragged shares 4779, 2731 and 9558 that
-           they pad to a multiple of 8),
+           G 5, llama3-70b's tp-3 layouts G 9 over 3 and 4 KV heads and
+           its tp-4 layout G 8 over 2 (``tools/headline_nccl.py``'s
+           ranks), fused_swiglu at the per-rank widths 4784, 2736, 9560
+           and 7168 that the ranks run and at the ragged shares 4779, 2731
+           and 9558 that they pad to a multiple of 8),
            and time kernel, plain
            version and the PyTorch call that computes the same function
            (for fused_swiglu a composite of cuBLAS and elementwise calls),
@@ -412,6 +413,9 @@ TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer 
     ("8B-tp3", "llama3-8b", 3, 0, set()), ("1B-tp3", "llama3-1b", 3, 0, set()),
     ("70B-tp3-r0", "llama3-70b", 3, 0, {"attention"}),
     ("70B-tp3-r1", "llama3-70b", 3, 1, {"attention"}),
+    # tools/headline_nccl.py's shared layout: llama3-70b over 4 ranks (G 8 over 2 KV heads,
+    # N 7168)
+    ("70B-tp4-r0", "llama3-70b", 4, 0, {"attention"}),
     # the families' ranks of (q): zamba2's shared block at tp 2 (16 heads, hd 80, G 1; its MLP
     # N 5120), minicpm3 at tp 3 (MLA: no attention kernel; N 2136, the share 2134 padded to
     # 8), llama-3.2-vision at tp 2 (Hq 32 / Hkv 4; N 14336)
@@ -1792,6 +1796,16 @@ def phase_serve(torch, card):
     return counts, (("8B", tp), ("1B", dp))
 
 
+def bf16_config(name: str):
+    """The full config ``name`` with bf16 weights and compute (the
+    production cells' dtype, ``launch.specs.published_config``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), dtype="bfloat16", param_dtype="bfloat16")
+
+
 def peaked(params):
     params.lm_head.mul_(4.0)  # peaked logits, as build_engine draws them
     return params
@@ -2557,45 +2571,11 @@ def phase_tp(torch, card, log):
             print(f"{label} rank {r['rank']}: prefill logits max|err| {err:.3e} against the "
                   f"single-process model (tolerance {TP_LOGIT_TOL}), bit for bit equal to rank "
                   "0's", flush=True)
-        greedy = ranks[0]["greedy"][0]
-        for run in runs:
-            per = [r["runs"][run] for r in ranks]
-            for r, got in zip(ranks, per):
-                toks = got["tokens"][0]
-                if toks != greedy[:len(toks)] or len(toks) != max_new:
-                    j = next((i for i, (a, b) in enumerate(zip(toks, greedy)) if a != b),
-                             len(toks))
-                    fail(f"{label} {run} rank {r['rank']}: output diverges from the sharded "
-                         f"greedy decode at position {j}")
-                if toks != per[0]["tokens"][0]:
-                    fail(f"{label} {run} rank {r['rank']}: output differs from rank 0's")
-                missing = [k for k in MAIN_KERNELS if got["launches"][k] == 0]
-                if missing:
-                    fail(f"{label} {run} rank {r['rank']}: kernels never launched: {missing}")
-                if run == "lockstep" and got.get("syncs_per_round") != 1.0:
-                    fail(f"{label} {run} rank {r['rank']}: {got.get('syncs_per_round')} host "
-                         "syncs of the port per round, not one")
-            st, tr = per[0]["stats"][0], per[0].get("trace")
-            rounds = st["rounds"]
-            coll = sum(per[0]["collectives"].values())
-            counts[f"{path}-{run}"] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
-            print(f"{label} {run}: {rounds} rounds, compression "
-                  f"{sum(st['emitted_rows']) / max(rounds, 1):.3f}, mean round "
-                  f"{per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms ({TP_BACKEND}, {tp} ranks on "
-                  f"one card: no speed figure), {coll / max(rounds, 1):.1f} collectives per round "
-                  f"staged through the host by {TP_BACKEND} ({per[0]['collectives']}), "
-                  + (f"{per[0]['syncs_per_round']:.2f} host syncs of the port per round, "
-                     if "syncs_per_round" in per[0] else "")
-                  + f"every rank's output equals the sharded greedy decode, on {card}", flush=True)
-            if tr:
-                print(f"{label} {run}: rank 0 traced {tr['rounds']} rounds in {tr['wall_ms']:.2f} "
-                      f"ms wall, {tr['kernels'] / tr['rounds']:.1f} kernels per round, device busy "
-                      f"{tr['busy_ms']:.3f} ms, idle share {1 - tr['busy_ms'] / tr['wall_ms']:.4f} "
-                      "(its own kernels; the other ranks share the card)", flush=True)
-            print(f"{label} {run}: kernel launches summed over the ranks "
-                  f"{counts[f'{path}-{run}']}", flush=True)
+        for run, n in report_shared(label, job, ranks, card).items():
+            counts[f"{path}-{run}"] = n
         for i, name in enumerate(splits, start=1):
-            counts.update(report_split(name, [r[i] for r in out], split_greedy, card, log))
+            counts.update(report_split(name, calls[i][1][0], [r[i] for r in out], split_greedy,
+                                       card, log))
         for i, name in enumerate(families, start=1 + len(splits)):
             counts[name] = report_family_tp(name, tp, [r[i] for r in out], family_refs[name][1],
                                             card, log)
@@ -2603,6 +2583,74 @@ def phase_tp(torch, card, log):
             counts[f"{path}-seq"] = report_seq_prefill(f"({path} seq) {tname}/{tdepth} tp {tp}",
                                                        [r[-1] for r in out], ref, tdepth, card,
                                                        log)
+    return counts
+
+
+def report_shared(label, job, ranks, card, backend=TP_BACKEND, sync_runs=("lockstep",)) -> dict:
+    """Check and print the runs of one path whose target and draft share
+    their ranks (``workers.spec_engine`` on ``job``): every rank's greedy
+    decode equal to rank 0's, every rank's output for every prompt equal to
+    it (the target's greedy decode over the same ranks) and to rank 0's,
+    with the same stats, one host sync of the port a round in the runs of
+    ``sync_runs``, and ``MAIN_KERNELS`` launched by every rank in every
+    run.  A diverging output names the first position that differs and the
+    greedy decode's top-2 logit gap there.  The figures of every run are
+    printed before any check.  ``backend``: the ranks' process group,
+    gloo's on one card (no speed figure) or NCCL's, one card per rank
+    (``tools/headline_nccl.py``).  Returns run -> the kernel launches,
+    summed over the ranks."""
+    where = (f"{backend}, one card per rank" if backend == "nccl" else
+             f"{backend}, {len(ranks)} ranks on one card: no speed figure")
+    greedy, gaps = ranks[0]["greedy"], ranks[0].get("greedy_gaps")
+    counts = {}
+    for run, _ in job["runs"]:
+        per = [r["runs"][run] for r in ranks]
+        rounds = sum(st["rounds"] for st in per[0]["stats"])
+        toks = sum(len(t) for t in per[0]["tokens"])
+        emitted = sum(sum(st["emitted_rows"]) for st in per[0]["stats"])
+        coll = per[0]["collectives"]
+        counts[run] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
+        off = [next((k for k, (a, b) in enumerate(zip(t, want)) if a != b), None)
+               for t, want in zip(per[0]["tokens"], greedy)]
+        print(f"{label} {run}: {len(greedy)} prompt(s), {toks} tokens, {rounds} rounds, "
+              f"compression {emitted / max(rounds, 1):.3f}, mean round "
+              f"{per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms, {toks / per[0]['wall_s']:.2f} "
+              f"tok/s ({where}), {sum(coll.values()) / max(rounds, 1):.1f} collectives per round "
+              f"on rank 0 ({coll}), host syncs of the port per round "
+              f"{[g.get('syncs_per_round') for g in per]}; rank 0 leaves the greedy decode at "
+              f"position {off} (per prompt; None: nowhere) on {card}", flush=True)
+        tr = per[0].get("trace")
+        if tr:
+            print(f"{label} {run}: rank 0 traced {tr['rounds']} rounds in {tr['wall_ms']:.2f} "
+                  f"ms wall, {tr['kernels'] / tr['rounds']:.1f} kernels per round, device busy "
+                  f"{tr['busy_ms']:.3f} ms, idle share {1 - tr['busy_ms'] / tr['wall_ms']:.4f} "
+                  "(its own kernels" + ("" if backend == "nccl" else "; the other ranks share "
+                                        "the card") + ")", flush=True)
+        print(f"{label} {run}: kernel launches summed over the ranks {counts[run]}", flush=True)
+    for r in ranks:
+        if r["greedy"] != greedy:
+            fail(f"{label} rank {r['rank']}: its greedy decode differs from rank 0's")
+    for run, kw in job["runs"]:
+        per = [r["runs"][run] for r in ranks]
+        for r, got in zip(ranks, per):
+            for i, (toks, want) in enumerate(zip(got["tokens"], greedy)):
+                if toks != want[:len(toks)] or len(toks) != kw["max_new"]:
+                    j = next((k for k, (a, b) in enumerate(zip(toks, want)) if a != b), len(toks))
+                    gap = f"{gaps[i][j]:.4g}" if gaps and j < len(gaps[i]) else "not recorded"
+                    fail(f"{label} {run} rank {r['rank']} prompt {i}: output diverges from the "
+                         f"target's greedy decode over the same ranks at position {j} (spec "
+                         f"{toks[j:j + 3]}, greedy {want[j:j + 3]}); the greedy decode's top-2 "
+                         f"logit gap there: {gap}")
+            if got["tokens"] != per[0]["tokens"] or got["stats"] != per[0]["stats"]:
+                fail(f"{label} {run} rank {r['rank']}: tokens or stats differ from rank 0's")
+            if run in sync_runs and got.get("syncs_per_round") != 1.0:
+                fail(f"{label} {run} rank {r['rank']}: {got.get('syncs_per_round')} host syncs "
+                     "of the port per round, not one")
+            missing = [k for k in MAIN_KERNELS if got["launches"][k] == 0]
+            if missing:
+                fail(f"{label} {run} rank {r['rank']}: kernels never launched: {missing}")
+        print(f"{label} {run}: every rank's output equals the target's greedy decode over the "
+              "same ranks, with rank 0's tokens and stats", flush=True)
     return counts
 
 
@@ -2806,25 +2854,36 @@ def split_job(name: str) -> dict:
             "greedy_n": SPLIT_NEW if n_t == 1 else 0, "sync_rounds": 2, "record_shapes": True}
 
 
-def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
-    """Check and print one (s) path's ranks (``workers.split_engine``): every
-    rank's output equal to the target's single-process greedy decode
-    (``greedy``: each path's, from the first path whose target has one
-    rank) and to rank 0's, the same stats on every rank, one host sync of
-    the port per round (+1 per chain request), each role's kernels
-    launched on each of its ranks, each rank's parameters its own role's
-    model's alone (``param_count`` of its shard), and its peak memory above
-    what it held before, less those parameters, below the other role's
-    weights.  ``backend``: the ranks' process group, gloo's on one card here
-    (no speed figure) or NCCL's, one card per rank (``tools/split_nccl.py``).
-    Returns the launches per run, summed over the ranks."""
+def report_split(name, job, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
+    """Check and print one split path's ranks (``workers.split_engine`` on
+    ``job``, e.g. ``split_job(name)``): every rank's output for every prompt
+    equal to the target's greedy decode (``greedy``: the target's name ->
+    each prompt's tokens, from the first path whose ranks decoded it — a
+    target of one rank decodes as the single-process model — or this
+    path's own target ranks) and to rank 0's, the same stats on every rank,
+    one host sync of the port per round (+1 per chain request), each role's
+    kernels launched on each of its ranks, each rank's parameters its own
+    role's model's alone (``param_count`` of its shard), its peak memory
+    after the build (``workers._built``) above what it held before, less
+    those parameters, below the other role's weights, and the build's own
+    peak so too once the drawing of the role's largest whole tensor is
+    taken off it (``init_model`` draws each tensor whole in float32, casts
+    it and keeps the rank's slice).  A diverging output names
+    the first position that differs and the greedy decode's top-2 logit
+    gap there.  ``backend``: the ranks' process group, gloo's on one card
+    here (no speed figure) or NCCL's, one card per rank
+    (``tools/split_nccl.py``, ``tools/headline_nccl.py``).  Returns the
+    launches per run, summed over the ranks."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
     from repro_torch.parallel.shard import Shard
 
-    _, (tname, n_t), (dname, n_d), runs = SPLIT_PATHS[name]
-    cfgs = {"target": get_config(tname), "draft": get_config(dname)}
+    n_t = job["n_target"]
+    n_d = len(ranks) - n_t
+    cfgs = {"target": job["tcfg"], "draft": job["dcfg"] or job["tcfg"]}
+    tname, dname = (cfgs[role].name for role in ("target", "draft"))
+    runs = [(run, kind, kw["max_new"]) for run, kind, kw in job["runs"]]
     label = f"({name}) split {tname} on {n_t} rank{'s' * (n_t > 1)} + {dname} on {n_d}"
     where = (f"{backend}, one card per rank" if backend == "nccl" else
              f"{backend}, {n_t + n_d} ranks on one card: no speed figure")
@@ -2835,6 +2894,13 @@ def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
 
     whole = {role: sum(role_bytes(role, i, n) for i in range(n))
              for role, n in (("target", n_t), ("draft", n_d))}
+
+    def drawing(c):  # the bytes of drawing c's largest whole tensor: float32, then its cast
+        size = getattr(torch, c.param_dtype).itemsize
+        return max(p.numel() for p in init_model(c, 0, "meta").parameters()) * (
+            4 + (size if size != 4 else 0))
+
+    draw = {role: drawing(c) for role, c in cfgs.items()}
     if [r["role"] for r in ranks] != ["target"] * n_t + ["draft"] * n_d:
         fail(f"{label}: the ranks' roles are {[r['role'] for r in ranks]}")
     for r in ranks:
@@ -2851,31 +2917,44 @@ def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
             fail(f"{label} rank {r['rank']}: its peak is {above / 2**30:.2f} GiB above what it "
                  f"held before: beside its {r['param_bytes'] / 2**30:.2f} GiB of weights, room for the "
                  f"{other}'s {whole[other] / 2**30:.2f} GiB")
+        drawn = r["build_peak"] - r["allocated_before"] - r["param_bytes"]
+        if drawn - draw[role] >= whole[other]:
+            fail(f"{label} rank {r['rank']}: its build's peak is {drawn / 2**30:.2f} GiB above "
+                 f"its weights and what it held before: beside the {draw[role] / 2**30:.2f} "
+                 f"GiB of drawing its largest whole tensor, room for the {other}'s "
+                 f"{whole[other] / 2**30:.2f} GiB")
         print(f"{label} rank {r['rank']} ({role}, ranks {list(r['ranks'])}): parameters "
               f"{r['param_bytes'] / 2**30:.3f} GiB (its {role}'s shard: {want / 2**30:.3f} GiB), "
-              f"allocated after the build {r['allocated_after_build'] / 2**30:.3f} GiB, peak "
-              f"{r['peak_allocated'] / 2**30:.3f} GiB ({above / 2**30:.3f} GiB above the "
-              f"{r['allocated_before'] / 2**30:.3f} GiB held before it; the {other}'s weights: "
-              f"{whole[other] / 2**30:.3f} GiB, none here) on {card}", flush=True)
+              f"allocated after the build {r['allocated_after_build'] / 2**30:.3f} GiB (its "
+              f"peak {r['build_peak'] / 2**30:.3f} GiB, {drawn / 2**30:.3f} GiB above its "
+              f"weights, the largest whole tensor's drawing {draw[role] / 2**30:.3f} GiB), "
+              f"peak after it {r['peak_allocated'] / 2**30:.3f} GiB ({above / 2**30:.3f} GiB "
+              f"above the {r['allocated_before'] / 2**30:.3f} GiB held before the build; the "
+              f"{other}'s weights: {whole[other] / 2**30:.3f} GiB, none here) on {card}",
+              flush=True)
     print(f"{label}: seconds on rank 0: build (the split's groups, the weights drawn) "
           f"{ranks[0]['build_s']:.1f}" + (f", greedy decode {ranks[0]['greedy_s']:.1f}"
                                           if "greedy_s" in ranks[0] else "")
           + "".join(f", {run} {g['wall_s']:.1f} + {g['after_s']:.1f} (its syncs' rounds)"
                     for run, g in ranks[0]["runs"].items()), flush=True)
     if "greedy" in ranks[0]:
-        greedy[tname] = ranks[0]["greedy"][0]
-    want_toks = greedy[tname]
+        greedy[tname] = ranks[0]["greedy"]
+    want_all = greedy[tname]
+    gaps = ranks[0].get("greedy_gaps")
     counts = {}
-    for run, kind in runs:
+    for run, kind, max_new in runs:
         per = [r["runs"][run] for r in ranks]
         for r, got in zip(ranks, per):
-            toks = got["tokens"][0]
-            if toks != want_toks[:len(toks)] or len(toks) != SPLIT_NEW:
-                j = next((i for i, (a, b) in enumerate(zip(toks, want_toks)) if a != b),
-                         len(toks))
-                fail(f"{label} {run} rank {r['rank']}: output diverges from the single-process "
-                     f"greedy decode at position {j}")
-            if toks != per[0]["tokens"][0] or got["stats"] != per[0]["stats"]:
+            for i, (toks, want_toks) in enumerate(zip(got["tokens"], want_all)):
+                if toks != want_toks[:len(toks)] or len(toks) != max_new:
+                    j = next((k for k, (a, b) in enumerate(zip(toks, want_toks)) if a != b),
+                             len(toks))
+                    gap = f"{gaps[i][j]:.4g}" if gaps and j < len(gaps[i]) else "not recorded"
+                    fail(f"{label} {run} rank {r['rank']} prompt {i}: output diverges from the "
+                         f"target's greedy decode at position {j} (spec {toks[j:j + 3]}, greedy "
+                         f"{want_toks[j:j + 3]}); the greedy decode's top-2 logit gap there: "
+                         f"{gap}")
+            if got["tokens"] != per[0]["tokens"] or got["stats"] != per[0]["stats"]:
                 fail(f"{label} {run} rank {r['rank']}: tokens or stats differ from rank 0's")
             sy = got["syncs"]
             if sy["syncs"] != sy["rounds"] + sy["requests"]:
@@ -2886,22 +2965,26 @@ def report_split(name, ranks, greedy, card, log, backend=TP_BACKEND) -> dict:
             if missing:
                 fail(f"{label} {run} rank {r['rank']} ({r['role']}): kernels never launched: "
                      f"{missing}")
-        st, rounds = per[0]["stats"][0], per[0]["rounds"]
-        emitted = st["emitted"] if kind == "chain" else sum(st["emitted_rows"])
+        rounds = per[0]["rounds"]
+        emitted = sum(st["emitted"] if kind == "chain" else sum(st["emitted_rows"])
+                      for st in per[0]["stats"])
         sy = per[0]["syncs"]
         counts[f"{name}-{run}"] = {k: sum(g["launches"][k] for g in per) for k in ALL_KERNELS}
         coll = per[0]["collectives"]
-        print(f"{label} {run}: {rounds} rounds, compression {emitted / max(rounds, 1):.3f}, mean "
-              f"round {per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms ({where}), "
+        toks = sum(len(t) for t in per[0]["tokens"])
+        print(f"{label} {run}: {len(per[0]['tokens'])} prompt(s), {toks} tokens, {rounds} rounds, "
+              f"compression {emitted / max(rounds, 1):.3f}, mean round "
+              f"{per[0]['wall_s'] / max(rounds, 1) * 1e3:.2f} ms, {toks / per[0]['wall_s']:.2f} "
+              f"tok/s ({where}), "
               f"{(sy['syncs'] - sy['requests']) / sy['rounds']:.2f} host syncs of the port per "
               "round"
               + (f" (+{sy['requests']} for the request's first token)" if kind == "chain" else "")
               + f" on every rank, {sum(coll.values()) / max(rounds, 1):.2f} collectives per round "
               f"on rank 0 ({coll}; {coll['broadcast'] / max(rounds, 1):.2f} of them the world's "
-              f"exchanges), every rank's output equals the single-process greedy decode, on {card}",
+              f"exchanges), every rank's output equals the target's greedy decode, on {card}",
               flush=True)
         for role in ("target", "draft"):
-            mine = [(r["rank"], g["launches"]) for r, g in zip(ranks, per) if r["role"] == role]
+            mine = [(rk["rank"], g["launches"]) for rk, g in zip(ranks, per) if rk["role"] == role]
             print(f"{label} {run}: {role} ranks' kernel launches "
                   f"{[(rk, {k: v for k, v in ln.items() if v}) for rk, ln in mine]}", flush=True)
     return counts

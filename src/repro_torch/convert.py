@@ -13,6 +13,10 @@ experts.  A zamba2 tree also holds the model-level ``shared_attn`` block
 ``in_w``; an rwkv6 entry holds ``ln1``, ``ln2`` and ``tm``, the parameters
 of its time-mix and channel-mix.
 
+A bf16 tree (a config with ``param_dtype`` "bfloat16") converts bit for
+bit: numpy holds its leaves as ``ml_dtypes.bfloat16``, which torch does not
+take, so they pass through float32 (``_widened``).
+
 ``quantized_from_numpy`` does the same for the reference's
 ``QuantizedLinear`` (``repro.quant``), so both packages multiply by the
 same packed bytes.
@@ -20,6 +24,7 @@ same packed bytes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -41,7 +46,7 @@ def params_from_numpy(cfg, tree, device) -> DecoderLM:
     device = resolve_device(device)
 
     def t(a):
-        return torch.tensor(a, dtype=getattr(torch, cfg.param_dtype), device=device)
+        return torch.tensor(_widened(a), dtype=getattr(torch, cfg.param_dtype), device=device)
 
     def block(kind, p, u=None):
         def one(a):
@@ -74,6 +79,15 @@ def params_from_numpy(cfg, tree, device) -> DecoderLM:
                     layers.append(SharedBlock(t(p["in_w"][u])))
     shared = None if tree.get("shared_attn") is None else block("dense", tree["shared_attn"])
     return DecoderLM(t(tree["embed"]), t(tree["final_norm"]), t(tree["lm_head"]), layers, shared)
+
+
+def _widened(a):
+    """``a`` as an array torch takes: numpy has no bfloat16 of its own, and
+    torch refuses the ``ml_dtypes.bfloat16`` arrays a bf16 JAX tree unboxes
+    to, so those go through float32, which holds every bf16 value exactly
+    (the cast back to bf16 is then bit for bit)."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
 def quantized_from_numpy(qweight, scales, zeros, group_size: int, device) -> QuantizedLinear:

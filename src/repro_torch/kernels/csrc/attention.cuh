@@ -566,14 +566,11 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 
 template <typename T, int W, bool kByLength>
 cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
-  static int smem_set = 48 * 1024;  // the most dynamic shared memory this kernel was allowed
+  static int allowed[kMaxCards] = {};  // the most dynamic shared memory, per card
   const int smem = smem_layout<T, W>(a.hd, a.stages).total;
   auto kern = attention_kernel<T, W, kByLength>;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
+  cudaError_t e = allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.Hkv, a.n_rowtiles, a.n_launch);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();

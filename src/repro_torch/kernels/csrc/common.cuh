@@ -11,6 +11,24 @@
 // dtype codes passed by the Python wrappers (repro_torch/kernels/ops.py)
 enum : int { DT_F32 = 0, DT_BF16 = 1 };
 
+// The most dynamic shared memory a kernel may use is an attribute of the
+// current device, so a process that launches on several cards raises it on
+// each one.  `allowed` is the kernel's own record, per device (static in its
+// launcher); every launch may use 48 KB without it.
+constexpr int kMaxCards = 64;
+
+template <typename K>
+inline cudaError_t allow_smem(K kern, int smem, int (&allowed)[kMaxCards]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxCards) return cudaErrorInvalidDevice;
+  if (smem <= 48 * 1024 || smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 

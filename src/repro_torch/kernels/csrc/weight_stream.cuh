@@ -324,14 +324,11 @@ __global__ void __launch_bounds__(kThreads, 2)  // two blocks on each SM
 // bytes of dynamic shared memory.
 template <class Op>
 cudaError_t launch_op(const typename Op::Args& a, int smem, cudaStream_t stream) {
-  static int smem_set = 0;  // the most dynamic shared memory this kernel was allowed
+  static int allowed[kMaxCards] = {};  // the most dynamic shared memory, per card
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   auto kern = stream_kernel<Op>;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
+  cudaError_t e = allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
   const Split& s = a.sp;
   dim3 grid((s.M + Op::kRows - 1) / Op::kRows, (s.N + kTileN - 1) / kTileN, s.splits);
   kern<<<grid, kThreads, smem, stream>>>(a);

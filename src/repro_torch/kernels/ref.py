@@ -14,22 +14,54 @@ import torch.nn.functional as F
 from repro_torch.quant import QuantizedLinear, dequantize
 
 
+REF_BLOCK_BYTES = 1 << 28  # the most bytes of gathered keys and values one block of queries holds
+
+
 def tree_attention_ref(q, k, v, mask):
     """Non-square tree-masked GQA attention.
 
     q: [B, n, Hq, hd]; k, v: [B, S, Hkv, hd]; mask: bool [B, n, S], True =
     attend.  Returns [B, n, Hq, hd] in q's dtype; a fully masked query row
-    returns zeros."""
+    returns zeros.
+
+    Each query first gathers the keys it attends, in row order, to the
+    front of its own copy of the cache, so that its sums run over the same
+    terms at the same indices wherever those keys lie in the cache.  A
+    tree verify holds a node's ancestors at rows of the tree's order, the
+    greedy decode at consecutive rows; the float32 sums over the key axis
+    group their terms by index, and in bf16 the one rounding of the output
+    turns that into an ulp now and then, enough to break a tie of two
+    logits one way in the verify and the other in the decode.  The queries
+    run in blocks whose copies take at most ``REF_BLOCK_BYTES`` (one query
+    at least), so a long prefill never holds a copy of the cache for every
+    row.  The CPU's batched products pick their path by the batch's size,
+    so past the smoke configs' shapes a row's last bits may still depend
+    on how many rows came with it."""
+    B, n = q.shape[:2]
+    S, hkv, hd = k.shape[1:]
+    rows = max(1, REF_BLOCK_BYTES // (2 * B * S * hkv * hd * (k.element_size() + 4)))
+    if n <= rows:
+        return _tree_attention_rows(q, k, v, mask)
+    return torch.cat([_tree_attention_rows(q[:, i:i + rows], k, v, mask[:, i:i + rows])
+                      for i in range(0, n, rows)], dim=1)
+
+
+def _tree_attention_rows(q, k, v, mask):
+    """``tree_attention_ref`` of one block of queries."""
     B, n, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
+    # each query's attended rows first, in row order, then the others
+    order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
+    mask = torch.gather(mask, -1, order)
+    pick = torch.arange(B, device=k.device)[:, None, None], order
     qg = q.reshape(B, n, hkv, g, hd).float()
-    scores = torch.einsum("bnkgh,bskh->bkgns", qg, k.float()) / math.sqrt(hd)
-    m = mask[:, None, None, :, :]
+    scores = torch.einsum("bnkgh,bnskh->bnkgs", qg, k[pick].float()) / math.sqrt(hd)
+    m = mask[:, :, None, None, :]
     scores = torch.where(m, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(m.any(-1, keepdim=True), probs, torch.zeros_like(probs))
-    out = torch.einsum("bkgns,bskh->bnkgh", probs, v.float())
+    out = torch.einsum("bnkgs,bnskh->bnkgh", probs, v[pick].float())
     return out.reshape(B, n, hq, hd).to(q.dtype)
 
 
@@ -47,10 +79,19 @@ def decode_attention_ref(q, k, v, length):
 
 def fused_swiglu_ref(x, wg, wu):
     """silu(x @ wg) * (x @ wu) in f32, returned in x's dtype.
-    x: [M, K]; wg, wu: [K, N] -> [M, N]."""
-    g = x.float() @ wg.float()
-    u = x.float() @ wu.float()
-    return (F.silu(g) * u).to(x.dtype)
+    x: [M, K]; wg, wu: [K, N] -> [M, N].
+
+    A single row is multiplied as a pair (itself twice): a BLAS takes one
+    row by a matrix-vector product, whose sums run in another order than
+    its matrix product's, and a row's result must not depend on how many
+    rows came with it (a decode step's row against the same row in a
+    verify; in bf16 the output's rounding turns the last bits into ulps)."""
+    xf = x.float()
+    if x.shape[0] == 1:
+        xf = xf.expand(2, -1)
+    g = xf @ wg.float()
+    u = xf @ wu.float()
+    return (F.silu(g) * u)[:x.shape[0]].to(x.dtype)
 
 
 def kv_move_rows_ref(arr, src, dst, mask):

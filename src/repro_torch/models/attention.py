@@ -7,9 +7,12 @@ decode step (one token at contiguous rows, no sliding window) goes through
 ``decode_attention`` instead, whose mask is the length.  It writes the new
 K/V rows into the cache first and then attends, so every node sees its own
 row.  Cache writes are in place: the lockstep round owns
-every cache it touches (see ``core/kv.py``).  Prefill attention and the
-cross blocks' attention to the encoder states are plain PyTorch, as the
-reference computes them in XLA outside any Pallas kernel.  Full causal
+every cache it touches (see ``core/kv.py``).  A prefill that fills a
+cache attends the cache through ``tree_attention`` too
+(``prefill_attention``), so that a prompt row carries the bits a verify
+gives it; the training forward's full attention and the cross blocks'
+attention to the encoder states are plain PyTorch, as the reference
+computes them in XLA outside any Pallas kernel.  Full causal
 attention runs in query chunks of ``ATTN_CHUNK`` rows, as the reference's
 (``attn_chunk``), each chunk's mask built from the positions, so neither
 the whole [S, S] mask nor the whole score tensor is ever held; under a
@@ -126,6 +129,51 @@ def attention_full(cfg, p, x, positions):
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = causal_attention(q, k, v, positions, cfg.sliding_window or 0)
     return _out_proj(p, out), (k, v)
+
+
+def _cache_work(q, k, v, positions, cache_k, cache_v, window=0):
+    return work.full_attention(q, k, v)
+
+
+@work.counted("attention_full", _cache_work)
+def _attend_cache(q, k, v, positions, cache_k, cache_v, window: int = 0):
+    """The causal attention of q [B, n, Hq, hd] at ``positions`` over the
+    cache whose rows [0, n) hold its own K/V (``k``, ``v``), counted as the
+    full attention of those rows.  It runs in query chunks of
+    ``ATTN_CHUNK`` rows, each one ``tree_attention`` over the whole cache
+    (the kernel splits the keys by S, so a row's bits depend on S: the
+    verify's and the decode's S) with a [B, c, S] mask and ``kv_bound`` at
+    the chunk's end, so that neither the mask nor the plain version's work
+    grows with n * S at once."""
+    B, n = q.shape[:2]
+    S = cache_k.shape[1]
+    outs = []
+    for i in range(0, n, ATTN_CHUNK):
+        j = min(i + ATTN_CHUNK, n)
+        mask = torch.zeros((B, j - i, S), dtype=torch.bool, device=q.device)
+        mask[:, :, :j] = causal_mask(positions[:, i:j], positions[:, :j], window)
+        outs.append(ops.tree_attention(q[:, i:j], cache_k, cache_v, mask, kv_bound=j))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def prefill_attention(cfg, p, x, positions, cache_k, cache_v):
+    """The attention of a prefill that fills a cache: the rows' K/V are
+    written at rows [0, n) of ``cache_k``/``cache_v`` [B, S, Hkv, hd] first,
+    then every query attends the cache through ``ops.tree_attention`` under
+    the causal mask (``_attend_cache``).  A prompt row is so computed by the
+    arithmetic that a verify or a decode step computes a row with (float32
+    scores, softmax and P·V, one rounding), over the same keys at the same
+    rows.  ``attention_full`` rounds its scores and weights to the compute
+    dtype, as the reference's does; in bf16 the first verify, which
+    recomputes the prompt's last row, would then write other K/V over it
+    than the greedy decode keeps, and read another first token.  It has no
+    backward on a card (the kernel has none): a forward under a gradient
+    takes ``attention_full``.  Returns out [B, n, d]."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    update_rows_contiguous(cache_k, k, 0)
+    update_rows_contiguous(cache_v, v, 0)
+    return _out_proj(p, _attend_cache(q, k, v, positions, cache_k, cache_v,
+                                      cfg.sliding_window or 0))
 
 
 def encoder_kv(p, enc):

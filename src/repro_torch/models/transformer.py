@@ -63,6 +63,7 @@ from repro_torch.models.attention import (
     cross_attention,
     encoder_kv,
     plan_row_writes,
+    prefill_attention,
 )
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.parallel.group import SeqGroup
@@ -432,6 +433,9 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
                                   ctx.positions, ctx.attn_mask, row_start=ctx.row_start,
                                   row_plan=ctx.row_plan, tp=ctx.tp)[0]
     if full:
+        if fill and not (torch.is_grad_enabled() and hn.requires_grad):
+            # the kernel the verify and the decode attend with (it has no backward)
+            return prefill_attention(cfg, p, hn, ctx.positions, leaves["k"][r], leaves["v"][r])
         a, (k, v) = attention_full(cfg, p, hn, ctx.positions)
         if fill:
             leaves["k"][r, :, :n] = k

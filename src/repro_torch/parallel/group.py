@@ -6,7 +6,10 @@ uses — ``all_reduce`` (a sum), ``all_gather`` (the list form, joined along
 a dimension), ``reduce_scatter`` (the sum, this rank's slice of it along a
 dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
 so a run can report how many collectives a round issued (with gloo on
-CUDA tensors each of them is staged through the host).
+CUDA tensors each of them is staged through the host).  On a ``serving``
+group a 16-bit ``all_reduce`` is an all-gather and a float32 sum in rank
+order (``_ordered_sum``), so that a row's sum does not depend on the rows
+sent with it.
 
 The sharded forward calls them through four ops with a gradient (the
 Megatron f/g pair and two more), so that a training forward has a
@@ -48,8 +51,10 @@ dry run, ``launch/specs.py``): one rank's place in a group, whose
 collectives return a tensor of the right shape without communicating and
 report each call's kind and operand bytes to the cost counter, the
 per-participant count (a reduce-scatter's operand is the whole input, as
-the reference's HLO count reads operand sizes).  The four ops go through it unchanged, so a train
-step on it counts its backward's collectives too.
+the reference's HLO count reads operand sizes; a ``serving`` group's
+16-bit all-reduce reports the all-gather it runs).  The four ops go
+through it unchanged, so a train step on it counts its backward's
+collectives too.
 
 ``make_train_groups`` carves a training world into this rank's model and
 data groups (``launch.mesh.make_train_ranks``).
@@ -95,12 +100,25 @@ class TPGroup:
     device: torch.device
     backend: str
     ranks: tuple
+    ordered: bool = False  # a 16-bit all_reduce sums in float32 in rank order (``serving``)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks, in place."""
+        """The sum over the ranks, in place: the backend's all-reduce, or on
+        a ``serving`` group for a 16-bit tensor ``_ordered_sum``."""
         COLLECTIVES["all_reduce"] += 1
+        if self.ordered and t.dtype in _HALF:
+            return _ordered_sum(self, t)
         dist.all_reduce(t, group=self.pg)
         return t
+
+    def serving(self) -> "TPGroup":
+        """This group with ``ordered`` set, for serving a model in 16 bits:
+        the engine's output must equal the greedy decode over the same
+        ranks bit for bit, and a ring all-reduce's order follows the
+        message's size (``_ordered_sum``).  The serving rank programs
+        (``workers.spec_engine``, ``split_engine``, ``chain_engine``) take
+        it; training and the dry run keep the backend's all-reduce."""
+        return dataclasses.replace(self, ordered=True)
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` joined along ``dim`` in rank order."""
@@ -182,9 +200,10 @@ class CountingGroup(TPGroup):
     (``kernels.work``).  ``COLLECTIVES`` counts real collectives only, so
     it is left alone."""
 
-    def __init__(self, rank: int, world: int, device="meta", axis: str = "model"):
+    def __init__(self, rank: int, world: int, device="meta", axis: str = "model",
+                 ordered: bool = False):
         super().__init__(pg=None, rank=rank, world=world, device=torch.device(device),
-                         backend="none", ranks=tuple(range(world)))
+                         backend="none", ranks=tuple(range(world)), ordered=ordered)
         self.axis = axis
 
     def _record(self, kind: str, t: torch.Tensor) -> None:
@@ -194,7 +213,7 @@ class CountingGroup(TPGroup):
             work._COUNTER.collective(kind, t.numel() * t.element_size(), self.axis, self.world)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        self._record("all_reduce", t)
+        self._record("all_gather" if self.ordered and t.dtype in _HALF else "all_reduce", t)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -214,7 +233,36 @@ class CountingGroup(TPGroup):
         return t
 
     def new_group(self) -> "CountingGroup":
-        return CountingGroup(self.rank, self.world, self.device, self.axis)
+        return CountingGroup(self.rank, self.world, self.device, self.axis, self.ordered)
+
+    def serving(self) -> "CountingGroup":
+        return CountingGroup(self.rank, self.world, self.device, self.axis, ordered=True)
+
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _ordered_sum(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the group, in place, by an all-gather and a float32
+    sum of the parts in rank order, rounded to ``t``'s dtype once.
+
+    A ring all-reduce adds in the tensor's own dtype, and which rank starts
+    an element's sum depends on the chunk the element falls in, so on the
+    message's size: in bf16 (8 bits of mantissa, each add rounded) the rows
+    of a verify of n rows and the one row of a decode step came out of the
+    same partial sums a few ulps apart, enough to flip a greedy token.
+    Here an element's sum depends on its parts alone: the same on every
+    rank and for every row count, and within one rounding of the float32
+    sum the single-process product rounds once.  It moves (world - 1)
+    parts to a rank where the ring moves 2 (world - 1) / world, and holds
+    world copies of ``t``."""
+    t_in = t.contiguous().reshape(-1)
+    parts = t_in.new_empty((group.world, t_in.numel()))  # rank r's part is row r
+    dist.all_gather_into_tensor(parts.view(-1), t_in, group=group.pg)
+    acc = parts[0].float()
+    for part in parts[1:]:
+        acc += part
+    return t.copy_(acc.view(t.shape))
 
 
 def _needs_grad(t: torch.Tensor) -> bool:

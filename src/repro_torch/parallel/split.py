@@ -153,16 +153,18 @@ def _role_groups(world: TPGroup, pairs: list, own_pg=None) -> list:
 
 def _split(world: TPGroup, pair: tuple, pgs: tuple) -> Split:
     """This rank's ``Split`` of ``pair`` (its (target, draft) global ranks),
-    which holds it, on the pair's groups ``pgs``."""
+    which holds it, on the pair's groups ``pgs`` (``ordered`` as
+    ``world``'s)."""
     target_ranks, draft_ranks = pair
     me = world.ranks[world.rank]
     ranks = target_ranks + draft_ranks
     own = TPGroup(pg=pgs[0], rank=ranks.index(me), world=len(ranks), device=world.device,
-                  backend=world.backend, ranks=ranks)
+                  backend=world.backend, ranks=ranks, ordered=world.ordered)
     role = "target" if me in target_ranks else "draft"
     mine = target_ranks if role == "target" else draft_ranks
     group = TPGroup(pg=pgs[1 + ROLES.index(role)], rank=mine.index(me), world=len(mine),
-                    device=world.device, backend=world.backend, ranks=mine)
+                    device=world.device, backend=world.backend, ranks=mine,
+                    ordered=world.ordered)
     return Split(role, group, own, target_ranks, draft_ranks)
 
 

@@ -43,17 +43,38 @@ def build(group, cfg, weights, moe_form: str = "tp"):
     return model, params
 
 
-def greedy_decode(model, params, prompt, n: int, S_max: int) -> list:
+def greedy_decode(model, params, prompt, n: int, S_max: int, gaps: list | None = None) -> list:
     """Target-only greedy decoding: prefill, then ``n - 1`` decode steps;
-    the tokens of every batch row."""
+    the tokens of every batch row.  With ``gaps`` (a list), the top-2 logit
+    gap of row 0 at each position is appended to it (where a speculative
+    run leaves the greedy decode, how near a tie the decode was there)."""
+    tops = []
+
+    def pick(lg):
+        if gaps is not None:
+            tops.append(lg[0, -1].float().topk(2).values)
+        return lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
     lg, cache = model.prefill(params, prompt, S_max=S_max)
-    cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-    out = [cur]
+    out = [pick(lg)]
     for _ in range(n - 1):
-        lg, cache = model.decode_step(params, cache, cur, S_max)
-        cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        out.append(cur)
+        lg, cache = model.decode_step(params, cache, out[-1], S_max)
+        out.append(pick(lg))
+    if gaps is not None:
+        top = torch.stack(tops)
+        gaps += (top[:, 0] - top[:, 1]).tolist()
     return torch.cat(out, 1).tolist()
+
+
+def _greedy_runs(T, tp, prompts, n: int, S_max: int) -> dict:
+    """The target's greedy decode of every prompt: tokens, each position's
+    top-2 logit gap, and the seconds it took."""
+    from repro_torch.obs.clock import monotonic
+
+    t0 = monotonic()
+    gaps = [[] for _ in prompts]
+    toks = [greedy_decode(T, tp, p, n, S_max, g)[0] for p, g in zip(prompts, gaps)]
+    return {"greedy": toks, "greedy_gaps": gaps, "greedy_s": monotonic() - t0}
 
 
 def forward(group, cases: list) -> list:
@@ -122,6 +143,17 @@ def collectives(group, x: np.ndarray, w: np.ndarray) -> dict:
     k = x.shape[1] // p
     return {"allreduce": _np(matmul_allreduce(xt, wt[r * k:(r + 1) * k], group)),
             "ag_pipelined": _np(matmul_ag_pipelined(xt[:, r * k:(r + 1) * k], wt, group))}
+
+
+def all_reduce_rows(group, parts: np.ndarray) -> dict:
+    """``TPGroup.all_reduce`` on the ``serving`` group of this rank's
+    ``parts[rank]`` [n, d] in bf16, whole and then row by row (n
+    all-reduces of one row): both sums as float32 numpy."""
+    group = group.serving()
+    x = torch.tensor(parts[group.rank], device=group.device).to(torch.bfloat16)
+    whole = group.all_reduce(x.clone())
+    rows = torch.cat([group.all_reduce(x[i:i + 1].clone()) for i in range(len(x))])
+    return {"whole": _np(whole), "rows": _np(rows)}
 
 
 def compressed_mean(group, grads: list) -> np.ndarray:
@@ -377,16 +409,19 @@ def spec_engine(group, job: dict) -> dict:
     "weights": ("numpy", ttree, dtree) or ("seed", tseed, dseed, scale),
     "prompts": [[1, P] int32 ...], "runs": [(label, SpecConfig kwargs)],
     "S_max", "greedy_n" (0: none), "prefill_logits", "sync_rounds",
-    "record_shapes"}.
+    "record_shapes", "sum" ("ring": not ``_serving``'s order)}.
 
     The draft gets a process group of its own over the same ranks (the
     async round issues each model's collectives on its own stream).
     Returns per run the tokens and ``SpecStats`` of every prompt, the wall
     time, the kernel launches and collectives of the run and, on a CUDA
     device, the host syncs of ``sync_rounds`` lockstep rounds; the target's
-    own greedy decode of every prompt; the prefill logits of the first
-    prompt and its cache's leaf shapes when asked; this rank's head counts
-    and, on CUDA, its peak memory; with "record_shapes" the
+    own greedy decode of every prompt, with each position's top-2 logit gap
+    and its seconds; the prefill logits of the first prompt and its cache's
+    leaf shapes when asked; this rank's head counts, each model's parameter
+    bytes (the draft's 0 when the target drafts for itself), the seconds
+    the build took and, on CUDA, the bytes allocated after it, its peak
+    and the peak of what came after it (``_built``); with "record_shapes" the
     shapes at which this rank called each kernel wrapper (a
     ``kernels.shapes.ShapeLog``'s ``seen``), so that the caller can hold
     the kernels at them.  No run is warmed first:
@@ -441,27 +476,40 @@ def _leaf_shapes(cache) -> dict:
             for bi, blk in enumerate(unit) for key, x in blk.items()}
 
 
+def _serving(group, job: dict):
+    """The group a serving job's models use: ``TPGroup.serving`` (a 16-bit
+    all-reduce in rank order), or with job "sum" "ring" the backend's
+    all-reduce (a measurement of what the order costs)."""
+    return group if job.get("sum") == "ring" else group.serving()
+
+
 def _spec_engine(group, job: dict) -> dict:
     from repro_torch.core.engine import SpecConfig, SpecEngine
     from repro_torch.kernels import ops
     from repro_torch.obs.clock import monotonic
     from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
 
+    group = _serving(group, job)
     dev = group.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    t0 = monotonic()
     T, tp, D, dp = _shared_pair(group, job)
     S_max = job["S_max"]
     prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
     res = {"rank": group.rank, "heads": {"target": (T.run_cfg.n_heads, T.run_cfg.n_kv_heads),
                                           "draft": (D.run_cfg.n_heads, D.run_cfg.n_kv_heads)},
+           "param_bytes": {"target": _nbytes(tp), "draft": 0 if dp is tp else _nbytes(dp)},
            "runs": {}}
+    if dev.type == "cuda":
+        res.update(_built(dev))
+    res["build_s"] = monotonic() - t0
     if job.get("prefill_logits"):
         lg, cache = T.prefill(tp, prompts[0], S_max=S_max)
         res["prefill_logits"], res["leaves"] = _np(lg), _leaf_shapes(cache)
         del lg, cache
     if job.get("greedy_n"):
-        res["greedy"] = [greedy_decode(T, tp, p, job["greedy_n"], S_max)[0] for p in prompts]
+        res.update(_greedy_runs(T, tp, prompts, job["greedy_n"], S_max))
     for label, kw in job["runs"]:
         eng = SpecEngine(T, D, SpecConfig(**kw), S_max_t=S_max, S_max_d=S_max)
         sess = eng.session(tp, dp)
@@ -520,6 +568,7 @@ def _chain_engine(group, job: dict) -> dict:
     from repro_torch.obs.clock import monotonic
     from repro_torch.parallel.group import COLLECTIVES, reset_collective_counts
 
+    group = _serving(group, job)
     dev = group.device
     cuda = dev.type == "cuda"
     if cuda:
@@ -614,6 +663,18 @@ def encoder_states(cfg, seed: int) -> torch.Tensor:
     return torch.randn((1, cfg.n_enc_tokens, cfg.d_model), generator=gen)
 
 
+def _built(dev) -> dict:
+    """On a card, once a job's models are built: the bytes allocated and
+    the build's peak (weights are drawn whole in float32 and sliced, so a
+    rank's build briefly holds its largest whole tensor); the peak is reset
+    so that the job's own peak is that of its serving runs."""
+    torch.cuda.synchronize(dev)
+    out = {"allocated_after_build": torch.cuda.memory_allocated(dev),
+           "build_peak": torch.cuda.max_memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    return out
+
+
 def _trace_rounds(eng, sess, tp, dp, prompt, rounds: int, path: str) -> dict:
     """A torch.profiler trace of ``rounds`` rounds on this rank (after one
     warm round), written to ``path`` (its kernels only): the wall time, the
@@ -683,18 +744,22 @@ def split_engine(group, job: dict) -> dict:
     "tcfg", "dcfg" (None: the target drafts for itself, a copy on the draft's
     ranks), "weights": ("numpy", ttree, dtree) or ("seed", tseed, dseed,
     scale), "prompts": [[1, P] int32 ...], "runs": [(label, kind, kwargs)],
-    "S_max", "greedy_n" (0: none), "sync_rounds", "record_shapes"}.  A
-    run's kind is "tree" (``SpecConfig`` kwargs, every prompt through
-    ``generate``),
-    "chain" (``ChainConfig`` kwargs) or "continuous" ({"spec": SpecConfig
+    "S_max", "greedy_n" (0: none), "prefill_logits", "sync_rounds",
+    "record_shapes", "sum" (as ``spec_engine``'s)}.  A run's kind is "tree"
+    (``SpecConfig`` kwargs,
+    every prompt through ``generate``), "chain" (``ChainConfig`` kwargs)
+    or "continuous" ({"spec": SpecConfig
     kwargs, "slots", "requests": [(rid, prompt, arrival_s, max_new)],
     "round_dt", "solo"}: ``ContinuousBatchingRuntime`` on a ``VirtualClock``,
     with "solo" each request's solo ``generate()`` after it).
 
     Returns this rank's world rank and role; its parameter bytes, the
     stand-in's tensors (none), on CUDA its memory before and after the
-    build and its peak; the target's greedy decode of every prompt on the
-    target's ranks (with a target of one rank the single-process model's);
+    build, the build's peak and the peak of what came after (``_built``);
+    on the target's ranks the target's greedy decode of every prompt (with
+    a target of one rank the single-process model's),
+    each position's top-2 logit gap and its seconds, and with
+    "prefill_logits" the first prompt's prefill logits;
     per run the tokens and every ``SpecStats``/``ChainStats`` field, the
     kernel launches, the collectives, the rounds, which of the session's
     state this rank holds, the wall time and, on CUDA, the host syncs of
@@ -722,7 +787,7 @@ def _split_engine(group, job: dict) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev) if cuda else 0
     t0 = monotonic()
-    split = make_split(group, job["n_target"])
+    split = make_split(_serving(group, job), job["n_target"])
     self_draft = job["dcfg"] is None
     T, D = split.models(job["tcfg"], job["tcfg"] if self_draft else job["dcfg"])
     own, other = (T, D) if split.role == "target" else (D, T)
@@ -736,14 +801,12 @@ def _split_engine(group, job: dict) -> dict:
                        "tensors": sum(isinstance(v, torch.Tensor) for v in vars(other).values())},
            "runs": {}}
     if cuda:
-        torch.cuda.synchronize(dev)
-        res["allocated_before"] = before
-        res["allocated_after_build"] = torch.cuda.memory_allocated(dev)
+        res.update(_built(dev), allocated_before=before)
     res["build_s"] = monotonic() - t0
+    if job.get("prefill_logits") and split.role == "target":
+        res["prefill_logits"] = _np(T.prefill(tp, prompts[0], S_max=S_max)[0])
     if job.get("greedy_n") and split.role == "target":
-        t0 = monotonic()
-        res["greedy"] = [greedy_decode(T, tp, p, job["greedy_n"], S_max)[0] for p in prompts]
-        res["greedy_s"] = monotonic() - t0
+        res.update(_greedy_runs(T, tp, prompts, job["greedy_n"], S_max))
     for label, kind, kw in job["runs"]:
         ops.reset_launch_counts()
         reset_collective_counts()

@@ -55,9 +55,9 @@ def main() -> int:
     for name in ("s1", "s2"):
         _, (_, n_t), (_, n_d), _ = chip_smoke.SPLIT_PATHS[name]
         world = n_t + n_d
+        job = chip_smoke.split_job(name)
         t0 = monotonic()
-        out = run_ranks("repro_torch.parallel.workers:split_engine", world,
-                        (chip_smoke.split_job(name),),
+        out = run_ranks("repro_torch.parallel.workers:split_engine", world, (job,),
                         workdir=os.path.join(HERE, "build", "split_nccl", backend, name),
                         device=[f"cuda:{i if backend == 'nccl' else 0}" for i in range(world)],
                         backend=backend,
@@ -65,7 +65,7 @@ def main() -> int:
         print(f"({name}): {world} ranks over {backend}"
               + (", one card each" if backend == "nccl" else ", all on the first card")
               + f", ran in {monotonic() - t0:.1f} s", flush=True)
-        chip_smoke.report_split(name, out, greedy, card, log, backend=backend)
+        chip_smoke.report_split(name, job, out, greedy, card, log, backend=backend)
     print(f"split_nccl ({backend}): every check passed", flush=True)
     return 0
 
