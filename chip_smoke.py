@@ -4,7 +4,7 @@
   python3 chip_smoke.py
 
 It takes no options and runs every phase, in order:
-  build    build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
            (tree_attention — also each row bit for bit against itself alone
            at n=1, and a call with kv_bound against one without —
@@ -34,13 +34,36 @@ It takes no options and runs every phase, in order:
            with CUDA events; fused_swiglu's autograd op at phase (t)'s
            shape (M = B·S 512, K 2048, N 8192, f32): output, dx, dwg and
            dwu against autograd through the plain version, forward and
-           backward timed beside the composite and its autograd
+           backward timed beside the composite and its autograd;
+           stream_matmul (the serving product, which replaces no TPU
+           kernel: the reference's XLA dot) at the wq, wk, wo, wd and
+           lm_head of llama3-8b, llama3-1b and llama3-70b's tp-3 ranks 0
+           and 1 and tp-4 rank 0, f32 and bf16: against the plain version
+           (x @ w) at M 1, 8, 16 and every row of M 2, 4, 8, 16, 17, 64 bit
+           for bit equal to the same row alone, timed at M 1, 8, 16 beside
+           torch.matmul, and the 8B's wq, wk, wo, wd at M 512 (every 16
+           rows stream the weight); tree_attention's placement: 200
+           trials a dtype at the 8B's heads and the 70B tp-3 rank's, a
+           query's attended keys moved between masked rows, every output
+           bit for bit the same (it sums a query's keys by rank), and
+           decode_attention at the same length bit for bit equal;
+           rms_norm (the serving norm, which replaces no TPU kernel) at d
+           4096, 2048 and 8192: against the plain version, every row of M
+           1-64 and 512 bit for bit the row alone, timed at M 1, 8, 16 and
+           512 beside torch.nn.functional.rms_norm
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
-           llama3-1b draft, 2 of its 3 requests, prompt 16, max_new 48, d from the
+           llama3-1b draft, 2 of its 3 requests, prompt 16, max_new 24 (the
+           CLI's 48, cut to keep the script in its limit), d from the
            profile pass; (b) self-draft on the same 8B weights, 2 requests,
-           max_new 24 —
+           max_new 24 —; (a16) (a)'s pair and (b16) (b)'s self-draft in
+           bf16 at full depth, on (a)'s draws rounded to bf16, both
+           prompts, max_new 16, (a16) lockstep and async rounds, (b16)
+           lockstep, each output equal to the bf16 greedy decode (the
+           contract F5 broke while the dense products and the norms'
+           reductions were PyTorch's), (b16) accepting nodes
+           beyond the root —
            then continuous batching through ``ContinuousBatchingRuntime``
            on a wall clock, 2 slots, a seeded Poisson trace of 4 requests
            (prompts 8-16, max_new 32), reduced to the first 8 of the 8B's
@@ -89,7 +112,8 @@ It takes no options and runs every phase, in order:
            layers (k 4, f32, max_new 16, 1 request): (g1) self-draft,
            parallel; (g2)/(g2s) an
            independent seed-7 draft reduced to 4 of its 32 layers, parallel
-           and serial.  rwkv6 calls none of the port's kernels; each output
+           and serial.  rwkv6 launches rms_norm and stream_matmul alone
+           (its norms and lm_head); each output
            must equal the greedy decode with one host sync per round and
            one per request
   families (h1) deepseek-moe-16b at full depth (a dense layer, then 27 moe
@@ -197,7 +221,7 @@ It takes no options and runs every phase, in order:
            for bit rank 0's, its output the sharded greedy decode (for (q4)
            its spec_forward's argmax its decode), the chain engine's (q1)
            and (q3)'s kernels launched on every rank ((q2) launches none:
-           rwkv6 calls none of the port's kernels), one host sync of the
+           rwkv6 launches rms_norm and stream_matmul alone), one host sync of the
            port per round (+1 per chain request), each rank's heads, state
            or latent shapes and peak printed
   fleet    (r), router replicas on disjoint rank groups
@@ -282,6 +306,12 @@ SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
                         "src/repro/kernels/kv_moves.py:182"),
     "int4_matmul": ("src/repro_torch/kernels/csrc/int4_matmul.cu",
                     "src/repro/kernels/int4_matmul.py:52"),
+    # no TPU kernel: the reference's products are XLA's dot (e.g. the q projection's einsum)
+    "stream_matmul": ("src/repro_torch/kernels/csrc/stream_matmul.cu",
+                      "none (XLA's dot: src/repro/models/attention.py:42)"),
+    # no TPU kernel: the reference's norm is XLA's elementwise ops and reduction
+    "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                 "none (XLA: src/repro/models/common.py:27)"),
 }
 TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     (2, 4, 8, 2, 64, 96), (1, 8, 4, 4, 32, 128), (2, 3, 6, 3, 80, 200),
@@ -373,11 +403,29 @@ INT4_TIMED = [  # (label, K, N) of phase (e)'s llama3-8b layer weights, timed at
 ]
 AWQ_GROUP = 128  # the paper's AWQ group size (repro/quant/awq.py)
 AWQ_ROWS = (1, 8, 16)  # phase (e)'s M: a decode step, the 8B verify, a prompt
-MAIN_KERNELS = ("tree_attention", "fused_swiglu", "kv_move_rows")  # launched by generate()
+MAIN_KERNELS = ("tree_attention", "fused_swiglu", "kv_move_rows", "stream_matmul",
+                "rms_norm")  # launched by generate()
 SERVE_KERNELS = MAIN_KERNELS + ("slot_write_rows",)  # and by continuous serving
-CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu")  # by the chain engine
+CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "stream_matmul",
+                 "rms_norm")  # by the chain engine
+SERVE_FORWARD = ("stream_matmul", "rms_norm")  # launched by every family's serving forward
 ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
-               "slot_write_rows", "int4_matmul")
+               "slot_write_rows", "int4_matmul", "stream_matmul", "rms_norm")
+# stream_matmul: the serving products at the 8B, 1B and llama3-70b rank shapes (tp 3 ranks 0
+# and 1, tp 4 rank 0: tools/headline_nccl.py's), each (label, config, tp, rank)
+MATMUL_CONFIGS = (("8B", "llama3-8b", 1, 0), ("1B", "llama3-1b", 1, 0),
+                  ("70B-tp3-r0", "llama3-70b", 3, 0), ("70B-tp3-r1", "llama3-70b", 3, 1),
+                  ("70B-tp4-r0", "llama3-70b", 4, 0))
+MATMUL_ROWS = (1, 8, 16)  # held and timed: a decode step, the 8B verify, a prompt
+MATMUL_INVARIANT_ROWS = (2, 4, 8, 16, 17, 64)  # each row bit for bit equal to itself alone
+MATMUL_PREFILL = 512  # the 8B's products also timed at M 512: a row tile of 16 rows streams
+# the weight once (ROADMAP R5)
+# tree_attention: a query's attended keys moved between masked rows must change no bit, at
+# the 8B's heads and the llama3-70b tp-3 rank 0's, f32 and bf16
+PLACEMENT_HEADS = (("8B", 32, 8, 128), ("70B-tp3-r0", 24, 3, 128))
+PLACEMENT_TRIALS = 200
+BF16_NEW = 16  # max_new of (a16)/(b16)
+SERVE_A_NEW = 24  # max_new of (a): the serve CLI's 48, cut to pay for (a16)/(b16)
 CHAIN_K, CHAIN_NEW = 4, 16  # chain length and new tokens per request of phases (d) and (g)
 DENSE_NEW = (  # (label, config) of the dense configs of phase (f) and their kernel checks
     ("3B", "llama3-3b"), ("70B", "llama3-70b"), ("ds1.3B", "deepseek-coder-1.3b"),
@@ -400,8 +448,10 @@ FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attenti
     ("vision", "llama-3.2-vision-90b", set()))
 FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the kernels it launches
     "h1": ("deepseek-moe-16b", None, MAIN_KERNELS + ("decode_attention",)),
-    "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")),  # no dense MLP; decode by tree
-    "h3": ("minicpm3-4b", 16, ("fused_swiglu", "kv_move_rows")),  # MLA: no attention kernel
+    "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")  # no dense MLP; decode
+           + SERVE_FORWARD),  # by tree
+    "h3": ("minicpm3-4b", 16, ("fused_swiglu", "kv_move_rows")  # MLA: no attention kernel
+           + SERVE_FORWARD),
     "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
 }
 TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer shapes
@@ -437,7 +487,7 @@ SPLIT_NEW = 16  # max_new of (s); 32 until PR 24, cut to pay for phase (r)
 SPLIT_KERNELS = {  # (run kind, role) -> the kernels each rank of the role must launch
     ("tree", "target"): MAIN_KERNELS, ("tree", "draft"): MAIN_KERNELS,  # verify + compaction;
     # expansion, fill and re-root
-    ("chain", "target"): ("tree_attention", "fused_swiglu"),  # the chain's verify
+    ("chain", "target"): ("tree_attention", "fused_swiglu") + SERVE_FORWARD,  # the chain's verify
     ("chain", "draft"): CHAIN_KERNELS,  # decode steps, the commit's chain forward
 }
 FLEET = (("llama3-8b", 8), ("llama3-1b", 4), 2)  # (r): (target, its depth), (draft, its depth),
@@ -467,9 +517,9 @@ FAMILY_TP_PATHS = {  # (q1)-(q4), each run in the spawn of the (p) path named fi
 }
 FAMILY_TP_NEW = 16  # max_new of (q1)-(q3), and (q4)'s decode steps
 FAMILY_TP_KERNELS = {  # the kernels each rank of a (q) path must launch
-    "q1": CHAIN_KERNELS, "q2": (),  # rwkv6 calls none of the port's kernels
-    "q3": ("fused_swiglu", "kv_move_rows"),  # MLA: no attention kernel
-    "q4": ("tree_attention", "decode_attention", "fused_swiglu"),
+    "q1": CHAIN_KERNELS, "q2": SERVE_FORWARD,  # rwkv6: its norms and its lm_head only
+    "q3": ("fused_swiglu", "kv_move_rows") + SERVE_FORWARD,  # MLA: no attention kernel
+    "q4": ("tree_attention", "decode_attention", "fused_swiglu") + SERVE_FORWARD,
 }
 
 
@@ -594,14 +644,17 @@ def check_close(name, got, want, dtype, tols=TOL) -> float:
 def time_row(rows, timer, card, name, label, dtype, err, kernel, plain, library, nbytes, n_ops,
              library_note=""):
     """Time kernel, plain version and library call (None: there is none;
-    ``library_note`` says why, or what the call is), print the row, and
-    keep the first row of each kernel in ``rows``."""
+    ``library_note`` says why, or what the call is; "plain": the plain
+    version is that call, timed once), print the row, and keep the first
+    row of each kernel in ``rows``."""
     from repro_torch.kernels.work import bound
 
     b_ms, b_by = bound(nbytes, n_ops, dtype)
+    plain_ms = timer(plain)
     row = dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-               max_abs_err=err, ms=timer(kernel), plain_ms=timer(plain), bound_ms=b_ms,
-               bound_by=b_by, library_ms=None if library is None else timer(library),
+               max_abs_err=err, ms=timer(kernel), plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None if library is None else
+               plain_ms if library == "plain" else timer(library),
                shape=f"{label} {str(dtype).removeprefix('torch.')}")
     lib = f"- {library_note}".rstrip() if library is None else \
         f"{row['library_ms']:.4f} ms {library_note}".rstrip()
@@ -856,6 +909,9 @@ def phase_kernels(torch, timer, card):
                       "(composite: silu(x @ wg) * (x @ wu), 2 cuBLAS + 2 elementwise)")
 
     check_swiglu_autograd(torch, timer, timed, randn, card)
+    check_stream_matmul(torch, timed, randn, card)
+    check_rms_norm(torch, timed, randn, card)
+    check_placement(torch, gen, randn, card)
 
     # --- kv_move_rows / kv_move_leaves ----------------------------------------------
     def check_moves(name, leaves, src, dst, mask) -> float:
@@ -1029,6 +1085,148 @@ def phase_kernels(torch, timer, card):
             print(f"  int4_matmul M{M} K{K} N{N} g{AWQ_GROUP} {dtype}: max|err| {err:.2e}, row 0 "
                   "alone and a repeated call bit for bit equal")
     return rows
+
+
+def matmul_shapes() -> list:
+    """(label, K, N) of the serving products of each MATMUL_CONFIGS model or
+    rank: wq, wk (wv's shape too), wo, wd and the lm_head (a rank's share of
+    the heads, the padded d_ff and the vocabulary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.shard import Shard
+
+    out = []
+    for label, name, tp, rank in MATMUL_CONFIGS:
+        c = get_config(name) if tp == 1 else Shard(get_config(name), rank, tp).local_cfg
+        d, hd = c.d_model, c.head_dim
+        out += [(f"{label}-wq", d, c.n_heads * hd), (f"{label}-wk", d, c.n_kv_heads * hd),
+                (f"{label}-wo", c.n_heads * hd, d), (f"{label}-wd", c.d_ff, d),
+                (f"{label}-lm_head", d, c.vocab_size)]
+    return out
+
+
+def check_stream_matmul(torch, timed, randn, card) -> None:
+    """stream_matmul at every product of ``matmul_shapes``, f32 and bf16:
+    against the plain version (x @ w) at M 1, 8, 16 and at
+    MATMUL_INVARIANT_ROWS, every row of each M bit for bit equal to the same
+    row alone, a repeated call bit for bit; timed at M 1, 8 and 16 beside
+    torch.matmul (the plain version is the same call), and the 8B's
+    products at M ``MATMUL_PREFILL``."""
+    from repro_torch.kernels import ops, ref, work
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, K, N in matmul_shapes():
+            w = randn(K, N, dtype=dtype, scale=K ** -0.5)
+            x = randn(max(MATMUL_INVARIANT_ROWS), K, dtype=dtype)
+            alone = torch.cat([ops.stream_matmul(x[r:r + 1], w) for r in range(x.shape[0])])
+            errs = {}
+            for M in sorted(set(MATMUL_ROWS + MATMUL_INVARIANT_ROWS)):
+                name = f"stream_matmul {label} M{M} K{K} N{N} {dtype}"
+                got = ops.stream_matmul(x[:M], w)
+                errs[M] = check_close(name, got, ref.stream_matmul_ref(x[:M], w), dtype)
+                differ = (got != alone[:M]).any(-1)
+                if bool(differ.any()):
+                    fail(f"{name}: rows {differ.nonzero()[:, 0].tolist()} differ from the same "
+                         f"rows alone by {max_err(got, alone[:M]):.3e} (must be bit for bit)")
+            if not torch.equal(ops.stream_matmul(x[:8], w), ops.stream_matmul(x[:8], w)):
+                fail(f"stream_matmul {label} {dtype}: two calls on the same input differ")
+            print(f"  stream_matmul {label} K{K} N{N} {dtype}: max|err| {max(errs.values()):.2e} "
+                  f"at M {sorted(errs)}; every row of M {list(MATMUL_INVARIANT_ROWS)} bit for bit "
+                  "equal to itself alone, a repeated call bit for bit equal")
+            for M in MATMUL_ROWS:
+                xm = x[:M]
+                timed("stream_matmul", f"{label} M{M} K{K} N{N}", dtype, errs[M],
+                      lambda: ops.stream_matmul(xm, w), lambda: ref.stream_matmul_ref(xm, w),
+                      "plain", *work.stream_matmul(xm, w)[::-1],
+                      "(torch.matmul, cuBLAS: the plain version's call)")
+            del w, x, alone
+        for label, K, N in matmul_shapes()[:4]:  # the 8B layer's, at a long prompt's rows
+            w = randn(K, N, dtype=dtype, scale=K ** -0.5)
+            xm = randn(MATMUL_PREFILL, K, dtype=dtype)
+            err = check_close(f"stream_matmul {label} M{MATMUL_PREFILL} {dtype}",
+                              ops.stream_matmul(xm, w), ref.stream_matmul_ref(xm, w), dtype)
+            timed("stream_matmul", f"{label} M{MATMUL_PREFILL} K{K} N{N}", dtype, err,
+                  lambda: ops.stream_matmul(xm, w), lambda: ref.stream_matmul_ref(xm, w),
+                  "plain", *work.stream_matmul(xm, w)[::-1],
+                  f"(torch.matmul; the kernel streams the weight once per 16 rows)")
+            del w, xm
+
+
+def check_rms_norm(torch, timed, randn, card) -> None:
+    """rms_norm at the widths of ``MATMUL_CONFIGS`` (d 4096, 2048, 8192),
+    f32 and bf16: against the plain version at M 1, 8, 16,
+    MATMUL_INVARIANT_ROWS and ``MATMUL_PREFILL``, every row of those bit
+    for bit equal to the same row alone, a repeated call bit for bit; timed
+    at M 1, 8, 16 and ``MATMUL_PREFILL`` beside the plain version's ops and
+    ``torch.nn.functional.rms_norm``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref, work
+
+    eps = 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in sorted({get_config(name).d_model for _, name, _, _ in MATMUL_CONFIGS}):
+            w = 1.0 + randn(d, dtype=dtype, scale=0.1)
+            x = randn(MATMUL_PREFILL, d, dtype=dtype)
+            alone = torch.cat([ops.rms_norm(x[r:r + 1], w, eps) for r in range(MATMUL_PREFILL)])
+            errs = {}
+            for M in sorted(set(MATMUL_ROWS + MATMUL_INVARIANT_ROWS + (MATMUL_PREFILL,))):
+                name = f"rms_norm M{M} d{d} {dtype}"
+                got = ops.rms_norm(x[:M], w, eps)
+                errs[M] = check_close(name, got, ref.rms_norm_ref(x[:M], w, eps), dtype)
+                if not torch.equal(got, alone[:M]):
+                    fail(f"{name}: a row differs from the same row alone (must be bit for bit)")
+            if not torch.equal(ops.rms_norm(x, w, eps), ops.rms_norm(x, w, eps)):
+                fail(f"rms_norm d{d} {dtype}: two calls on the same input differ")
+            print(f"  rms_norm d{d} {dtype}: max|err| {max(errs.values()):.2e} at M "
+                  f"{sorted(errs)}, every row bit for bit equal to itself alone, a repeated "
+                  "call bit for bit equal")
+            for M in MATMUL_ROWS + (MATMUL_PREFILL,):
+                xm = x[:M]
+                timed("rms_norm", f"M{M} d{d}", dtype, errs[M],
+                      lambda: ops.rms_norm(xm, w, eps), lambda: ref.rms_norm_ref(xm, w, eps),
+                      lambda: torch.nn.functional.rms_norm(xm, (d,), w, eps),
+                      *work.rms_norm(xm, w, eps)[::-1], "(torch.nn.functional.rms_norm)")
+
+
+def check_placement(torch, gen, randn, card) -> None:
+    """tree_attention sums a query's attended keys by rank: the same keys at
+    rows [0, c) and at c random rows in order (the other rows other values,
+    masked) give the same output bit for bit, and decode_attention with
+    length c equals the first, over PLACEMENT_TRIALS trials at each of
+    PLACEMENT_HEADS, f32 and bf16, c from 16 to 399 of S 512 (1 to 7 live
+    splits of 64 keys)."""
+    from repro_torch.kernels import ops
+
+    S = 512
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, hq, hkv, hd in PLACEMENT_HEADS:
+            differ, worst = 0, 0.0
+            for _ in range(PLACEMENT_TRIALS):
+                c = int(torch.randint(16, 400, (1,), generator=gen, device="cuda"))
+                q = randn(1, 1, hq, hd, dtype=dtype)
+                kc, vc = randn(1, c, hkv, hd, dtype=dtype), randn(1, c, hkv, hd, dtype=dtype)
+                k1, v1 = randn(1, S, hkv, hd, dtype=dtype), randn(1, S, hkv, hd, dtype=dtype)
+                k1[:, :c], v1[:, :c] = kc, vc
+                m1 = torch.zeros((1, 1, S), dtype=torch.bool, device="cuda")
+                m1[..., :c] = True
+                rows = torch.randperm(S, generator=gen, device="cuda")[:c].sort().values
+                k2, v2 = randn(1, S, hkv, hd, dtype=dtype), randn(1, S, hkv, hd, dtype=dtype)
+                k2[:, rows], v2[:, rows] = kc, vc
+                m2 = torch.zeros((1, 1, S), dtype=torch.bool, device="cuda")
+                m2[0, 0, rows] = True
+                a, b = ops.tree_attention(q, k1, v1, m1), ops.tree_attention(q, k2, v2, m2)
+                differ += not torch.equal(a, b)
+                worst = max(worst, max_err(a, b))
+                if not torch.equal(ops.decode_attention(q[:, 0], k1, v1, c), a[:, 0]):
+                    fail(f"tree_attention placement {label} {dtype}: decode_attention at length "
+                         f"{c} differs from tree_attention at n=1")
+            if differ:
+                fail(f"tree_attention placement {label} (Hq {hq}, Hkv {hkv}, hd {hd}, S {S}) "
+                     f"{dtype}: {differ} of {PLACEMENT_TRIALS} outputs differ with the attended "
+                     f"keys moved (max {worst:.3g}; must be bit for bit)")
+            print(f"  tree_attention placement {label} Hq{hq} Hkv{hkv} hd{hd} S{S} {dtype}: "
+                  f"0 of {PLACEMENT_TRIALS} outputs differ with the attended keys moved between "
+                  f"masked rows; decode_attention bit for bit equal at every length on {card}",
+                  flush=True)
 
 
 def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
@@ -1261,6 +1459,7 @@ class SyncCounter:
 
 
 SYNC_SITES: dict = {}  # path label -> where its rounds synced (count_syncs, SyncCounter)
+COMPRESSION: dict = {}  # path label -> tokens emitted per round (run_path)
 
 
 def count_syncs(torch, sess, prompt, rounds: int):
@@ -1276,8 +1475,9 @@ def count_syncs(torch, sess, prompt, rounds: int):
 
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to, first
     # match wins: kv_move_leaves_kernel<uint4, ...> before the weight streams'
-    # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>
+    # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic/MatmulMma/MatmulF32>
     ("kv_move", "kv_move_rows"), ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
+    ("matmulmma", "stream_matmul"), ("matmulf32", "stream_matmul"), ("rms_norm", "rms_norm"),
     ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),
@@ -1412,12 +1612,16 @@ def run_path(torch, label, eng, tp, dp, prompts, refs, card, kernels=MAIN_KERNEL
                  f"top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
         if any(not (0 <= t < eng.target.cfg.vocab_size) for t in out):
             fail(f"{label} request {i}: token out of the vocabulary")
-    if counts["kv_move_rows"] != 2 * rounds:
-        fail(f"{label}: kv_move_rows launched {counts['kv_move_rows']} times in {rounds} "
-             "rounds, not twice per round (compaction and re-root, one launch per cache)")
+    # compaction and re-root, one launch per cache; an async round whose lookahead rolls
+    # back re-roots once more, on the actual path
+    moves, most = counts["kv_move_rows"], (3 if eng.cfg.async_rounds else 2) * rounds
+    if not 2 * rounds <= moves <= most:
+        fail(f"{label}: kv_move_rows launched {moves} times in {rounds} rounds, not "
+             f"{'2 to 3 times' if eng.cfg.async_rounds else 'twice'} per round (compaction "
+             "and re-root, one launch per cache; + a rolled-back lookahead's re-root)")
     if syncs != 1.0:
         fail(f"{label}: {syncs:.2f} host syncs per round, not one")
-    cr = sum(s.total_emitted for s in stats_all) / max(rounds, 1)
+    cr = COMPRESSION[label] = sum(s.total_emitted for s in stats_all) / max(rounds, 1)
     print(f"{label}: {len(prompts)} requests, {toks} tokens, {rounds} rounds, compression "
           f"{cr:.3f}, mean round {wall / max(rounds, 1) * 1e3:.2f} ms, {toks / wall:.2f} tok/s, "
           f"{syncs:.2f} host syncs per round (d={eng.cfg.d}) on {card}; every output equals "
@@ -1714,7 +1918,9 @@ def phase_serve(torch, card):
     from repro_torch.obs.clock import monotonic
 
     t0 = monotonic()
-    eng, tp, dp, cfgT = build_engine("llama3-8b", "llama3-1b", smoke=False, device="cuda")
+    # reduced: max_new 24 (the serve CLI's 48), to pay for (a16) and (b16)
+    eng, tp, dp, cfgT = build_engine("llama3-8b", "llama3-1b", smoke=False, device="cuda",
+                                     max_new=SERVE_A_NEW)
     torch.cuda.synchronize()
     print(f"serve: llama3-8b target ({cfgT.param_count() / 1e9:.2f} B params) + llama3-1b draft, "
           f"f32, seeded weights drawn on the card in {monotonic() - t0:.1f}s; "
@@ -1732,6 +1938,7 @@ def phase_serve(torch, card):
     eng_b = SpecEngine(eng.target, eng.target, cfg_b, S_max_t=512, S_max_d=512)
     counts["b"] = run_path(torch, "main path (b) 8B self-draft", eng_b, tp, tp, prompts[:2],
                            refs[:2], card)
+    counts.update(serve_bf16(torch, eng, tp, dp, prompts, card))
 
     # (c) continuous batching: a Poisson trace at the serve CLI's default two
     # requests per second, so that arrivals land mid-round and queue while both
@@ -1794,6 +2001,59 @@ def phase_serve(torch, card):
                              prompts_d, refs_d, card)
     timing("chain (d3)")
     return counts, (("8B", tp), ("1B", dp))
+
+
+def bf16_params(torch, params):
+    """A copy of drawn weights rounded to bf16; the originals are kept.  A
+    bf16 config's init draws in f32 and rounds (``dense_init``), so this is
+    the bf16 model's own draw of the same seed, without drawing again."""
+    import copy
+
+    memo = {id(p): torch.nn.Parameter(p.detach().to(torch.bfloat16), requires_grad=False)
+            for p in params.parameters()}
+    return copy.deepcopy(params, memo)
+
+
+def serve_bf16(torch, eng, tp, dp, prompts, card) -> dict:
+    """(a16) and (b16): (a)'s pair and (b)'s self-draft in bf16 at full
+    depth, on (a)'s draws rounded to bf16, the same prompts, max_new
+    ``BF16_NEW``, (a16) lockstep and async rounds, (b16) lockstep (reduced:
+    its async run, to keep the script in its limit): every output must equal the
+    bf16 target's greedy decode, one host sync a round, each path's kernels
+    launched — stream_matmul at every dense product and rms_norm at every
+    norm, the contract F5 broke while they were PyTorch's.  (b16) must
+    accept nodes beyond the
+    root (a compression above 1), where a verify row's ancestors lie at
+    rows of the tree's order.  Returns the launch counts by path."""
+    import dataclasses
+
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.models.api import make_model
+
+    T16, D16 = make_model(bf16_config("llama3-8b"), "cuda"), make_model(bf16_config("llama3-1b"),
+                                                                        "cuda")
+    tp16, dp16 = bf16_params(torch, tp), bf16_params(torch, dp)
+    print(f"serve (a16)/(b16): (a)'s draws rounded to bf16, max_new {BF16_NEW}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    refs = [greedy_decode(torch, T16, tp16, p, BF16_NEW, 512) for p in prompts]
+    cfg_b = SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel", max_new=BF16_NEW)
+    counts = {}
+    for tag, draft, dparams, cfg, what, modes in (
+            ("a16", D16, dp16, dataclasses.replace(eng.cfg, max_new=BF16_NEW), "8B+1B",
+             (False, True)),
+            ("b16", T16, tp16, cfg_b, "8B self-draft", (False,))):  # reduced: lockstep only
+        for asyn in modes:
+            run = f"{tag}-async" if asyn else tag
+            e = SpecEngine(T16, draft, dataclasses.replace(cfg, async_rounds=asyn), S_max_t=512,
+                           S_max_d=512)
+            label = f"main path ({run}) {what} bf16, {'async' if asyn else 'lockstep'}"
+            counts[run] = run_path(torch, label, e, tp16, dparams, prompts, refs, card)
+            if tag == "b16" and COMPRESSION[label] <= 1.0:
+                fail(f"{label}: compression {COMPRESSION[label]:.3f}: no node beyond the root "
+                     "was accepted")
+    del tp16, dp16
+    torch.cuda.empty_cache()
+    return counts
 
 
 def bf16_config(name: str):
@@ -1903,8 +2163,9 @@ def phase_rwkv(torch, card):
     """(g1)-(g2s): rwkv6-7b chain mode at full width, RWKV_LAYERS deep, f32,
     target seed 0 with the lm_head x4: (g1) drafting for itself, parallel; (g2) an
     independent seed-7 draft of RWKV_DRAFT_LAYERS layers, parallel, and
-    (g2s) the same serial.  rwkv6 calls none of the port's kernels.
-    Returns the launch counts by path."""
+    (g2s) the same serial.  rwkv6 launches rms_norm and stream_matmul
+    alone (its norms and its lm_head; its own projections stay plain
+    products).  Returns the launch counts by path."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1931,10 +2192,12 @@ def phase_rwkv(torch, card):
                                512, 512)
 
     counts = {"g1": run_chain(torch, "chain (g1) rwkv6-7b self-draft", "g1",
-                              engine(model, "parallel"), tp, tp, prompts, refs, card, kernels=())}
+                              engine(model, "parallel"), tp, tp, prompts, refs, card,
+                              kernels=SERVE_FORWARD)}
     for mode, tag in (("parallel", "g2"), ("serial", "g2s")):
         counts[tag] = run_chain(torch, f"chain ({tag}) rwkv6-7b + seed-7 draft, {mode}", tag,
-                                engine(dmodel, mode), tp, dp, prompts, refs, card, kernels=())
+                                engine(dmodel, mode), tp, dp, prompts, refs, card,
+                                kernels=SERVE_FORWARD)
     return counts
 
 
@@ -2830,7 +3093,8 @@ def report_family_tp(name: str, tp: int, ranks, ref, card, log) -> dict:
                   f"round staged through the host by {TP_BACKEND} ({coll}), every rank's output "
                   f"equals the sharded greedy decode, on {card}", flush=True)
         print(f"{label} {run}: kernel launches summed over the ranks {counts}"
-              + ("" if FAMILY_TP_KERNELS[name] else " (rwkv6 calls none of the port's kernels)"),
+              + (" (rwkv6 launches rms_norm and stream_matmul alone: its norms and its lm_head)"
+                 if name == "q2" else ""),
               flush=True)
     return counts
 
@@ -3231,6 +3495,20 @@ def phase_shapes(torch, log, card):
                 if not all(torch.equal(g, w) for g, w in zip(got, want)):
                     fail(f"{what}: kernel disagrees with the plain version leaf by leaf "
                          "(must be exact)")
+            elif name == "stream_matmul":
+                M, K, N = key[:3]
+                x, w = randn((M, K), dtype), randn((K, N), dtype) * K ** -0.5
+                got = ops.stream_matmul(x, w)
+                check_close(what, got, ref.stream_matmul_ref(x, w), dtype)
+                if M > 1 and not torch.equal(ops.stream_matmul(x[-1:], w), got[-1:]):
+                    fail(f"{what}: the last row differs from itself alone")
+            elif name == "rms_norm":
+                M, d = key[:2]
+                x, w = randn((M, d), dtype), 1.0 + randn((d,), dtype) * 0.1
+                got = ops.rms_norm(x, w, 1e-5)
+                check_close(what, got, ref.rms_norm_ref(x, w, 1e-5), dtype)
+                if M > 1 and not torch.equal(ops.rms_norm(x[-1:], w, 1e-5), got[-1:]):
+                    fail(f"{what}: the last row differs from itself alone")
             elif name == "int4_matmul":
                 from repro_torch import quant
 

@@ -23,7 +23,7 @@ from repro_torch.obs.clock import monotonic
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = ("tree_attention", "decode_attention", "fused_swiglu", "kv_moves", "slot_write",
-           "int4_matmul")
+           "int4_matmul", "stream_matmul", "rms_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,6 +56,11 @@ SIGNATURES = {
     # x, qweight, scales, zeros, out, part, counters, then M, K, N, group,
     # k_per_split, splits, rows_per_pass, dtype, stream
     "int4_matmul": {"int4_matmul_launch": [_P] * 7 + [_I] * 8 + [_P]},
+    # x, w, out, part, counters, then M, K, N, k_per_split, splits, rows_per_pass,
+    # dtype, stream
+    "stream_matmul": {"stream_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
+    # x, w, out, then M, d, eps, dtype, stream
+    "rms_norm": {"rms_norm_launch": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -2,15 +2,23 @@
 // (sm_90a): tree_attention.cu (a bool mask [B, n, S]) and
 // decode_attention.cu (one query position per batch row, rows < length[b]).
 //
-// Both launch the one kernel below.  decode_attention is its n = 1 case
-// with the mask computed from the length: a row's scores, its online
+// Both launch the one kernel below, which walks a query's attended keys by
+// their rank among them, never by their row in the cache: key position p of
+// the kernel's splits, tiles, warps and MMA k-slots is the query's p-th
+// attended key.  tree_attention maps each rank to its row from the query's
+// mask row (rank_map, at the block's start); decode_attention's keys are
+// rows 0 .. length - 1, where rank = row.  A row's scores, its online
 // softmax and its fixed-order merges are then the same operations in the
-// same order as tree_attention's at n = 1, so the greedy decode
-// (decode_step, n = 1) and the chain verify (n = k) round alike bit for
-// bit.  A key that does not attend adds exactly nothing (score -1e30,
-// weight 0, rescale by exp(0) = 1), so the length variant may stop at the
-// length and load nothing past it, and a split that holds no attended key
-// need not be launched at all (below).
+// same order wherever its attended keys lie: a tree node's verify row,
+// whose ancestors sit at rows of the tree's order, carries the bits of the
+// greedy decode's row (decode_step, the same keys at consecutive rows), and
+// decode_attention equals tree_attention at n = 1 bit for bit.  In bf16,
+// where the output's one rounding turns an ulp of the f32 sums into a
+// different logit, summing by row position gave the verify and the decode
+// other bits in 6 of 200 trials with one key moved a row.  Past a query's
+// last attended key nothing is loaded or added (a key that does not attend
+// would add exactly nothing: score -1e30, weight 0, rescale by exp(0) = 1),
+// and a split that holds no attended rank need not be launched (below).
 //
 // What bounds it on this card.  By bytes or by operations it would take
 // well under a microsecond: at the port's shapes (G = Hq/Hkv from 1 to 48
@@ -30,14 +38,13 @@
 // than they gain in load time.  The design spends its effort on the
 // length of those chains:
 //
-// * One round trip for the operands.  Q, the K and V tiles and the tile's
-//   mask rows are all requested before any is waited on: K/V/Q by 16-byte
-//   cp.async (8-byte for a bf16 head size that is no multiple of 8) into a
-//   ring of shared-memory stages, in their own dtype (a bf16 tile takes
-//   half the bytes of an f32 one), keys past the end zero-filled; the mask
-//   by coalesced byte loads into registers, stored to shared memory with
-//   the tile (never read from device memory inside the score loop).  While
-//   a tile is computed the next is in flight.  At S <= 2048 a split is 64
+// * One round trip for the operands.  Q and the K and V tiles are all
+//   requested before any is waited on, by 16-byte cp.async (8-byte for a
+//   bf16 head size that is no multiple of 8) into a ring of shared-memory
+//   stages, in their own dtype (a bf16 tile takes half the bytes of an f32
+//   one), ranks past the query's last zero-filled.  The mask is read once,
+//   by rank_map, before the first tile.  While a tile is computed the next
+//   is in flight.  At S <= 2048 a split is 64
 //   keys: one bf16 tile (one stage), two f32 tiles (two stages).
 // * A split grid over live keys.  The split length is a function of S
 //   alone (ops.attn_split_keys); the caller's host-int bound kv_end (the
@@ -49,14 +56,22 @@
 //   live: no partials, no ticket, no second pass.  The single-split
 //   epilogue divides O / L exactly as the combine does, so it is the
 //   combine with one split.
-// * Keys across warps.  A block holds kRows query rows of one KV head (the
-//   G*n rows r = i*G + g, r / kRows the grid's row tile) and a tile of
-//   kKeys keys; warp w takes keys [w*kKeys/4, (w+1)*kKeys/4) of every tile
-//   with its own online softmax, and the four warps merge (max, sum, acc)
-//   in shared memory in the fixed order w = 0..3 at the end of the split.
-//   No warp walks rows one after another: each row's arithmetic is a fixed
-//   function of its q, its keys and the split length, whatever n, B or Hq
-//   are and whichever rows share its block.
+// * One query per block.  A block holds up to kRows query heads of one
+//   query i and one KV head (the grid's row tile i * tpq + t takes heads
+//   [t*kRows, (t+1)*kRows) of the G that share the KV head; tpq = ceil(G /
+//   kRows)), so every row of a block attends the same ranks: at G 4 (the
+//   8B) a bf16 block has 4 live rows of the MMA's 16.  rank_map scans the
+//   query's mask row below kv_end once per block (one prefix sum over 512
+//   bytes per step, stopping once the split's ranks are found) into a
+//   rank -> row table in shared memory; the K and V rows of a tile are then
+//   loaded through it by 16-byte cp.async, a row per key.
+// * Keys across warps.  A tile holds kKeys ranks; warp w takes ranks
+//   [w*kKeys/4, (w+1)*kKeys/4) of every tile with its own online softmax,
+//   and the four warps merge (max, sum, acc) in shared memory in the fixed
+//   order w = 0..3 at the end of the split.  No warp walks rows one after
+//   another: each row's arithmetic is a fixed function of its q, its
+//   attended keys in rank order and the split length, whatever n, B or Hq
+//   are, whichever rows share its block and wherever the keys lie.
 // * bf16 on tensor cores: mma.sync.m16n8k16 (f32 accumulate) fed by
 //   ldmatrix (ldmatrix.trans for V), not wgmma — wgmma needs 64 rows and a
 //   block here has at most 16 live rows (min(G, 16) at a decode step); the
@@ -84,11 +99,10 @@
 //   summed over the quarters by two shuffles; in P*V a lane owns two
 //   columns of every row and walks the warp's 8 keys in order, its p from a
 //   per-warp tile in shared memory.  Every row runs, padding rows included
-//   (their q and mask are zero): branches around a row's shuffle and exp
-//   chain would serialise the rows.
-// * Shared memory strides are padded so that ldmatrix, the f32 K reads, the
-//   mask reads and the merge's float2 stores of the quad layout each hit
-//   distinct banks.
+//   (their q is zero): branches around a row's shuffle and exp chain
+//   would serialise the rows.
+// * Shared memory strides are padded so that ldmatrix, the f32 K reads and
+//   the merge's float2 stores of the quad layout each hit distinct banks.
 //
 // The cross-split combine (several live splits): every block publishes its
 // merged (max, sum, acc) per row, and the last block of a (b, h, row tile)
@@ -107,7 +121,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSplits = 32;
 constexpr int kMaxStages = 2;
 constexpr float kNeg = -1e30f;
-constexpr int kMaskPad = 4;  // bytes after each mask row in shared memory (bank spread)
 
 // query rows per block and keys per shared-memory tile, by dtype
 template <typename T> struct Tile;
@@ -126,10 +139,13 @@ struct Args {
   const int* length;    // [B] rows that attend (length variant); null: kv_end bounds every row
   int kv_end;           // keys >= kv_end attend for no row: never loaded, their splits not launched
   void* out;
-  float* part_acc;  // [B*Hkv, n_rowtiles*kRows, n_launch, hd]; unused when n_launch == 1
-  float* part_ml;   // [B*Hkv, n_rowtiles*kRows, n_launch, 2]
+  float* part_acc;  // [B*Hkv, n_rowtiles*tile_rows, n_launch, hd]; unused when n_launch == 1
+  float* part_ml;   // [B*Hkv, n_rowtiles*tile_rows, n_launch, 2]
   int* counters;    // [B*Hkv, n_rowtiles], zero between launches
-  int B, n, Hq, Hkv, hd, S, split_keys, n_launch, n_rowtiles, stages;
+  int B, n, Hq, Hkv, hd, S, split_keys, n_launch, stages;
+  int tpq;         // row tiles per query: ceil(G / kRows)
+  int n_rowtiles;  // n * tpq
+  int tile_rows;   // rows of a row tile's partials: min(kRows, G)
   float scale;
 };
 
@@ -137,14 +153,15 @@ struct Args {
 // over the padded head dim, or the f32 kernel's column pairs per lane.
 struct Smem {
   int ldq, ldk, ldv, ldo;                  // row strides, in elements
-  int stage, stage_bytes, k, v, m, p;      // stage s at stage + s * stage_bytes; k/v/m within it
-  int mw, lw, aw, total;                   // the warps' merge area (aliases the stages)
+  int stage, stage_bytes, k, v, p;         // stage s at stage + s * stage_bytes; k/v within it
+  int mw, lw, aw;                          // the warps' merge area (aliases the stages)
+  int map, total;                          // rank_map's table: map_keys ints, after the rest
 };
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
 template <typename T, int W>
-__host__ __device__ inline Smem smem_layout(int hd, int stages) {
+__host__ __device__ inline Smem smem_layout(int hd, int stages, int map_keys) {
   constexpr int R = Tile<T>::kRows, NK = Tile<T>::kKeys, es = sizeof(T);
   Smem L{};
   if (std::is_same<T, float>::value) {
@@ -161,15 +178,15 @@ __host__ __device__ inline Smem smem_layout(int hd, int stages) {
   L.stage = align16(R * L.ldq * es);  // Q first
   L.k = 0;
   L.v = L.k + NK * L.ldk * es;
-  L.m = L.v + NK * L.ldv * es;
-  L.stage_bytes = align16(L.m + R * (NK + kMaskPad));
+  L.stage_bytes = align16(L.v + NK * L.ldv * es);
   L.p = L.stage + stages * L.stage_bytes;  // f32: each warp's p tile [R][8]
   const int end = L.p + (std::is_same<T, float>::value ? kWarps * R * 8 * 4 : 0);
   L.mw = L.stage;
   L.lw = L.mw + kWarps * R * 4;
   L.aw = L.lw + kWarps * R * 4;
   const int merge_end = L.aw + kWarps * R * L.ldo * 4;
-  L.total = end > merge_end ? end : merge_end;
+  L.map = align16(end > merge_end ? end : merge_end);
+  L.total = L.map + map_keys * 4;
   return L;
 }
 
@@ -179,27 +196,73 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo_k, __nv_bfloat16 hi_k
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// The rows of one query's attended keys by rank: map[r - r0] is the row of
+// its r-th attended key (mask byte != 0) below lim, for r in [r0, r1).
+// Returns the number of attended keys below lim, or a number >= r1 where
+// the scan stopped once every rank of [r0, r1) was found.  Each step takes
+// 4 mask bytes a thread and one block-wide prefix sum.  Every thread of the
+// block calls it; it ends with a barrier, so the table is ready.
+__device__ int rank_map(const uint8_t* m, int lim, int r0, int r1, int* map) {
+  __shared__ int s_tot[kWarps];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int base = 0;  // attended keys before this step's bytes (the same in every thread)
+  for (int c0 = 0; c0 < lim && base < r1; c0 += kThreads * 4) {
+    const int s0 = c0 + tid * 4;
+    uint8_t mb[4];
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mb[j] = s0 + j < lim ? m[s0 + j] : uint8_t(0);
+      c += mb[j] != 0;
+    }
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) s_tot[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? s_tot[w] : 0;
+      total += s_tot[w];
+    }
+    int r = base + before + incl - c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (mb[j]) {
+        if (r >= r0 && r < r1) map[r - r0] = s0 + j;
+        ++r;
+      }
+    base += total;
+    __syncthreads();  // s_tot is written again by the next step; the table is complete
+  }
+  return base;
+}
+
 // ---- the kernel ----------------------------------------------------------------
 
 // W: bf16 — k16 steps over the head dim padded to 16*W; f32 — column pairs per lane
 // (2 * 32 * W >= hd).  kByLength: key s of batch row b attends iff s < length[b]
-// (or kv_end), n = 1; else the mask.
+// (or kv_end), n = 1, rank = row; else the mask's attended keys, by rank.
 template <typename T, int W, bool kByLength>
 __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int R = Tile<T>::kRows, NK = Tile<T>::kKeys, KW = NK / kWarps;
-  constexpr int MPT = R * NK / kThreads;  // mask bytes per thread and tile
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
   __shared__ float s_w[kWarps][kMaxSplits];  // the combine's split weights, per warp
   __shared__ float s_wt[kWarps][16], s_m[16], s_l[16];  // the warp merge's, per row (R <= 16)
 
   const int hd = a.hd;
-  const Smem L = smem_layout<T, W>(hd, a.stages);
+  const Smem L = smem_layout<T, W>(hd, a.stages, kByLength ? 0 : a.split_keys);
   const int bh = blockIdx.x, rt = blockIdx.y, split = blockIdx.z;
   const int b = bh / a.Hkv, h = bh % a.Hkv;
-  const int G = a.Hq / a.Hkv, GN = G * a.n;
-  const int rows = min(R, GN - rt * R);  // live query rows of this block
+  const int G = a.Hq / a.Hkv;
+  const int qi = rt / a.tpq, g0 = (rt % a.tpq) * R;  // the block's query and its first head
+  const int rows = min(R, G - g0);  // live query rows of this block
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -207,16 +270,23 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   T* out = static_cast<T*>(a.out);
   T* Qs = reinterpret_cast<T*>(smem);
 
+  // the split's ranks [s_begin, s_end): the query's attended keys among them
   const int s_begin = split * a.split_keys;
   int s_end = min(min(a.S, a.kv_end), s_begin + a.split_keys);
-  if (kByLength && a.length) s_end = min(s_end, a.length[b]);
+  int* Map = reinterpret_cast<int*>(smem + L.map);  // rank s_begin + j -> row (tree variant)
+  if constexpr (kByLength) {
+    if (a.length) s_end = min(s_end, a.length[b]);
+  } else {
+    s_end = min(s_end, rank_map(a.mask + ((long long)b * a.n + qi) * a.S, min(a.S, a.kv_end),
+                                s_begin, s_begin + a.split_keys, Map));
+  }
   const int n_tiles = s_end > s_begin ? (s_end - s_begin + NK - 1) / NK : 0;
   // columns held in shared memory (bf16: padded with zeros to whole k16 steps)
   const int cols = kF32 ? hd : 16 * W;
 
-  // row r of a (b, h) is query i = r / G of query head h*G + r % G
-  auto q_row = [&](int r) -> long long {
-    return (((long long)b * a.n + r / G) * a.Hq + h * G + r % G) * hd;
+  // row rl of the block is query qi's query head h*G + g0 + rl
+  auto q_row = [&](int rl) -> long long {
+    return (((long long)b * a.n + qi) * a.Hq + h * G + g0 + rl) * hd;
   };
 
   // Q (with the first tile) and one tile of K and V, by cp.async in granules of
@@ -232,15 +302,18 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
       for (int rl = tid / rg, gi = tid % rg; rl < R;) {
         const int e = gi * GE;
         const bool ok = rl < rows && e < hd;
-        cp_async<GR>(Qs + rl * L.ldq + e, q + (ok ? q_row(rt * R + rl) + e : 0), ok);
+        cp_async<GR>(Qs + rl * L.ldq + e, q + (ok ? q_row(rl) + e : 0), ok);
         rl += dj;
         gi += dg;
         if (gi >= rg) gi -= rg, ++rl;
       }
     }
-    const long long rs = (long long)a.Hkv * hd;  // between consecutive keys
-    const long long base = (((long long)b * a.S + t0) * a.Hkv + h) * hd;
-    const int live = s_end - t0;  // keys of this tile that are loaded
+    const int live = s_end - t0;  // ranks of this tile that are loaded
+    // rank t0 + j's row: itself (length variant), or the query's map
+    auto key_at = [&](int j) -> long long {
+      const int row = kByLength ? t0 + j : Map[t0 - s_begin + j];
+      return (((long long)b * a.S + row) * a.Hkv + h) * hd;
+    };
 #pragma unroll
     for (int part = 0; part < 2; ++part) {
       const T* src = part == 0 ? k : v;
@@ -249,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
       for (int j = tid / rg, gi = tid % rg; j < NK;) {
         const int e = gi * GE;
         const bool ok = j < live && e < hd;
-        cp_async<GR>(dst + j * ld + e, src + (ok ? base + j * rs + e : 0), ok);
+        cp_async<GR>(dst + j * ld + e, src + (ok ? key_at(j) + e : 0), ok);
         j += dj;
         gi += dg;
         if (gi >= rg) gi -= rg, ++j;
@@ -263,20 +336,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
     else
       issue(std::integral_constant<int, 8>{}, stage, t0, with_q);
   };
-  // the tile's mask rows, coalesced, into registers (stored to shared memory
-  // once the tile is waited for)
-  uint8_t mreg[MPT];
-  auto load_mask = [&](int t0) {
-    if (kByLength) return;
-#pragma unroll
-    for (int it = 0; it < MPT; ++it) {
-      const int idx = tid + it * kThreads, rl = idx / NK, s = t0 + idx % NK;
-      mreg[it] = rl < rows && s < s_end
-                     ? a.mask[((long long)b * a.n + (rt * R + rl) / G) * a.S + s]
-                     : uint8_t(0);
-    }
-  };
-
   // per-warp online softmax state: bf16 — rows g and g+8 of the quad layout
   // (l a per-lane partial until the end); f32 — every row, replicated
   constexpr int NR = kF32 ? R : 2;
@@ -290,26 +349,14 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
 
-  if (n_tiles > 0) {
-    issue_tile(0, s_begin, true);
-    load_mask(s_begin);
-  }
+  if (n_tiles > 0) issue_tile(0, s_begin, true);
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it % a.stages, t0 = s_begin + it * NK;
     unsigned char* st = smem + L.stage + stage * L.stage_bytes;
-    uint8_t* Ms = st + L.m;
-    if (!kByLength) {
-#pragma unroll
-      for (int i = 0; i < MPT; ++i) {
-        const int idx = tid + i * kThreads;
-        Ms[(idx / NK) * (NK + kMaskPad) + idx % NK] = mreg[i];
-      }
-    }
     // the next tile goes in flight before this one is computed (a split of
     // several tiles always has two stages)
     if (it + 1 < n_tiles) {
       issue_tile((it + 1) % a.stages, t0 + NK, false);
-      load_mask(t0 + NK);
       cp_async_wait<1>();  // this tile landed; the next may not have
     } else {
       cp_async_wait<0>();
@@ -342,7 +389,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int j = warp * KW + nt * 8 + 2 * t + e;
-            on[nt][e] = t0 + j < s_end && (kByLength || Ms[(g + 8 * hr) * (NK + kMaskPad) + j] != 0);
+            on[nt][e] = t0 + j < s_end;  // every row of the block attends the same ranks
             sc[nt][2 * hr + e] = on[nt][e] ? sc[nt][2 * hr + e] * a.scale : kNeg;
             mx = fmaxf(mx, sc[nt][2 * hr + e]);
           }
@@ -413,14 +460,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
       for (int r = 0; r < R; ++r) {  // every row, so the rows' chains interleave
         float s = dot[r] + __shfl_xor_sync(0xffffffffu, dot[r], 8);
         s += __shfl_xor_sync(0xffffffffu, s, 16);
-        const bool on = key_on && (kByLength || Ms[r * (NK + kMaskPad) + key] != 0);
-        const float sc = on ? s * a.scale : kNeg;
+        const float sc = key_on ? s * a.scale : kNeg;
         float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
         const float m_new = fmaxf(m_run[r], mx);
         alpha[r] = expf(m_run[r] - m_new);
-        const float p = on ? expf(sc - m_new) : 0.f;
+        const float p = key_on ? expf(sc - m_new) : 0.f;
         float ps = p + __shfl_xor_sync(0xffffffffu, p, 1);
         ps += __shfl_xor_sync(0xffffffffu, ps, 2);
         ps += __shfl_xor_sync(0xffffffffu, ps, 4);
@@ -452,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
         }
       }
     }
-    __syncthreads();  // the stage, its mask and the p tiles are free for the next tile
+    __syncthreads();  // the stage and the p tiles are free for the next tile
   }
 
   // ---- merge the four warps' (max, sum, acc) in the order w = 0..3 ----
@@ -510,14 +556,15 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   }
   __syncthreads();
 
-  const long long row0 = ((long long)bh * a.n_rowtiles + rt) * R;  // partials of this row tile
+  // partials of this row tile
+  const long long row0 = ((long long)bh * a.n_rowtiles + rt) * a.tile_rows;
   for (int idx = tid; idx < rows * hd; idx += kThreads) {
     const int rl = idx / hd, c = idx % hd;
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) o = fmaf(Aw[(w * R + rl) * L.ldo + c], s_wt[w][rl], o);
     if (a.n_launch == 1) {  // the combine of one split: O / L
-      out[q_row(rt * R + rl) + c] = from_f32<T>(s_l[rl] > 0.f ? o / s_l[rl] : 0.f);
+      out[q_row(rl) + c] = from_f32<T>(s_l[rl] > 0.f ? o / s_l[rl] : 0.f);
     } else {
       const long long p = (row0 + rl) * a.n_launch + split;
       a.part_acc[p * hd + c] = o;
@@ -553,7 +600,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
     const float l = warp_sum(l_sp * w_sp);
     s_w[warp][lane] = w_sp;
     __syncwarp();
-    const long long o_row = q_row(rt * R + rl);
+    const long long o_row = q_row(rl);
     for (int c = lane; c < hd; c += 32) {
       float o = 0.f;
       for (int sp = 0; sp < a.n_launch; ++sp)
@@ -567,7 +614,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 template <typename T, int W, bool kByLength>
 cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
   static int allowed[kMaxCards] = {};  // the most dynamic shared memory, per card
-  const int smem = smem_layout<T, W>(a.hd, a.stages).total;
+  const int smem = smem_layout<T, W>(a.hd, a.stages, kByLength ? 0 : a.split_keys).total;
   auto kern = attention_kernel<T, W, kByLength>;
   cudaError_t e = allow_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
@@ -608,10 +655,13 @@ template <bool kByLength>
 cudaError_t attention_launch(Args a, int dtype, cudaStream_t stream) {
   const int rows = dtype == DT_F32 ? Tile<float>::kRows : Tile<__nv_bfloat16>::kRows;
   const int keys = dtype == DT_F32 ? Tile<float>::kKeys : Tile<__nv_bfloat16>::kKeys;
-  a.n_rowtiles = ((a.Hq / a.Hkv) * a.n + rows - 1) / rows;
+  a.tpq = (a.Hkv > 0 && a.Hq % a.Hkv == 0 ? a.Hq / a.Hkv + rows - 1 : 0) / rows;
+  a.n_rowtiles = a.n * a.tpq;
+  a.tile_rows = a.tpq > 0 ? min(rows, a.Hq / a.Hkv) : 0;
   a.stages = a.split_keys > keys ? kMaxStages : 1;  // a ring only where a split has two tiles
   const int live = min(a.kv_end, a.S);
   if (a.split_keys % 64 != 0 || a.Hq % a.Hkv != 0 || a.hd % 4 != 0 || a.n_launch < 1 ||
+      a.n_rowtiles < 1 || a.n_rowtiles > 65535 ||
       a.n_launch > kMaxSplits || (long long)a.n_launch * a.split_keys < live ||
       (a.n_launch > 1 && (long long)(a.n_launch - 1) * a.split_keys >= live))
     return cudaErrorInvalidValue;
@@ -620,7 +670,8 @@ cudaError_t attention_launch(Args a, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// query rows per block of the kernel for dtype (DT_F32 / DT_BF16)
+// query rows per block of the kernel for dtype (DT_F32 / DT_BF16): a block
+// holds at most this many query heads of one query
 REPRO_EXPORT int attention_rows_per_block(int dtype) {
   return dtype == DT_F32 ? Tile<float>::kRows : Tile<__nv_bfloat16>::kRows;
 }

@@ -40,17 +40,6 @@
 
 namespace {
 
-// GR-byte cp.async, or plain byte loads for GR 1 (an odd bf16 row)
-template <int GR, int RB, class Z>
-__device__ __forceinline__ void copy_weight_rows(unsigned char* dst, int lds, const void* src,
-                                                 long long ld, int r0, int R, int r_end, int c0,
-                                                 int c_end) {
-  if constexpr (GR == 1)
-    copy_rows_bytes<RB, Z>(dst, lds, src, ld, r0, R, r_end, c0, c_end);
-  else
-    copy_rows<GR, RB, Z>(dst, lds, src, ld, r0, R, r_end, c0, c_end);
-}
-
 constexpr int kSwigluKQuantum = 32;  // K per split is a multiple (ops._SWIGLU_K_QUANTUM)
 
 template <typename T_>

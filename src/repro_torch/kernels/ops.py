@@ -12,7 +12,7 @@ wrapper is one unit of ``kernels.work``'s count.  Each wrapper adds one to
 can show which kernels its path went through.  Kernels launch on PyTorch's current stream and do not
 synchronise; the wrappers allocate every output and scratch buffer.
 Every kernel with a split combine (tree_attention, decode_attention,
-fused_swiglu, int4_matmul) takes atomic tickets from one zeroed buffer kept
+fused_swiglu, int4_matmul, stream_matmul) takes atomic tickets from one zeroed buffer kept
 per (device, stream), which each launch leaves zero: launches on one stream
 run in order, and launches on two streams never share a ticket.
 """
@@ -20,6 +20,7 @@ run in order, and launches on two streams never share a ticket.
 from __future__ import annotations
 
 import array
+import contextlib
 import ctypes
 import math
 
@@ -28,7 +29,7 @@ import torch
 from repro_torch.kernels import build, ref, work
 
 LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0,
-            "slot_write_rows": 0, "int4_matmul": 0}
+            "slot_write_rows": 0, "int4_matmul": 0, "stream_matmul": 0, "rms_norm": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _tickets_by_stream: dict = {}  # (device, stream) -> zeroed int32 tickets (kernels leave them zero)
@@ -75,7 +76,20 @@ def _route(name: str, *tensors) -> str:
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of PyTorch's current stream on ``dev`` (a CUDA device
+    with its index), without building a ``torch.cuda.Stream`` object: a
+    serving round makes hundreds of launches, each paid on the host."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on(dev):
+    """The context in which a launch on ``dev`` runs: ``dev`` made the
+    current device, or nothing to do when it already is (one card a
+    process, the common case)."""
+    return _SAME_DEVICE if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
 
 
 # -----------------------------------------------------------------------------
@@ -106,13 +120,15 @@ def _attention_scratch(lib, q, B, n, hq, hkv, hd, S, kv_end):
     launch."""
     dev = q.device
     rows = lib.attention_rows_per_block(_DTYPE_CODE[q.dtype])
-    n_rowtiles = -(-(hq // hkv) * n // rows)
+    # a block holds heads of one query: n row tiles of min(rows, G) partial rows
+    n_rowtiles = n * -(-(hq // hkv) // rows)
+    tile_rows = min(rows, hq // hkv)
     split_keys, n_launch = attn_plan(S, kv_end)
     part_acc = part_ml = None
     if n_launch > 1:
-        part_acc = torch.empty(B * hkv * n_rowtiles * rows * n_launch * hd,
+        part_acc = torch.empty(B * hkv * n_rowtiles * tile_rows * n_launch * hd,
                                dtype=torch.float32, device=dev)
-        part_ml = torch.empty(B * hkv * n_rowtiles * rows * n_launch * 2,
+        part_ml = torch.empty(B * hkv * n_rowtiles * tile_rows * n_launch * 2,
                               dtype=torch.float32, device=dev)
     stream = _stream(dev)
     ctr = _tickets(dev, stream, B * hkv * n_rowtiles)
@@ -126,13 +142,14 @@ def _attention_scratch_meta(q, B, n, hq, hkv, hd, S, kv_end):
     """The partial buffers ``_attention_scratch`` allocates for one launch,
     on meta (the tickets are the stream's, allocated once)."""
     rows = _ATTENTION_ROWS[q.dtype]
-    n_rowtiles = -(-(hq // hkv) * n // rows)
+    n_rowtiles = n * -(-(hq // hkv) // rows)
+    tile_rows = min(rows, hq // hkv)
     _, n_launch = attn_plan(S, kv_end)
     if n_launch == 1:
         return ()
-    return (torch.empty(B * hkv * n_rowtiles * rows * n_launch * hd, dtype=torch.float32,
+    return (torch.empty(B * hkv * n_rowtiles * tile_rows * n_launch * hd, dtype=torch.float32,
                         device=q.device),
-            torch.empty(B * hkv * n_rowtiles * rows * n_launch * 2, dtype=torch.float32,
+            torch.empty(B * hkv * n_rowtiles * tile_rows * n_launch * 2, dtype=torch.float32,
                         device=q.device))
 
 
@@ -158,7 +175,10 @@ def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
 
     The paper's non-square tree-masked attention; returns [B, n, Hq, hd]
     in q's dtype, zeros for a fully masked query row.  The kernel takes
-    float32 or bfloat16 with hd a multiple of 4, at most 256.
+    float32 or bfloat16 with hd a multiple of 4, at most 256.  It sums each
+    query's attended keys in the order of their rank among them, as the
+    plain version does: a row's bits do not depend on the rows its keys
+    lie at, nor on the other queries of the call.
 
     ``kv_bound``, a host int, promises that no query attends a key at or
     past it (the mask is False there): the kernel then neither loads those
@@ -189,7 +209,7 @@ def tree_attention(q, k, v, mask, *, kv_bound: int | None = None):
     split_keys, n_launch, part_acc, part_ml, ctr, stream = _attention_scratch(
         lib, q, B, n, hq, hkv, hd, S, kv_end)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _on(q.device):
         LAUNCHES["tree_attention"] += 1
         rc = lib.tree_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
@@ -238,7 +258,7 @@ def decode_attention(q, k, v, length):
     split_keys, n_launch, part_acc, part_ml, ctr, stream = _attention_scratch(
         lib, q, B, 1, hq, hkv, hd, S, kv_end)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with _on(q.device):
         LAUNCHES["decode_attention"] += 1
         rc = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if lt is None else lt.data_ptr(),
@@ -250,7 +270,7 @@ def decode_attention(q, k, v, length):
 
 
 # -----------------------------------------------------------------------------
-# weight streams: fused_swiglu and int4_matmul (csrc/weight_stream.cuh)
+# weight streams: fused_swiglu, int4_matmul and stream_matmul (csrc/weight_stream.cuh)
 # -----------------------------------------------------------------------------
 
 _STREAM_TILE_N = 256  # output columns per block of both kernels
@@ -258,6 +278,7 @@ _STREAM_BLOCKS = 2 * 132  # blocks a plan aims at: two resident on each SM of an
 _STREAM_MAX_K = 1024  # K per split at most, so that x fits in shared memory
 _STREAM_ROWS_PER_PASS = 64  # rows of x per launch through the split partials
 _SWIGLU_K_QUANTUM = 32  # fused_swiglu's K per split is a multiple of this
+_MATMUL_K_QUANTUM = 32  # stream_matmul's K per split is a multiple of this
 
 
 def stream_plan(K: int, N: int, tile_n: int, k_quantum: int) -> tuple[int, int]:
@@ -275,18 +296,27 @@ def stream_plan(K: int, N: int, tile_n: int, k_quantum: int) -> tuple[int, int]:
     return per * k_quantum, -(-quanta // per)
 
 
-def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
-    """The f32 partials [splits, parts, rows, N rounded up to 4] of one
-    launch of a weight-stream kernel and its zeroed tickets (None and None
-    for one split; the caller holds them until the launch is enqueued),
-    and the stream."""
-    stream = _stream(dev)
+def _stream_partials(dev, splits: int, parts: int, M: int, N: int):
+    """The f32 partials [splits, parts, rows of a pass, N rounded up to 4]
+    that a weight-stream launch of M rows splits K into (None for one
+    split); on meta the allocation that a memory count sees."""
     if splits == 1:
-        return None, None, stream
+        return None
     rows = min(M, _STREAM_ROWS_PER_PASS)
-    part = torch.empty(splits * parts * rows * (-(-N // 4) * 4), dtype=torch.float32, device=dev)
+    return torch.empty(splits * parts * rows * (-(-N // 4) * 4), dtype=torch.float32, device=dev)
+
+
+def _stream_scratch(dev, splits: int, parts: int, M: int, N: int):
+    """The partials of one launch of a weight-stream kernel and its zeroed
+    tickets (None and None for one split; the caller holds them until the
+    launch is enqueued), and the stream."""
+    stream = _stream(dev)
+    part = _stream_partials(dev, splits, parts, M, N)
+    if part is None:
+        return None, None, stream
     # a ticket per (row tile, column tile) of a pass: at most one row tile per row
-    return part, _tickets(dev, stream, rows * -(-N // _STREAM_TILE_N)), stream
+    return part, _tickets(dev, stream, min(M, _STREAM_ROWS_PER_PASS) * -(-N // _STREAM_TILE_N)), \
+        stream
 
 
 # -----------------------------------------------------------------------------
@@ -361,10 +391,7 @@ def _fused_swiglu_meta(x, wg, wu):
     N = wg.shape[1]
     _, splits = stream_plan(K, N, _STREAM_TILE_N, _SWIGLU_K_QUANTUM)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if splits > 1:
-        part = torch.empty(splits * 2 * min(M, _STREAM_ROWS_PER_PASS) * (-(-N // 4) * 4),
-                           dtype=torch.float32, device=x.device)
-        del part
+    _stream_partials(x.device, splits, 2, M, N)  # allocated and freed, as by a launch
     return out
 
 
@@ -385,12 +412,104 @@ def _fused_swiglu_kernel(x, wg, wu):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part, ctr, stream = _stream_scratch(x.device, splits, 2, M, N)
     lib = build.lib("fused_swiglu")
-    with torch.cuda.device(x.device):
+    with _on(x.device):
         LAUNCHES["fused_swiglu"] += 1
         rc = lib.fused_swiglu_launch(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(),
                                      _ptr(part), _ptr(ctr), M, K, N, k_split, splits,
                                      _STREAM_ROWS_PER_PASS, _DTYPE_CODE[x.dtype], stream)
     build.check("fused_swiglu", rc)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# the serving product
+# -----------------------------------------------------------------------------
+
+
+@work.counted("stream_matmul", work.stream_matmul)
+def stream_matmul(x, w):
+    """x: [..., K]; w: [K, N] -> x @ w, [..., N] in x's dtype (f32
+    accumulation).  The serving forward's dense products
+    (``models.common.project``): the kernel sums every output element over
+    K in an order set by K and N alone, so a row computed alone equals the
+    same row among any number of rows, bit for bit, in f32 and bf16 (the
+    tree engine's verify against its greedy decode).  The kernel takes
+    float32 or bfloat16, any N and a 16-byte aligned weight; K is split by
+    ``stream_plan``; more than 16 rows run row tiles of 16, each streaming
+    the weight.  No backward: a product under a gradient is ``x @ w``
+    (``project``), and one here raises."""
+    if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"stream_matmul: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("stream_matmul: no backward; a product under a gradient is x @ w "
+                           "(models.common.project)")
+    route = _route("stream_matmul", x, w)
+    if route == "cpu":
+        return ref.stream_matmul_ref(x, w)
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"stream_matmul: x/w must share f32 or bf16, got {x.dtype}/{w.dtype}")
+    K, N = w.shape
+    lead = tuple(x.shape[:-1])
+    M = math.prod(lead)
+    if M == 0 or K == 0 or N == 0:  # nothing to launch
+        return x.new_zeros(lead + (N,))
+    k_split, splits = stream_plan(K, N, _STREAM_TILE_N, _MATMUL_K_QUANTUM)
+    if route == "meta":
+        out = torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
+        _stream_partials(x.device, splits, 1, M, N)  # allocated and freed, as by a launch
+        return out
+    x2, w = x.reshape(M, K).contiguous(), w.contiguous()
+    if w.data_ptr() % 16:
+        raise ValueError("stream_matmul: the weight must be 16-byte aligned")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part, ctr, stream = _stream_scratch(x.device, splits, 1, M, N)
+    lib = build.lib("stream_matmul")
+    with _on(x.device):
+        LAUNCHES["stream_matmul"] += 1
+        rc = lib.stream_matmul_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(part),
+                                      _ptr(ctr), M, K, N, k_split, splits, _STREAM_ROWS_PER_PASS,
+                                      _DTYPE_CODE[x.dtype], stream)
+    build.check("stream_matmul", rc)
+    return out.reshape(lead + (N,))
+
+
+# -----------------------------------------------------------------------------
+# the serving norm
+# -----------------------------------------------------------------------------
+
+
+@work.counted("rms_norm", work.rms_norm)
+def rms_norm(x, weight, eps: float):
+    """x: [..., d]; weight: [d] -> x * rsqrt(mean(x², -1) + eps) * weight,
+    in x's dtype (f32 arithmetic).  The serving forward's norm
+    (``models.common.rms_norm``): the kernel sums each row's squares in an
+    order set by d alone, so a row computed alone equals the same row among
+    any number of rows, bit for bit; PyTorch's reduction picks its order by
+    the number of rows.  The kernel takes float32 or bfloat16 (the weight
+    is taken in x's dtype).  No backward: a norm under a gradient is the
+    plain version (``models.common.rms_norm``), and one here raises."""
+    d = x.shape[-1] if x.ndim else 0
+    if x.ndim < 1 or tuple(weight.shape) != (d,):
+        raise ValueError(f"rms_norm: bad shapes x{tuple(x.shape)} weight{tuple(weight.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise RuntimeError("rms_norm: no backward; a norm under a gradient is the plain "
+                           "version (models.common.rms_norm)")
+    route = _route("rms_norm", x, weight)
+    if route == "cpu":
+        return ref.rms_norm_ref(x, weight, eps)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"rms_norm: x must be float32 or bfloat16, got {x.dtype}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    M = x.numel() // d if d else 0
+    if route == "meta" or M == 0:
+        return out
+    x2, w = x.reshape(M, d).contiguous(), weight.to(x.dtype).contiguous()
+    lib = build.lib("rms_norm")
+    with _on(x.device):
+        LAUNCHES["rms_norm"] += 1
+        rc = lib.rms_norm_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), M, d, float(eps),
+                                 _DTYPE_CODE[x.dtype], _stream(x.device))
+    build.check("rms_norm", rc)
     return out
 
 
@@ -484,7 +603,7 @@ def kv_move_leaves(leaves, src, dst, mask, *, donate: bool = False) -> list:
     table = array.array("q", [v for (a, o), r, x in zip(ptrs, row_bytes, leaves)
                               for v in (a, o, r // es, x.shape[0])])
     lib = build.lib("kv_moves")
-    with torch.cuda.device(first.device):
+    with _on(first.device):
         LAUNCHES["kv_move_rows"] += 1
         rc = lib.kv_move_leaves_launch(table.buffer_info()[0], len(leaves), src.data_ptr(),
                                        dst.data_ptr(), mask.data_ptr(), B, S, M, es, chunk,
@@ -559,7 +678,7 @@ def slot_write_rows(cache_leaves, donor_leaves, slot: int):
     U = (ctypes.c_int * L)(*(t.shape[0] for t in cache_leaves))
     B = (ctypes.c_int * L)(*(t.shape[1] for t in cache_leaves))
     dev = cache_leaves[0].device
-    with torch.cuda.device(dev):
+    with _on(dev):
         LAUNCHES["slot_write_rows"] += 1
         rc = lib.slot_write_rows_launch(ctypes.addressof(dst), ctypes.addressof(src),
                                         ctypes.addressof(rows), ctypes.addressof(U),
@@ -605,10 +724,7 @@ def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     if route == "meta":
         _, splits = stream_plan(K, N, _STREAM_TILE_N, group_size)
         out = torch.empty((T, N), dtype=x.dtype, device=x.device)
-        if splits > 1 and T:
-            part = torch.empty(splits * min(T, _STREAM_ROWS_PER_PASS) * (-(-N // 4) * 4),
-                               dtype=torch.float32, device=x.device)
-            del part
+        _stream_partials(x.device, splits, 1, T, N)  # allocated and freed, as by a launch
         return out
     if route == "cpu":
         return ref.int4_matmul_ref(x, qweight, scales, zeros, group_size)
@@ -623,7 +739,7 @@ def int4_matmul(x, qweight, scales, zeros, *, group_size: int = 128):
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     part, ctr, stream = _stream_scratch(x.device, splits, 1, T, N)
     lib = build.lib("int4_matmul")
-    with torch.cuda.device(x.device):
+    with _on(x.device):
         LAUNCHES["int4_matmul"] += 1
         rc = lib.int4_matmul_launch(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
                                     zeros.data_ptr(), out.data_ptr(), _ptr(part), _ptr(ctr), T,

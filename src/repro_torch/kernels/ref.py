@@ -94,6 +94,30 @@ def fused_swiglu_ref(x, wg, wu):
     return (F.silu(g) * u)[:x.shape[0]].to(x.dtype)
 
 
+def stream_matmul_ref(x, w):
+    """x @ w in x's dtype: x [..., K]; w [K, N] -> [..., N].
+
+    The product the serving forward computed before it went through the
+    ``stream_matmul`` kernel, kept as it was, so that the port's results on
+    the CPU stay what they were bit for bit.  In bf16 the CPU's product gives
+    a row the same bits alone and among rows at the smoke shapes; in float32
+    a single row takes the BLAS's matrix-vector product, whose sums run in
+    another order than its matrix product's (the kernel's order does not
+    depend on the rows)."""
+    return x @ w
+
+
+def rms_norm_ref(x, weight, eps: float):
+    """x * rsqrt(mean(x², -1) + eps) * weight in f32, returned in x's dtype
+    (``repro.models.common.rms_norm``).  The arithmetic the port's norm ran
+    before the ``rms_norm`` kernel, kept as it was: the CPU's results stay
+    what they were, and a forward under a gradient differentiates it."""
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
 def kv_move_rows_ref(arr, src, dst, mask):
     """Index-based KV row moves on one cache leaf, as a parallel assignment.
 

@@ -29,6 +29,8 @@ class ShapeLog:
             tuple(tuple(t.shape) for t in leaves), donors is None),
         "int4_matmul": lambda x, qweight, scales, zeros, group_size=128: (
             tuple(x.shape) + (qweight.shape[1], group_size)),
+        "stream_matmul": lambda x, w: (x.numel() // w.shape[0],) + tuple(w.shape),
+        "rms_norm": lambda x, weight, eps: (x.numel() // x.shape[-1], x.shape[-1]),
     }
 
     def __init__(self, ops):

@@ -77,6 +77,27 @@ def fused_swiglu(x, wg, wu) -> tuple[int, int]:
     return 4 * M * K * N, (M * K + 2 * K * N + M * N) * _es(x)
 
 
+def stream_matmul(x, w) -> tuple[int, int]:
+    """x [..., K] @ w [K, N], M the rows of x: x and w read once, the output
+    written — and, for an x of more than two dimensions, the output read
+    and written once more, as ``launch/cost.py`` counts the ``x @ w`` this
+    product replaces (aten's matmul folds x by a view, multiplies, and
+    unfolds the [M, N] product by ``_unsafe_view``, which the counter books
+    as an op that reads and writes), so that the dry run's counts do not
+    move with the kernel."""
+    K, N = w.shape
+    M = x.numel() // K
+    nbytes = (M * K + K * N + M * N) * _es(x) + (2 * M * N * _es(x) if x.dim() > 2 else 0)
+    return 2 * M * K * N, nbytes
+
+
+def rms_norm(x, weight, eps) -> tuple[int, int]:
+    """The RMS norm of x [..., d]: x read and the output written, the weight
+    read once; no operations, as ``launch/cost.py`` counts elementwise work
+    and reductions (the reference's HLO count takes only products)."""
+    return 0, (2 * x.numel() + weight.numel()) * _es(x)
+
+
 def swiglu_backward(x, wg, wu) -> tuple[int, int]:
     """The backward of ``fused_swiglu`` (``ops.swiglu_backward``): the two
     products recomputed, then dx, dwg and dwu; x, wg, wu and the output

@@ -28,15 +28,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, work
-from repro_torch.models.common import apply_rope
+from repro_torch.models.common import apply_rope, project
 
 
 def _project_qkv(cfg, p, x, positions, *, rope: bool = True):
     """x [B, n, d] -> q [B, n, Hq, hd], k/v [B, n, Hkv, hd] (+ QKV bias, RoPE)."""
     B, n, d = x.shape
-    q = (x @ p["wq"].reshape(d, -1)).reshape(B, n, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
+    q = project(x, p["wq"].reshape(d, -1)).reshape(B, n, cfg.n_heads, cfg.head_dim)
+    k = project(x, p["wk"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
+    v = project(x, p["wv"].reshape(d, -1)).reshape(B, n, cfg.n_kv_heads, cfg.head_dim)
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -49,7 +49,7 @@ def _project_qkv(cfg, p, x, positions, *, rope: bool = True):
 
 def _out_proj(p, out):
     B, n, hq, hd = out.shape
-    return out.reshape(B, n, hq * hd) @ p["wo"].reshape(hq * hd, -1)
+    return project(out.reshape(B, n, hq * hd), p["wo"].reshape(hq * hd, -1))
 
 
 def _attend(q, k, v, mask):
@@ -180,8 +180,8 @@ def encoder_kv(p, enc):
     """The cross block's K/V of the encoder states enc [B, m, d]: [B, m,
     Hkv, hd] each, no bias and no RoPE (the reference's cross path)."""
     B, m, d = enc.shape
-    k = (enc @ p["wk"].reshape(d, -1)).reshape(B, m, *p["wk"].shape[1:])
-    v = (enc @ p["wv"].reshape(d, -1)).reshape(B, m, *p["wv"].shape[1:])
+    k = project(enc, p["wk"].reshape(d, -1)).reshape(B, m, *p["wk"].shape[1:])
+    v = project(enc, p["wv"].reshape(d, -1)).reshape(B, m, *p["wv"].shape[1:])
     return k, v
 
 
@@ -190,7 +190,7 @@ def cross_attention(p, x, enc_k, enc_v):
     no mask, no RoPE, no bias.  Plain PyTorch, as the reference computes it
     outside any Pallas kernel."""
     B, n, d = x.shape
-    q = (x @ p["wq"].reshape(d, -1)).reshape(B, n, *p["wq"].shape[1:])
+    q = project(x, p["wq"].reshape(d, -1)).reshape(B, n, *p["wq"].shape[1:])
     every = torch.ones((1, 1, 1), dtype=torch.bool, device=x.device)
     return _out_proj(p, _attend(q, enc_k, enc_v, every))
 

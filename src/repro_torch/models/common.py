@@ -1,9 +1,11 @@
 """Shared model building blocks (``repro.models.common``): seeded init,
-RMSNorm, RoPE and the training loss."""
+RMSNorm, RoPE, the dense product and the training loss."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops, ref
 
 
 def dense_init(gen: torch.Generator, shape, dtype, device, scale=None) -> torch.Tensor:
@@ -20,11 +22,35 @@ def dense_init(gen: torch.Generator, shape, dtype, device, scale=None) -> torch.
     return t.to(dtype)
 
 
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N], the dense products of the shared blocks.
+
+    A serving forward (no gradient) goes through ``ops.stream_matmul``,
+    whose order of summation does not depend on the rows: a verify's row
+    among n then carries the bits of the greedy decode's row alone, as the
+    tree engine's contract needs.  A forward under a gradient (an input
+    that requires one while grad mode is on: ``ops.fused_swiglu``'s test)
+    is ``x @ w``, as the reference computes it — the kernel has no
+    backward, and its row tiles would stream the weight again for each 16
+    rows of a training batch.  The choice follows what the caller
+    computes, not the device: on the CPU both are ``x @ w``."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return x @ w
+    return ops.stream_matmul(x, w)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    """x * rsqrt(mean(x², -1) + eps) * weight in f32, in x's dtype.
+
+    A serving forward (no gradient) goes through ``ops.rms_norm``, whose
+    sum over a row does not depend on the rows beside it (PyTorch's
+    reduction picks its order by their number, and a verify's row then
+    took other bits than the greedy decode's); a forward under a gradient
+    (``project``'s test) differentiates the plain arithmetic
+    (``ref.rms_norm_ref``).  On the CPU both are the plain arithmetic."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return ref.rms_norm_ref(x, weight, eps)
+    return ops.rms_norm(x, weight, eps)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

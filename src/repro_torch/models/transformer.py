@@ -65,7 +65,7 @@ from repro_torch.models.attention import (
     plan_row_writes,
     prefill_attention,
 )
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, project, rms_norm
 from repro_torch.parallel.group import SeqGroup
 
 # -----------------------------------------------------------------------------
@@ -360,7 +360,7 @@ def init_cache(cfg, B, S_max, dtype, device):
 def _mlp_apply(cfg, p, x):
     B, S, d = x.shape
     h = ops.fused_swiglu(x.reshape(B * S, d), p["wg"], p["wu"])
-    return (h @ p["wd"]).reshape(B, S, d)
+    return project(h, p["wd"]).reshape(B, S, d)
 
 
 def _io(ctx: Ctx):
@@ -508,7 +508,7 @@ def _apply_block(cfg, kind, params: DecoderLM, p, h, x0, ctx: Ctx, leaves, r: in
         h = h + out
         nc = {**nc, **nc_cm}
     elif kind == "shared":  # the model's attention + MLP on concat(h, x0) @ in_w
-        inp = torch.cat([h, x0], dim=-1) @ p.in_w
+        inp = project(torch.cat([h, x0], dim=-1), p.in_w)
         h = h + _attn_mlp(cfg, "shared", params.shared_attn, inp, ctx, leaves, r)
     else:  # dense, moe, cross
         h = _attn_mlp(cfg, kind, p, h, ctx, leaves, r)
@@ -602,8 +602,8 @@ def logits_from_hidden(cfg, params: DecoderLM, h, vocab_tp=None):
     split over) every rank's columns are gathered, so each rank holds the
     whole [B, n, V]."""
     if vocab_tp is None:
-        return h @ params.lm_head
-    return vocab_tp.gather(vocab_tp.copy(h) @ params.lm_head, dim=-1)
+        return project(h, params.lm_head)
+    return vocab_tp.gather(project(vocab_tp.copy(h), params.lm_head), dim=-1)
 
 
 def embed_tokens(cfg, params: DecoderLM, tokens, vocab_tp=None, seq=None):

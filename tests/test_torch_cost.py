@@ -217,7 +217,10 @@ def test_product_operations_equal_the_reference_hlo():
     got, _ = cost.count(make_decode_step(cfg, model, S_max=S_MAX), model.init(0), cache,
                         torch.zeros((B, 1), dtype=torch.int32, device="meta"))
     assert got.total_flops == want
-    assert got.calls == {"decode_attention": cfg.n_layers, "fused_swiglu": cfg.n_layers}
+    # stream_matmul: q, k, v, o and the down projection of every layer, and the lm_head;
+    # rms_norm: the two pre-norms of every layer, and the final norm
+    assert got.calls == {"decode_attention": cfg.n_layers, "fused_swiglu": cfg.n_layers,
+                         "stream_matmul": 5 * cfg.n_layers + 1, "rms_norm": 2 * cfg.n_layers + 1}
 
 
 def test_peak_tracker_on_a_hand_built_sequence():

@@ -13,17 +13,22 @@ rounded to 8 bits, exact ties of the top two are common, and an ulp moved
 anywhere upstream breaks a tie one way in the verify and the other in the
 decode.  This script measures, on the card, in bf16:
 
-1. products: row 0 of ``x[:M] @ w`` against ``x[:1] @ w`` (torch.matmul,
-   cuBLAS) for M = 2, 4, 8, 16, at every product of the llama3-8b and
-   llama3-1b layers, their lm_heads, and llama3-70b's tp-3 and tp-4 rank
-   shapes; the port's ``fused_swiglu`` kernel the same way;
+1. products: row 0 of ``x[:M] @ w`` against ``x[:1] @ w`` for M = 2, 4,
+   8, 16, at every product of the llama3-8b and llama3-1b layers, their
+   lm_heads, and llama3-70b's tp-3 and tp-4 rank shapes, by the port's
+   ``stream_matmul`` kernel (the serving forward's product) and by
+   torch.matmul (cuBLAS, which the forward called before it), each timed
+   at M 1, 8 and 16 (CUDA events, the median of 21 calls after an L2
+   flush); the port's ``fused_swiglu`` kernel the same way;
 2. attention: ``tree_attention`` with a query's last attended key moved one
    row on (the row between masked) against the key at its own row, over
-   random trials at the 8B's and the 70B tp-3 rank's heads;
+   random trials at the 8B's and the 70B tp-3 rank's heads (the kernel
+   sums a query's keys by rank, so none may differ);
 3. the engine: llama3-8b + llama3-1b at full depth in bf16 (``build_engine``'s
    draws, lm_head x4, rounded to bf16), the serve CLI's first two prompts,
-   lockstep, max_new 48: every position's q/k/v, attention, output
-   projection, swiglu and MLP output of every layer, and the logits, in the
+   lockstep, max_new 48: every position's two norms, q/k/v, attention,
+   output projection, swiglu and MLP output of every layer, the final norm
+   and the logits, in the
    verify (the node on the greedy path) against the greedy decode's (its
    prefill for the prompt's last row, which the first verify recomputes);
    it prints the first position and op where they differ, whose inputs
@@ -43,6 +48,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [HERE, os.path.join(HERE, "src")]
 
 MS = (2, 4, 8, 16)
+# the ops Recorder keeps of one dense layer: 2 norms, q, k, v, attention, o, swiglu, mlp
+# (the final norm comes after the last layer's)
+OPS_PER_LAYER = 9
 TRIALS = 200
 MAX_NEW = 48
 
@@ -65,29 +73,30 @@ def product_shapes() -> list:
 
 
 def check_products(torch, card) -> None:
+    import chip_smoke
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = chip_smoke.Timer(torch)
     for label, K, N in product_shapes():
         x = torch.randn((max(MS), K), generator=gen, device="cuda").bfloat16()
         w = (torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5).bfloat16()
         if label.endswith("swiglu"):
             wu = (torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5).bfloat16()
-
-            def f(m):
-                return ops.fused_swiglu(x[:m], w, wu)
+            kinds = {"fused_swiglu kernel": lambda m: ops.fused_swiglu(x[:m], w, wu)}
         else:
-            def f(m):
-                return x[:m] @ w
-        alone = f(1)[0]
-        res = []
-        for m in MS:
-            row = f(m)[0]
-            res.append(f"M {m}: {int((row != alone).sum())} of {N} differ"
-                       f" (max {float((row.float() - alone.float()).abs().max()):.3g})")
-        kind = "fused_swiglu kernel" if label.endswith("swiglu") else "torch.matmul"
-        print(f"products: {label} [M, {K}] @ [{K}, {N}] bf16 ({kind}), row 0 against the row "
-              f"alone: " + "; ".join(res) + f" on {card}", flush=True)
+            kinds = {"stream_matmul kernel": lambda m: ops.stream_matmul(x[:m], w),
+                     "torch.matmul": lambda m: x[:m] @ w}
+        for kind, f in kinds.items():
+            alone = f(1)[0]
+            res = []
+            for m in MS:
+                row = f(m)[0]
+                res.append(f"M {m}: {int((row != alone).sum())} of {N} differ"
+                           f" (max {float((row.float() - alone.float()).abs().max()):.3g})")
+            times = ", ".join(f"M {m} {timer(lambda m=m: f(m)):.4f} ms" for m in (1, 8, 16))
+            print(f"products: {label} [M, {K}] @ [{K}, {N}] bf16 ({kind}), row 0 against the "
+                  f"row alone: " + "; ".join(res) + f"; time {times} on {card}", flush=True)
 
 
 def check_attention(torch, card) -> None:
@@ -137,7 +146,8 @@ class Recorder:
         self._undo = []
         for mod, name, tag in ((at, "_project_qkv", "qkv"), (at, "_out_proj", "o"),
                                (ops, "tree_attention", "att"), (ops, "decode_attention", "att"),
-                               (ops, "fused_swiglu", "swiglu"), (tr, "_mlp_apply", "mlp")):
+                               (ops, "fused_swiglu", "swiglu"), (tr, "_mlp_apply", "mlp"),
+                               (ops, "rms_norm", "norm")):
             self._wrap(mod, name, tag)
 
     def _wrap(self, mod, name, tag):
@@ -248,7 +258,7 @@ def check_engine(torch, card) -> None:
                 for li, ((tag, a), (_, v)) in enumerate(zip(ref_ops, rec.calls[vi])):
                     ra, rv = _row(tag, a, 0, ref_i, ref_n), _row(tag, v, 0, h, n)
                     if not torch.equal(ra, rv):
-                        found = (p, li // 7, tag, float((ra.float() - rv.float()).abs().max()),
+                        found = (p, li // OPS_PER_LAYER, tag, float((ra.float() - rv.float()).abs().max()),
                                  vi, n)
                         break
         if found:
