@@ -38,18 +38,20 @@ It takes no options and runs every phase, in order:
            stream_matmul (the serving product, which replaces no TPU
            kernel: the reference's XLA dot) at the wq, wk, wo, wd and
            lm_head of llama3-8b, llama3-1b and llama3-70b's tp-3 ranks 0
-           and 1 and tp-4 rank 0, f32 and bf16: against the plain version
-           (x @ w) at M 1, 8, 16 and every row of M 2, 4, 8, 16, 17, 64 bit
-           for bit equal to the same row alone, timed at M 1, 8, 16 beside
-           torch.matmul, and the 8B's wq, wk, wo, wd at M 512 (every 16
-           rows stream the weight); tree_attention's placement: 200
+           and 1 and tp-4 rank 0, f32 and bf16: each plan's cluster of
+           splits co-resident on the card, against the plain version
+           (x @ w) at M 1, 8, 16 and every row of M 2, 4, 8, 16, 17, 64,
+           65 and 512 (both of the kernel's regimes) bit for bit equal to
+           the same row alone, timed at M 1, 8, 16 beside torch.matmul,
+           and the 8B's and the 70B tp-4 rank 0's at M 512 (the fat
+           regime's tiles); tree_attention's placement: 200
            trials a dtype at the 8B's heads and the 70B tp-3 rank's, a
            query's attended keys moved between masked rows, every output
            bit for bit the same (it sums a query's keys by rank), and
            decode_attention at the same length bit for bit equal;
            rms_norm (the serving norm, which replaces no TPU kernel) at d
            4096, 2048 and 8192: against the plain version, every row of M
-           1-64 and 512 bit for bit the row alone, timed at M 1, 8, 16 and
+           1-65 and 512 bit for bit the row alone, timed at M 1, 8, 16 and
            512 beside torch.nn.functional.rms_norm
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
@@ -417,9 +419,12 @@ MATMUL_CONFIGS = (("8B", "llama3-8b", 1, 0), ("1B", "llama3-1b", 1, 0),
                   ("70B-tp3-r0", "llama3-70b", 3, 0), ("70B-tp3-r1", "llama3-70b", 3, 1),
                   ("70B-tp4-r0", "llama3-70b", 4, 0))
 MATMUL_ROWS = (1, 8, 16)  # held and timed: a decode step, the 8B verify, a prompt
-MATMUL_INVARIANT_ROWS = (2, 4, 8, 16, 17, 64)  # each row bit for bit equal to itself alone
-MATMUL_PREFILL = 512  # the 8B's products also timed at M 512: a row tile of 16 rows streams
-# the weight once (ROADMAP R5)
+# each row bit for bit equal to itself alone: both regimes of the kernel (bf16 skinny to 64
+# rows, f32 to 16) and the edges between them
+MATMUL_INVARIANT_ROWS = (2, 4, 8, 16, 17, 64, 65, 512)
+MATMUL_PREFILL = 512  # a long prompt's rows: the products of the 8B and of llama3-70b's tp-4
+# rank 0 also timed at M 512 (the fat regime: 128-row tiles on wgmma, 128 x 128 f32 tiles)
+MATMUL_PREFILL_TIMED = ("8B", "70B-tp4-r0")
 # tree_attention: a query's attended keys moved between masked rows must change no bit, at
 # the 8B's heads and the llama3-70b tp-3 rank 0's, f32 and bf16
 PLACEMENT_HEADS = (("8B", 32, 8, 128), ("70B-tp3-r0", 24, 3, 128))
@@ -1106,13 +1111,26 @@ def matmul_shapes() -> list:
 
 def check_stream_matmul(torch, timed, randn, card) -> None:
     """stream_matmul at every product of ``matmul_shapes``, f32 and bf16:
-    against the plain version (x @ w) at M 1, 8, 16 and at
-    MATMUL_INVARIANT_ROWS, every row of each M bit for bit equal to the same
-    row alone, a repeated call bit for bit; timed at M 1, 8 and 16 beside
-    torch.matmul (the plain version is the same call), and the 8B's
-    products at M ``MATMUL_PREFILL``."""
-    from repro_torch.kernels import ops, ref, work
+    every plan's cluster of splits co-resident on the card; against the
+    plain version (x @ w) at M 1, 8, 16 and at MATMUL_INVARIANT_ROWS, every
+    row of each M bit for bit equal to the same row alone, a repeated call
+    bit for bit; timed at M 1, 8 and 16 beside torch.matmul (the plain
+    version is the same call), and at M ``MATMUL_PREFILL`` at the products
+    of ``MATMUL_PREFILL_TIMED``."""
+    from repro_torch.kernels import build, ops, ref, work
 
+    lib = build.lib("stream_matmul")
+    for dtype in (torch.float32, torch.bfloat16):
+        plans = {ops.matmul_plan(K, N, dtype)[::2] for _, K, N in matmul_shapes()}
+        for tile, splits in sorted(plans):
+            if dtype == torch.float32 and tile != 256:
+                continue  # the f32 query covers its largest CTA
+            n = lib.stream_matmul_max_clusters(tile, splits, ops._DTYPE_CODE[dtype])
+            if n < 1:
+                fail(f"stream_matmul {dtype}: no cluster of {splits} CTAs of tile {tile} fits "
+                     f"the card (cudaOccupancyMaxActiveClusters {n})")
+            print(f"  stream_matmul {dtype} tile {tile}, {splits} splits: {n} clusters resident "
+                  "at once")
     for dtype in (torch.float32, torch.bfloat16):
         for label, K, N in matmul_shapes():
             w = randn(K, N, dtype=dtype, scale=K ** -0.5)
@@ -1125,30 +1143,24 @@ def check_stream_matmul(torch, timed, randn, card) -> None:
                 errs[M] = check_close(name, got, ref.stream_matmul_ref(x[:M], w), dtype)
                 differ = (got != alone[:M]).any(-1)
                 if bool(differ.any()):
-                    fail(f"{name}: rows {differ.nonzero()[:, 0].tolist()} differ from the same "
-                         f"rows alone by {max_err(got, alone[:M]):.3e} (must be bit for bit)")
-            if not torch.equal(ops.stream_matmul(x[:8], w), ops.stream_matmul(x[:8], w)):
-                fail(f"stream_matmul {label} {dtype}: two calls on the same input differ")
-            print(f"  stream_matmul {label} K{K} N{N} {dtype}: max|err| {max(errs.values()):.2e} "
-                  f"at M {sorted(errs)}; every row of M {list(MATMUL_INVARIANT_ROWS)} bit for bit "
-                  "equal to itself alone, a repeated call bit for bit equal")
-            for M in MATMUL_ROWS:
+                    fail(f"{name}: rows {differ.nonzero()[:, 0].tolist()[:16]} differ from the "
+                         f"same rows alone by {max_err(got, alone[:M]):.3e} (must be bit for bit)")
+            for M in (8, MATMUL_PREFILL):
+                if not torch.equal(ops.stream_matmul(x[:M], w), ops.stream_matmul(x[:M], w)):
+                    fail(f"stream_matmul {label} M{M} {dtype}: two calls on the same input differ")
+            print(f"  stream_matmul {label} K{K} N{N} {dtype} plan {ops.matmul_plan(K, N, dtype)}: "
+                  f"max|err| {max(errs.values()):.2e} at M {sorted(errs)}; every row of M "
+                  f"{list(MATMUL_INVARIANT_ROWS)} bit for bit equal to itself alone, a repeated "
+                  "call bit for bit equal")
+            ms = MATMUL_ROWS + ((MATMUL_PREFILL,) if label.rsplit("-", 1)[0] in
+                                MATMUL_PREFILL_TIMED else ())
+            for M in ms:
                 xm = x[:M]
                 timed("stream_matmul", f"{label} M{M} K{K} N{N}", dtype, errs[M],
                       lambda: ops.stream_matmul(xm, w), lambda: ref.stream_matmul_ref(xm, w),
                       "plain", *work.stream_matmul(xm, w)[::-1],
                       "(torch.matmul, cuBLAS: the plain version's call)")
             del w, x, alone
-        for label, K, N in matmul_shapes()[:4]:  # the 8B layer's, at a long prompt's rows
-            w = randn(K, N, dtype=dtype, scale=K ** -0.5)
-            xm = randn(MATMUL_PREFILL, K, dtype=dtype)
-            err = check_close(f"stream_matmul {label} M{MATMUL_PREFILL} {dtype}",
-                              ops.stream_matmul(xm, w), ref.stream_matmul_ref(xm, w), dtype)
-            timed("stream_matmul", f"{label} M{MATMUL_PREFILL} K{K} N{N}", dtype, err,
-                  lambda: ops.stream_matmul(xm, w), lambda: ref.stream_matmul_ref(xm, w),
-                  "plain", *work.stream_matmul(xm, w)[::-1],
-                  f"(torch.matmul; the kernel streams the weight once per 16 rows)")
-            del w, xm
 
 
 def check_rms_norm(torch, timed, randn, card) -> None:
@@ -1475,9 +1487,10 @@ def count_syncs(torch, sess, prompt, rounds: int):
 
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to, first
     # match wins: kv_move_leaves_kernel<uint4, ...> before the weight streams'
-    # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic/MatmulMma/MatmulF32>
+    # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>; the serving product's
+    # matmul_bf16_kernel<...>, matmul_f32_skinny<...> and matmul_f32_fat<...>
     ("kv_move", "kv_move_rows"), ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
-    ("matmulmma", "stream_matmul"), ("matmulf32", "stream_matmul"), ("rms_norm", "rms_norm"),
+    ("matmul_bf16", "stream_matmul"), ("matmul_f32", "stream_matmul"), ("rms_norm", "rms_norm"),
     ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),

@@ -56,11 +56,14 @@ SIGNATURES = {
     # x, qweight, scales, zeros, out, part, counters, then M, K, N, group,
     # k_per_split, splits, rows_per_pass, dtype, stream
     "int4_matmul": {"int4_matmul_launch": [_P] * 7 + [_I] * 8 + [_P]},
-    # x, w, out, part, counters, then M, K, N, k_per_split, splits, rows_per_pass,
-    # dtype, stream
-    "stream_matmul": {"stream_matmul_launch": [_P] * 5 + [_I] * 7 + [_P]},
-    # x, w, out, then M, d, eps, dtype, stream
-    "rms_norm": {"rms_norm_launch": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
+    # x, w, out, then M, K, N, tile_n, k_per_split, splits, dtype, stream; the
+    # clusters of a plan the card holds at once (tile_n, splits, dtype)
+    "stream_matmul": {
+        "stream_matmul_launch": [_P] * 3 + [_I] * 7 + [_P],
+        "stream_matmul_max_clusters": [_I] * 3,
+    },
+    # x, w, out, then M, d, vec, tpr, nv, eps, dtype, stream
+    "rms_norm": {"rms_norm_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

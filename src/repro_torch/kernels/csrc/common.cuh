@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: conversions to and from f32,
 // warp reductions, the PTX of asynchronous copies and of the bf16 tensor-core MMA
-// (attention.cuh and weight_stream.cuh), and the C error-string export every
+// (attention.cuh and weight_stream.cuh), of mbarriers, bulk copies and tensor-map
+// loads (kv_moves.cu, stream_matmul.cu), and the C error-string export every
 // library carries.
 #pragma once
 
@@ -99,6 +100,72 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- PTX: mbarriers, bulk copies and tensor-map (TMA) loads -------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also expects ``bytes`` of transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// global -> shared, completing ``bytes`` of transactions on ``bar``
+__device__ __forceinline__ void bulk_load(void* sdst, const void* gsrc, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(sdst)),
+      "l"(gsrc), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// shared -> global, in this thread's current bulk async-group
+__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gdst),
+               "r"(smem_u32(ssrc)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// all but the newest N committed bulk stores of this thread have read their
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// one plain arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// the box of a 2-D tensor map at (c0 innermost, c1) -> shared, completing its
+// bytes of transactions on ``bar`` (coordinates past the tensor's edge are
+// zero-filled, and their bytes count too)
+__device__ __forceinline__ void tma_load_2d(void* sdst, const void* tmap, int c0, int c1,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4}], [%2];\n" ::"r"(smem_u32(sdst)),
+      "l"(tmap), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))

@@ -97,57 +97,6 @@ __host__ __device__ inline Layout layout(int M, int S, int chunk_bytes, bool rin
   return l;
 }
 
-// ---- PTX: mbarriers and bulk copies -------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// one arrival that also expects ``bytes`` of transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned ok = 0;
-  while (!ok) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// global -> shared, completing ``bytes`` of transactions on ``bar``
-__device__ __forceinline__ void bulk_load(void* sdst, const void* gsrc, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(sdst)),
-      "l"(gsrc), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// shared -> global, in this thread's current bulk async-group
-__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gdst),
-               "r"(smem_u32(ssrc)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// all but the newest N committed bulk stores of this thread have read their
-// shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
 // ---- the kernel -----------------------------------------------------------------
 
 // E: the width rows move in (16 bytes, or the widest the rows allow);

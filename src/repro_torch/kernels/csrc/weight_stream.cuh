@@ -1,11 +1,10 @@
-// Weight streams for Hopper (sm_90a): the one design behind fused_swiglu.cu,
-// int4_matmul.cu and stream_matmul.cu.
+// Weight streams for Hopper (sm_90a): the one design behind fused_swiglu.cu
+// and int4_matmul.cu.
 //
 // Each kernel is a skinny product: M = 1..16 rows of x (a decode step, a
 // chain verify, a short prompt) against a row-major [K, N] weight that is
-// read once — two bf16 or f32 matrices for fused_swiglu, one for
-// stream_matmul, one packed int4 matrix with its scales and zeros for
-// int4_matmul.  Each weight byte feeds
+// read once — two bf16 or f32 matrices for fused_swiglu, one packed int4
+// matrix with its scales and zeros for int4_matmul.  Each weight byte feeds
 // at most 2*M multiply-adds, far below the card's ~295 (bf16) or ~20 (f32)
 // operations per byte of HBM, so what bounds them is bytes: the weight has
 // to leave device memory at close to 3.35 TB/s.  The design:
@@ -14,8 +13,7 @@
 //   column tiles, K splits); row tiles come first, so the blocks of one
 //   (column tile, split) run side by side and share their weight in L2.
 //   The split, ops.stream_plan, is a function of K, N and the quantum of K
-//   (the group size for int4, kSwigluKQuantum and kMatmulKQuantum for the
-//   others) alone —
+//   (the group size for int4, kSwigluKQuantum for fused_swiglu) alone —
 //   never of M — and aims at two blocks of eight warps on each of the 132
 //   SMs, all resident at once: a block's work is the same everywhere, so a
 //   second wave would stream alone.  A split holds at most 1024 values of K,
@@ -258,7 +256,7 @@ __device__ __noinline__ void combine_splits(typename Op::T* out, const float* pa
 
 // The kernel of every weight stream.  Op (one per path, in the .cu files)
 // supplies: Args (with a Split sp and an output pointer out), T, P (parts of
-// the result: 2 for fused_swiglu's g and u, 1 for int4 and stream_matmul),
+// the result: 2 for fused_swiglu's g and u, 1 for int4),
 // kStages, kRows; a constructor on (args, dynamic shared memory) that places the block
 // (member b); steps() (ring stages of the block); load_stage(step, slot)
 // (the stage's cp.async, no commit); stage_x(); compute(step, slot);
@@ -349,7 +347,7 @@ cudaError_t launch_op(const typename Op::Args& a, int smem, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-// The launch plan's checks, shared by the three libraries: whole quanta per
+// The launch plan's checks, shared by the two libraries: whole quanta per
 // split, splits covering K and no more, the grid's limits.
 inline bool plan_ok(int M, int K, int N, int k_per_split, int splits, int quantum,
                     int rows_per_pass) {

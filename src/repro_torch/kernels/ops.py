@@ -11,10 +11,12 @@ wrapper is one unit of ``kernels.work``'s count.  Each wrapper adds one to
 ``LAUNCHES[name]`` where it launches its kernel and nowhere else, so a run
 can show which kernels its path went through.  Kernels launch on PyTorch's current stream and do not
 synchronise; the wrappers allocate every output and scratch buffer.
-Every kernel with a split combine (tree_attention, decode_attention,
-fused_swiglu, int4_matmul, stream_matmul) takes atomic tickets from one zeroed buffer kept
-per (device, stream), which each launch leaves zero: launches on one stream
-run in order, and launches on two streams never share a ticket.
+Every kernel with a split combine in device memory (tree_attention,
+decode_attention, fused_swiglu, int4_matmul) takes atomic tickets from one
+zeroed buffer kept per (device, stream), which each launch leaves zero:
+launches on one stream run in order, and launches on two streams never share
+a ticket.  stream_matmul combines its splits inside a thread-block cluster
+and allocates nothing but its output.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import array
 import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -270,7 +273,7 @@ def decode_attention(q, k, v, length):
 
 
 # -----------------------------------------------------------------------------
-# weight streams: fused_swiglu, int4_matmul and stream_matmul (csrc/weight_stream.cuh)
+# weight streams: fused_swiglu and int4_matmul (csrc/weight_stream.cuh)
 # -----------------------------------------------------------------------------
 
 _STREAM_TILE_N = 256  # output columns per block of both kernels
@@ -278,7 +281,6 @@ _STREAM_BLOCKS = 2 * 132  # blocks a plan aims at: two resident on each SM of an
 _STREAM_MAX_K = 1024  # K per split at most, so that x fits in shared memory
 _STREAM_ROWS_PER_PASS = 64  # rows of x per launch through the split partials
 _SWIGLU_K_QUANTUM = 32  # fused_swiglu's K per split is a multiple of this
-_MATMUL_K_QUANTUM = 32  # stream_matmul's K per split is a multiple of this
 
 
 def stream_plan(K: int, N: int, tile_n: int, k_quantum: int) -> tuple[int, int]:
@@ -425,19 +427,64 @@ def _fused_swiglu_kernel(x, wg, wu):
 # the serving product
 # -----------------------------------------------------------------------------
 
+_MATMUL_CLUSTER = 8  # splits at most: the CTAs of one portable thread-block cluster
+_MATMUL_QUANTUM = {torch.bfloat16: 64, torch.float32: 16}  # K a ring stage (csrc kBK, kKT)
+_MATMUL_SMS = 132  # a plan aims at one wave of CTAs on an H100's SMs (see matmul_plan)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(K: int, N: int, dtype) -> tuple[int, int, int]:
+    """(column tile, K per split, splits) of a ``stream_matmul`` launch, a
+    function of K, N and the dtype alone, never of the rows: every output
+    sums K split by split in this order whatever M is (csrc/stream_matmul.cu).
+
+    The tile is the wgmma's N in bf16 (128 from N 2048 up, else 64) and the
+    threads of a CTA in f32 (64 to N 4096, 128 to 16384, else 256), so a
+    narrow N gets its CTAs from columns; the splits are the most of 1, 2, 4
+    and 8 (one portable cluster) that keep the column tiles times the splits
+    within one wave and cut K into equal whole quanta (64 values of K in
+    bf16, 16 in f32).  A wave is one CTA an SM in bf16 (its ring holds the
+    bytes in flight; twice the CTAs, each with half the K, were slower at
+    the wide products), four of 64 threads in f32 and two of more (the FMAs
+    want the warps; the wide lm_heads lost to a split K)."""
+    q = _MATMUL_QUANTUM[dtype]
+    if dtype == torch.bfloat16:
+        tile = 128 if N >= 2048 else 64
+    else:
+        tile = 64 if N <= 4096 else 128 if N <= 16384 else 256
+    tiles, quanta = -(-N // tile), -(-K // q)
+    wave = _MATMUL_SMS * (1 if dtype == torch.bfloat16 else 4 if tile == 64 else 2)
+    splits = 1
+    while (splits * 2 <= _MATMUL_CLUSTER and tiles * splits * 2 <= wave
+           and splits * 2 <= quanta):
+        splits *= 2
+    while splits > 1 and -(-quanta // -(-quanta // splits)) != splits:
+        splits //= 2  # whole quanta a split and no empty split
+    return tile, -(-quanta // splits) * q, splits
+
+
+def matmul_refusal(K: int, N: int, dtype) -> str | None:
+    """Why the kernel does not take a [K, N] product of this dtype, or None.
+    bf16 loads x and w through TMA tensor maps, whose row strides are
+    multiples of 16 bytes: K and N multiples of 8.  f32 takes every shape."""
+    if dtype == torch.bfloat16 and (K % 8 or N % 8):
+        return (f"bf16 takes K and N that are multiples of 8 (TMA's 16-byte row strides), "
+                f"got K={K} N={N}")
+    return None
+
 
 @work.counted("stream_matmul", work.stream_matmul)
 def stream_matmul(x, w):
     """x: [..., K]; w: [K, N] -> x @ w, [..., N] in x's dtype (f32
     accumulation).  The serving forward's dense products
     (``models.common.project``): the kernel sums every output element over
-    K in an order set by K and N alone, so a row computed alone equals the
-    same row among any number of rows, bit for bit, in f32 and bf16 (the
-    tree engine's verify against its greedy decode).  The kernel takes
-    float32 or bfloat16, any N and a 16-byte aligned weight; K is split by
-    ``stream_plan``; more than 16 rows run row tiles of 16, each streaming
-    the weight.  No backward: a product under a gradient is ``x @ w``
-    (``project``), and one here raises."""
+    K in an order set by K, N and the dtype alone (``matmul_plan``), so a
+    row computed alone equals the same row among any number of rows, bit
+    for bit, in f32 and bf16 (the tree engine's verify against its greedy
+    decode).  The kernel takes float32 of any shape and bfloat16 with K and
+    N multiples of 8 (``matmul_refusal``), and a 16-byte aligned weight; it
+    writes nothing but the output.  No backward: a product under a gradient
+    is ``x @ w`` (``project``), and one here raises."""
     if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"stream_matmul: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -453,22 +500,23 @@ def stream_matmul(x, w):
     M = math.prod(lead)
     if M == 0 or K == 0 or N == 0:  # nothing to launch
         return x.new_zeros(lead + (N,))
-    k_split, splits = stream_plan(K, N, _STREAM_TILE_N, _MATMUL_K_QUANTUM)
-    if route == "meta":
-        out = torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
-        _stream_partials(x.device, splits, 1, M, N)  # allocated and freed, as by a launch
-        return out
+    if route == "meta":  # the kernel allocates nothing but its output
+        return torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
+    why = matmul_refusal(K, N, x.dtype)
+    if why is not None:
+        raise ValueError(f"stream_matmul: {why}")
     x2, w = x.reshape(M, K).contiguous(), w.contiguous()
+    if x2.data_ptr() % 16:  # a view at an odd offset: TMA reads x from a 16-byte base
+        x2 = x2.clone()
     if w.data_ptr() % 16:
         raise ValueError("stream_matmul: the weight must be 16-byte aligned")
+    tile, k_split, splits = matmul_plan(K, N, x.dtype)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part, ctr, stream = _stream_scratch(x.device, splits, 1, M, N)
     lib = build.lib("stream_matmul")
     with _on(x.device):
         LAUNCHES["stream_matmul"] += 1
-        rc = lib.stream_matmul_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(part),
-                                      _ptr(ctr), M, K, N, k_split, splits, _STREAM_ROWS_PER_PASS,
-                                      _DTYPE_CODE[x.dtype], stream)
+        rc = lib.stream_matmul_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, tile,
+                                      k_split, splits, _DTYPE_CODE[x.dtype], _stream(x.device))
     build.check("stream_matmul", rc)
     return out.reshape(lead + (N,))
 
@@ -477,17 +525,44 @@ def stream_matmul(x, w):
 # the serving norm
 # -----------------------------------------------------------------------------
 
+_NORM_MAX_TPR = 512  # threads of a row at most (csrc/rms_norm.cu kMaxThreads)
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def rms_norm_plan(d: int, dtype) -> tuple[int, int, int]:
+    """(values a load, threads a row, loads a thread) of the ``rms_norm``
+    kernel for rows of d values, a function of d and the dtype alone: the
+    kernel's order of summation over a row is fixed by it
+    (csrc/rms_norm.cu).  16-byte loads where d is a multiple of their
+    values, else single values; threads a power of two from 32, doubling
+    while a thread would make more than 4 loads, up to 512; loads a power
+    of two (at most 8 of 16 bytes, 16 of one value)."""
+    vec = 16 // _ELEM_BYTES[dtype]
+    vec = vec if d % vec == 0 else 1
+    loads = d // vec
+    tpr = 32
+    while tpr < _NORM_MAX_TPR and tpr * 4 < loads:
+        tpr *= 2
+    nv = 1
+    while nv * tpr < loads:
+        nv *= 2
+    if nv > (8 if vec > 1 else 16):
+        raise ValueError(f"rms_norm: rows of d={d} exceed the kernel's {tpr} x {nv} loads")
+    return vec, tpr, nv
+
 
 @work.counted("rms_norm", work.rms_norm)
 def rms_norm(x, weight, eps: float):
     """x: [..., d]; weight: [d] -> x * rsqrt(mean(x², -1) + eps) * weight,
     in x's dtype (f32 arithmetic).  The serving forward's norm
     (``models.common.rms_norm``): the kernel sums each row's squares in an
-    order set by d alone, so a row computed alone equals the same row among
-    any number of rows, bit for bit; PyTorch's reduction picks its order by
-    the number of rows.  The kernel takes float32 or bfloat16 (the weight
-    is taken in x's dtype).  No backward: a norm under a gradient is the
-    plain version (``models.common.rms_norm``), and one here raises."""
+    order set by d alone (``rms_norm_plan``), so a row computed alone equals
+    the same row among any number of rows, bit for bit; PyTorch's reduction
+    picks its order by the number of rows.  The kernel takes float32 or
+    bfloat16 (the weight is taken in x's dtype).  No backward: a norm under
+    a gradient is the plain version (``models.common.rms_norm``), and one
+    here raises."""
     d = x.shape[-1] if x.ndim else 0
     if x.ndim < 1 or tuple(weight.shape) != (d,):
         raise ValueError(f"rms_norm: bad shapes x{tuple(x.shape)} weight{tuple(weight.shape)}")
@@ -503,12 +578,16 @@ def rms_norm(x, weight, eps: float):
     M = x.numel() // d if d else 0
     if route == "meta" or M == 0:
         return out
+    vec, tpr, nv = rms_norm_plan(d, x.dtype)
     x2, w = x.reshape(M, d).contiguous(), weight.to(x.dtype).contiguous()
+    if vec > 1:  # 16-byte loads from 16-byte bases
+        x2 = x2.clone() if x2.data_ptr() % 16 else x2
+        w = w.clone() if w.data_ptr() % 16 else w
     lib = build.lib("rms_norm")
     with _on(x.device):
         LAUNCHES["rms_norm"] += 1
-        rc = lib.rms_norm_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), M, d, float(eps),
-                                 _DTYPE_CODE[x.dtype], _stream(x.device))
+        rc = lib.rms_norm_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), M, d, vec, tpr, nv,
+                                 float(eps), _DTYPE_CODE[x.dtype], _stream(x.device))
     build.check("rms_norm", rc)
     return out
 

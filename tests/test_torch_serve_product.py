@@ -21,9 +21,15 @@ what they were.  Checked here:
   table below (a spy), with logits bit for bit those of plain products, the
   lm_head under a vocabulary group too; a training forward under a
   gradient calls it at none, and the wrapper refuses a gradient;
-* the meta branch: the output's shape and dtype, the split partials it
-  allocates, and ``launch/cost.py``'s count of it equal to its count of the
-  ``x @ w`` it replaces (the dry run does not move);
+* the meta branch: the output's shape and dtype, no scratch beside it (the
+  kernel combines its splits in a thread-block cluster), and
+  ``launch/cost.py``'s count of it equal to its count of the ``x @ w`` it
+  replaces (the dry run does not move);
+* the kernels' plans: ``ops.matmul_plan`` (whole quanta that cover K
+  exactly, at most one portable cluster of splits, a function of K, N and
+  the dtype alone) and ``ops.rms_norm_plan`` (a function of d alone), at
+  every serving product and norm of every ``PORTED`` config on every rank
+  at tp 1-4, each product taken by the wrapper's checks or refused by name;
 * the norm (``models.common.rms_norm``): the plain version against the
   reference's ``rms_norm`` and bit for bit the arithmetic the port ran
   before; a serving forward calls ``ops.rms_norm`` at every norm, a
@@ -31,6 +37,10 @@ what they were.  Checked here:
   written and the weight read, no operations;
 * ``tree_attention``'s partials on meta: a row tile holds one query's heads.
 """
+
+import dataclasses
+import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +50,8 @@ from repro.models.common import rms_norm as jrms_norm
 torch = pytest.importorskip("torch")  # the tier-1 CI job installs no torch
 torch.set_num_threads(2)  # beside the other test workers
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs.base import PORTED
 from repro_torch.kernels import ops, ref, work
 from repro_torch.launch import cost
 from repro_torch.models import transformer
@@ -345,17 +356,143 @@ def test_meta_counts_as_the_product_it_replaces(x_shape, K, N, dtype):
     assert ours.flops == plain.flops and ours.bytes == plain.bytes
     assert ours.calls == {"stream_matmul": 1}
     assert (ours.flops["forward"], ours.bytes["forward"]) == work.stream_matmul(x, w)
-    M = x.numel() // K
-    _, splits = ops.stream_plan(K, N, ops._STREAM_TILE_N, ops._MATMUL_K_QUANTUM)
-    part = 4 * splits * min(M, ops._STREAM_ROWS_PER_PASS) * -(-N // 4) * 4 if splits > 1 else 0
-    assert ours.peak_bytes == plain.peak_bytes + part  # the partials live during the launch
+    assert ours.peak_bytes == plain.peak_bytes  # the kernel allocates nothing but its output
 
 
-def test_the_split_of_k_does_not_depend_on_the_rows():
-    for K, N in ((4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256), (9560, 8192)):
-        k_split, splits = ops.stream_plan(K, N, ops._STREAM_TILE_N, ops._MATMUL_K_QUANTUM)
-        assert k_split % ops._MATMUL_K_QUANTUM == 0 and k_split <= ops._STREAM_MAX_K
-        assert splits == -(-K // k_split)
+def _plan_ok(K, N, dtype):
+    """``ops.matmul_plan``'s contract, as csrc/stream_matmul.cu's launch
+    checks it: a tile the kernel has, whole quanta a split, 1, 2, 4 or 8
+    splits (at most one portable cluster) that cover K exactly, none empty."""
+    tile, k_split, splits = ops.matmul_plan(K, N, dtype)
+    assert tile in ((64, 128) if dtype == torch.bfloat16 else (64, 128, 256))
+    assert k_split % ops._MATMUL_QUANTUM[dtype] == 0
+    assert splits in (1, 2, 4, 8) and splits <= ops._MATMUL_CLUSTER
+    assert (splits - 1) * k_split < K <= splits * k_split
+    assert -(-N // tile) <= 65535
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256),
+                                 (9560, 8192), (8192, 256), (2048, 512), (64, 8), (100, 3),
+                                 (2560, 18362)])
+def test_the_split_of_k_does_not_depend_on_the_rows(K, N, dtype):
+    """The plan takes K, N and the dtype, nothing of x: one order of
+    summation for every M.  It covers K with whole quanta and splits within
+    one cluster, and is the same on every call."""
+    _plan_ok(K, N, dtype)
+    assert ops.matmul_plan(K, N, dtype) == ops.matmul_plan.__wrapped__(K, N, dtype)
+    assert "M" not in inspect.signature(ops.matmul_plan).parameters
+
+
+def test_the_meta_branch_allocates_no_scratch():
+    """On meta the wrapper allocates the output and nothing else: the kernel
+    keeps no split partials and no tickets in device memory."""
+    x = torch.empty((16, 4096), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((4096, 1024), dtype=torch.bfloat16, device="meta")
+    allocated = []
+    real = torch.empty
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        allocated.append(tuple(out.shape))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "empty", spy)
+        mp.setattr(torch, "zeros", spy)
+        out = ops.stream_matmul(x, w)
+    assert allocated == [(16, 1024)] and out.shape == (16, 1024)
+
+
+def _serving_calls(arch):
+    """(dtype, K, N) of every ``ops.stream_matmul`` call and (dtype, d) of
+    every ``ops.rms_norm`` call of a 4-token prefill and a decode step, on
+    meta at full width, of every rank at tp 1-4; the depth cut to two
+    periods of the config's layer pattern (every kind of layer and of
+    product stays), in bf16 (the dry run's dtype) and float32."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    products, norms = set(), set()
+    real_mm, real_norm = ops.stream_matmul, ops.rms_norm
+
+    def mm(x, w):
+        products.add((x.dtype, w.shape[0], w.shape[1]))
+        return real_mm(x, w)
+
+    def norm(x, weight, eps):
+        norms.add((x.dtype, x.shape[-1]))
+        return real_norm(x, weight, eps)
+
+    base = get_config(arch)
+    period = math.lcm(len(base.block_pattern), base.shared_attn_every or 1,
+                      base.cross_attn_every or 1)
+    depth = min(base.n_layers, base.first_k_dense + 2 * period)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "stream_matmul", mm)
+        mp.setattr(ops, "rms_norm", norm)
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(base, n_layers=depth, dtype=dtype, param_dtype=dtype)
+            mp.setattr(specs, "published_config", lambda _arch, cfg=cfg: cfg)
+            for tp in (1, 2, 3, 4):
+                for rank in range(tp):
+                    model = specs.rank_model(arch, {"model": tp}, rank)
+                    params = specs.param_specs(model)
+                    batch = specs.batch_specs(model.cfg, dataclasses.replace(
+                        SHAPES["prefill_32k"], global_batch=1, seq_len=4), {"model": tp})
+                    with torch.no_grad():
+                        make_prefill_step(model.cfg, model, S_max=8)(params, batch)
+                        cache = model.init_cache(1, 8, dtype)
+                        cache["len"] = 4
+                        tok = torch.empty((1, 1), dtype=torch.int32, device="meta")
+                        make_decode_step(model.cfg, model, S_max=8)(params, cache, tok)
+    return products, norms
+
+
+# bf16 products the kernel refuses (K or N no multiple of 8), each by name: minicpm3-4b's
+# vocabulary (73448) over 2 and 4 ranks; no serving path runs minicpm3 in bf16 on the card
+REFUSED = {"minicpm3-4b": {(2560, 36724), (2560, 18362)}}
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_every_serving_shape_is_taken_or_refused_by_name(arch):
+    """Every (K, N) that a serving prefill or decode step of a ``PORTED``
+    config passes to ``ops.stream_matmul`` on any rank at tp 1-4 has a plan
+    that the kernel's launch accepts, or (bf16 only) a refusal that names
+    the shape; every norm width has a plan that covers its row."""
+    products, norms = _serving_calls(arch)
+    assert products and norms
+    refused = set()
+    for dtype, K, N in products:
+        why = ops.matmul_refusal(K, N, dtype)
+        if why is not None:
+            assert dtype == torch.bfloat16 and f"K={K} N={N}" in why
+            refused.add((K, N))
+            continue
+        _plan_ok(K, N, dtype)
+    assert refused == REFUSED.get(arch, set())
+    for dtype, d in norms:
+        vec, tpr, nv = ops.rms_norm_plan(d, dtype)
+        assert d % vec == 0 and tpr * nv * vec >= d and nv <= (8 if vec > 1 else 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_norm_launch_shape_depends_on_d_alone(dtype):
+    """``ops.rms_norm_plan`` (values a load, threads a row, loads a thread)
+    takes d and the dtype, nothing of x's rows: a row sums its squares in
+    one order whatever M is.  16-byte loads where d allows, threads a power
+    of two from 32 to 512, at most 4 loads a thread below 512 threads, and
+    the loads cover the row with less than one load a thread to spare."""
+    assert list(inspect.signature(ops.rms_norm_plan).parameters) == ["d", "dtype"]
+    es = 4 if dtype == torch.float32 else 2
+    for d in (1, 7, 64, 80, 100, 256, 512, 768, 1024, 2048, 2560, 4096, 5120, 6144, 8192, 16384):
+        vec, tpr, nv = ops.rms_norm_plan(d, dtype)
+        assert (vec, tpr, nv) == ops.rms_norm_plan.__wrapped__(d, dtype)
+        assert vec == (16 // es if d % (16 // es) == 0 else 1)
+        assert 32 <= tpr <= 512 and tpr & (tpr - 1) == 0 and nv & (nv - 1) == 0
+        loads = d // vec
+        assert tpr * nv >= loads and (nv == 1 or tpr * nv // 2 < loads)
+        assert tpr == 512 or tpr == 32 or tpr * 4 >= loads
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

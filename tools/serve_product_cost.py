@@ -16,11 +16,13 @@ shapes:
    ``ops.tree_attention`` and ``ops.decode_attention`` at a decode step's
    and a verify's shapes, f32 and bf16;
 2. the step: llama3-8b at full depth (seeded draws, f32, and the same
-   rounded to bf16) — a ``decode_step`` at a cache of 48 rows and a
-   16-token ``prefill`` — with ``project`` as the port runs it and with
-   ``project`` replaced by ``x @ w`` (cuBLAS: the yardstick, no part of
-   the port), in turns port, cuBLAS, cuBLAS, port, each the median of 7
-   (host clock around the call and a synchronize).
+   rounded to bf16) — a ``decode_step`` at a cache of 48 rows, a 16-token
+   ``prefill`` (the serving paths' prompts: the time to first token) and a
+   512-token ``prefill`` (a long prompt: every product in the kernel's fat
+   regime) — with ``project`` as the port runs it and with ``project``
+   replaced by ``x @ w`` (cuBLAS: the yardstick, no part of the port), in
+   turns port, cuBLAS, cuBLAS, port, each the median of 7 (host clock
+   around the call and a synchronize).
 
 Exit 0 when it ran; what it found is printed, not judged.
 """
@@ -37,6 +39,7 @@ sys.path[:0] = [HERE, os.path.join(HERE, "src")]
 
 CALLS = 400
 REPS = 7
+LONG_PROMPT = 512  # a long prompt's rows: the products' fat regime
 
 
 def host_us(torch, fn) -> float:
@@ -97,6 +100,7 @@ def check_step(torch, card) -> None:
     m16 = make_model(chip_smoke.bf16_config("llama3-8b"), "cuda")
     p16 = chip_smoke.bf16_params(torch, p32)
     prompt = list(make_request_stream(m32.cfg.vocab_size, 16, 1, 1))[0]
+    long_prompt = list(make_request_stream(m32.cfg.vocab_size, LONG_PROMPT, 1, 1))[0]
     routed = {mod: mod.project for mod in (attention, transformer)}
 
     def use(cublas: bool):
@@ -123,12 +127,13 @@ def check_step(torch, card) -> None:
                     use(who == "cuBLAS")
                     dec = timed(lambda: model.decode_step(params, dict(cache, len=48), tok, 512))
                     pre = timed(lambda: model.prefill(params, prompt, S_max=512))
-                    res[who].append((dec, pre))
+                    long = timed(lambda: model.prefill(params, long_prompt, S_max=2 * LONG_PROMPT))
+                    res[who].append((dec, pre, long))
                 use(False)
                 print(f"step: llama3-8b {label} (32 layers), decode_step at 48 cached rows / "
-                      "prefill of 16 tokens, median of 7 ms, in turns port, cuBLAS, cuBLAS, "
-                      "port: " + "; ".join(
-                          f"{who} " + ", ".join(f"{d:.2f} / {p:.2f}" for d, p in runs)
+                      f"prefill of 16 tokens / prefill of {LONG_PROMPT} tokens, median of 7 ms, "
+                      "in turns port, cuBLAS, cuBLAS, port: " + "; ".join(
+                          f"{who} " + ", ".join(f"{d:.2f} / {p:.2f} / {q:.2f}" for d, p, q in runs)
                           for who, runs in res.items()) + f" on {card}", flush=True)
     finally:
         use(False)
