@@ -4,7 +4,7 @@
   python3 chip_smoke.py
 
 It takes no options and runs every phase, in order:
-  build    build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    build the nine CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
   kernels  hold each kernel against its plain PyTorch version on the card
            (tree_attention — also each row bit for bit against itself alone
            at n=1, and a call with kv_bound against one without —
@@ -52,7 +52,23 @@ It takes no options and runs every phase, in order:
            rms_norm (the serving norm, which replaces no TPU kernel) at d
            4096, 2048 and 8192: against the plain version, every row of M
            1-65 and 512 bit for bit the row alone, timed at M 1, 8, 16 and
-           512 beside torch.nn.functional.rms_norm
+           512 beside torch.nn.functional.rms_norm; stream_bmm (the batched
+           serving product, x [G, M, K] @ w [G, K, N] in one launch, which
+           replaces no TPU kernel: the reference's einsums) at the families'
+           batched products — deepseek-moe-16b's experts (G 64, K 2048, N
+           1408 and back), mixtral-8x22b's (G 8, K 6144, N 16384 and back),
+           rwkv6-7b's token-shift projections (G 4, K 4096, N 4096) and
+           minicpm3-4b's per-head W_uk and W_uv (G 40, K 64 / 256, N 256 /
+           64), f32 and bf16: against the plain version (torch.bmm) and
+           every row of every group of M 1-17, 64 and 512 bit for bit the
+           row alone, timed at M 1, 8, 16 beside torch.bmm; latent_attention
+           (MLA's absorbed attention, which replaces no TPU kernel: the
+           reference's einsums) at minicpm3-4b's heads (H 40, kv_lora 256,
+           rope 32, S 512) at n 1, 8, 16: against the plain version (the
+           einsum composite), a fully masked query 0, every query row bit for
+           bit itself alone, 50 trials a dtype of a query's attended keys
+           moved between masked rows giving the same bits, timed beside the
+           composite
   serve    the tree engine at full width, llama3-8b target, f32, bs 8, w 4,
            S_max 512, weights drawn once by ``build_engine(smoke=False)``:
            lockstep ``generate()`` — (a) the serve CLI defaults with the
@@ -89,7 +105,9 @@ It takes no options and runs every phase, in order:
            self-draft, parallel, 2 requests (every chain commits and the
            next one is reused); (d2) an independent seed-7 draft of the same
            config, parallel and serial, 1 request (rollback: the draft
-           recomputes from its pre-round state).  Every output must equal
+           recomputes from its pre-round state); then (d1b) (d1)'s
+           self-draft in bf16 on its draws rounded to bf16, 1 request, a
+           compression above 1.  Every output must equal
            the greedy decode, each chain kernel must have launched, and each
            request must make one host sync per round and one for its first
            token.
@@ -114,20 +132,28 @@ It takes no options and runs every phase, in order:
            layers (k 4, f32, max_new 16, 1 request): (g1) self-draft,
            parallel; (g2)/(g2s) an
            independent seed-7 draft reduced to 4 of its 32 layers, parallel
-           and serial.  rwkv6 launches rms_norm and stream_matmul alone
-           (its norms and lm_head); each output
+           and serial; then (g1b) (g1) in bf16 on its draws rounded to
+           bf16, a compression above 1.  rwkv6 launches rms_norm,
+           stream_matmul and stream_bmm (its norms, its products and its
+           four token-shift projections); each output
            must equal the greedy decode with one host sync per round and
            one per request
-  families (h1) deepseek-moe-16b at full depth (a dense layer, then 27 moe
-           layers of 64 experts, top 6, 2 shared), (h2) mixtral-8x22b cut
+  families (h1) deepseek-moe-16b cut to 14 of its 28 layers (a dense layer,
+           then moe layers of 64 experts, top 6, 2 shared), (h2) mixtral-8x22b cut
            to 4 of its 56 layers (8 experts, top 2, G 6, sliding window),
-           (h3) minicpm3-4b cut to 16 of its 62 layers (MLA), (h4)
+           (h3) minicpm3-4b cut to 8 of its 62 layers (MLA), (h4)
            musicgen-large at full depth (hd 64; a prefill of the table's embeddings must
            equal the token prefill bit for bit): each drafting for itself
            at d 2 through the tree engine, lockstep, f32, 1 request,
            max_new 16, the MoE paths drop-free (capacity_factor E / k),
            each output equal to the greedy decode with one host sync per
            round, the greedy decode's launches counted with the run's;
+           then (h1b) and (h3b): (h1) and (h3) again in bf16, on their draws
+           rounded to bf16 at their depth, each output equal to the bf16
+           greedy decode with one host sync per round and a compression
+           above 1, the experts and MLA's per-head products through
+           stream_bmm and MLA's attention through latent_attention (in the
+           verify and the cache-filling prefill);
            (h5) llama-3.2-vision-90b cut to one unit (4 dense blocks and a
            cross block) through the Model API: prefill 16 tokens with
            seeded stub encoder states, 16 greedy decode steps, then one
@@ -222,8 +248,9 @@ It takes no options and runs every phase, in order:
            single-process model's (drawn before the ranks start) and bit
            for bit rank 0's, its output the sharded greedy decode (for (q4)
            its spec_forward's argmax its decode), the chain engine's (q1)
-           and (q3)'s kernels launched on every rank ((q2) launches none:
-           rwkv6 launches rms_norm and stream_matmul alone), one host sync of the
+           and (q3)'s kernels launched on every rank ((q2) launches no
+           attention kernel: rwkv6 launches rms_norm, stream_matmul and
+           stream_bmm), one host sync of the
            port per round (+1 per chain request), each rank's heads, state
            or latent shapes and peak printed
   fleet    (r), router replicas on disjoint rank groups
@@ -314,6 +341,12 @@ SOURCES = {  # kernel -> (its CUDA source, the TPU kernel it replaces)
     # no TPU kernel: the reference's norm is XLA's elementwise ops and reduction
     "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
                  "none (XLA: src/repro/models/common.py:27)"),
+    # no TPU kernel: the reference's batched products are XLA einsums (the MoE's experts)
+    "stream_bmm": ("src/repro_torch/kernels/csrc/stream_matmul.cu",
+                   "none (XLA's einsum: src/repro/models/moe.py:85)"),
+    # no TPU kernel: the reference's absorbed MLA attention is XLA einsums
+    "latent_attention": ("src/repro_torch/kernels/csrc/latent_attention.cu",
+                         "none (XLA einsums: src/repro/models/mla.py:116)"),
 }
 TREE_SHAPES = [  # (B, n, Hq, Hkv, hd, S): tests/test_kernels.py:24-31 ...
     (2, 4, 8, 2, 64, 96), (1, 8, 4, 4, 32, 128), (2, 3, 6, 3, 80, 200),
@@ -412,7 +445,8 @@ CHAIN_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "stream_m
                  "rms_norm")  # by the chain engine
 SERVE_FORWARD = ("stream_matmul", "rms_norm")  # launched by every family's serving forward
 ALL_KERNELS = ("tree_attention", "decode_attention", "fused_swiglu", "kv_move_rows",
-               "slot_write_rows", "int4_matmul", "stream_matmul", "rms_norm")
+               "slot_write_rows", "int4_matmul", "stream_matmul", "rms_norm", "stream_bmm",
+               "latent_attention")
 # stream_matmul: the serving products at the 8B, 1B and llama3-70b rank shapes (tp 3 ranks 0
 # and 1, tp 4 rank 0: tools/headline_nccl.py's), each (label, config, tp, rank)
 MATMUL_CONFIGS = (("8B", "llama3-8b", 1, 0), ("1B", "llama3-1b", 1, 0),
@@ -429,6 +463,22 @@ MATMUL_PREFILL_TIMED = ("8B", "70B-tp4-r0")
 # the 8B's heads and the llama3-70b tp-3 rank 0's, f32 and bf16
 PLACEMENT_HEADS = (("8B", 32, 8, 128), ("70B-tp3-r0", 24, 3, 128))
 PLACEMENT_TRIALS = 200
+# stream_bmm: the families' batched serving products, each (label, G, K, N): the experts of
+# deepseek-moe-16b and mixtral-8x22b (wg's and wu's shape, then wd's), rwkv6-7b's four
+# token-shift projections, minicpm3-4b's per-head W_uk (absorbed into the query) and W_uv
+BMM_SHAPES = (("dsmoe-w_gu", 64, 2048, 1408), ("dsmoe-w_d", 64, 1408, 2048),
+              ("mixtral-w_gu", 8, 6144, 16384), ("mixtral-w_d", 8, 16384, 6144),
+              ("rwkv6-w_rkvg", 4, 4096, 4096), ("minicpm3-w_uk", 40, 64, 256),
+              ("minicpm3-w_uv", 40, 256, 64))
+BMM_ROWS = (1, 8, 16)  # held and timed: a decode step, a verify, a prompt (an expert's capacity)
+# every row bit for bit equal to itself alone: M (an expert's capacity moves with the
+# forward's rows) 1-17, 64 and 512 (both of the kernel's regimes)
+BMM_INVARIANT_ROWS = tuple(range(1, 18)) + (64, 512)
+# latent_attention at minicpm3-4b's heads (H 40, kv_lora 256, rope 32) over S 512: the
+# queries (n) of a decode step, a verify and a prompt chunk; the moved-key trials
+LATENT_HEADS = ("minicpm3", 40, 256, 32)
+LATENT_ROWS = (1, 8, 16)
+LATENT_TRIALS = 50
 BF16_NEW = 16  # max_new of (a16)/(b16)
 SERVE_A_NEW = 24  # max_new of (a): the serve CLI's 48, cut to pay for (a16)/(b16)
 CHAIN_K, CHAIN_NEW = 4, 16  # chain length and new tokens per request of phases (d) and (g)
@@ -445,6 +495,10 @@ RWKV_DRAFT_LAYERS = 4  # the seed-7 rwkv6-7b draft of (g2)/(g2s), cut from 32
 RWKV_LAYERS = 4  # phase (g)'s rwkv6-7b target, cut from 32 to keep the script in its limit
 ZAMBA_LAYERS = 12  # phase (d1)-(d2s)'s zamba2-2.7b: 2 of its 9 units (6 mamba2 + the shared block)
 SERVE_C_LAYERS = (8, 4)  # phase (c)'s depth: the first layers of the 8B (of 32) and 1B (of 16)
+# the depths of the families that this script also runs in bf16 (cut from full depth and 16
+# layers to pay for those paths): deepseek-moe-16b 14 of its 28 layers, minicpm3-4b 8 of 62;
+# zamba2-2.7b and rwkv6-7b at ZAMBA_LAYERS and RWKV_LAYERS
+FAMILY_MOE_LAYERS, FAMILY_MLA_LAYERS = 14, 8
 FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attention" holds
     # tree and decode attention at its heads, "kv" kv_move_leaves and slot_write_rows at its
     # cache; fused_swiglu is held at every dense MLP
@@ -452,13 +506,16 @@ FAMILY_NEW = (  # (label, config, checks) of the families of phase (h): "attenti
     ("minicpm3", "minicpm3-4b", {"kv"}), ("musicgen", "musicgen-large", {"attention"}),
     ("vision", "llama-3.2-vision-90b", set()))
 FAMILY_PATHS = {  # (h1)-(h4): config, its depth on the card (None: full), the kernels it launches
-    "h1": ("deepseek-moe-16b", None, MAIN_KERNELS + ("decode_attention",)),
-    "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows")  # no dense MLP; decode
-           + SERVE_FORWARD),  # by tree
-    "h3": ("minicpm3-4b", 16, ("fused_swiglu", "kv_move_rows")  # MLA: no attention kernel
-           + SERVE_FORWARD),
+    "h1": ("deepseek-moe-16b", FAMILY_MOE_LAYERS, MAIN_KERNELS + ("decode_attention",
+                                                                  "stream_bmm")),
+    "h2": ("mixtral-8x22b", 4, ("tree_attention", "kv_move_rows", "stream_bmm")  # no dense
+           + SERVE_FORWARD),  # MLP; decode by tree
+    "h3": ("minicpm3-4b", FAMILY_MLA_LAYERS, ("fused_swiglu", "kv_move_rows", "stream_bmm",
+                                              "latent_attention") + SERVE_FORWARD),
     "h4": ("musicgen-large", None, MAIN_KERNELS + ("decode_attention",)),
 }
+# (h1b)/(h3b): the (h) paths run again in bf16 on their draws rounded to bf16, at their depth
+FAMILY_BF16 = ("h1", "h3")
 TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer shapes
     # ((p1)'s target and draft at tp 2, (p2)'s G 5, the ragged per-rank d_ff of llama3-8b
     # and -1b at tp 3, the two rank layouts of llama3-70b at tp 3: G 9 over 3 or 4 KV heads)
@@ -472,7 +529,7 @@ TP_NEW = (  # (label, config, tp, rank, checks): a tensor-parallel rank's layer 
     # N 7168)
     ("70B-tp4-r0", "llama3-70b", 4, 0, {"attention"}),
     # the families' ranks of (q): zamba2's shared block at tp 2 (16 heads, hd 80, G 1; its MLP
-    # N 5120), minicpm3 at tp 3 (MLA: no attention kernel; N 2136, the share 2134 padded to
+    # N 5120), minicpm3 at tp 3 (MLA: no GQA attention; N 2136, the share 2134 padded to
     # 8), llama-3.2-vision at tp 2 (Hq 32 / Hkv 4; N 14336)
     ("zamba2-tp2", "zamba2-2.7b", 2, 0, {"attention"}),
     ("minicpm3-tp3", "minicpm3-4b", 3, 0, set()),
@@ -522,8 +579,8 @@ FAMILY_TP_PATHS = {  # (q1)-(q4), each run in the spawn of the (p) path named fi
 }
 FAMILY_TP_NEW = 16  # max_new of (q1)-(q3), and (q4)'s decode steps
 FAMILY_TP_KERNELS = {  # the kernels each rank of a (q) path must launch
-    "q1": CHAIN_KERNELS, "q2": SERVE_FORWARD,  # rwkv6: its norms and its lm_head only
-    "q3": ("fused_swiglu", "kv_move_rows") + SERVE_FORWARD,  # MLA: no attention kernel
+    "q1": CHAIN_KERNELS, "q2": SERVE_FORWARD + ("stream_bmm",),  # rwkv6: no attention
+    "q3": ("fused_swiglu", "kv_move_rows", "stream_bmm", "latent_attention") + SERVE_FORWARD,
     "q4": ("tree_attention", "decode_attention", "fused_swiglu") + SERVE_FORWARD,
 }
 
@@ -917,6 +974,8 @@ def phase_kernels(torch, timer, card):
     check_stream_matmul(torch, timed, randn, card)
     check_rms_norm(torch, timed, randn, card)
     check_placement(torch, gen, randn, card)
+    check_stream_bmm(torch, timed, randn, card)
+    check_latent_attention(torch, gen, timed, randn, card)
 
     # --- kv_move_rows / kv_move_leaves ----------------------------------------------
     def check_moves(name, leaves, src, dst, mask) -> float:
@@ -1241,6 +1300,114 @@ def check_placement(torch, gen, randn, card) -> None:
                   flush=True)
 
 
+def check_stream_bmm(torch, timed, randn, card) -> None:
+    """stream_bmm at every BMM_SHAPES product, f32 and bf16: against the
+    plain version (torch.bmm) at BMM_ROWS and BMM_INVARIANT_ROWS, every row
+    of every group of each M bit for bit equal to the same row alone (M 1),
+    a repeated call bit for bit; timed at BMM_ROWS beside torch.bmm (the
+    plain version is the same call)."""
+    from repro_torch.kernels import ops, ref, work
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, G, K, N in BMM_SHAPES:
+            w = randn(G, K, N, dtype=dtype, scale=K ** -0.5)
+            x = randn(G, max(BMM_INVARIANT_ROWS), K, dtype=dtype)
+            alone = torch.cat([ops.stream_bmm(x[:, r:r + 1], w) for r in range(x.shape[1])], 1)
+            errs = {}
+            for M in sorted(set(BMM_ROWS + BMM_INVARIANT_ROWS)):
+                name = f"stream_bmm {label} G{G} M{M} K{K} N{N} {dtype}"
+                got = ops.stream_bmm(x[:, :M], w)
+                errs[M] = check_close(name, got, ref.stream_bmm_ref(x[:, :M], w), dtype)
+                differ = (got != alone[:, :M]).any(-1)
+                if bool(differ.any()):
+                    fail(f"{name}: (group, row) {differ.nonzero().tolist()[:8]} differ from the "
+                         f"same rows alone by {max_err(got, alone[:, :M]):.3e} (must be bit for "
+                         "bit)")
+            if not torch.equal(ops.stream_bmm(x[:, :8], w), ops.stream_bmm(x[:, :8], w)):
+                fail(f"stream_bmm {label} {dtype}: two calls on the same input differ")
+            print(f"  stream_bmm {label} G{G} K{K} N{N} {dtype} plan "
+                  f"{ops.matmul_plan(K, N, dtype)}: max|err| {max(errs.values()):.2e} at M "
+                  f"{sorted(errs)}; every row bit for bit equal to itself alone, a repeated call "
+                  "bit for bit equal", flush=True)
+            for M in BMM_ROWS:
+                xm = x[:, :M].contiguous()
+                timed("stream_bmm", f"{label} G{G} M{M} K{K} N{N}", dtype, errs[M],
+                      lambda: ops.stream_bmm(xm, w), lambda: ref.stream_bmm_ref(xm, w),
+                      "plain", *work.stream_bmm(xm, w)[::-1],
+                      "(torch.bmm, cuBLAS: the plain version's call)")
+            del w, x, alone
+
+
+def latent_inputs(torch, randn, B, n, H, KL, RD, S, dtype):
+    """Random queries and latent rows at one shape (the ckv rows normed to
+    about unit scale, as the model's kv_norm leaves them)."""
+    return (randn(B, n, H, KL, dtype=dtype, scale=KL ** -0.5), randn(B, n, H, RD, dtype=dtype),
+            randn(B, S, KL, dtype=dtype), randn(B, S, RD, dtype=dtype))
+
+
+def check_latent_attention(torch, gen, timed, randn, card) -> None:
+    """latent_attention at LATENT_HEADS over S 512, f32 and bf16: against the
+    plain version (the einsum composite) at LATENT_ROWS queries under random
+    masks, a fully masked query exactly 0; every query row bit for bit equal
+    to itself alone at n 1; over LATENT_TRIALS trials a query's attended keys
+    moved between masked rows (the same keys in order) give the same output
+    bit for bit; timed beside the plain version (its call is the einsum
+    composite the port ran before)."""
+    from repro_torch.kernels import ops, ref, work
+
+    label, H, KL, RD = LATENT_HEADS
+    S, scale = 512, (64 + RD) ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = {}
+        for n in LATENT_ROWS:
+            ql, qr, ckv, kr = latent_inputs(torch, randn, 1, n, H, KL, RD, S, dtype)
+            mask = torch.rand((1, n, S), generator=gen, device="cuda") < 0.3
+            if n > 1:
+                mask[:, 0] = False  # a query that sees no row
+            got = ops.latent_attention(ql, qr, ckv, kr, mask, scale)
+            want = ref.latent_attention_ref(ql, qr, ckv, kr, mask, scale)
+            name = f"latent_attention {label} n{n} H{H} KL{KL} RD{RD} S{S} {dtype}"
+            errs[n] = check_close(name, got, want, dtype)
+            if n > 1 and bool((got[:, 0] != 0).any()):
+                fail(f"{name}: a fully masked query is not 0")
+            alone = torch.cat([ops.latent_attention(ql[:, i:i + 1], qr[:, i:i + 1], ckv, kr,
+                                                    mask[:, i:i + 1], scale) for i in range(n)], 1)
+            if not torch.equal(got, alone):
+                fail(f"{name}: a query row differs from itself alone (must be bit for bit)")
+            if not torch.equal(got, ops.latent_attention(ql, qr, ckv, kr, mask, scale)):
+                fail(f"{name}: two calls on the same input differ")
+            timed("latent_attention", f"{label} n{n} H{H} KL{KL} RD{RD} S{S}", dtype, errs[n],
+                  lambda: ops.latent_attention(ql, qr, ckv, kr, mask, scale),
+                  lambda: ref.latent_attention_ref(ql, qr, ckv, kr, mask, scale), "plain",
+                  *work.latent_attention(ql, qr, ckv, kr, mask, scale, data=True)[::-1],
+                  "(the einsum composite: the plain version's calls)")
+        differ, worst = 0, 0.0
+        for _ in range(LATENT_TRIALS):
+            c = int(torch.randint(16, 400, (1,), generator=gen, device="cuda"))
+            ql, qr, kc, krc = latent_inputs(torch, randn, 1, 1, H, KL, RD, c, dtype)
+            _, _, ck1, kr1 = latent_inputs(torch, randn, 1, 1, H, KL, RD, S, dtype)
+            ck2, kr2 = ck1.clone(), kr1.clone()
+            ck1[:, :c], kr1[:, :c] = kc, krc
+            m1 = torch.zeros((1, 1, S), dtype=torch.bool, device="cuda")
+            m1[..., :c] = True
+            rows = torch.randperm(S, generator=gen, device="cuda")[:c].sort().values
+            ck2[:, rows], kr2[:, rows] = kc, krc
+            m2 = torch.zeros((1, 1, S), dtype=torch.bool, device="cuda")
+            m2[0, 0, rows] = True
+            a = ops.latent_attention(ql, qr, ck1, kr1, m1, scale)
+            b = ops.latent_attention(ql, qr, ck2, kr2, m2, scale)
+            differ += not torch.equal(a, b)
+            worst = max(worst, max_err(a, b))
+        if differ:
+            fail(f"latent_attention placement {label} {dtype}: {differ} of {LATENT_TRIALS} "
+                 f"outputs differ with the attended keys moved (max {worst:.3g}; must be bit "
+                 "for bit)")
+        print(f"  latent_attention {label} H{H} KL{KL} RD{RD} S{S} {dtype}: max|err| "
+              f"{max(errs.values()):.2e} at n {sorted(errs)}, every query row bit for bit "
+              f"equal to itself alone, 0 of {LATENT_TRIALS} outputs differ with the attended "
+              f"keys moved between masked rows on {card}", flush=True)
+
+
 def check_swiglu_autograd(torch, timer, timed, randn, card) -> None:
     """fused_swiglu in a training forward (phase (t)): at llama3-1b's MLP and
     M = B·S rows, f32, the kernel's autograd op (forward: the kernel;
@@ -1471,7 +1638,7 @@ class SyncCounter:
 
 
 SYNC_SITES: dict = {}  # path label -> where its rounds synced (count_syncs, SyncCounter)
-COMPRESSION: dict = {}  # path label -> tokens emitted per round (run_path)
+COMPRESSION: dict = {}  # path label -> tokens emitted per round (run_path, run_chain)
 
 
 def count_syncs(torch, sess, prompt, rounds: int):
@@ -1488,9 +1655,11 @@ def count_syncs(torch, sess, prompt, rounds: int):
 KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs to, first
     # match wins: kv_move_leaves_kernel<uint4, ...> before the weight streams'
     # stream_kernel<SwigluMma/SwigluF32/Int4Mma/Int4Generic>; the serving product's
-    # matmul_bf16_kernel<...>, matmul_f32_skinny<...> and matmul_f32_fat<...>
+    # matmul_bf16_kernel<...>, matmul_f32_skinny<...> and matmul_f32_fat<...> (its batched
+    # form stream_bmm launches the same kernels); MLA's latent_attention_kernel<...>
     ("kv_move", "kv_move_rows"), ("swiglu", "fused_swiglu"), ("int4", "int4_matmul"),
     ("matmul_bf16", "stream_matmul"), ("matmul_f32", "stream_matmul"), ("rms_norm", "rms_norm"),
+    ("latent_attention", "latent_attention"),
     ("slot_write_rows", "slot_write_rows"),
     ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
     ("sort", "sort (top-k)"), ("reduce", "reductions"),
@@ -1500,9 +1669,9 @@ KERNEL_CLASSES = (  # substring of a CUDA kernel's name -> the layer it belongs 
 def layer_of(kernel_name: str) -> str:
     """The layer a traced CUDA kernel belongs to: both attention kernels are
     ``attention_kernel<T, DPL, kByLength>`` (attention.cuh), decode_attention
-    the one with the length mask."""
+    the one with the length mask; MLA's is ``latent_attention_kernel``."""
     name = kernel_name.lower()
-    if "attention_kernel" in name:
+    if "attention_kernel" in name and "latent" not in name:
         return "decode_attention" if "true>" in name else "tree_attention"
     return next((c for key, c in KERNEL_CLASSES if key in name), "other")
 
@@ -1876,6 +2045,7 @@ def run_chain(torch, label, tag, eng, tp, dp, prompts, refs, card, kernels=CHAIN
                  f"top-2 logit margin there is {margins[min(j, len(margins) - 1)]:.3e}")
     tot = {f: sum(getattr(st, f) for st in stats)
            for f in ("rounds", "emitted", "accepted", "reused_chains", "draft_chains")}
+    COMPRESSION[label] = tot["emitted"] / max(rounds, 1)
     syncs = (sc.n - len(prompts)) / max(rounds, 1)  # a request's first token aside
     per_round = {k: round(n / max(rounds, 1), 2) for k, n in counts.items()}
     print(f"{label}: {len(prompts)} request(s), {toks} tokens, ChainStats {tot}, compression "
@@ -2114,6 +2284,43 @@ def phase_chain(torch, card):
     for mode, tag in (("parallel", "d2"), ("serial", "d2s")):
         counts[tag] = run_chain(torch, f"chain (d2) zamba2-2.7b + seed-7 draft, {mode}", tag,
                                 engine(mode), tp, dp, prompts[:1], refs[:1], card)
+    del dp
+    counts.update(chain_bf16(torch, "d1b", "zamba2-2.7b", model, tp, prompts[:1], CHAIN_KERNELS,
+                             card))
+    return counts
+
+
+def chain_bf16(torch, tag, name, model, params, prompts, kernels, card) -> dict:
+    """(d1b)/(g1b): a chain path's self-draft in bf16, on its draws rounded to
+    bf16 at its depth, parallel, max_new CHAIN_NEW: every output equal to
+    the bf16 greedy decode, one host sync a round (+1 a request), a
+    compression above 1 (every chain's drafts accepted needs the verify's
+    rows to carry the decode steps' bits) and ``kernels`` launched, the
+    batched serving product where the family has one.  Returns the launch
+    counts by run."""
+    import dataclasses
+
+    from repro_torch.core.chain_engine import ChainConfig, ChainSpecEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_model
+
+    m16 = make_model(dataclasses.replace(model.cfg, dtype="bfloat16", param_dtype="bfloat16"),
+                     "cuda")
+    p16 = bf16_params(torch, params)
+    print(f"chain ({tag}): {name} at {m16.cfg.n_layers} layers, the f32 draws rounded to bf16; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    ops.reset_launch_counts()
+    refs = [greedy_decode(torch, m16, p16, p, CHAIN_NEW, 512) for p in prompts]
+    counts = {f"{tag}-greedy": ops.launch_counts()}
+    eng = ChainSpecEngine(m16, m16, ChainConfig(k=CHAIN_K, mode="parallel", max_new=CHAIN_NEW),
+                          512, 512)
+    label = f"chain ({tag}) {name} self-draft bf16"
+    counts[tag] = run_chain(torch, label, tag, eng, p16, p16, prompts, refs, card,
+                            kernels=kernels)
+    if COMPRESSION[label] <= 1.0:
+        fail(f"{label}: compression {COMPRESSION[label]:.3f}: no drafted token was accepted")
+    del eng, p16
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2204,13 +2411,16 @@ def phase_rwkv(torch, card):
         return ChainSpecEngine(model, draft, ChainConfig(k=CHAIN_K, mode=mode, max_new=CHAIN_NEW),
                                512, 512)
 
+    kernels = SERVE_FORWARD + ("stream_bmm",)
     counts = {"g1": run_chain(torch, "chain (g1) rwkv6-7b self-draft", "g1",
                               engine(model, "parallel"), tp, tp, prompts, refs, card,
-                              kernels=SERVE_FORWARD)}
+                              kernels=kernels)}
     for mode, tag in (("parallel", "g2"), ("serial", "g2s")):
         counts[tag] = run_chain(torch, f"chain ({tag}) rwkv6-7b + seed-7 draft, {mode}", tag,
                                 engine(dmodel, mode), tp, dp, prompts, refs, card,
-                                kernels=SERVE_FORWARD)
+                                kernels=kernels)
+    del dp, dmodel
+    counts.update(chain_bf16(torch, "g1b", "rwkv6-7b", model, tp, prompts, kernels, card))
     return counts
 
 
@@ -2280,9 +2490,53 @@ def phase_families(torch, card):
         counts[tag] = run_path(torch, f"family path ({tag}) {name} self-draft", eng, tp, tp,
                                prompts, refs, card,
                                kernels=tuple(k for k in kernels if k != "decode_attention"))
-        del eng, tp, model, refs
+        del eng, refs
+        if tag in FAMILY_BF16:
+            counts.update(family_bf16(torch, tag, model, tp, prompts, kernels, card))
+        del tp, model
         torch.cuda.empty_cache()
     counts["h5"] = vision_path(torch, card)
+    return counts
+
+
+def family_bf16(torch, tag, model, params, prompts, kernels, card) -> dict:
+    """(h1b)/(h3b): an (h) path again in bf16, on its draws rounded to bf16 at
+    its depth, drafting for itself at d 2, lockstep, max_new FAMILY_TOKENS:
+    every output equal to the bf16 greedy decode (its launches counted as a
+    run of its own, which must launch decode_attention where the path names
+    it), one host sync a round, a compression above 1 (nodes beyond the
+    root accepted: a verify row carries the decode's bits) and ``kernels``
+    launched — the batched serving product (the experts; MLA's per-head
+    products) and, for MLA, the latent attention.  Returns the launch
+    counts by run."""
+    import dataclasses
+
+    from repro_torch.core.engine import SpecConfig, SpecEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import make_model
+
+    m16 = make_model(dataclasses.replace(model.cfg, dtype="bfloat16", param_dtype="bfloat16"),
+                     "cuda")
+    p16 = bf16_params(torch, params)
+    run = f"{tag}b"
+    name = model.cfg.name
+    print(f"family ({run}): {name} at {m16.cfg.n_layers} layers in bf16, ({tag})'s draws "
+          f"rounded; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    ops.reset_launch_counts()
+    refs = [greedy_decode(torch, m16, p16, p, FAMILY_TOKENS, 512) for p in prompts]
+    counts = {f"{run}-greedy": ops.launch_counts()}
+    if "decode_attention" in kernels and counts[f"{run}-greedy"]["decode_attention"] == 0:
+        fail(f"family ({run}): the greedy decode never launched decode_attention")
+    eng = SpecEngine(m16, m16, SpecConfig(bs=8, w=4, c=2, d=2, mode="parallel",
+                                          max_new=FAMILY_TOKENS), S_max_t=512, S_max_d=512)
+    label = f"family path ({run}) {name} self-draft bf16"
+    counts[run] = run_path(torch, label, eng, p16, p16, prompts, refs, card,
+                           kernels=tuple(k for k in kernels if k != "decode_attention"))
+    if COMPRESSION[label] <= 1.0:
+        fail(f"{label}: compression {COMPRESSION[label]:.3f}: no node beyond the root was "
+             "accepted")
+    del eng, p16
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3515,6 +3769,20 @@ def phase_shapes(torch, log, card):
                 check_close(what, got, ref.stream_matmul_ref(x, w), dtype)
                 if M > 1 and not torch.equal(ops.stream_matmul(x[-1:], w), got[-1:]):
                     fail(f"{what}: the last row differs from itself alone")
+            elif name == "stream_bmm":
+                G, M, K, N = key[:4]
+                x, w = randn((G, M, K), dtype), randn((G, K, N), dtype) * K ** -0.5
+                got = ops.stream_bmm(x, w)
+                check_close(what, got, ref.stream_bmm_ref(x, w), dtype)
+                if M > 1 and not torch.equal(ops.stream_bmm(x[:, -1:], w), got[:, -1:]):
+                    fail(f"{what}: the last row differs from itself alone")
+            elif name == "latent_attention":
+                B, nq, H, KL, RD, S = key[:6]
+                ql, qr = randn((B, nq, H, KL), dtype) * KL ** -0.5, randn((B, nq, H, RD), dtype)
+                ckv, kr = randn((B, S, KL), dtype), randn((B, S, RD), dtype)
+                mask = torch.rand((B, nq, S), generator=gen, device="cuda") < 0.5
+                check_close(what, ops.latent_attention(ql, qr, ckv, kr, mask, 0.1),
+                            ref.latent_attention_ref(ql, qr, ckv, kr, mask, 0.1), dtype)
             elif name == "rms_norm":
                 M, d = key[:2]
                 x, w = randn((M, d), dtype), 1.0 + randn((d,), dtype) * 0.1

@@ -23,7 +23,7 @@ from repro_torch.obs.clock import monotonic
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = ("tree_attention", "decode_attention", "fused_swiglu", "kv_moves", "slot_write",
-           "int4_matmul", "stream_matmul", "rms_norm")
+           "int4_matmul", "stream_matmul", "rms_norm", "latent_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,10 +60,14 @@ SIGNATURES = {
     # clusters of a plan the card holds at once (tile_n, splits, dtype)
     "stream_matmul": {
         "stream_matmul_launch": [_P] * 3 + [_I] * 7 + [_P],
+        # x, w, out, then G, M, K, N, tile_n, k_per_split, splits, dtype, stream
+        "stream_bmm_launch": [_P] * 3 + [_I] * 8 + [_P],
         "stream_matmul_max_clusters": [_I] * 3,
     },
     # x, w, out, then M, d, vec, tpr, nv, eps, dtype, stream
     "rms_norm": {"rms_norm_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P]},
+    # q_lat, q_rope, ckv, krope, mask, out, then B, n, H, KL, RD, S, scale, dtype, stream
+    "latent_attention": {"latent_attention_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

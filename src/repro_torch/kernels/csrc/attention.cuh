@@ -242,6 +242,32 @@ __device__ int rank_map(const uint8_t* m, int lim, int r0, int r1, int* map) {
   return base;
 }
 
+// One row's online-softmax step over a warp's 8 keys on CUDA cores (the f32
+// path here, and csrc/latent_attention.cu): lane (j, quarter) holds its
+// quarter's partial dot of key j of the warp.  The four quarters are summed
+// by two shuffles, the score scaled (kNeg where the key does not attend),
+// and the row's running max and sum updated over the 8 keys in a fixed
+// butterfly.  Returns key j's weight p (0 where it does not attend); alpha
+// is the rescale of the row's earlier sums.
+__device__ __forceinline__ float online_step8(float dot, bool key_on, float scale, float& m_run,
+                                              float& l_run, float& alpha) {
+  float s = dot + __shfl_xor_sync(0xffffffffu, dot, 8);
+  s += __shfl_xor_sync(0xffffffffu, s, 16);
+  const float sc = key_on ? s * scale : kNeg;
+  float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+  const float m_new = fmaxf(m_run, mx);
+  alpha = expf(m_run - m_new);
+  const float p = key_on ? expf(sc - m_new) : 0.f;
+  float ps = p + __shfl_xor_sync(0xffffffffu, p, 1);
+  ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+  ps += __shfl_xor_sync(0xffffffffu, ps, 4);
+  l_run = l_run * alpha + ps;
+  m_run = m_new;
+  return p;
+}
+
 // ---- the kernel ----------------------------------------------------------------
 
 // W: bf16 — k16 steps over the head dim padded to 16*W; f32 — column pairs per lane
@@ -458,20 +484,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
       const bool key_on = t0 + key < s_end;
 #pragma unroll
       for (int r = 0; r < R; ++r) {  // every row, so the rows' chains interleave
-        float s = dot[r] + __shfl_xor_sync(0xffffffffu, dot[r], 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        const float sc = key_on ? s * a.scale : kNeg;
-        float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-        const float m_new = fmaxf(m_run[r], mx);
-        alpha[r] = expf(m_run[r] - m_new);
-        const float p = key_on ? expf(sc - m_new) : 0.f;
-        float ps = p + __shfl_xor_sync(0xffffffffu, p, 1);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 4);
-        l_run[r] = l_run[r] * alpha[r] + ps;
-        m_run[r] = m_new;
+        const float p = online_step8(dot[r], key_on, a.scale, m_run[r], l_run[r], alpha[r]);
         if (quarter == 0) Pw[r * 8 + j] = p;
       }
       __syncwarp();

@@ -167,6 +167,15 @@ __device__ __forceinline__ void tma_load_2d(void* sdst, const void* tmap, int c0
       "l"(tmap), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// the same for a 3-D tensor map at (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* sdst, const void* tmap, int c0, int c1, int c2,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4, %5}], [%2];\n" ::"r"(smem_u32(sdst)),
+      "l"(tmap), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 

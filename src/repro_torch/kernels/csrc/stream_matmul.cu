@@ -69,6 +69,19 @@
 // What bounds it: bytes at the serving paths' M = 1..16 (each weight value
 // feeds 2M operations against the card's ~295 (bf16) or ~20 (f32)
 // operations a byte of HBM), operations in a long prefill's M = 512.
+//
+// The batched form, x [G, M, K] @ w [G, K, N] -> out [G, M, N] in one launch
+// (ops.stream_bmm): the grid's z axis walks the G groups, and group g's CTAs
+// run the plan above on its own x, weight and output.  It replaces the
+// family-specific batched products the port had left to torch.bmm and
+// einsum: the MoE's experts (the reference's einsum("ecd,edf->ecf"), whose
+// M is the capacity and moves with the forward's rows), rwkv6's four
+// token-shift projections, and MLA's per-head products with W_uk and W_uv.
+// Each group sums in the order of ops.matmul_plan(K, N, dtype), never of M
+// or G.  Every launch, one group or several, reads x and the weight through
+// 3-D tensor maps (bf16; [G, M, K] and [G, K, N], a group's rows past M
+// zero-filled) or group-strided pointers (f32); the plain product is the
+// batched one with G = 1.
 #include <cooperative_groups.h>
 #include <cuda.h>
 
@@ -95,6 +108,7 @@ struct Plan {
   int tile_n;       // columns of a column tile
   int k_per_split;  // a multiple of the stage's K
   int splits;       // 1, 2, 4 or 8: ceil(K / k_per_split)
+  int G;            // groups: the grid's z axis (1 for the plain product)
 };
 
 // ---- the split combine through distributed shared memory ------------------------
@@ -272,13 +286,13 @@ __device__ __forceinline__ void store_acc(const float (&d)[R], __nv_bfloat16* ou
   }
 }
 
-// x [M, K] (tensor map tx, box 64 x XR) @ w [K, N] (tw, box 64 x 64) ->
-// out [M, N].  SKINNY (RW 1): grid (splits, G), a cluster of the splits; with
-// several splits G is the column tiles and the cluster adds them
-// (cluster_combine); with one a CTA walks column tiles blockIdx.y, + G, ...
-// (one wave of CTAs, the ring running on from one tile into the next) and
-// stores each from its registers.  Fat (RW 2): grid (row tiles of 128,
-// column tiles), each CTA walking every split.
+// x [G, M, K] (tensor map tx, box 64 x XR x 1) @ w [G, K, N] (tw, box 64 x
+// 64 x 1) -> out [G, M, N], group blockIdx.z.  SKINNY (RW 1): grid (splits,
+// C, G), a cluster of the splits; with several splits C is the column tiles
+// and the cluster adds them (cluster_combine); with one a CTA walks column
+// tiles blockIdx.y, + C, ... (one wave of CTAs a group, the ring running on
+// from one tile into the next) and stores each from its registers.  Fat (RW
+// 2): grid (row tiles of 128, column tiles, G), each CTA walking every split.
 template <int T, int RW, bool SKINNY, int STAGES, int XR>
 __global__ void __launch_bounds__(RW * 128 + 32)
     matmul_bf16_kernel(const __grid_constant__ CUtensorMap tx,
@@ -290,7 +304,8 @@ __global__ void __launch_bounds__(RW * 128 + 32)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int tid = threadIdx.x, wg = tid / 128;
-  const int tiles = cdiv(p.N, T);
+  const int tiles = cdiv(p.N, T), g = blockIdx.z;
+  out += (long long)g * p.M * p.N;
   const int m0 = SKINNY ? 0 : blockIdx.x * 64 * RW;
   const int s_lo = SKINNY ? blockIdx.x : 0, s_hi = SKINNY ? blockIdx.x + 1 : p.splits;
   if (tid == 0) {
@@ -316,10 +331,10 @@ __global__ void __launch_bounds__(RW * 128 + 32)
             ring_wait(&empty[st], ((it / kS) & 1) ^ 1);  // the first round passes
             unsigned char* a = smem + st * L::kStageBytes;
             mbar_expect_tx(&full[st], L::kStageBytes);
-            tma_load_2d(a, &tx, k0, m0, &full[st]);
+            tma_load_3d(a, &tx, k0, m0, g, &full[st]);
 #pragma unroll
             for (int h = 0; h < T / 64; ++h)
-              tma_load_2d(a + L::kABytes + h * kBK * 128, &tw, tile * T + 64 * h, k0,
+              tma_load_3d(a + L::kABytes + h * kBK * 128, &tw, tile * T + 64 * h, k0, g,
                           &full[st]);
           }
         }
@@ -404,10 +419,10 @@ struct F32Tile {
   static_assert(MT * kLdp * 4 <= kSmem, "the combine's tile reuses the ring");
 };
 
-// x [M, K] @ w [K, N] -> out, M <= MT; grid (splits, column tiles), a
-// cluster of the splits; thread t owns column n0 + t.  GR: bytes a cp.async
-// of a weight row (16 where N % 4 == 0, else 4); x_vec: x rows by 16 bytes
-// (K % 4 == 0 and x 16-byte aligned).
+// x [G, M, K] @ w [G, K, N] -> out [G, M, N], M <= MT; grid (splits, column
+// tiles, G), a cluster of the splits; thread t owns column n0 + t of group
+// blockIdx.z.  GR: bytes a cp.async of a weight row (16 where N % 4 == 0,
+// else 4); x_vec: x rows by 16 bytes (K % 4 == 0 and x 16-byte aligned).
 template <int MT, int T, int GR>
 __global__ void __launch_bounds__(T)
     matmul_f32_skinny(const float* __restrict__ x, const float* __restrict__ w,
@@ -416,6 +431,10 @@ __global__ void __launch_bounds__(T)
   constexpr int kS = L::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, n0 = blockIdx.y * T;
+  const long long g = blockIdx.z;
+  x += g * p.M * p.K;
+  w += g * p.K * p.N;
+  out += g * p.M * p.N;
   const int kb0 = blockIdx.x * p.k_per_split, kb1 = min(p.K, kb0 + p.k_per_split);
   const int steps = cdiv(kb1 - kb0, kKT);
 
@@ -486,8 +505,12 @@ constexpr int kFatM = 128, kFatN = 128, kFatK = 8, kFatThreads = 256;
 constexpr int kFatLdp = kFatN + 4;             // the combine's tile row
 constexpr int kFatSmem = kFatM * kFatLdp * 4;  // a split's tile, or the running total
 
-// x [M, K] @ w [K, N] -> out for M > 16, 128 x 128 tiles.  !WALK: grid
-// (splits, column tiles, row tiles), a cluster of the splits: each CTA sums
+// x [G, M, K] @ w [G, K, N] -> out for M > 16, 128 x 128 tiles; with
+// BATCHED the grid's z is (group, row tile), group-major, else the row tile
+// of the one group (the group offsets cost registers, of the 128 a thread
+// that two CTAs an SM leave: with them the plain product spilled and ran
+// 1.3 x slower at M 512).  !WALK: grid
+// (splits, column tiles, G x row tiles), a cluster of the splits: each CTA sums
 // its split for the tile and the cluster adds the splits as the skinny
 // regime does.  WALK: grid (1, column tiles, row tiles): each CTA walks the
 // splits in order and keeps the running total in shared memory, each
@@ -495,7 +518,7 @@ constexpr int kFatSmem = kFatM * kFatLdp * 4;  // a split's tile, or the running
 // = (t / 16, t % 16) owns rows 4 ty + {0..3} and 64 + 4 ty + {0..3},
 // columns 4 tx + {0..3} and 64 + 4 tx + {0..3}.  x_vec / w_vec: rows of x /
 // w load by 16 bytes (K / N a multiple of 4, the base 16-byte aligned).
-template <bool WALK>
+template <bool WALK, bool BATCHED>
 __global__ void __launch_bounds__(kFatThreads, 2)
     matmul_f32_fat(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ out, const Plan p, const int x_vec, const int w_vec) {
@@ -503,7 +526,16 @@ __global__ void __launch_bounds__(kFatThreads, 2)
   __shared__ __align__(16) float Bs[2][kFatK][kFatN];
   extern __shared__ __align__(16) float P[];  // [kFatM][kFatLdp]: a split's tile or the total
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n0 = blockIdx.y * kFatN, m0 = blockIdx.z * kFatM;
+  int rt = blockIdx.z;
+  if constexpr (BATCHED) {
+    const int row_tiles = cdiv(p.M, kFatM);
+    const long long g = blockIdx.z / row_tiles;
+    x += g * p.M * p.K;
+    w += g * p.K * p.N;
+    out += g * p.M * p.N;
+    rt = blockIdx.z % row_tiles;
+  }
+  const int n0 = blockIdx.y * kFatN, m0 = rt * kFatM;
   // this thread's loads: x row m0 + tid / 2, K values 4 (tid % 2) ..; weight
   // row tid / 32 of the tile, columns 4 (tid % 32) ..
   const int xr = tid / 2, xk = (tid % 2) * 4, wr = tid / 32, wc = (tid % 32) * 4;
@@ -629,18 +661,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 [outer, inner] matrix as a 2-D tensor map with a box of
-// box_outer x 64 values (128 bytes, the swizzle's width), 128-byte swizzled;
-// reads past an edge are zero-filled
-cudaError_t bf16_map(CUtensorMap* m, const void* base, int inner, int outer, int box_outer) {
+// G row-major bf16 [outer, inner] matrices, one after another, as a 3-D
+// tensor map with a box of box_outer x 64 values (128 bytes, the swizzle's
+// width) of one matrix, 128-byte swizzled; reads past a matrix's edge are
+// zero-filled
+cudaError_t bf16_map(CUtensorMap* m, const void* base, int inner, int outer, int G,
+                     int box_outer) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1u, 1u};
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)inner * outer * 2};
+  const cuuint32_t box[3] = {64u, (cuuint32_t)box_outer, 1u};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
   const CUresult r =
-      fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+      fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -708,7 +742,8 @@ cudaError_t sm_count(int* n) {
 }
 
 bool plan_ok(const Plan& p, int quantum) {
-  return p.M > 0 && p.K > 0 && p.N > 0 && p.k_per_split > 0 && p.k_per_split % quantum == 0 &&
+  return p.M > 0 && p.K > 0 && p.N > 0 && p.G > 0 && p.G <= 65535 && p.k_per_split > 0 &&
+         p.k_per_split % quantum == 0 &&
          (p.splits == 1 || p.splits == 2 || p.splits == 4 || p.splits == kClusterMax) &&
          p.splits == cdiv(p.K, p.k_per_split) && cdiv(p.N, p.tile_n) <= 65535;
 }
@@ -732,15 +767,15 @@ cudaError_t launch_bf16_skinny(const CUtensorMap& tx, const CUtensorMap& tw,
   if (p.splits > 1) {
     using L = Bf16Tile<T, 1, R::kSplit, XR>;
     return launch<matmul_bf16_kernel<T, 1, true, R::kSplit, XR>>(
-        dim3(p.splits, tiles), L::kThreads, L::kSmem, p.splits, st, tx, tw, o, p);
+        dim3(p.splits, tiles, p.G), L::kThreads, L::kSmem, p.splits, st, tx, tw, o, p);
   }
-  // one split: one wave of CTAs, one an SM, walks the tiles
+  // one split: one wave of CTAs a group, one an SM, walks the group's tiles
   int sms = 0;
   const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   using L = Bf16Tile<T, 1, R::kWhole, XR>;
   return launch<matmul_bf16_kernel<T, 1, true, R::kWhole, XR>>(
-      dim3(1, min(tiles, sms)), L::kThreads, L::kSmem, 1, st, tx, tw, o, p);
+      dim3(1, min(tiles, sms), p.G), L::kThreads, L::kSmem, 1, st, tx, tw, o, p);
 }
 
 template <int T>
@@ -750,15 +785,15 @@ cudaError_t launch_bf16_tiled(const void* x, const void* w, void* out, const Pla
   // stored), the 64 of a warpgroup to 64, the 128 of two past 64
   const int xr = p.M <= 16 ? 16 : p.M <= kBf16Skinny ? 64 : 128;
   CUtensorMap tx, tw;
-  cudaError_t e = bf16_map(&tx, x, p.K, p.M, xr);
-  if (e == cudaSuccess) e = bf16_map(&tw, w, p.N, p.K, kBK);
+  cudaError_t e = bf16_map(&tx, x, p.K, p.M, p.G, xr);
+  if (e == cudaSuccess) e = bf16_map(&tw, w, p.N, p.K, p.G, kBK);
   if (e != cudaSuccess) return e;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   if (xr == 16) return launch_bf16_skinny<T, 16>(tx, tw, o, p, st);
   if (xr == 64) return launch_bf16_skinny<T, 64>(tx, tw, o, p, st);
   using L = Bf16Tile<T, 2, Bf16Rings<T, 128>::kWalked, 128>;
   return launch<matmul_bf16_kernel<T, 2, false, Bf16Rings<T, 128>::kWalked, 128>>(
-      dim3(cdiv(p.M, 128), cdiv(p.N, T)), L::kThreads, L::kSmem, 0, st, tx, tw, o, p);
+      dim3(cdiv(p.M, 128), cdiv(p.N, T), p.G), L::kThreads, L::kSmem, 0, st, tx, tw, o, p);
 }
 
 cudaError_t launch_bf16(const void* x, const void* w, void* out, const Plan& p, cudaStream_t st) {
@@ -773,7 +808,7 @@ cudaError_t launch_bf16(const void* x, const void* w, void* out, const Plan& p, 
 template <int MT, int T, int GR>
 cudaError_t launch_f32_skinny(const float* x, const float* w, float* out, const Plan& p,
                               int x_vec, cudaStream_t st) {
-  return launch<matmul_f32_skinny<MT, T, GR>>(dim3(p.splits, cdiv(p.N, T)), T,
+  return launch<matmul_f32_skinny<MT, T, GR>>(dim3(p.splits, cdiv(p.N, T), p.G), T,
                                               F32Tile<MT, T>::kSmem, p.splits, st, x, w, out, p,
                                               x_vec);
 }
@@ -808,12 +843,20 @@ cudaError_t launch_f32(const void* x_, const void* w_, void* out_, const Plan& p
     int sms = 0;
     const cudaError_t e = sm_count(&sms);
     if (e != cudaSuccess) return e;
-    const dim3 tiles(1, cdiv(p.N, kFatN), cdiv(p.M, kFatM));
-    if (p.splits == 1 || (long long)tiles.y * tiles.z * 10 >= 9LL * sms)
-      return launch<matmul_f32_fat<true>>(tiles, kFatThreads, kFatSmem, 0, st, x, w, out, p,
-                                          x_vec, w_vec);
-    return launch<matmul_f32_fat<false>>(dim3(p.splits, tiles.y, tiles.z), kFatThreads,
-                                         kFatSmem, p.splits, st, x, w, out, p, x_vec, w_vec);
+    const dim3 tiles(1, cdiv(p.N, kFatN), cdiv(p.M, kFatM) * p.G);
+    if (tiles.z > 65535) return cudaErrorInvalidValue;
+    const bool walk = p.splits == 1 || (long long)tiles.y * tiles.z * 10 >= 9LL * sms;
+    if (p.G > 1)
+      return walk ? launch<matmul_f32_fat<true, true>>(tiles, kFatThreads, kFatSmem, 0, st, x, w,
+                                                       out, p, x_vec, w_vec)
+                  : launch<matmul_f32_fat<false, true>>(dim3(p.splits, tiles.y, tiles.z),
+                                                        kFatThreads, kFatSmem, p.splits, st, x, w,
+                                                        out, p, x_vec, w_vec);
+    return walk ? launch<matmul_f32_fat<true, false>>(tiles, kFatThreads, kFatSmem, 0, st, x, w,
+                                                      out, p, x_vec, w_vec)
+                : launch<matmul_f32_fat<false, false>>(dim3(p.splits, tiles.y, tiles.z),
+                                                       kFatThreads, kFatSmem, p.splits, st, x, w,
+                                                       out, p, x_vec, w_vec);
   }
   if (p.tile_n == 64) return launch_f32_tiled<64>(x, w, out, p, x_vec, w_vec, st);
   if (p.tile_n == 128) return launch_f32_tiled<128>(x, w, out, p, x_vec, w_vec, st);
@@ -823,20 +866,28 @@ cudaError_t launch_f32(const void* x_, const void* w_, void* out_, const Plan& p
 
 }  // namespace
 
-// x [M, K], w [K, N], out [M, N], contiguous, of one dtype (DT_F32 or
-// DT_BF16), under the plan of ops.matmul_plan(K, N, dtype): tile_n columns a
-// column tile, k_per_split (a multiple of 64 in bf16, 16 in f32) and splits
-// = ceil(K / k_per_split), 1, 2, 4 or 8.  bf16 takes K and N multiples of 8
-// and x, w 16-byte aligned.  No scratch: the only write is out.
-REPRO_EXPORT int stream_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
-                                      int tile_n, int k_per_split, int splits, int dtype,
-                                      void* stream) {
-  const Plan p{M, K, N, tile_n, k_per_split, splits};
+// x [G, M, K], w [G, K, N], out [G, M, N], contiguous, of one dtype (DT_F32
+// or DT_BF16), under the plan of ops.matmul_plan(K, N, dtype): tile_n
+// columns a column tile, k_per_split (a multiple of 64 in bf16, 16 in f32)
+// and splits = ceil(K / k_per_split), 1, 2, 4 or 8; each group's product
+// sums in that order.  bf16 takes K and N multiples of 8 and x, w 16-byte
+// aligned.  No scratch: the only write is out.
+REPRO_EXPORT int stream_bmm_launch(const void* x, const void* w, void* out, int G, int M, int K,
+                                   int N, int tile_n, int k_per_split, int splits, int dtype,
+                                   void* stream) {
+  const Plan p{M, K, N, tile_n, k_per_split, splits, G};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dtype == DT_BF16  ? launch_bf16(x, w, out, p, st)
                         : dtype == DT_F32 ? launch_f32(x, w, out, p, st)
                                           : cudaErrorInvalidValue;
   return (int)e;
+}
+
+// x [M, K], w [K, N], out [M, N]: the batched form with one group.
+REPRO_EXPORT int stream_matmul_launch(const void* x, const void* w, void* out, int M, int K, int N,
+                                      int tile_n, int k_per_split, int splits, int dtype,
+                                      void* stream) {
+  return stream_bmm_launch(x, w, out, 1, M, K, N, tile_n, k_per_split, splits, dtype, stream);
 }
 
 // The clusters of one skinny launch under this plan that the current card

@@ -32,7 +32,8 @@ import torch
 from repro_torch.kernels import build, ref, work
 
 LAUNCHES = {"tree_attention": 0, "decode_attention": 0, "fused_swiglu": 0, "kv_move_rows": 0,
-            "slot_write_rows": 0, "int4_matmul": 0, "stream_matmul": 0, "rms_norm": 0}
+            "slot_write_rows": 0, "int4_matmul": 0, "stream_matmul": 0, "stream_bmm": 0,
+            "rms_norm": 0, "latent_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _tickets_by_stream: dict = {}  # (device, stream) -> zeroed int32 tickets (kernels leave them zero)
@@ -441,22 +442,23 @@ def matmul_plan(K: int, N: int, dtype) -> tuple[int, int, int]:
     The tile is the wgmma's N in bf16 (128 from N 2048 up, else 64) and the
     threads of a CTA in f32 (64 to N 4096, 128 to 16384, else 256), so a
     narrow N gets its CTAs from columns; the splits are the most of 1, 2, 4
-    and 8 (one portable cluster) that keep the column tiles times the splits
-    within one wave and cut K into equal whole quanta (64 values of K in
-    bf16, 16 in f32).  A wave is one CTA an SM in bf16 (its ring holds the
+    and 8 (one portable cluster) that cut K into equal whole quanta (64
+    values of K in bf16, 16 in f32) and, in bf16, keep the column tiles
+    times the splits within one wave of one CTA an SM (its ring holds the
     bytes in flight; twice the CTAs, each with half the K, were slower at
-    the wide products), four of 64 threads in f32 and two of more (the FMAs
-    want the warps; the wide lm_heads lost to a split K)."""
+    the wide products).  In f32 the splits follow K alone: an output's
+    order of summation then depends on K only, so a tensor-parallel rank's
+    share of a product's columns (zamba2's ``w_in``, the heads of ``wq``)
+    carries the single process's bits, column for column."""
     q = _MATMUL_QUANTUM[dtype]
     if dtype == torch.bfloat16:
         tile = 128 if N >= 2048 else 64
     else:
         tile = 64 if N <= 4096 else 128 if N <= 16384 else 256
     tiles, quanta = -(-N // tile), -(-K // q)
-    wave = _MATMUL_SMS * (1 if dtype == torch.bfloat16 else 4 if tile == 64 else 2)
     splits = 1
-    while (splits * 2 <= _MATMUL_CLUSTER and tiles * splits * 2 <= wave
-           and splits * 2 <= quanta):
+    while (splits * 2 <= _MATMUL_CLUSTER and splits * 2 <= quanta
+           and (dtype != torch.bfloat16 or tiles * splits * 2 <= _MATMUL_SMS)):
         splits *= 2
     while splits > 1 and -(-quanta // -(-quanta // splits)) != splits:
         splits //= 2  # whole quanta a split and no empty split
@@ -519,6 +521,109 @@ def stream_matmul(x, w):
                                       k_split, splits, _DTYPE_CODE[x.dtype], _stream(x.device))
     build.check("stream_matmul", rc)
     return out.reshape(lead + (N,))
+
+
+@work.counted("stream_bmm", work.stream_bmm)
+def stream_bmm(x, w):
+    """x: [G, M, K]; w: [G, K, N] -> x @ w, [G, M, N] in x's dtype (f32
+    accumulation): the batched form of ``stream_matmul`` in one launch, a
+    grid axis over the G groups (the MoE's experts, rwkv6's four
+    token-shift projections, MLA's per-head products).  Each group sums
+    over K in the order of ``matmul_plan(K, N, dtype)``, never of M or G:
+    a row of a group computed alone equals the same row among any number
+    of rows, bit for bit (an expert's M is the capacity, which moves with
+    the forward's rows).  The same dtypes and shapes as ``stream_matmul``
+    per group; no backward (a product under a gradient is ``torch.bmm``,
+    ``models.common.project_batched``), and one here raises."""
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"stream_bmm: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("stream_bmm: no backward; a product under a gradient is torch.bmm "
+                           "(models.common.project_batched)")
+    route = _route("stream_bmm", x, w)
+    if route == "cpu":
+        return ref.stream_bmm_ref(x, w)
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"stream_bmm: x/w must share f32 or bf16, got {x.dtype}/{w.dtype}")
+    G, M, K = x.shape
+    N = w.shape[2]
+    if G == 0 or M == 0 or K == 0 or N == 0:  # nothing to launch
+        return x.new_zeros((G, M, N))
+    if route == "meta":  # the kernel allocates nothing but its output
+        return torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    why = matmul_refusal(K, N, x.dtype)
+    if why is not None:
+        raise ValueError(f"stream_bmm: {why}")
+    if G > 65535:
+        raise ValueError(f"stream_bmm: G={G} groups exceed the grid's 65535")
+    x, w = x.contiguous(), w.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: TMA reads x from a 16-byte base
+        x = x.clone()
+    if w.data_ptr() % 16:
+        raise ValueError("stream_bmm: the weight must be 16-byte aligned")
+    tile, k_split, splits = matmul_plan(K, N, x.dtype)
+    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    lib = build.lib("stream_matmul")
+    with _on(x.device):
+        LAUNCHES["stream_bmm"] += 1
+        rc = lib.stream_bmm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), G, M, K, N, tile,
+                                   k_split, splits, _DTYPE_CODE[x.dtype], _stream(x.device))
+    build.check("stream_matmul", rc)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# MLA's latent attention
+# -----------------------------------------------------------------------------
+
+
+@work.counted("latent_attention", work.latent_attention)
+def latent_attention(q_lat, q_rope, ckv, krope, mask, scale: float):
+    """q_lat: [B, n, H, KL] (the absorbed queries, q_nope·W_ukᵀ); q_rope:
+    [B, n, H, RD]; ckv: [B, S, KL] and krope: [B, S, RD], the latent cache
+    (one row shared by every head); mask: bool [B, n, S].
+
+    MLA's absorbed attention: each head's scores (q_lat·ckv + q_rope·krope)
+    · scale over the rows its query attends, the softmax in f32, and the
+    probability-weighted sum of the ckv rows; returns lat [B, n, H, KL] in
+    q_lat's dtype, zeros for a query that sees no row.  The kernel sums
+    each query's attended keys in the order of their rank among them, as
+    tree_attention does: a row's bits depend neither on the other queries of
+    the call nor on the rows its keys lie at.  It takes float32 or bfloat16,
+    KL and RD multiples of 4, KL at most 256.  No backward."""
+    route = _route("latent_attention", q_lat, q_rope, ckv, krope, mask)
+    B, n, H, KL = q_lat.shape
+    S, RD = krope.shape[1], krope.shape[2]
+    if (q_rope.shape != (B, n, H, RD) or ckv.shape != (B, S, KL) or krope.shape != (B, S, RD)
+            or mask.shape != (B, n, S)):
+        raise ValueError(f"latent_attention: bad shapes q_lat{tuple(q_lat.shape)} q_rope"
+                         f"{tuple(q_rope.shape)} ckv{tuple(ckv.shape)} krope"
+                         f"{tuple(krope.shape)} mask{tuple(mask.shape)}")
+    if route == "meta":
+        return torch.empty_like(q_lat)
+    if route == "cpu":
+        return ref.latent_attention_ref(q_lat, q_rope, ckv, krope, mask, scale)
+    dt = q_lat.dtype
+    if dt not in _DTYPE_CODE or any(t.dtype != dt for t in (q_rope, ckv, krope)):
+        raise TypeError(f"latent_attention: q/ckv/krope must share f32 or bf16, got "
+                        f"{q_lat.dtype}/{q_rope.dtype}/{ckv.dtype}/{krope.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"latent_attention: the mask must be bool, got {mask.dtype}")
+    if KL % 4 or RD % 4 or KL > 256 or B * n == 0 or H == 0 or S == 0:
+        raise ValueError(f"latent_attention: KL={KL} and RD={RD} must be multiples of 4, KL at "
+                         "most 256")
+    ts = [t.contiguous() for t in (q_lat, q_rope, ckv, krope)]
+    ts = [t.clone() if t.data_ptr() % 16 else t for t in ts]  # 16-byte bases
+    mask = mask.contiguous()
+    out = torch.empty((B, n, H, KL), dtype=dt, device=q_lat.device)
+    lib = build.lib("latent_attention")
+    with _on(q_lat.device):
+        LAUNCHES["latent_attention"] += 1
+        rc = lib.latent_attention_launch(*(t.data_ptr() for t in ts), mask.data_ptr(),
+                                         out.data_ptr(), B, n, H, KL, RD, S, float(scale),
+                                         _DTYPE_CODE[dt], _stream(q_lat.device))
+    build.check("latent_attention", rc)
+    return out
 
 
 # -----------------------------------------------------------------------------

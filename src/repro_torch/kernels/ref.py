@@ -107,6 +107,29 @@ def stream_matmul_ref(x, w):
     return x @ w
 
 
+def latent_attention_ref(q_lat, q_rope, ckv, krope, mask, scale: float):
+    """MLA's absorbed attention, as the port computed it before the
+    ``latent_attention`` kernel (the reference's ``mla_cached`` einsums):
+    q_lat [B, n, H, KL], q_rope [B, n, H, RD] against the latent rows ckv
+    [B, S, KL] / krope [B, S, RD] under mask bool [B, n, S]; the scores in
+    the inputs' dtype, the softmax in f32, the weights rounded to the
+    dtype.  Returns lat [B, n, H, KL], zeros for a fully masked query."""
+    scores = (torch.einsum("bnhl,bsl->bhns", q_lat, ckv)
+              + torch.einsum("bnhk,bsk->bhns", q_rope, krope)) * scale
+    m = mask[:, None]  # [B, 1, n, S]
+    probs = torch.softmax(torch.where(m, scores.float(), -1e30), dim=-1)
+    probs = torch.where(m.any(-1, keepdim=True), probs, 0.0)
+    return torch.einsum("bhns,bsl->bnhl", probs.to(ckv.dtype), ckv)
+
+
+def stream_bmm_ref(x, w):
+    """torch.bmm(x, w) in x's dtype: x [G, M, K]; w [G, K, N] -> [G, M, N].
+    The batched products the serving forward computed before they went
+    through the ``stream_bmm`` kernel, kept as they were (the CPU's results
+    stay what they were bit for bit)."""
+    return torch.bmm(x, w)
+
+
 def rms_norm_ref(x, weight, eps: float):
     """x * rsqrt(mean(x², -1) + eps) * weight in f32, returned in x's dtype
     (``repro.models.common.rms_norm``).  The arithmetic the port's norm ran

@@ -30,6 +30,9 @@ class ShapeLog:
         "int4_matmul": lambda x, qweight, scales, zeros, group_size=128: (
             tuple(x.shape) + (qweight.shape[1], group_size)),
         "stream_matmul": lambda x, w: (x.numel() // w.shape[0],) + tuple(w.shape),
+        "stream_bmm": lambda x, w: tuple(x.shape) + (w.shape[2],),
+        "latent_attention": lambda q_lat, q_rope, ckv, krope, mask, scale: (
+            tuple(q_lat.shape) + (q_rope.shape[-1], ckv.shape[1])),
         "rms_norm": lambda x, weight, eps: (x.numel() // x.shape[-1], x.shape[-1]),
     }
 

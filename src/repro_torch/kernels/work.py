@@ -91,6 +91,33 @@ def stream_matmul(x, w) -> tuple[int, int]:
     return 2 * M * K * N, nbytes
 
 
+def stream_bmm(x, w) -> tuple[int, int]:
+    """x [G, M, K] @ w [G, K, N]: x and w read once, the output written —
+    what ``launch/cost.py`` counts of the ``torch.bmm`` it replaces, so that
+    the dry run does not move."""
+    G, M, K = x.shape
+    N = w.shape[2]
+    return 2 * G * M * K * N, (G * M * K + G * K * N + G * M * N) * _es(x)
+
+
+def latent_attention(q_lat, q_rope, ckv, krope, mask, scale, *,
+                     data: bool = False) -> tuple[int, int]:
+    """MLA's absorbed attention: 2·(KL + RD) operations per (head, attended
+    key) for the scores and 2·KL for the latent sum, the count of the
+    reference's einsums; q_lat, q_rope and the mask read, each needed latent
+    row (ckv and krope) read once, the output written.  From the shapes
+    every key is needed and attended."""
+    B, n, H, KL = q_lat.shape
+    S, RD = krope.shape[1], krope.shape[2]
+    if data:
+        rows, pairs = int(mask.any(1).sum()), int(mask.sum())
+    else:
+        rows, pairs = B * S, B * n * S
+    es = _es(q_lat)
+    nbytes = (2 * q_lat.numel() + q_rope.numel() + rows * (KL + RD)) * es + mask.numel()
+    return 2 * H * pairs * (2 * KL + RD), nbytes
+
+
 def rms_norm(x, weight, eps) -> tuple[int, int]:
     """The RMS norm of x [..., d]: x read and the output written, the weight
     read once; no operations, as ``launch/cost.py`` counts elementwise work

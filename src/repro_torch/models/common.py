@@ -39,6 +39,17 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return ops.stream_matmul(x, w)
 
 
+def project_batched(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [G, M, K] @ w [G, K, N], the family-specific batched products (the
+    MoE's experts, rwkv6's token-shift projections, MLA's per-head
+    products): ``project``'s rule for ``ops.stream_bmm``, whose groups each
+    sum in an order that neither M nor G chooses; ``torch.bmm`` under a
+    gradient.  On the CPU both are ``torch.bmm``."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return torch.bmm(x, w)
+    return ops.stream_bmm(x, w)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """x * rsqrt(mean(x², -1) + eps) * weight in f32, in x's dtype.
 

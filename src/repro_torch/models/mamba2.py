@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, project, rms_norm
 
 
 def _dims(cfg):
@@ -212,7 +212,7 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
     d_in, nheads, conv_dim = _dims(cfg)
     GN = cfg.ssm_groups * cfg.ssm_state
     K = cfg.ssm_conv
-    proj = xin @ p["w_in"]  # [B, S, d_in | conv_dim | H]
+    proj = project(xin, p["w_in"])  # [B, S, d_in | conv_dim | H]
     z = proj[..., :d_in]
     conv, ext = _causal_conv(proj[..., d_in:d_in + conv_dim], p["conv_w"], p["conv_b"],
                              None if cache is None else cache["conv"])
@@ -233,11 +233,11 @@ def mamba2_apply(cfg, p, xin, cache=None, n_commit=None, tp=None):
     y = y.reshape(B, S, d_in) * F.silu(z)
     if tp is None:
         y = rms_norm(y, p["norm_w"], cfg.norm_eps)
-        return y @ p["out_proj"], {"conv": new_conv, "ssm": state}
+        return project(y, p["out_proj"]), {"conv": new_conv, "ssm": state}
     y32 = y.float()  # rms_norm over the whole d_in: the squares summed over the ranks
     var = tp.sum_both((y32 * y32).sum(-1, keepdim=True)) / (cfg.ssm_expand * cfg.d_model)
     y = (y32 * torch.rsqrt(var + cfg.norm_eps) * p["norm_w"].float()).to(y.dtype)
-    return tp.reduce(y @ p["out_proj"]), {"conv": new_conv, "ssm": state}
+    return tp.reduce(project(y, p["out_proj"])), {"conv": new_conv, "ssm": state}
 
 
 def init_mamba_cache(cfg, B, dtype, device):

@@ -46,7 +46,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import dense_init
+from repro_torch.kernels import ops
+from repro_torch.models.common import dense_init, project, project_batched
 
 
 def init_moe(cfg, gen, device, dtype) -> tuple[dict, dict | None]:
@@ -79,7 +80,9 @@ def route(x2d, router, n_experts: int, top_k: int, cap: int):
     a dropped pair).  Pairs are ranked within their expert in the order of
     a stable sort by expert, as the reference ranks them."""
     T = x2d.shape[0]
-    gates = torch.softmax(x2d.float() @ router.float(), dim=-1)
+    # the router's product in float32, as the reference's (its serving product:
+    # a row's gates do not depend on the rows beside it)
+    gates = torch.softmax(project(x2d.float(), router.float()), dim=-1)
     topv, topi = torch.topk(gates, top_k, dim=-1)  # [T, k]
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_e = topi.reshape(-1)
@@ -95,7 +98,20 @@ def route(x2d, router, n_experts: int, top_k: int, cap: int):
 
 
 def _swiglu(x, wg, wu, wd):
-    return (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
+    """The shared experts: one dense SwiGLU MLP.  A serving forward runs the
+    dense blocks' kernel and serving product (row-invariant); under a
+    gradient the plain products, as the reference's."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, wg, wu, wd)):
+        return (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
+    return project(ops.fused_swiglu(x, wg, wu), wd)
+
+
+def _combine(hflat, dest, w):
+    """Each row's k expert results (rows ``dest`` [T, k] of hflat, the sink
+    row for a dropped pair) weighted by ``w`` [T, k] and summed over k:
+    [T, d]."""
+    contrib = hflat[dest] * w[..., None].to(hflat.dtype)  # [T, k, d]
+    return contrib.sum(1)
 
 
 def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False, seq=None):
@@ -129,11 +145,12 @@ def moe_apply(cfg, p: dict, shared: dict | None, x, tp=None, ep: bool = False, s
     xbuf = x2d.new_zeros((E_loc * cap + 1, d))
     xbuf[dest.reshape(-1)] = xin.repeat_interleave(k, dim=0)
     xe = xbuf[:-1].reshape(E_loc, cap, d)
-    h = torch.bmm(torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"]),
-                  p["wd"])
+    # the experts' batched products (an expert's M is the capacity, which moves
+    # with the forward's rows: each sums in an order that M does not choose)
+    h = project_batched(torch.nn.functional.silu(project_batched(xe, p["wg"]))
+                        * project_batched(xe, p["wu"]), p["wd"])
     hflat = torch.cat([h.reshape(E_loc * cap, d), h.new_zeros((1, d))])
-    contrib = hflat[dest] * w[..., None].to(h.dtype)  # [T, k, d]
-    out = contrib.sum(1)
+    out = _combine(hflat, dest, w)
     if seq is not None:  # this rank's rows from here on
         out = seq.reduce(out.reshape(B, S, d)).reshape(-1, d)
         x2d = x_own.reshape(-1, d)

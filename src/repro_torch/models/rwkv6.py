@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, project, project_batched
 
 DECAY_LORA = 64
 
@@ -163,6 +163,17 @@ def _wkv_scan(r, k, v, w, u, state0, n_commit=None):
     return torch.stack(ys, dim=1), (full if n_commit is None else committed)
 
 
+def _head_norm(yh, ln_x):
+    """The group-norm substitute on the WKV output yh [B, S, H, hd] (f32):
+    each head's rms over its hd values, then the learned scale ``ln_x``
+    [H·hd] in f32.  -> [B, S, H·hd] f32.  PyTorch's mean over a head's 64
+    values gives a row the same bits alone and among rows on the card
+    (``tools/bf16_invariance.py``'s reductions), so it stays plain."""
+    B, S, H, hd = yh.shape
+    yh = yh * torch.rsqrt((yh * yh).mean(-1, keepdim=True) + 1e-5)
+    return yh.reshape(B, S, H * hd) * ln_x.float()
+
+
 def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     """Time-mix on x [B, S, d] with state ``cache`` ({"sx_tm", "wkv"}, or
     None: zeros).  tp: the group this rank's heads are split over (None:
@@ -180,11 +191,12 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     ext = _shifted(x, None if cache is None else cache["sx_tm"])
     prev = ext[:, :S]
     mix = x + (prev - x) * p["mu_tm"][:, None, None, :]  # [5, B, S, d]: r, k, v, g, w
-    rkvg = torch.bmm(mix[:4].reshape(4, B * S, d), p["w_rkvg"]).reshape(4, B, S, H, hd)
+    rkvg = project_batched(mix[:4].reshape(4, B * S, d), p["w_rkvg"]).reshape(4, B, S, H, hd)
     r, k, v = rkvg[0], rkvg[1], rkvg[2]
     g = F.silu(rkvg[3].reshape(B, S, H * hd))
     # data-dependent decay (the Finch feature): w = exp(-exp(base + lora(x)))
-    dec = p["decay_base"].float() + (torch.tanh(mix[4] @ p["decay_a"]) @ p["decay_b"]).float()
+    dec = p["decay_base"].float() + project(torch.tanh(project(mix[4], p["decay_a"])),
+                                            p["decay_b"]).float()
     logw = -torch.exp(dec).reshape(B, S, H, hd)  # log-decay, always <= 0
     state0 = (cache["wkv"] if cache is not None else
               x.new_zeros((B, H, hd, hd), dtype=torch.float32))
@@ -194,11 +206,8 @@ def rwkv6_time_mix(cfg, p, x, cache=None, n_commit=None, tp=None):
     else:
         y, state = _wkv_scan(r, k, v, torch.exp(logw), u, state0,
                              None if n_commit is None else int(n_commit))
-    # group-norm substitute: per-head rms, then a learned scale
-    yh = y.to(x.dtype).float()
-    yh = yh * torch.rsqrt((yh * yh).mean(-1, keepdim=True) + 1e-5)
-    y = (yh.reshape(B, S, H * hd) * p["ln_x"].float()).to(x.dtype)
-    out = (y * g) @ p["w_o"]
+    y = _head_norm(y.to(x.dtype).float(), p["ln_x"]).to(x.dtype)
+    out = project(y * g, p["w_o"])
     if tp is not None:
         out = tp.reduce(out)
     return out, {"sx_tm": ext[:, S if n_commit is None else int(n_commit)], "wkv": state}
@@ -230,12 +239,12 @@ def rwkv6_channel_mix(cfg, p, x, cache=None, n_commit=None, tp=None, seq=None):
     xr = x + (prev - x) * mu[1]
     if tp is not None and seq is None:
         xk = tp.copy(xk)
-    k = torch.square(F.relu(xk @ p["cm_k"]))
-    kv = k @ p["cm_v"]
+    k = torch.square(F.relu(project(xk, p["cm_k"])))
+    kv = project(k, p["cm_v"])
     if seq is not None:
-        out = torch.sigmoid(seq.rows_of(xr) @ p["cm_r"]) * seq.reduce(kv)
+        out = torch.sigmoid(project(seq.rows_of(xr), p["cm_r"])) * seq.reduce(kv)
     else:
-        out = torch.sigmoid(xr @ p["cm_r"]) * (kv if tp is None else tp.reduce(kv))
+        out = torch.sigmoid(project(xr, p["cm_r"])) * (kv if tp is None else tp.reduce(kv))
     return out, {"sx_cm": ext[:, S if n_commit is None else int(n_commit)]}
 
 

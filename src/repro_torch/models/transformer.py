@@ -423,6 +423,10 @@ def _attn_apply(cfg, kind, p, hn, ctx: Ctx, leaves, r: int):
         return cross_attention(p, hn, ek, ev)
     n = hn.shape[1]
     if _mla(cfg, kind):
+        if full and not (torch.is_grad_enabled() and hn.requires_grad):
+            # serving: absorbed, through the kernel the verify and the decode attend with
+            cache = (leaves["ckv"][r], leaves["krope"][r]) if fill else None
+            return mla_mod.mla_prefill(cfg, p, hn, ctx.positions, cache, tp=ctx.tp)[0]
         if full:
             a, (ckv, krope) = mla_mod.mla_full(cfg, p, hn, ctx.positions, tp=ctx.tp)
             if fill:

@@ -7,9 +7,9 @@ a dimension), ``reduce_scatter`` (the sum, this rank's slice of it along a
 dimension) and ``broadcast``.  Each adds one to ``COLLECTIVES[name]``,
 so a run can report how many collectives a round issued (with gloo on
 CUDA tensors each of them is staged through the host).  On a ``serving``
-group a 16-bit ``all_reduce`` is an all-gather and a float32 sum in rank
-order (``_ordered_sum``), so that a row's sum does not depend on the rows
-sent with it.
+group a floating ``all_reduce`` (16-bit or float32) is an all-gather and a
+float32 sum in rank order (``_ordered_sum``), so that a row's sum does not
+depend on the rows sent with it.
 
 The sharded forward calls them through four ops with a gradient (the
 Megatron f/g pair and two more), so that a training forward has a
@@ -100,22 +100,22 @@ class TPGroup:
     device: torch.device
     backend: str
     ranks: tuple
-    ordered: bool = False  # a 16-bit all_reduce sums in float32 in rank order (``serving``)
+    ordered: bool = False  # a floating all_reduce sums in float32 in rank order (``serving``)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks, in place: the backend's all-reduce, or on
-        a ``serving`` group for a 16-bit tensor ``_ordered_sum``."""
+        a ``serving`` group for a floating tensor ``_ordered_sum``."""
         COLLECTIVES["all_reduce"] += 1
-        if self.ordered and t.dtype in _HALF:
+        if self.ordered and t.dtype in _ORDERED:
             return _ordered_sum(self, t)
         dist.all_reduce(t, group=self.pg)
         return t
 
     def serving(self) -> "TPGroup":
-        """This group with ``ordered`` set, for serving a model in 16 bits:
-        the engine's output must equal the greedy decode over the same
-        ranks bit for bit, and a ring all-reduce's order follows the
-        message's size (``_ordered_sum``).  The serving rank programs
+        """This group with ``ordered`` set, for serving a model: the engine's
+        output must equal the greedy decode over the same ranks bit for
+        bit, and a ring all-reduce's order follows the message's size
+        (``_ordered_sum``).  The serving rank programs
         (``workers.spec_engine``, ``split_engine``, ``chain_engine``) take
         it; training and the dry run keep the backend's all-reduce."""
         return dataclasses.replace(self, ordered=True)
@@ -213,7 +213,7 @@ class CountingGroup(TPGroup):
             work._COUNTER.collective(kind, t.numel() * t.element_size(), self.axis, self.world)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        self._record("all_gather" if self.ordered and t.dtype in _HALF else "all_reduce", t)
+        self._record("all_gather" if self.ordered and t.dtype in _ORDERED else "all_reduce", t)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -239,7 +239,7 @@ class CountingGroup(TPGroup):
         return CountingGroup(self.rank, self.world, self.device, self.axis, ordered=True)
 
 
-_HALF = (torch.bfloat16, torch.float16)
+_ORDERED = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def _ordered_sum(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
@@ -250,7 +250,11 @@ def _ordered_sum(group: TPGroup, t: torch.Tensor) -> torch.Tensor:
     an element's sum depends on the chunk the element falls in, so on the
     message's size: in bf16 (8 bits of mantissa, each add rounded) the rows
     of a verify of n rows and the one row of a decode step came out of the
-    same partial sums a few ulps apart, enough to flip a greedy token.
+    same partial sums a few ulps apart, enough to flip a greedy token.  In
+    float32 too: over NCCL on 4 cards a row of 8 or 16 rows of 5120 or 8192
+    values took other last bits than the row alone (F7,
+    ``tools/f7_nccl.py``; on 2 cards, one addition, none did), the
+    difference that flips a chain token in float32 at a near tie.
     Here an element's sum depends on its parts alone: the same on every
     rank and for every row count, and within one rounding of the float32
     sum the single-process product rounds once.  It moves (world - 1)

@@ -145,12 +145,14 @@ def collectives(group, x: np.ndarray, w: np.ndarray) -> dict:
             "ag_pipelined": _np(matmul_ag_pipelined(xt[:, r * k:(r + 1) * k], wt, group))}
 
 
-def all_reduce_rows(group, parts: np.ndarray) -> dict:
-    """``TPGroup.all_reduce`` on the ``serving`` group of this rank's
-    ``parts[rank]`` [n, d] in bf16, whole and then row by row (n
-    all-reduces of one row): both sums as float32 numpy."""
-    group = group.serving()
-    x = torch.tensor(parts[group.rank], device=group.device).to(torch.bfloat16)
+def all_reduce_rows(group, parts: np.ndarray, dtype: str = "bfloat16",
+                    serving: bool = True) -> dict:
+    """``TPGroup.all_reduce`` on the ``serving`` group (the backend's
+    all-reduce without ``serving``) of this rank's ``parts[rank]`` [n, d]
+    in ``dtype``, whole and then row by row (n all-reduces of one row):
+    both sums as float32 numpy."""
+    group = group.serving() if serving else group
+    x = torch.tensor(parts[group.rank], device=group.device).to(getattr(torch, dtype))
     whole = group.all_reduce(x.clone())
     rows = torch.cat([group.all_reduce(x[i:i + 1].clone()) for i in range(len(x))])
     return {"whole": _np(whole), "rows": _np(rows)}

@@ -358,17 +358,32 @@ def test_a_bf16_all_reduce_sums_each_row_alike_on_every_rank(layouts):
         np.testing.assert_array_equal(res["whole"], want)
 
 
+def test_an_f32_all_reduce_on_a_serving_group_sums_each_row_alike(layouts):
+    """F7's repair: the 4 ranks' float32 sum of their [5, 96] parts on a
+    ``serving`` group is, row by row, the whole tensor's and every rank's,
+    each element the float32 sum of the parts in rank order."""
+    parts, _ = layouts["sums"]
+    p = torch.tensor(parts)
+    want = (((p[0] + p[1]) + p[2]) + p[3]).numpy()
+    for res in layouts["f32_sums"]:
+        np.testing.assert_array_equal(res["whole"], res["rows"])
+        np.testing.assert_array_equal(res["whole"], want)
+
+
 def test_a_serving_group_counts_the_all_gather_its_bf16_sum_runs():
     """The cost counter records what a group's all-reduce runs: the ring's
-    all-reduce, or on a ``serving`` group a 16-bit tensor's all-gather."""
+    all-reduce, or on a ``serving`` group a floating tensor's all-gather
+    (float32 too since F7: over NCCL on 4 cards a ring sums a row's parts in
+    an order set by the message's size)."""
     from repro_torch.launch import cost
     from repro_torch.parallel.group import CountingGroup
 
     plain, serving = CountingGroup(0, 4), CountingGroup(0, 4).serving()
     assert serving.ordered and serving.new_group().ordered and not plain.ordered
     for group, dtype, kind in ((plain, torch.bfloat16, "all_reduce"),
+                               (plain, torch.float32, "all_reduce"),
                                (serving, torch.bfloat16, "all_gather"),
-                               (serving, torch.float32, "all_reduce")):
+                               (serving, torch.float32, "all_gather")):
         x = torch.empty((2, 8), dtype=dtype, device="meta")
         c, out = cost.count(group.all_reduce, x)
         assert out is x
@@ -391,13 +406,14 @@ def layouts(models, tmp_path_factory):
     calls = [("split_engine", (dict(job, n_target=3,
                                     runs=[(r, "tree", kw) for r, kw in runs.items()]),)),
              ("spec_engine", (dict(job, runs=list(runs.items())),)),
-             ("all_reduce_rows", (parts,))]
+             ("all_reduce_rows", (parts,)), ("all_reduce_rows", (parts, "float32"))]
     res = run_ranks("repro_torch.parallel.workers:several", 4, (calls,),
                     workdir=tmp_path_factory.mktemp("bf16_ranks"), device="cpu",
                     timeout_s=SPAWN_S)
     single = T.prefill(roles["target"][4], prompts[0], S_max=S_MAX)[0]
     return {"split": [r[0] for r in res], "shared": [r[1] for r in res],
-            "sums": (parts, [r[2] for r in res]), "single_prefill": single}
+            "sums": (parts, [r[2] for r in res]), "f32_sums": [r[3] for r in res],
+            "single_prefill": single}
 
 
 @pytest.mark.parametrize("run", RANK_RUNS)

@@ -118,8 +118,9 @@ def test_counts_are_the_same_on_cpu_and_meta(name):
         assert cpu[k].argument_bytes == meta[k].argument_bytes, f"{name} {k}"
         assert cpu[k].total_flops > 0 and cpu[k].total_bytes > 0
     assert meta["train"].flops["backward"] > meta["train"].flops["forward"]
-    if "verify" in meta and cfg.attn_kind == "gqa":  # MLA attends in plain PyTorch
-        assert meta["verify"].calls.get("tree_attention", 0) > 0
+    if "verify" in meta:  # GQA attends through tree_attention, MLA through latent_attention
+        kernel = "latent_attention" if cfg.attn_kind == "mla" else "tree_attention"
+        assert meta["verify"].calls.get(kernel, 0) > 0
 
 
 @pytest.fixture(scope="module")

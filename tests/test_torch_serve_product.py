@@ -16,11 +16,15 @@ what they were.  Checked here:
   the 32 of a smoke prompt): in bf16 the same as alone; in float32 the same
   as among 2 rows (a single f32 row takes the BLAS's matrix-vector product,
   which the plain version keeps);
-* the routing: a no-grad prefill, tree verify and decode step of the dense,
-  cross and zamba2 smoke configs call the wrapper at every site of the
-  table below (a spy), with logits bit for bit those of plain products, the
-  lm_head under a vocabulary group too; a training forward under a
-  gradient calls it at none, and the wrapper refuses a gradient;
+* the routing: a no-grad prefill, tree verify (or chain forward) and
+  decode step of the dense, cross, zamba2 (its shared block and its mamba2
+  layers), MoE (deepseek-moe-16b, mixtral-8x22b), MLA (minicpm3-4b) and
+  rwkv6 smoke configs call the wrapper at every site of the table below (a
+  spy) and the batched form (``ops.stream_bmm``, through
+  ``models.common.project_batched``) at every batched site, with logits bit
+  for bit those of plain products, the lm_head under a vocabulary group
+  too; a training forward under a gradient calls them at none, and the
+  wrappers refuse a gradient;
 * the meta branch: the output's shape and dtype, no scratch beside it (the
   kernel combines its splits in a thread-block cluster), and
   ``launch/cost.py``'s count of it equal to its count of the ``x @ w`` it
@@ -66,16 +70,29 @@ ROWS = (2, 4, 8, 16, 17, 32)
 SITES = {
     "_project_qkv": "wq/wk/wv", "_out_proj": "wo", "encoder_kv": "cross wk/wv on enc",
     "cross_attention": "cross wq", "_mlp_apply": "wd", "_apply_block": "zamba2 shared in_w",
-    "logits_from_hidden": "lm_head",
+    "logits_from_hidden": "lm_head", "mamba2_apply": "mamba2 w_in/out_proj",
+    "route": "the MoE router (f32)", "_swiglu": "the MoE shared experts' wd",
+    "_queries": "MLA w_dq/w_uq", "_latents": "MLA w_dkv", "_out": "MLA wo",
+    "rwkv6_time_mix": "rwkv6 decay_a/decay_b/w_o", "rwkv6_channel_mix": "rwkv6 cm_k/cm_v/cm_r",
 }
+# caller of models.common.project_batched -> the batched products it makes
+BATCHED_SITES = {"moe_apply": "the experts' wg/wu/wd", "rwkv6_time_mix": "rwkv6 w_rkvg",
+                 "_per_head": "MLA W_uk/W_uv, head by head"}
 # smoke config -> the sites its serving forward reaches
 WANT = {
     "llama3-8b": {"_project_qkv", "_out_proj", "_mlp_apply", "logits_from_hidden"},
     "llama-3.2-vision-90b": {"_project_qkv", "_out_proj", "encoder_kv", "cross_attention",
                              "_mlp_apply", "logits_from_hidden"},
     "zamba2-2.7b": {"_project_qkv", "_out_proj", "_mlp_apply", "_apply_block",
-                    "logits_from_hidden"},
+                    "logits_from_hidden", "mamba2_apply"},
+    "deepseek-moe-16b": {"_project_qkv", "_out_proj", "_mlp_apply", "route", "_swiglu",
+                         "logits_from_hidden"},
+    "mixtral-8x22b": {"_project_qkv", "_out_proj", "route", "logits_from_hidden"},
+    "minicpm3-4b": {"_queries", "_latents", "_out", "_mlp_apply", "logits_from_hidden"},
+    "rwkv6-7b": {"rwkv6_time_mix", "rwkv6_channel_mix", "logits_from_hidden"},
 }
+WANT_BATCHED = {"deepseek-moe-16b": {"moe_apply"}, "mixtral-8x22b": {"moe_apply"},
+                "minicpm3-4b": {"_per_head"}, "rwkv6-7b": {"rwkv6_time_mix"}}
 S_MAX = 64
 
 
@@ -155,13 +172,14 @@ def test_the_wrapper_refuses_a_gradient_and_bad_shapes():
 
 class Spy:
     """Records the caller of ``models.common.project`` for each call of
-    ``ops.stream_matmul``, and whether grad mode was on."""
+    ``ops.stream_matmul`` (``wrapper``: of ``project_batched`` for each call
+    of ``ops.stream_bmm``)."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self, monkeypatch, wrapper="stream_matmul"):
         import inspect
 
         self.sites, self.calls = [], 0
-        real = ops.stream_matmul
+        real = getattr(ops, wrapper)
 
         def spy(x, w):
             frame = inspect.currentframe().f_back.f_back  # spy <- project <- the site
@@ -169,7 +187,7 @@ class Spy:
             self.calls += 1
             return real(x, w)
 
-        monkeypatch.setattr(ops, "stream_matmul", spy)
+        monkeypatch.setattr(ops, wrapper, spy)
 
 
 def _serve(name, model, params):
@@ -207,10 +225,12 @@ def test_a_serving_forward_routes_every_shared_product_through_the_kernel(name, 
     model = make_model(get_config(name, smoke=True), "cpu")
     params = model.init(0)
     plain = _serve(name, model, params)
-    spy = Spy(monkeypatch)
+    spy, batched = Spy(monkeypatch), Spy(monkeypatch, "stream_bmm")
     routed = _serve(name, model, params)
     assert set(spy.sites) == WANT[name], sorted(set(spy.sites))
     assert set(spy.sites) <= set(SITES)
+    assert set(batched.sites) == WANT_BATCHED.get(name, set()), sorted(set(batched.sites))
+    assert set(batched.sites) <= set(BATCHED_SITES)
     for a, b in zip(plain, routed):  # the plain version is x @ w: the CPU's bits as they were
         assert torch.equal(a, b)
 
@@ -262,11 +282,14 @@ class NormSpy:
 
 
 # smoke config -> the norms of a forward: 2 per attention + MLP block (the vision
-# model's cross block too) and per mamba2 block (its pre-norm and the SSD's gated
-# norm), zamba2's shared block 2 per invocation, and the final norm
+# model's cross block too), per rwkv6 block (its two pre-norms; the time-mix's
+# per-head norm is plain arithmetic) and per mamba2 block (its pre-norm and the SSD's
+# gated norm), 2 more per MLA block (its q and kv latents), zamba2's shared block 2
+# per invocation, and the final norm
 def _norms(cfg):
     kinds = list(cfg.layer_kinds)
-    return 2 * len(kinds) + \
+    mla = sum(k in ("dense", "moe") for k in kinds) if cfg.attn_kind == "mla" else 0
+    return 2 * len(kinds) + 2 * mla + \
         2 * (len(kinds) // cfg.shared_attn_every if cfg.shared_attn_every else 0) + 1
 
 
@@ -330,9 +353,10 @@ def test_a_training_forward_keeps_plain_products(name, monkeypatch):
     if model.needs_enc():
         kw["enc"] = rng.normal(size=(2, c.n_enc_tokens, c.d_model)).astype(np.float32)
     spy, norms = Spy(monkeypatch), NormSpy(monkeypatch)
+    batched = Spy(monkeypatch, "stream_bmm")
     logits = model.forward_train(params, tokens, **kw)
     logits.float().square().mean().backward()
-    assert spy.calls == 0 and norms.calls == 0
+    assert spy.calls == 0 and norms.calls == 0 and batched.calls == 0
     assert params.lm_head.grad is not None
 
 
@@ -405,7 +429,8 @@ def test_the_meta_branch_allocates_no_scratch():
 
 
 def _serving_calls(arch):
-    """(dtype, K, N) of every ``ops.stream_matmul`` call and (dtype, d) of
+    """(dtype, K, N) of every ``ops.stream_matmul`` call (and of each group of
+    every ``ops.stream_bmm`` call) and (dtype, d) of
     every ``ops.rms_norm`` call of a 4-token prefill and a decode step, on
     meta at full width, of every rank at tp 1-4; the depth cut to two
     periods of the config's layer pattern (every kind of layer and of
@@ -414,11 +439,15 @@ def _serving_calls(arch):
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
     products, norms = set(), set()
-    real_mm, real_norm = ops.stream_matmul, ops.rms_norm
+    real_mm, real_bmm, real_norm = ops.stream_matmul, ops.stream_bmm, ops.rms_norm
 
     def mm(x, w):
         products.add((x.dtype, w.shape[0], w.shape[1]))
         return real_mm(x, w)
+
+    def bmm(x, w):  # each group's product takes the plain product's plan
+        products.add((x.dtype, w.shape[1], w.shape[2]))
+        return real_bmm(x, w)
 
     def norm(x, weight, eps):
         norms.add((x.dtype, x.shape[-1]))
@@ -430,6 +459,7 @@ def _serving_calls(arch):
     depth = min(base.n_layers, base.first_k_dense + 2 * period)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ops, "stream_matmul", mm)
+        mp.setattr(ops, "stream_bmm", bmm)
         mp.setattr(ops, "rms_norm", norm)
         for dtype in ("bfloat16", "float32"):
             cfg = dataclasses.replace(base, n_layers=depth, dtype=dtype, param_dtype=dtype)
@@ -449,9 +479,14 @@ def _serving_calls(arch):
     return products, norms
 
 
-# bf16 products the kernel refuses (K or N no multiple of 8), each by name: minicpm3-4b's
-# vocabulary (73448) over 2 and 4 ranks; no serving path runs minicpm3 in bf16 on the card
-REFUSED = {"minicpm3-4b": {(2560, 36724), (2560, 18362)}}
+# bf16 products the kernel refuses (K or N no multiple of 8), each by name, all of them on
+# ranks of a tensor-parallel group, where no serving path runs these families in bf16:
+# minicpm3-4b's vocabulary (73448) over 2 and 4 ranks; zamba2-2.7b's w_in at tp 4 (20
+# mamba2 heads a rank: N 2708); at tp 3 the experts' share of d_ff (deepseek-moe-16b 470 of
+# 1408, mixtral-8x22b 5462 of 16384) and deepseek-moe-16b's shared experts' wd (2 x 1410)
+REFUSED = {"minicpm3-4b": {(2560, 36724), (2560, 18362)}, "zamba2-2.7b": {(2560, 2708)},
+           "deepseek-moe-16b": {(470, 2048), (2048, 470), (2820, 2048)},
+           "mixtral-8x22b": {(5462, 6144), (6144, 5462)}}
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -35,6 +35,26 @@ decode.  This script measures, on the card, in bf16:
    were equal, and whether the speculative output left the greedy decode
    (where, and the decode's top-2 logit gap there).
 
+4. the families: one layer of each
+   family that keeps its own products, at full width in bf16 (seed 0,
+   lm_head x4) — deepseek-moe-16b (its dense layer 0 and a moe layer, 64
+   experts top 6, drop-free), mixtral-8x22b (a moe layer), minicpm3-4b (an
+   MLA layer), zamba2-2.7b (a mamba2 layer) and rwkv6-7b (a time-mix and
+   channel-mix layer): a prompt of 16, its greedy decode of 8 tokens step
+   by step, and the same 8 tokens in one forward from the prefilled cache
+   (a tree verify along a chain for the attention families, a chain
+   forward for the recurrent ones); every product (``project``,
+   ``stream_bmm``), norm, fused SwiGLU, latent attention, the MoE's routing
+   weights (its softmax and top-k sum), its experts' results per row and
+   their sum over k, the recurrent scans and rwkv6's per-head norm, and the
+   logits, position by position against the decode step's; it prints the
+   first op that differs (every earlier op equal), or that none does;
+5. the reductions those families ran in PyTorch before (the router's
+   softmax over the experts, the top-k sum, the sum over k of the experts'
+   results, rwkv6's per-head mean of squares, MLA's softmax over the
+   cache): row 0 among M = 2 .. 16 rows against row 0 alone, and the
+   batched products by torch.bmm (cuBLAS) the same way.
+
 Exit 0 when it ran; what it found is printed, not judged.
 """
 
@@ -275,6 +295,222 @@ def check_engine(torch, card) -> None:
     rec.uninstall()
 
 
+# (label, config, layers kept, note): one layer of each family past the shared blocks
+FAMILY_LAYERS = (("dsmoe", "deepseek-moe-16b", 2, "layer 0 dense, layer 1 moe"),
+                 ("mixtral", "mixtral-8x22b", 1, "a moe layer"),
+                 ("minicpm3", "minicpm3-4b", 1, "an MLA layer"),
+                 ("zamba2", "zamba2-2.7b", 6, "a unit: 6 mamba2 layers + the shared block"),
+                 ("rwkv6", "rwkv6-7b", 1, "a time-mix + channel-mix layer"))
+FAMILY_PROMPT, FAMILY_STEPS = 16, 8
+
+
+class OpRecorder:
+    """Per forward: every recorded op's output as [rows, -1], rows the
+    forward's sequence positions (B = 1), in call order."""
+
+    def __init__(self):
+        import repro_torch.models.api as api
+        import repro_torch.models.mamba2 as m2
+        import repro_torch.models.moe as moe
+        import repro_torch.models.rwkv6 as rk
+        from repro_torch.kernels import ops
+
+        self.calls, self.on, self.n, self._undo = [], False, 1, []
+        seq = self._seq
+        for mod, name, tag, rows in (
+                (ops, "stream_matmul", "product", seq), (ops, "stream_bmm", "batched", None),
+                (ops, "rms_norm", "norm", seq), (ops, "fused_swiglu", "swiglu", seq),
+                (ops, "latent_attention", "latent_attention", seq),
+                (ops, "tree_attention", "attention", seq),
+                (ops, "decode_attention", "attention", seq),
+                (moe, "route", "route weights", lambda out: seq(out[1])),
+                (moe, "_combine", "combine", seq), (m2, "_causal_conv", "conv",
+                                                    lambda out: seq(out[0])),
+                (m2, "_ssd_stepwise", "ssd scan", lambda out: seq(out[0])),
+                (rk, "_wkv_scan", "wkv scan", lambda out: seq(out[0])),
+                (rk, "_head_norm", "head norm", seq), (api, "logits_from_hidden", "logits", seq)):
+            self._wrap(mod, name, tag, rows)
+        # the experts' results per row (the rows of their buffer that each row reads)
+        combine = moe._combine
+
+        def experts(hflat, dest, w):
+            if self.on:
+                self.calls[-1].append(("experts", seq(hflat[dest])))
+            return combine(hflat, dest, w)
+
+        moe._combine = experts
+        self._undo.append((moe, "_combine", combine))
+        # the experts' batched products fill buffer slots, not rows: not recorded as rows
+        batched = moe.project_batched
+
+        def slots(x, w):
+            on, self.on = self.on, False
+            try:
+                return batched(x, w)
+            finally:
+                self.on = on
+
+        moe.project_batched = slots
+        self._undo.append((moe, "project_batched", batched))
+
+    def _seq(self, t):
+        """t's leading dims are (B = 1, rows, ...) or (rows, ...): [rows, -1]."""
+        return t.reshape(self.n, -1)
+
+    def _batched(self, out):
+        """stream_bmm's [G, M, N] with M the forward's rows (rwkv6, MLA) as
+        [rows, -1] (an expert buffer's M is its capacity: slots, not rows;
+        its products are recorded through the experts' per-row results)."""
+        G, M, N = out.shape
+        return None if M != self.n else out.permute(1, 0, 2).reshape(self.n, -1)
+
+    def _wrap(self, mod, name, tag, rows):
+        fn = getattr(mod, name)
+        rows = rows or self._batched
+
+        def rec(*a, **k):
+            out = fn(*a, **k)
+            if self.on:
+                r = rows(out)
+                if r is not None:
+                    self.calls[-1].append((tag, r.clone()))
+            return out
+
+        setattr(mod, name, rec)
+        self._undo.append((mod, name, fn))
+
+    def start(self, n):
+        self.n = n
+        self.calls.append([])
+        self.on = True
+
+    def stop(self):
+        self.on = False
+
+    def uninstall(self):
+        for mod, name, fn in reversed(self._undo):
+            setattr(mod, name, fn)
+
+
+def probe_family(torch, model, params, prompt, n: int, S_max: int = 512):
+    """Part 4 for one model on its device: the greedy decode of ``n`` tokens
+    after ``prompt`` [1, P], step by step, against the same tokens in one
+    forward from the prefilled cache, op by op.  Returns (first difference
+    (position, op index, tag, max |diff|) or None, op outputs compared, the
+    ops recorded, what the one forward was)."""
+    dev = model.device
+    rec = OpRecorder()
+    try:
+        P = prompt.shape[1]
+        lg, cache = model.prefill(params, prompt, S_max=S_max)
+        toks = [lg[:, -1:].argmax(-1).to(torch.int32)]
+        rec.calls = []
+        for _ in range(n):  # the greedy decode, a step a position
+            rec.start(1)
+            lg, cache = model.decode_step(params, cache, toks[-1], S_max)
+            rec.stop()
+            toks.append(lg[:, -1:].argmax(-1).to(torch.int32))
+        steps = rec.calls
+        tokens = torch.cat(toks[:n], 1)
+        _, cache = model.prefill(params, prompt, S_max=S_max)
+        rec.calls = []
+        rec.start(n)
+        if model.uses_chain_spec:
+            model.chain_forward(params, cache, tokens, n, S_max)
+            how = f"a chain forward of the {n} tokens"
+        else:
+            pos = torch.arange(P, P + n, dtype=torch.int32, device=dev)[None]
+            mask = torch.arange(S_max, device=dev)[None, None, :] <= pos[:, :, None]
+            model.spec_forward(params, cache, tokens, pos, pos, mask)
+            how = f"a verify of the {n} tokens along a chain"
+        rec.stop()
+    finally:
+        rec.uninstall()
+    verify = rec.calls[0]
+    tags = [t for t, _ in verify]
+    found, compared = None, 0
+    for i, step in enumerate(steps):
+        if [t for t, _ in step] != tags:
+            return (i, -1, "the op sequence", 0.0), compared, sorted(set(tags)), how
+        for j, ((tag, a), (_, b)) in enumerate(zip(step, verify)):
+            compared += 1
+            if not torch.equal(a[0], b[i]):
+                if found is None or (j, i) < (found[1], found[0]):
+                    found = (i, j, tag, max_diff(a[0], b[i]))
+                break
+    return found, compared, sorted(set(tags)), how
+
+
+def check_families(torch, card) -> None:
+    """Part 4 of the module docstring, on the card."""
+    import dataclasses
+
+    import chip_smoke
+    from repro_torch.data import make_request_stream
+    from repro_torch.models.api import make_model
+
+    for label, name, layers, note in FAMILY_LAYERS:
+        cfg = dataclasses.replace(chip_smoke.bf16_config(name), n_layers=layers)
+        if cfg.n_experts:  # drop-free: a decode step of one row never drops
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        model = make_model(cfg, "cuda")
+        params = chip_smoke.peaked(model.init(0))
+        prompt = list(make_request_stream(cfg.vocab_size, FAMILY_PROMPT, 1, 1))[0]
+        found, compared, ops_seen, how = probe_family(torch, model, params, prompt,
+                                                      FAMILY_STEPS)
+        where = f"{name} ({note}, full width, bf16)"
+        if found is None:
+            print(f"family {label}: {where}: {how} against {FAMILY_STEPS} decode steps: no "
+                  f"differing op ({compared} op outputs compared, each row bit for bit; ops "
+                  f"{ops_seen}) on {card}", flush=True)
+        else:
+            i, j, tag, diff = found
+            print(f"family {label}: {where}: {how} against {FAMILY_STEPS} decode steps: the "
+                  f"first differing op is op {j} ({tag}, max |diff| {diff:.3g}; every earlier "
+                  f"op equal) at position {i} (ops {ops_seen}) on {card}", flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+
+
+def max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_reductions(torch, card) -> None:
+    """Part 5 of the module docstring."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def probe(label, make, fn, dtype):
+        x = make(max(MS))
+        alone = fn(x[:1])
+        differ = [M for M in MS if not torch.equal(fn(x[:M])[:1], alone)]
+        print(f"reductions: {label} {str(dtype).removeprefix('torch.')}: row 0 differs from "
+              f"itself alone at M {differ or 'none'} of {list(MS)} on {card}", flush=True)
+
+    mask_s = torch.rand((1, 1, 512), generator=gen, device="cuda") < 0.2
+    for dtype in (torch.float32, torch.bfloat16):
+        probe("router softmax over 64 experts", lambda M: randn(M, 64),
+              lambda x: torch.softmax(x, dim=-1), torch.float32)
+        probe("top-6 weight sum", lambda M: randn(M, 6).abs(),
+              lambda x: x.sum(-1, keepdim=True), torch.float32)
+        probe("experts' results summed over k 6 (d 2048)",
+              lambda M: randn(M, 6, 2048, dtype=dtype), lambda x: x.sum(1), dtype)
+        probe("rwkv6 per-head mean of squares (64 heads of 64)",
+              lambda M: randn(M, 64, 64), lambda x: (x * x).mean(-1, keepdim=True),
+              torch.float32)
+        probe("MLA softmax over 512 keys (40 heads)", lambda M: randn(1, 40, M, 512),
+              lambda x: torch.softmax(torch.where(mask_s[:, None].expand(1, 1, x.shape[2], 512),
+                                                  x, -1e30), dim=-1).transpose(0, 2), dtype)
+        for label, G, K, N in (("dsmoe experts", 64, 2048, 1408), ("rwkv6 w_rkvg", 4, 4096, 4096),
+                               ("minicpm3 w_uk", 40, 64, 256)):
+            w = randn(G, K, N, dtype=dtype) * K ** -0.5
+            probe(f"torch.bmm {label} G{G} K{K} N{N}", lambda M: randn(M, G, K, dtype=dtype),
+                  lambda x: torch.bmm(x.transpose(0, 1).contiguous(), w).transpose(0, 1), dtype)
+
+
 def main() -> int:
     import torch
 
@@ -291,6 +527,8 @@ def main() -> int:
         check_products(torch, card)
         check_attention(torch, card)
         check_engine(torch, card)
+        check_families(torch, card)
+        check_reductions(torch, card)
     return 0
 
 
